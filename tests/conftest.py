@@ -19,6 +19,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running (subprocess / e2e) tests")
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA card (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
