@@ -17,7 +17,9 @@ before the result line:
 4. run tinyllama-1.1b at full width and depth through
    ``build_lm(plan).generate`` in three configurations — (a) fp32
    performance, (b) int4 fused performance, (c) int4 fused sequential —
-   with every launch counter zeroed before and read after each run;
+   ``REPEATS`` times each on one engine, with every launch counter
+   zeroed before and read after each run, and report the medians; then
+   one profiled run per configuration for the card's busy share;
 5. hold the whole path with kernels against ``use_kernels(False)`` on
    the same weights: final hidden states of a prefill and one decode step,
    and greedy-token agreement over run (b);
@@ -31,6 +33,7 @@ import argparse
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -44,6 +47,8 @@ FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 ATTN_ATOL = 2e-5         # tests/test_kernels.py, fp32 attentions
 INT4_RTOL = 1e-5         # tests/test_kernels.py, fp32 int4 matmul
 HIDDEN_RTOL = 1e-4       # whole path: max|kernels - plain| / max|plain|
+REPEATS = 5              # generate calls per main-path configuration
+PROFILE_GEN = 8          # tokens in the profiled run (busy share only)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
     "decode_attention": "src/repro/kernels/decode_attention.py:76",
@@ -83,25 +88,46 @@ def call_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int) -> float:
-    """Mean device time per call of ``fn``: the durations of every kernel
-    and copy it ran on the card, from a ``torch.profiler`` (CUPTI) trace
-    of ``iters`` calls, summed and divided by ``iters``.  Falls back to
-    ``call_ms`` when the trace holds no device events."""
-    fn()
-    torch.cuda.synchronize()
+def device_events(torch, fn):
+    """(start, end) in µs of every kernel and copy ``fn()`` ran on the
+    card, from a ``torch.profiler`` (CUPTI) trace.  Raises when the trace
+    holds none, so no other measure stands in for device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
+        fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
+    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        return call_ms(torch, fn, iters)
-    return sum(e.time_range.end - e.time_range.start for e in dev) \
-        / iters / 1e3
+        raise RuntimeError("the profiler recorded no device events")
+    return dev
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Mean device time per call of ``fn``: the durations of every kernel
+    and copy it ran on the card over ``iters`` calls, summed and divided
+    by ``iters``."""
+    fn()
+    torch.cuda.synchronize()
+    dev = device_events(torch, lambda: [fn() for _ in range(iters)])
+    return sum(e - s for s, e in dev) / iters / 1e3
+
+
+def busy_share(ivals) -> dict:
+    """Union of device intervals over the span from the first start to
+    the last end."""
+    busy, cur = 0.0, None
+    for s, e in sorted(ivals):
+        if cur is None or s > cur[1]:
+            busy += cur[1] - cur[0] if cur else 0.0
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    busy += cur[1] - cur[0]
+    span = max(e for _, e in ivals) - min(s for s, _ in ivals)
+    return {"device_busy_s": busy / 1e6, "device_span_s": span / 1e6,
+            "device_busy_share": busy / span}
 
 
 def timings(torch, kernel, plain, library, iters: int) -> dict:
@@ -262,35 +288,60 @@ def make_plan(quant, pipeline):
         sim_bw=None, draft_arch=None, spec_k=None)
 
 
-def run_main(torch, ops, name, plan, prompt, expect):
-    from repro_torch.serving.spec import build_lm
-    t0 = time.perf_counter()
-    lm = build_lm(plan)
-    build_s = time.perf_counter() - t0
+def generate_once(torch, ops, lm, name, prompt, expect):
+    """One main-path ``generate`` on a fresh trace (the engine's trace
+    otherwise accumulates across calls), its launch counts zeroed before
+    and read after; fails on bad tokens or a kernel launched too
+    rarely."""
+    from repro_torch.core.tasks import Trace
+    lm.trace = Trace()
     torch.cuda.synchronize()
     ops.reset_launches()
     toks, stats = lm.generate(prompt, GEN)
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
-    pk = stats["pipeline"]["per_kind"]
-    summary = {
-        "run": name, "plan": f"quant={plan.quant} pipeline={plan.pipeline} "
-        f"depth={plan.depth} placement={plan.placement} cache_on="
-        f"{plan.cache_on}", "build_s": build_s,
-        **{k: stats.get(k) for k in ("throughput_tok_s", "decode_tok_s",
-                                 "ttft_s", "total_s", "compute_busy",
-                                 "host_peak_gb", "device_peak_gb",
-                                 "device_max_allocated_gb")},
-        "bytes": {k: pk[k]["bytes"] for k in pk},
-        "busy_s": {k: pk[k]["busy_s"] for k in pk},
-        "launches": counts}
-    log(json.dumps({"main_path": summary}))
     if toks.shape != (B, GEN) or not ((toks >= 0) & (toks < 32000)).all():
         raise RuntimeError(f"run {name}: bad tokens {toks.shape}")
     for k, n in expect.items():
         if counts[k] < n:
             raise RuntimeError(f"run {name}: {k} launched {counts[k]} "
                                f"times, expected >= {n}")
+    return toks, stats, counts
+
+
+def run_main(torch, ops, name, plan, prompt, expect):
+    """``REPEATS`` runs on one engine (medians and every value of the
+    end-to-end metrics), then one profiled ``PROFILE_GEN``-token run for
+    the card's busy share."""
+    from repro_torch.serving.spec import build_lm
+    t0 = time.perf_counter()
+    lm = build_lm(plan)
+    build_s = time.perf_counter() - t0
+    runs = [generate_once(torch, ops, lm, name, prompt, expect)
+            for _ in range(REPEATS)]
+    toks, _, counts = runs[0]
+    keys = ("throughput_tok_s", "decode_tok_s", "ttft_s", "total_s",
+            "compute_busy")
+    stats = [s for _, s, _ in runs]
+    pk = stats[0]["pipeline"]["per_kind"]
+    summary = {
+        "run": name, "plan": f"quant={plan.quant} pipeline={plan.pipeline} "
+        f"depth={plan.depth} placement={plan.placement} cache_on="
+        f"{plan.cache_on}", "build_s": build_s, "repeats": REPEATS,
+        **{k: statistics.median(s[k] for s in stats) for k in keys},
+        "all": {k: [s[k] for s in stats] for k in keys},
+        **{k: max(s.get(k, 0.0) for s in stats) for k in (
+            "host_peak_gb", "device_peak_gb", "device_max_allocated_gb")},
+        "bytes": {k: pk[k]["bytes"] for k in pk},
+        "busy_s_median": {k: statistics.median(
+            s["pipeline"]["per_kind"][k]["busy_s"] for s in stats)
+            for k in pk},
+        "launches": counts,
+        "repeats_tokens_equal": all((t == toks).all() for t, _, _ in runs)}
+    summary["profiled_gen"] = PROFILE_GEN
+    summary.update(busy_share(device_events(
+        torch, lambda: lm.generate(prompt, PROFILE_GEN))))
+    log(json.dumps({"main_path": summary}))
     return lm, toks, counts
 
 

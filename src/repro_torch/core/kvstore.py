@@ -31,6 +31,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["TieredKVStore", "PhasedKVExtents", "KV_LEN_BUCKET"]
 
 KV_LEN_BUCKET = 32
@@ -43,12 +45,13 @@ class TieredKVStore:
     ((b_max, [max_len,] *feat) shape, numpy dtype) / name -> cache kind
     (``"kv"`` for sequence-extent leaves).  ``link`` is a
     ``transfer.SimLink`` shared with the weight store.  ``device`` is
-    where loads land; ``pin`` page-locks the host tensors."""
+    where loads land (CUDA unless the caller passes "cpu"; raises without
+    a card); ``pin`` page-locks the host tensors."""
 
     def __init__(self, unit_shapes: List[Dict[str, tuple]],
                  unit_kinds: List[Dict[str, str]], *, b_max: int,
                  max_len: int, kv_mode: str = "fp32", link=None,
-                 device=torch.device("cpu"), pin: bool = False):
+                 device="cuda", pin: bool = False):
         if kv_mode == "int4":
             raise NotImplementedError(
                 "kv_mode='int4' (packed KV rows + decode_attention_int4_"
@@ -59,7 +62,7 @@ class TieredKVStore:
         self.max_len = max_len
         self.kv_mode = kv_mode
         self.link = link
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.kinds: List[Dict[str, str]] = [dict(k) for k in unit_kinds]
         self._units: List[Dict[str, torch.Tensor]] = []
         self._feat: List[Dict[str, Tuple[int, ...]]] = []

@@ -18,14 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-
-def wait_stream(stream) -> None:
-    """Block the calling thread until ``stream``'s work so far is done.
-    ``Stream.synchronize`` spin-waits (CUDA's default while a process has
-    fewer contexts than cores); measured on the H100 host against a
-    sleeping wait on a blocking-sync event, spinning gave the higher
-    tok/s in both pipeline modes (PERF.md, Findings)."""
-    stream.synchronize()
+from repro_torch.device import resolve_device
 
 
 def as_tensor(arr) -> torch.Tensor:
@@ -92,13 +85,14 @@ class HostStore(Store):
 
 
 class DeviceStore(Store):
-    """Device (HBM) tier: tensors on ``device``."""
+    """Device (HBM) tier: tensors on ``device`` (CUDA unless the caller
+    passes "cpu"; raises without a card)."""
 
     name = "device"
 
-    def __init__(self, device=torch.device("cpu")):
+    def __init__(self, device="cuda"):
         super().__init__()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def put(self, key: str, arr) -> torch.Tensor:
         t = as_tensor(arr).to(self.device)

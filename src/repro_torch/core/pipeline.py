@@ -29,12 +29,18 @@ cold-start bubble per token (see docs/ARCHITECTURE.md and
 docs/TUNING.md for sizing ``depth``).
 
 On a CUDA device each transfer worker owns a ``torch.cuda.Stream``: its
-copies run there, and it waits for that stream before it marks the task
-done, so the trace times real transfers and the main thread only ever
-receives finished tensors.  Compute runs on the main thread's current
-stream, which ``run_on_main`` waits for at the end of every compute task
-(the trace's compute interval ends when the card finished); both waits
-go through ``offload.wait_stream``.
+copies run there, and it synchronizes that stream before it marks the
+task done, so the trace times real transfers and the main thread only
+ever receives finished tensors.  Compute runs on the main thread's
+current stream and is not synchronized per task: ``run_on_main`` records
+a timing event at the end of each compute task and waits only for the
+*previous* compute task's event, so the host queues unit j+1 while the
+card runs unit j and at most two units' work is in flight.  The previous
+task's trace interval then ends at its event, mapped onto the host clock
+(the interval ends when the card finished, not when the launch
+returned).  A transfer that reads a compute task's output (a KV save)
+carries that task's event as ``Task.after``; its worker's stream waits
+for it before the copy.
 """
 from __future__ import annotations
 
@@ -47,7 +53,6 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core.offload import wait_stream
 from repro_torch.core.tasks import Task, TaskType, Trace, VirtualClock
 
 PIPELINE_MODES = ("performance", "memory", "sequential")
@@ -63,9 +68,9 @@ class ThreadPool:
     pool).  ``shutdown`` blocks the caller until the workers exit.
 
     ``device``: with a CUDA device each worker runs its tasks on its own
-    stream and waits for it before the task completes; the main thread's
-    compute tasks wait for the current stream.  ``None`` or a CPU device:
-    no streams, no waits."""
+    stream and synchronizes it before the task completes; compute tasks
+    end at a timing event (module docstring).  ``None`` or a CPU device:
+    no streams, no events."""
 
     def __init__(self, n_threads: int = 3, trace: Optional[Trace] = None,
                  device: Optional[torch.device] = None):
@@ -76,6 +81,8 @@ class ThreadPool:
         self._q: "queue.PriorityQueue" = queue.PriorityQueue()
         self._seq = 0
         self._lock = threading.Lock()
+        self._pending: Optional[Task] = None    # compute task not yet traced
+        self._ref = None                        # (event, host time) anchor
         self._threads = [threading.Thread(target=self._worker,
                                           args=(f"pool-{i}",), daemon=True)
                          for i in range(n_threads)]
@@ -96,30 +103,62 @@ class ThreadPool:
         stream = torch.cuda.Stream(self.device) if self._cuda else None
         ctx = (torch.cuda.stream(stream) if stream is not None
                else contextlib.nullcontext())
-        sync = (lambda: wait_stream(stream)) if stream is not None else None
+        sync = stream.synchronize if stream is not None else None
         with ctx:
             while True:
                 prio, _, task = self._q.get()
                 if task is None:
                     return
+                if stream is not None and task.after is not None:
+                    stream.wait_event(task.after)
                 task.run(sync=sync)
                 self.trace.add(task, name)
                 self._q.task_done()
 
     def run_on_main(self, task: Task) -> Task:
-        """Compute tasks execute synchronously on the caller (main)
-        thread — blocking until the task body returns and, on a CUDA
-        device, until the card has finished the work it enqueued."""
-        task.run(sync=(lambda: wait_stream(
-            torch.cuda.current_stream(self.device))) if self._cuda else None)
-        self.trace.add(task, "main")
+        """Compute tasks execute on the caller (main) thread, blocking
+        until the task body returns.  On a CUDA device the body only
+        enqueues work: the task's ``after`` becomes a timing event
+        recorded behind that work, and the call then waits for the
+        previous compute task's event and traces that task."""
+        if not self._cuda:
+            task.run()
+            self.trace.add(task, "main")
+        else:
+            stream = torch.cuda.current_stream(self.device)
+            if self._ref is None:             # anchor: an idle stream
+                stream.synchronize()
+                ev = torch.cuda.Event(enable_timing=True)
+                self._ref = (ev, time.perf_counter())
+                ev.record(stream)
+            task.run()
+            task.after = torch.cuda.Event(enable_timing=True)
+            task.after.record(stream)
+            self.settle()
+            self._pending = task
         if task.error is not None:
             raise task.error
         return task
 
+    def settle(self):
+        """Wait for the pending compute task's event, set its end to the
+        host time the card reached it, and trace it (main thread).  The
+        scheduler calls it after every compute task in the memory and
+        sequential modes, whose invariants forbid overlap with it."""
+        prev, self._pending = self._pending, None
+        if prev is None:
+            return
+        prev.after.synchronize()
+        ev, t_ref = self._ref
+        prev.t_end = max(prev.t_end,
+                         t_ref + ev.elapsed_time(prev.after) / 1e3)
+        self.trace.add(prev, "main")
+
     def shutdown(self):
-        """Drain queued tasks and join the workers (caller thread;
-        blocking — sentinel priority 99 runs after all real work)."""
+        """Trace the last compute task, drain queued tasks and join the
+        workers (caller thread; blocking — sentinel priority 99 runs
+        after all real work)."""
+        self.settle()
         for _ in self._threads:
             self._q.put((99, 1 << 30, None))
         for t in self._threads:
@@ -167,6 +206,9 @@ class VirtualPool:
 
     def _advance(self, task: Task):
         self.clock.advance_to(task.t_end)
+
+    def settle(self):
+        pass                               # compute is traced in run_on_main
 
     def run_on_main(self, task: Task) -> Task:
         start = self.clock.now()
@@ -293,10 +335,11 @@ class PipelineScheduler:
         return depth + 2
 
     def _submit(self, kind: TaskType, name: str, fn, priority=0,
-                nbytes: int = 0, extent=None) -> Task:
+                nbytes: int = 0, extent=None, after=None) -> Task:
         t = Task(kind, name, fn)
         t.nbytes = nbytes            # before submit: VirtualPool traces here
         t.extent = extent
+        t.after = after
         self.pool.submit(t, priority)
         if self.mode == "sequential":
             t.wait()
@@ -471,6 +514,8 @@ class PipelineScheduler:
                 ct = Task(TaskType.COMPUTE, f"c[{gi},{j}]",
                           lambda: model.compute(gi, j, x, weights, kv))
                 self.pool.run_on_main(ct)
+                if self.mode != "performance":
+                    self.pool.settle()
                 x, new_kv = ct.result
 
                 # --- CallStoreCache(i, j) ----------------------------------
@@ -480,7 +525,8 @@ class PipelineScheduler:
                                       model.save_kv(gi, j, kv),
                                       priority=1,  # lower priority
                                       nbytes=(kv_save_nbytes_of(gi, j)
-                                              if kv_save_nbytes_of else 0))
+                                              if kv_save_nbytes_of else 0),
+                                      after=ct.after)
                     save_tasks[(gi, j)] = st
                     if self.mode in ("memory", "sequential"):
                         st.wait()

@@ -16,11 +16,12 @@ run against a ``VirtualClock`` (deterministic discrete-event timeline, no
 sleeps) in tests and the wall clock in production.  See
 ``core.pipeline.VirtualPool`` for the fake transport built on top.
 
-On a CUDA device a task's body only enqueues work on a stream; the pool
-passes ``Task.run`` a ``sync`` callable (the stream's synchronize) that
-runs before ``t_end`` is stamped and before ``done`` is set, so a trace
-interval ends when the card finished the work, not when the launch
-returned, and a waiter never sees a half-copied tensor.
+On a CUDA device a task's body only enqueues work on a stream.  A
+transfer worker passes ``Task.run`` a ``sync`` callable (its stream's
+synchronize) that runs before ``t_end`` is stamped and before ``done``
+is set, so a transfer's interval ends when the card finished the copy
+and a waiter never sees a half-copied tensor.  A compute task's end is
+set later, from a CUDA event (``core.pipeline.ThreadPool``).
 """
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ class Task:
     # TraceEvent so per-stage residency/bubble accounting is assertable on
     # traces (``report()['stage_bubbles']``).
     stage: int = 0
+    # device ordering: a CUDA event recorded behind the compute whose
+    # output this transfer reads (a KV save); the worker's stream waits
+    # for it before the task body runs.  On a compute task, the event
+    # recorded behind its own work.  None on the CPU.
+    after: Any = None
     # virtual-transport hook: called by wait() once the task is done, so a
     # VirtualPool can advance its clock to the waiter's sync point.
     on_wait: Optional[Callable[["Task"], None]] = None

@@ -154,3 +154,29 @@ def test_entry_points_default_to_cuda(tmp_path):
     _, pplan = _plans(tmp_path, "host", "performance", None, True, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_lm(pplan)
+
+
+def _device_store(device=None):
+    from repro_torch.core.offload import DeviceStore
+    return DeviceStore() if device is None else DeviceStore(device)
+
+
+def _kv_store(device=None):
+    from repro_torch.core.kvstore import TieredKVStore
+    shape = ((B, MAX_LEN, 2, 32), np.float32)
+    kw = {} if device is None else {"device": device}
+    return TieredKVStore([{"k": shape, "v": shape}], [{"k": "kv", "v": "kv"}],
+                         b_max=B, max_len=MAX_LEN, **kw)
+
+
+@pytest.mark.parametrize("make", [_device_store, _kv_store],
+                         ids=["DeviceStore", "TieredKVStore"])
+def test_stores_default_to_cuda(make):
+    """The device tier and the KV store's load target default to CUDA:
+    without a card they raise unless asked for the CPU."""
+    assert make("cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()

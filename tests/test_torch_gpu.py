@@ -71,3 +71,27 @@ def test_kernel_rejects_cpu_mix(dev):
     with pytest.raises(ValueError):
         int4_matmul(x, torch.zeros(128, 32, dtype=torch.uint8),
                     torch.ones(1, 64))
+
+
+def test_compute_task_ends_when_the_card_finishes(dev):
+    """A compute task's trace interval ends at the event recorded behind
+    its work, not when its launches returned; a KV save carrying that
+    event as ``after`` copies the finished tensor."""
+    from repro_torch.core.pipeline import ThreadPool
+    from repro_torch.core.tasks import Task, TaskType
+    pool = ThreadPool(1, device=dev)
+    buf = torch.zeros(1 << 20, device=dev)
+
+    def work():
+        torch.cuda._sleep(100_000_000)        # well over 10 ms on an H100
+        buf.fill_(3.0)
+
+    ct = pool.run_on_main(Task(TaskType.COMPUTE, "c[0,0]", work))
+    launched = ct.t_end - ct.t_start
+    save = Task(TaskType.KV_SAVE, "sv[0,0]", lambda: buf.to("cpu"))
+    save.after = ct.after
+    pool.submit(save, priority=1)
+    assert bool((save.wait() == 3.0).all())
+    pool.shutdown()
+    (ev,) = [e for e in pool.trace.events() if e.kind == "compute"]
+    assert ev.t_end - ev.t_start >= 0.01 > launched
