@@ -8,22 +8,29 @@ Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
 
 1. report the card (``nvidia-smi`` name and power limit);
-2. build the three kernels from ``src/repro_torch/csrc`` with ``nvcc``
+2. build the four kernels from ``src/repro_torch/csrc`` with ``nvcc``
    (one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at edge shapes; time kernel, plain version and
-   one library call computing the same function (device time per call
-   from a torch.profiler trace) and compute the roofline bound;
+   main paths' shapes (batch generation and serving: ragged positions,
+   bf16 caches, one slot's prefill) and at edge shapes; time kernel,
+   plain version and one library call computing the same function
+   (device time per call from a torch.profiler trace) and compute the
+   roofline bound;
 4. run tinyllama-1.1b at full width and depth through
-   ``build_lm(plan).generate`` in three configurations — (a) fp32
-   performance, (b) int4 fused performance, (c) int4 fused sequential —
-   ``REPEATS`` times each on one engine, with every launch counter
-   zeroed before and read after each run, and report the medians; then
-   one profiled run per configuration for the card's busy share;
+   ``build_lm(plan).generate``: (a) fp32 weights, (b) int4 fused,
+   (c) int4 fused sequential, (d) int4 fused with ``kv_mode="int4"`` —
+   ``REPEATS`` times each on one engine, every launch counter zeroed
+   before and read after each run; medians, then one profiled run per
+   configuration for the card's busy share;
 5. hold the whole path with kernels against ``use_kernels(False)`` on
-   the same weights: final hidden states of a prefill and one decode step,
-   and greedy-token agreement over run (b);
-6. print the ``kernels`` JSON line, then the result line.
+   run (b)'s weights: final hidden states of a prefill and one decode
+   step, and greedy-token agreement over run (b);
+6. serve through ``create_engine(plan)``: (e) int4 weights and KV, 8
+   requests of ragged lengths on 4 slots, then the same requests again
+   with a slot preempted mid-run (same tokens required), then kernels
+   against ``use_kernels(False)`` on its weights; (f) bf16 caches
+   (``kv_mode="fp32"``), 4 requests;
+7. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -45,18 +52,26 @@ SRC = ROOT / "src"
 HBM_BPS = 3.35e12        # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
 ATTN_ATOL = 2e-5         # tests/test_kernels.py, fp32 attentions
+BF16_ATOL = 2e-2         # tests/test_kernels.py, bf16 attention
+INT4_KV_ATOL = 1e-6      # tests/test_kernels.py:101, int4 KV vs dequantized
 INT4_RTOL = 1e-5         # tests/test_kernels.py, fp32 int4 matmul
 HIDDEN_RTOL = 1e-4       # whole path: max|kernels - plain| / max|plain|
-REPEATS = 5              # generate calls per main-path configuration
+BF16_HIDDEN_RTOL = 2e-2  # the same over bf16 caches: the plain version
+                         # rounds probabilities to bf16 as the reference
+                         # does, the kernels keep them f32
+REPEATS = {"a": 3, "b": 5, "c": 3, "d": 5}   # generate calls per run
 PROFILE_GEN = 8          # tokens in the profiled run (busy share only)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
     "decode_attention": "src/repro/kernels/decode_attention.py:76",
     "int4_matmul": "src/repro/kernels/int4_matmul.py:52",
+    "decode_attention_int4": "src/repro/kernels/decode_attention.py:175",
 }
 
 # main path: tinyllama-1.1b, b=4, prompt 128, gen 32, max_len 256
 B, PROMPT, GEN, MAX_LEN = 4, 128, 32, 256
+SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
+SERVE_REQS = 8                     # serving run (e): requests, all submitted
 
 
 def log(msg=""):
@@ -88,20 +103,24 @@ def call_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(torch, fn):
+def device_events(torch, fn, attempts: int = 3):
     """(start, end) in µs of every kernel and copy ``fn()`` ran on the
-    card, from a ``torch.profiler`` (CUPTI) trace.  Raises when the trace
-    holds none, so no other measure stands in for device time."""
+    card, from a ``torch.profiler`` (CUPTI) trace.  A trace that comes
+    back empty (seen once on the H100 machine, for a library call that
+    had traced before) is taken again, up to ``attempts`` times; then it
+    raises, so no other measure stands in for device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("the profiler recorded no device events")
-    return dev
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            return dev
+    raise RuntimeError(f"the profiler recorded no device events in "
+                       f"{attempts} traces")
 
 
 def device_ms(torch, fn, iters: int) -> float:
@@ -152,6 +171,10 @@ def check_int4(torch, rng, dev):
     cases = [(M, K, N, 128, True) for M in (4, 512)
              for K, N in ((2048, 2048), (2048, 256), (2048, 5632),
                           (5632, 2048))]
+    # serving prefill: one slot's prompt, M = its length
+    cases += [(M, K, N, 128, False) for M in (37, 160)
+              for K, N in ((2048, 2048), (2048, 256), (2048, 5632),
+                           (5632, 2048))]
     cases += [(1, 2048, 2048, 128, False), (3, 384, 256, 32, False),
               (16, 512, 384, 128, False), (512, 384, 200, 32, False),
               (3, 96, 10, 32, False), (16, 64, 6, 32, False)]
@@ -201,7 +224,10 @@ def check_flash(torch, rng, dev):
              (2, 77, 77, 8, 2, 32, True, 0, 0, False),
              (2, 45, 65, 8, 2, 32, True, 13, 20, False),
              (1, 50, 70, 4, 4, 16, False, 0, 0, False),
-             (2, 33, 33, 4, 1, 128, True, 0, 0, False)]
+             (2, 33, 33, 4, 1, 128, True, 0, 0, False),
+             # serving prefill: one slot, the prompt's own length
+             (1, 37, 37, 32, 4, 64, True, 0, 0, False),
+             (1, 160, 160, 32, 4, 64, True, 0, 0, False)]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, main in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -230,42 +256,136 @@ def check_flash(torch, rng, dev):
     return rows
 
 
-def check_decode(torch, rng, dev):
+def _sdpa_decode(torch, q, kc, vc, pos_t, fresh=None):
+    """One ``scaled_dot_product_attention`` call computing the decode
+    step: q (b, h, dh), caches (b, S, hkv, dh) f32, row r attending
+    positions <= pos[r] (the library yardstick; the port never calls
+    it)."""
     import torch.nn.functional as F
+    S = kc.shape[1]
+    qt = q[:, :, None]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= pos_t[:, None].long())[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_decode(torch, rng, dev):
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
     S = -(-(last + 1) // KV_LEN_BUCKET) * KV_LEN_BUCKET
-    # (b, S, h, hkv, dh, pos, main)
-    cases = [(B, S, 32, 4, 64, [last] * B, True),
-             (B, S, 32, 4, 64, [0, 37, S - 1, 100], False),
-             (B, 100, 32, 4, 64, [0, 50, 99, 77], False),
-             (3, 77, 8, 2, 32, [76, 0, 40], False),
-             (2, 64, 4, 4, 16, [63, 5], False)]
+    # (b, S, h, hkv, dh, pos, cache dtype, timed as)
+    cases = [(B, S, 32, 4, 64, [last] * B, torch.float32, "f32"),
+             (B, S, 32, 4, 64, [0, 37, S - 1, 100], torch.float32, None),
+             (B, 100, 32, 4, 64, [0, 50, 99, 77], torch.float32, None),
+             (3, 77, 8, 2, 32, [76, 0, 40], torch.float32, None),
+             (2, 64, 4, 4, 16, [63, 5], torch.float32, None),
+             # serving with kv_mode="fp32": bf16 caches, ragged positions
+             (B, S, 32, 4, 64, SERVE_POS, torch.bfloat16, "bf16"),
+             (B, 100, 32, 4, 64, [0, 50, 99, 77], torch.bfloat16, None),
+             (3, 77, 8, 2, 32, [76, 0, 40], torch.bfloat16, None)]
     rows = []
-    for b, S_, h, hkv, dh, pos, main in cases:
+    for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
                                      dtype=torch.float32, device=dev)
-        q, kc, vc = mk(b, h, dh), mk(b, S_, hkv, dh), mk(b, S_, hkv, dh)
+        q, kc, vc = (mk(b, h, dh), mk(b, S_, hkv, dh).to(cdt),
+                     mk(b, S_, hkv, dh).to(cdt))
         pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
         out = decode_attention(q, kc, vc, pos_t)
         ref = plain(q, kc, vc, pos_t)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} pos={pos}",
-                   max_abs_err=err, ok=err <= ATTN_ATOL, main=main)
-        if main:
-            qt = q[:, :, None]
-            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
-            mask = (torch.arange(S_, device=dev)[None, :]
-                    <= pos_t[:, None].long())[:, None, None]
+        tol = ATTN_ATOL if cdt == torch.float32 else BF16_ATOL
+        row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} pos={pos} "
+                   f"cache={str(cdt)[6:]}", max_abs_err=err, tol=tol,
+                   ok=err <= tol, main=timed)
+        if timed:
             row.update(timings(
                 torch, lambda: decode_attention(q, kc, vc, pos_t),
                 lambda: plain(q, kc, vc, pos_t),
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True), 50))
+                _sdpa_decode(torch, q, kc.float(), vc.float(), pos_t), 50))
             live = sum(p + 1 for p in pos)
-            nbytes = 4 * (2 * q.numel() + 2 * live * hkv * dh) + 4 * b
+            nbytes = (4 * 2 * q.numel() + 2 * live * hkv * dh
+                      * kc.element_size() + 4 * b)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, 4.0 * h * dh * live)
+        rows.append(row)
+    return rows
+
+
+def check_decode_int4(torch, rng, dev):
+    """``decode_attention_int4`` against its plain version (atol 2e-5 at
+    f32, 2e-2 with bf16 rounding) and, without a fresh row at f32,
+    against ``decode_attention`` over the dequantized cache (atol 1e-6,
+    tests/test_kernels.py:101)."""
+    from repro_torch.core.kvstore import KV_LEN_BUCKET, PackedRows, kv_group
+    from repro_torch.core.kvstore import quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    S = -(-(max(SERVE_POS) + 1) // KV_LEN_BUCKET) * KV_LEN_BUCKET
+    last = PROMPT + GEN - 2
+    # (b, S, h, hkv, dh, pos, fresh row, cache dtype, timed as)
+    cases = [(B, S, 32, 4, 64, SERVE_POS, fresh, cdt, timed)
+             for fresh, cdt, timed in (
+                 (True, torch.bfloat16, "serving"),
+                 (True, torch.float32, "generation"),
+                 (False, torch.float32, None), (False, torch.bfloat16, None))]
+    cases += [(B, S, 32, 4, 64, [last] * B, True, torch.float32, None),
+              (B, S, 32, 4, 64, [0, 0, 5, 1], True, torch.float32, None),
+              (B, S, 32, 4, 64, [0, 0, 5, 1], False, torch.float32, None),
+              (B, 100, 32, 4, 64, [99, 0, 64, 31], False, torch.float32,
+               None),
+              (B, 100, 32, 4, 64, [99, 0, 64, 31], True, torch.bfloat16,
+               None),
+              (3, 77, 6, 3, 16, [76, 0, 40], False, torch.float32, None),
+              (3, 77, 6, 3, 16, [76, 0, 40], True, torch.bfloat16, None),
+              (2, 64, 8, 4, 16, [63, 5], False, torch.float32, None),
+              (2, 64, 8, 4, 16, [63, 5], True, torch.float32, None)]
+    rows = []
+    for b, S_, h, hkv, dh, pos, fresh, cdt, timed in cases:
+        F, mk = hkv * dh, (lambda *s: torch.tensor(
+            rng.standard_normal(s), dtype=torch.float32, device=dev))
+        g = kv_group(F)
+        q = mk(b, h, dh)
+        kq, ks = quantize_kv_rows(mk(b, S_, F), g)
+        vq, vs = quantize_kv_rows(mk(b, S_, F), g)
+        kn, vn = (mk(b, hkv, dh), mk(b, hkv, dh)) if fresh else (None, None)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
+        out = decode_attention_int4(q, kq, ks, vq, vs, pos_t, **kw)
+        ref = plain(q, kq, ks, vq, vs, pos_t, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = ATTN_ATOL if cdt == torch.float32 else BF16_ATOL
+        row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} g={g} "
+                   f"pos={pos} fresh={fresh} cache={str(cdt)[6:]}",
+                   max_abs_err=err, tol=tol, ok=err <= tol, main=timed)
+        kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+        vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+        if not fresh and cdt == torch.float32:
+            twin = decode_attention(q, kd, vd, pos_t)
+            torch.cuda.synchronize()
+            row["err_vs_decode_attention"] = (out - twin).abs().max().item()
+            row["ok"] &= row["err_vs_decode_attention"] <= INT4_KV_ATOL
+        if timed:
+            if fresh:                    # the yardstick attends the same rows
+                kd, vd = kd.clone(), vd.clone()
+                rr = torch.arange(b, device=dev)
+                kd[rr, pos_t.long()] = kn
+                vd[rr, pos_t.long()] = vn
+            row.update(timings(
+                torch, lambda: decode_attention_int4(q, kq, ks, vq, vs,
+                                                     pos_t, **kw),
+                lambda: plain(q, kq, ks, vq, vs, pos_t, **kw),
+                _sdpa_decode(torch, q, kd, vd, pos_t), 50))
+            hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
+            live = hist + (b if fresh else 0)
+            nbytes = (4 * 2 * q.numel() + 4 * b
+                      + 2 * hist * (F // 2 + 4 * (F // g))
+                      + (2 * 4 * b * F if fresh else 0))
             row["bound_ms"], row["bound_by"] = bound_ms(
                 nbytes, 4.0 * h * dh * live)
         rows.append(row)
@@ -276,23 +396,32 @@ def check_decode(torch, rng, dev):
 # phase 4/5: the main path
 # ---------------------------------------------------------------------------
 
-def make_plan(quant, pipeline):
+def make_plan(quant, pipeline, kv_mode="fp32"):
     from repro_torch.serving.spec import ResolvedPlan
     return ResolvedPlan(
         arch="tinyllama-1.1b", scaled=False, engine="offloaded", b_max=B,
         max_len=MAX_LEN, seed=0, placement="host", pipeline=pipeline,
-        quant=quant, kv_mode="fp32", fused_int4=True, moe_quant=None,
+        quant=quant, kv_mode=kv_mode, fused_int4=True, moe_quant=None,
         warm=pipeline == "performance", depth=1, depth_policy="static",
         spill_cap=32, cache_on="host", disk_root="",
         block_bytes=8 * 2**20, n_io_threads=3, cold_reads=False,
         sim_bw=None, draft_arch=None, spec_k=None)
 
 
+def check_launches(name, counts, expect, exact=False):
+    """Fail unless every kernel in ``expect`` launched at least (or, with
+    ``exact``, exactly) its expected count in run ``name``."""
+    for k, n in expect.items():
+        if counts[k] < n or (exact or n == 0) and counts[k] != n:
+            raise RuntimeError(f"run {name}: {k} launched {counts[k]} "
+                               f"times, expected {'' if exact or n == 0 else '>= '}{n}")
+
+
 def generate_once(torch, ops, lm, name, prompt, expect):
     """One main-path ``generate`` on a fresh trace (the engine's trace
     otherwise accumulates across calls), its launch counts zeroed before
     and read after; fails on bad tokens or a kernel launched too
-    rarely."""
+    rarely (or, where ``expect`` says 0, at all)."""
     from repro_torch.core.tasks import Trace
     lm.trace = Trace()
     torch.cuda.synchronize()
@@ -302,32 +431,31 @@ def generate_once(torch, ops, lm, name, prompt, expect):
     counts = dict(ops.LAUNCHES)
     if toks.shape != (B, GEN) or not ((toks >= 0) & (toks < 32000)).all():
         raise RuntimeError(f"run {name}: bad tokens {toks.shape}")
-    for k, n in expect.items():
-        if counts[k] < n:
-            raise RuntimeError(f"run {name}: {k} launched {counts[k]} "
-                               f"times, expected >= {n}")
+    check_launches(name, counts, expect)
     return toks, stats, counts
 
 
 def run_main(torch, ops, name, plan, prompt, expect):
-    """``REPEATS`` runs on one engine (medians and every value of the
+    """``REPEATS[name]`` runs on one engine (medians and every value of the
     end-to-end metrics), then one profiled ``PROFILE_GEN``-token run for
     the card's busy share."""
     from repro_torch.serving.spec import build_lm
     t0 = time.perf_counter()
     lm = build_lm(plan)
+    torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     runs = [generate_once(torch, ops, lm, name, prompt, expect)
-            for _ in range(REPEATS)]
+            for _ in range(REPEATS[name])]
     toks, _, counts = runs[0]
     keys = ("throughput_tok_s", "decode_tok_s", "ttft_s", "total_s",
             "compute_busy")
     stats = [s for _, s, _ in runs]
     pk = stats[0]["pipeline"]["per_kind"]
     summary = {
-        "run": name, "plan": f"quant={plan.quant} pipeline={plan.pipeline} "
-        f"depth={plan.depth} placement={plan.placement} cache_on="
-        f"{plan.cache_on}", "build_s": build_s, "repeats": REPEATS,
+        "run": name, "plan": f"quant={plan.quant} kv_mode={plan.kv_mode} "
+        f"pipeline={plan.pipeline} depth={plan.depth} placement="
+        f"{plan.placement} cache_on={plan.cache_on}", "build_s": build_s,
+        "repeats": REPEATS[name],
         **{k: statistics.median(s[k] for s in stats) for k in keys},
         "all": {k: [s[k] for s in stats] for k in keys},
         **{k: max(s.get(k, 0.0) for s in stats) for k in (
@@ -342,7 +470,7 @@ def run_main(torch, ops, name, plan, prompt, expect):
     summary.update(busy_share(device_events(
         torch, lambda: lm.generate(prompt, PROFILE_GEN))))
     log(json.dumps({"main_path": summary}))
-    return lm, toks, counts
+    return lm, toks, counts, summary
 
 
 def whole_path_check(torch, ops, lm, prompt, toks_b):
@@ -386,6 +514,157 @@ def whole_path_check(torch, ops, lm, prompt, toks_b):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving, create_engine(plan) -> OffloadedServingEngine
+# ---------------------------------------------------------------------------
+
+def serving_requests(n: int):
+    """``n`` requests: prompt lengths in [32, 160] and max_new_tokens in
+    [16, 64], drawn from ``default_rng(0)``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 161, n)
+    news = rng.integers(16, 65, n)
+    return [(rng.integers(0, 32000, (int(l),)).astype(np.int32), int(m))
+            for l, m in zip(lens, news)]
+
+
+def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
+    """Submit every request, then drive ``step`` until the engine is
+    idle, timing each step; launch counts zeroed before and read after.
+    With ``preempt_after``, the first occupied slot is preempted after
+    that many steps and resumes from its spilled rows."""
+    from repro_torch.serving.base import Request
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(eng.stats)
+    for i, (p, m) in enumerate(reqs):
+        eng.submit(Request(rid=rid0 + i, prompt=p.copy(), max_new=m))
+    done, steps, preempted = [], [], None
+    t0 = time.perf_counter()
+    while not eng.idle():
+        ts = time.perf_counter()
+        eng.step(done)
+        steps.append(time.perf_counter() - ts)
+        if preempt_after is not None and len(steps) == preempt_after:
+            slot = next(i for i, r in enumerate(eng.slots) if r is not None)
+            preempted = eng.slots[slot].rid - rid0
+            eng.preempt_slot(slot)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {k: eng.stats[k] - before.get(k, 0) for k in (
+        "prefills", "decode_steps", "tokens_out", "slot_saves",
+        "slot_restores")}
+    outs = {r.rid - rid0: list(r.out) for r in done}
+    return dict(outs=outs, steps=steps, wall=wall, stats=stats,
+                counts=dict(ops.LAUNCHES), preempted=preempted,
+                device_max_allocated_gb=torch.cuda.max_memory_allocated()
+                / 2**30)
+
+
+def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
+    """Build the engine with ``create_engine``, serve ``reqs`` once (and,
+    with ``preempt``, once more with a slot preempted mid-run, which must
+    give the same tokens); fails on bad tokens or launch counts other
+    than flash = layers x prefills and ``decode_kernel`` = layers x
+    decode steps (the other decode kernel 0)."""
+    from repro_torch.serving.spec import create_engine
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    r = serve_once(torch, ops, eng, reqs, 0)
+    report = eng.pipeline_report()
+    other = ({"decode_attention", "decode_attention_int4"}
+             - {decode_kernel}).pop()
+    n = plan.model_config().num_layers
+    st = r["stats"]
+    check_launches(name, r["counts"], {
+        "flash_attention": n * st["prefills"],
+        decode_kernel: n * st["decode_steps"], other: 0}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != m or not all(0 <= t < 32000 for t in outs[i])
+            for i, (_, m) in enumerate(reqs)):
+        raise RuntimeError(f"run {name}: bad tokens {outs}")
+    steps_ms = sorted(1e3 * s for s in r["steps"])
+    pk = report["per_kind"]
+    summary = {
+        "run": name, "plan": f"quant={plan.quant} kv_mode={plan.kv_mode} "
+        f"pipeline={plan.pipeline} depth={plan.depth} b_max={plan.b_max} "
+        f"max_len={plan.max_len} placement={plan.placement}",
+        "build_s": build_s, "requests": len(reqs),
+        "prompt_lens": [len(p) for p, _ in reqs],
+        "max_new": [m for _, m in reqs], **st, "wall_s": r["wall"],
+        "tok_s": st["tokens_out"] / r["wall"],
+        "step_ms_median": statistics.median(steps_ms),
+        "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+        "busy_s": {k: pk[k]["busy_s"] for k in pk},
+        "bytes": {k: pk[k]["bytes"] for k in pk},
+        "compute_busy": eng.trace.busy_fraction("compute"),
+        "host_peak_gb": eng.host.peak_bytes / 2**30,
+        "device_peak_gb": eng.device.peak_bytes / 2**30,
+        "device_max_allocated_gb": r["device_max_allocated_gb"],
+        "kv_dequant_bytes": eng.kvstore.dequant_bytes_total,
+        "launches": r["counts"]}
+    if preempt:
+        p = serve_once(torch, ops, eng, reqs, 100, preempt_after=6)
+        summary["preempt"] = {
+            "slot_request": p["preempted"], **p["stats"],
+            "tokens_equal": p["outs"] == outs, "launches": p["counts"]}
+        if p["stats"]["slot_restores"] != 1 or p["outs"] != outs:
+            raise RuntimeError(f"run {name}: the preempted run differs: "
+                               f"{summary['preempt']}")
+    log(json.dumps({"serving": summary}))
+    return eng, r["counts"], summary
+
+
+def serving_whole_path(torch, ops, eng, reqs):
+    """Kernels vs use_kernels(False) on the serving engine's weights:
+    hidden states of the first prefill and the first decode step, and
+    greedy-token agreement over the run."""
+    seen = []
+    orig = eng.finalize
+
+    def grab(i, x):
+        seen.append((eng._phase, x.detach().clone()))
+        return orig(i, x)
+
+    eng.finalize = grab
+    try:
+        ops.use_kernels(True)
+        rk = serve_once(torch, ops, eng, reqs, 200)
+        hk, seen[:] = list(seen), []
+        ops.use_kernels(False)
+        rp = serve_once(torch, ops, eng, reqs, 300)
+        hp = list(seen)
+    finally:
+        ops.use_kernels(True)
+        eng.finalize = orig
+    res = {}
+    for phase in ("prefill", "decode"):
+        a = next(x for ph, x in hk if ph == phase)
+        b = next(x for ph, x in hp if ph == phase)
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"serving {phase}: non-finite hidden states")
+        res[phase + "_rel_err"] = ((a - b).abs().max()
+                                   / b.abs().max()).item()
+    pairs = [(x, y) for i in rk["outs"] for x, y in
+             zip(rk["outs"][i], rp["outs"].get(i, []))]
+    res["tokens_compared"] = len(pairs)
+    res["greedy_agreement"] = sum(x == y for x, y in pairs) / len(pairs)
+    res["first_tokens_equal"] = all(rk["outs"][i][0] == rp["outs"][i][0]
+                                    for i in rk["outs"])
+    res["tolerance_rel"] = {"prefill": HIDDEN_RTOL, "decode": BF16_HIDDEN_RTOL}
+    log(json.dumps({"serving_whole_path": res}))
+    if res["prefill_rel_err"] > HIDDEN_RTOL:
+        raise RuntimeError(f"serving prefill hidden states differ: {res}")
+    if res["first_tokens_equal"] and res["decode_rel_err"] > BF16_HIDDEN_RTOL:
+        raise RuntimeError(f"serving decode hidden states differ: {res}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels",), default=None,
@@ -426,7 +705,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     checks = {"int4_matmul": check_int4(torch, rng, dev),
               "flash_attention": check_flash(torch, rng, dev),
-              "decode_attention": check_decode(torch, rng, dev)}
+              "decode_attention": check_decode(torch, rng, dev),
+              "decode_attention_int4": check_decode_int4(torch, rng, dev)}
     torch.cuda.synchronize()
     failed = []
     for name, rows in checks.items():
@@ -440,43 +720,84 @@ def main(argv=None) -> int:
     if args.only == "kernels":
         return 0
 
-    # 4. the main path, three configurations
+    # 4. the main path: batch generation (a)-(d)
     prompt = rng.integers(0, 32000, (B, PROMPT)).astype(np.int32)
     n_layers = 22
     attn_expect = {"flash_attention": n_layers,
-                   "decode_attention": n_layers * (GEN - 1)}
+                   "decode_attention": n_layers * (GEN - 1),
+                   "decode_attention_int4": 0}
     int4_expect = {**attn_expect, "int4_matmul": 7 * n_layers * GEN}
-    lm, _, counts_a = run_main(torch, ops, "a", make_plan(
-        None, "performance"), prompt, attn_expect)
-    del lm
-    gc.collect()
-    torch.cuda.empty_cache()
-    lm, toks_b, counts_b = run_main(torch, ops, "b", make_plan(
-        "int4", "performance"), prompt, int4_expect)
+    counts, summaries = {}, {}
+
+    def release(lm):
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    lm, _, counts["a"], summaries["a"] = run_main(
+        torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
+    release(lm)
+    lm, toks_b, counts["b"], summaries["b"] = run_main(
+        torch, ops, "b", make_plan("int4", "performance"), prompt,
+        int4_expect)
 
     # 5. the whole path against the plain versions, same weights
     whole_path_check(torch, ops, lm, prompt, toks_b)
-    del lm
-    gc.collect()
-    torch.cuda.empty_cache()
-    lm, _, counts_c = run_main(torch, ops, "c", make_plan(
-        "int4", "sequential"), prompt, int4_expect)
-    del lm
+    release(lm)
+    lm, _, counts["c"], summaries["c"] = run_main(
+        torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
+    release(lm)
+    lm, _, counts["d"], summaries["d"] = run_main(
+        torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
+        {**int4_expect, "decode_attention": 0,
+         "decode_attention_int4": n_layers * (GEN - 1)})
+    release(lm)
+    log(json.dumps({"kv_load_bytes": {
+        "b_fp32_kv": summaries["b"]["bytes"]["kv_load"],
+        "d_int4_kv": summaries["d"]["bytes"]["kv_load"],
+        "ratio": summaries["b"]["bytes"]["kv_load"]
+        / summaries["d"]["bytes"]["kv_load"]}}))
 
-    # 6. the kernels line (launches: run (b), the slice's configuration)
+    # 6. serving: (e) int4 KV with a preempted rerun and the whole-path
+    # check, (f) fp32 KV over bf16 caches
+    reqs = serving_requests(SERVE_REQS)
+    eng, counts["e"], summaries["e"] = run_serving(
+        torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
+        "decode_attention_int4", preempt=True)
+    serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
+    eng.shutdown()
+    release(eng)
+    eng, counts["f"], summaries["f"] = run_serving(
+        torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
+        "decode_attention")
+    eng.shutdown()
+    release(eng)
+
+    # 7. the kernels line: each kernel's launches in the run its timed
+    # shape comes from, and per run
+    home = {"flash_attention": "b", "decode_attention": "b",
+            "int4_matmul": "b", "decode_attention_int4": "e"}
     kernels = []
     for name, rows in checks.items():
         m = next(r for r in rows if r["main"])
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": counts_b[name],
+            "replaces": REPLACES[name], "launches": counts[home[name]][name],
+            "launches_run": home[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "call_ms": m["call_ms"],
-            "parity": "ok", "launches_run_a": counts_a[name],
-            "launches_run_c": counts_c[name]})
+            "parity": "ok", "shape": m["shape"],
+            "launches_by_run": {k: c[name] for k, c in counts.items()}}
+        variants = [r for r in rows
+                    if isinstance(r["main"], str) and r is not m]
+        for v in variants:
+            entry[v["main"]] = {k: v[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "call_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+        kernels.append(entry)
     torch.cuda.synchronize()
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
-"""Load the JAX engine's parameters into a port ``PipelinedLM``.
+"""Load the JAX engines' parameters into the port's engines.
 
 The JAX ``PipelinedLM`` keeps its embedding on the device and each
-unit's tensors merged on its placement tier.  Taken out as numpy arrays
-(``emb`` and, per unit key, name -> array — ``name#q``/``name#s`` pairs
-for INT4 units), they re-merge here into byte-identical buffers, so both
-engines compute on the same weights.
+unit's tensors merged on its placement tier; the JAX
+``OffloadedServingEngine`` keeps ``embed`` (``emb``, ``w_out``) and
+``final_norm`` resident and each layer's tensors merged on its tier.
+Taken out as numpy arrays (per unit key, name -> array, with
+``name#q``/``name#s`` pairs for INT4 units), they re-merge here into
+byte-identical buffers, so both engines compute on the same weights.
 """
 from __future__ import annotations
 
@@ -28,3 +30,29 @@ def from_reference(emb: np.ndarray, units: Dict[str, Dict[str, np.ndarray]],
     for key in keys:
         lm.weights.put(key, {name: np.asarray(a)
                              for name, a in units[key].items()})
+
+
+def from_reference_serving(resident: Dict[str, Dict[str, np.ndarray]],
+                           units: Dict[str, Dict[str, np.ndarray]],
+                           eng) -> None:
+    """Replace a port ``OffloadedServingEngine``'s resident tensors
+    (``{"embed": {...}, "final_norm": {...}}``) and every unit's weights
+    with the given arrays.  ``units`` must name exactly ``eng``'s unit
+    keys, and every resident tensor must keep its shape."""
+    keys = [u.key for u in eng.units]
+    if sorted(units) != sorted(keys):
+        raise ValueError(f"unit keys differ: got {sorted(units)}, the "
+                         f"engine has {sorted(keys)}")
+    for part, tab in eng.resident.items():
+        if sorted(resident[part]) != sorted(tab):
+            raise ValueError(f"{part}: got {sorted(resident[part])}, the "
+                             f"engine has {sorted(tab)}")
+        for name, old in tab.items():
+            arr = np.asarray(resident[part][name], np.float32)
+            if arr.shape != tuple(old.shape):
+                raise ValueError(f"{part}/{name}: shape {arr.shape} != "
+                                 f"{tuple(old.shape)}")
+            tab[name] = eng.device.put(f"{part}/{name}", arr)
+    for key in keys:
+        eng.weights.put(key, {name: np.asarray(a)
+                              for name, a in units[key].items()})

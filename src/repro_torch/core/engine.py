@@ -11,11 +11,14 @@ per load) or stays on the device (``cache_on="device"``).
 Compute runs on the main thread on PyTorch's current stream; weight
 loads, KV loads and KV saves run on the transfer pool, each worker on its
 own stream (``core.pipeline``).  On the card the units go through the
-port's three hand-written kernels: ``flash_attention`` (prefill),
-``decode_attention`` (decode) and, with ``quant="int4"`` and
-``fused_int4``, ``int4_matmul`` for every packed projection, whose
-``#q``/``#s`` pairs stay packed on the device.  Dense stacks only: MoE,
-speculative decoding and pipeline stages come with later slices.
+port's hand-written kernels: ``flash_attention`` (prefill),
+``decode_attention`` (decode over an fp32 cache) or, with
+``kv_mode="int4"``, ``decode_attention_int4`` over the packed rows the
+store ships (the step's own row attended unquantized), and, with
+``quant="int4"`` and ``fused_int4``, ``int4_matmul`` for every packed
+projection, whose ``#q``/``#s`` pairs stay packed on the device.  Dense
+stacks only: MoE, speculative decoding and pipeline stages come with
+later slices.
 """
 from __future__ import annotations
 
@@ -30,15 +33,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, DENSE, ModelConfig
-from repro_torch.core.kvstore import PhasedKVExtents, TieredKVStore
+from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
+                                      TieredKVStore)
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
-from repro_torch.core.pipeline import PipelineScheduler
+from repro_torch.core.pipeline import PipelineScheduler, adopt
 from repro_torch.core.tasks import Trace
 from repro_torch.core.transfer import DEFAULT_BLOCK, Manifest, TieredWeightStore
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
-from repro_torch.models.attention import decode_attention
+from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.models.attention import (decode_attention,
+                                         decode_attention_packed)
 from repro_torch.models.common import rms_norm, silu
+from repro_torch.models.layers import _mm as _proj
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.quant.int4 import quantize_int4
 from repro_torch.serving.spec import ResolvedPlan
@@ -46,18 +52,6 @@ from repro_torch.serving.spec import ResolvedPlan
 # ---------------------------------------------------------------------------
 # Per-unit compute
 # ---------------------------------------------------------------------------
-
-
-def _proj(x: torch.Tensor, w: Dict[str, torch.Tensor], name: str):
-    """x (..., K) @ w[name]; a packed ``name#q``/``name#s`` pair goes
-    through the fused ``int4_matmul`` (the group is K // scale rows)."""
-    if name in w:
-        return x @ w[name]
-    packed, scale = w[name + "#q"], w[name + "#s"]
-    K = packed.shape[0]
-    y = int4_matmul_op(x.reshape(-1, K), packed, scale,
-                       group=K // scale.shape[0])
-    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _qkv(x, w, pos, cfg: ModelConfig):
@@ -89,10 +83,15 @@ def _attn_prefill_unit(x, w, *, cfg: ModelConfig):
 def _attn_decode_unit(x, w, kc, vc, pos, *, cfg: ModelConfig):
     """x (b, 1, d); kc/vc (b, L, hkv, dh) device caches, updated in place
     at ``pos`` (int or ragged (b,) tensor) and attended through the
-    ``decode_attention`` kernel.  Returns (x', k_new, v_new, kc, vc)."""
+    ``decode_attention`` kernel, or ``PackedRows`` attended with the
+    fresh row through ``decode_attention_int4`` (left as they are).
+    Returns (x', k_new, v_new, kc, vc)."""
     b, s, d = x.shape
     q, k, v = _qkv(x, w, pos, cfg)
-    out, kc, vc = decode_attention(q, kc, vc, k, v, pos)
+    if isinstance(kc, PackedRows):
+        out = decode_attention_packed(q, kc, vc, k, v, pos)
+    else:
+        out, kc, vc = decode_attention(q, kc, vc, k, v, pos)
     return x + _proj(out.reshape(b, s, -1), w, "wo"), k, v, kc, vc
 
 
@@ -305,19 +304,8 @@ class PipelinedLM(PhasedKVExtents):
             self.kvstore.save_decode(j, rows, active=range(self.batch),
                                      pos=np.full(self.batch, pos, np.int32))
 
-    def _adopt(self, loaded):
-        """Tell the caching allocator that the compute stream uses
-        tensors (a tensor or a dict of them) that a transfer worker
-        allocated on its own stream; the worker waited for its copy
-        before the task completed, so no stream wait is needed."""
-        if self.dev.type != "cuda" or loaded is None:
-            return
-        cur = torch.cuda.current_stream(self.dev)
-        for t in (loaded.values() if isinstance(loaded, dict) else (loaded,)):
-            t.record_stream(cur)
-
     def compute(self, i: int, j: int, x, weights, kv):
-        self._adopt(weights)
+        adopt(self.dev, weights)
         if isinstance(weights, torch.Tensor):
             weights = self.weights.split(self.units[j].key, weights)
         if self.units[j].kind == "mlp":
@@ -325,7 +313,7 @@ class PipelinedLM(PhasedKVExtents):
         if self._phase == "prefill":
             x, k, v = _attn_prefill_unit(x, weights, cfg=self.cfg)
             return x, ("prefill", k, v, 0, x.shape[1])
-        self._adopt(kv)
+        adopt(self.dev, kv)
         pos = self._pos
         x, k, v, kc, vc = _attn_decode_unit(x, weights, kv["k"], kv["v"],
                                             pos, cfg=self.cfg)

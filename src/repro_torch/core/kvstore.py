@@ -1,49 +1,183 @@
-"""Tiered KV store: host-resident decode cache with live-row loads.
+"""Tiered KV store: host-resident decode cache with live-row loads and
+optional INT4 row packing.
 
-The port of the JAX package's ``core/kvstore.py`` for ``kv_mode="fp32"``.
-``load(j, live_b, live_len)`` moves only the occupied rows over the link
-(slots ``0..live_b-1``, positions ``0..live_len-1``) with one asynchronous
-host->device copy per slot and leaf, on the calling transfer worker's
+The port of the JAX package's ``core/kvstore.py``.  ``load(j, live_b,
+live_len)`` moves only the occupied rows over the link (slots
+``0..live_b-1``, positions ``0..live_len-1``) with one asynchronous
+host->device copy per slot and array, on the calling transfer worker's
 stream, from page-locked host tensors.  (One strided copy per leaf
 measured slower on the H100 host: PyTorch stages a non-contiguous pinned
-source through a pageable temporary; PERF.md, Findings.)
-``load_nbytes`` prices exactly the bytes that cross, which is what
-``Task.nbytes`` records on KV_LOAD trace events.
+source through a pageable temporary; PERF.md, Findings.)  ``load_nbytes``
+prices exactly the bytes that cross, which is what ``Task.nbytes``
+records on KV_LOAD trace events.
 
 The device slab a load returns is zero beyond the live rows and holds
-``KV_LEN_BUCKET``-rounded room for the decode step's own row: the
-caching allocator then sees one slab size per 32 positions instead of a
-new size every step, and the attention kernels read only rows
-``<= pos``.  The reference returns the full ``max_len`` slab; the rows
-between are zeros either way, so the values attended are the same.
+``KV_LEN_BUCKET``-rounded room for the decode step's own row: the caching
+allocator then sees one slab size per 32 positions instead of a new size
+every step, and the attention kernels read only rows ``<= pos``.  The
+reference returns the full ``max_len`` slab; the rows between are zeros
+either way, so the values attended are the same.
 
-``kv_mode="int4"`` (packed rows, quantized once at save) comes with the
-next slice of the port, together with ``decode_attention_int4_kernel``.
+``kv_mode="int4"``: sequence-extent rows are stored packed — each
+``(slot, position)`` row group-quantized over its flattened ``F``
+features (groups of ``gcd(F, 32)``, two nibbles per byte along adjacent
+features, f32 group scales), bit for bit the reference's codec.  Rows
+are cast to the leaf's compute dtype and quantized once, on the host,
+when saved.  A load ships the live packed bytes and scales and returns
+them PACKED (``PackedRows``): the decode step hands them to the
+``decode_attention_int4`` kernel, which dequantizes in registers.  The
+reference dequantizes here instead, on the transfer thread; the port has
+no such pass on any device (the plain version dequantizes inside the
+attention op on the CPU).  ``dequant_bytes_total`` therefore counts what
+the reference counts — compute-precision bytes of the live extent per
+load — but in the port those bytes are only ever unpacked in the
+kernel's registers, never written to memory.
 
 Thread affinity: construction runs on the main thread at engine build;
-``load``/``save_*`` run on transfer-pool threads.
+``load``/``save_*``/``spill``/``restore`` run on transfer-pool threads.
 """
 from __future__ import annotations
 
+import math
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["TieredKVStore", "PhasedKVExtents", "KV_LEN_BUCKET"]
+__all__ = ["TieredKVStore", "PhasedKVExtents", "PackedRows", "KV_GROUP",
+           "KV_LEN_BUCKET", "kv_group", "kv_eligible", "quantize_kv_rows",
+           "dequantize_kv_rows", "kv_roundtrip_rows"]
 
+KV_GROUP = 32
 KV_LEN_BUCKET = 32
 
 
+# ---------------------------------------------------------------------------
+# INT4 row codec (the reference's, bit for bit)
+# ---------------------------------------------------------------------------
+
+def kv_group(n_features: int) -> int:
+    """Group size for one cache row of ``n_features`` values."""
+    return math.gcd(int(n_features), KV_GROUP)
+
+
+def kv_eligible(kind: str, feat_shape: Sequence[int]) -> bool:
+    """Whether a cache leaf quantizes under ``kv_mode='int4'``: only
+    sequence-extent (kind ``'kv'``) rows with an even flattened feature
+    count (nibble pairs)."""
+    f = int(np.prod(feat_shape)) if len(feat_shape) else 1
+    return kind == "kv" and f % 2 == 0 and f >= 2
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+_INV7 = float(np.float32(1.0 / 7.0))
+
+
+def _quantize_rows(x: torch.Tensor, group: int):
+    """x (..., F) f32 -> (packed (..., F//2) uint8, scale (..., F//g) f32).
+    Symmetric groupwise over the trailing features, round half to even;
+    feature 2i is the low nibble of byte i, feature 2i+1 the high one.
+    The scale is max|x| times the f32 reciprocal of 7: the reference
+    writes ``/ 7.0`` inside a jit, which XLA compiles to that product."""
+    *lead, F = x.shape
+    xg = x.reshape(*lead, F // group, group)
+    scale = torch.clamp_min(xg.abs().amax(dim=-1) * _INV7, 1e-8)
+    q = torch.round(xg / scale[..., None]).to(torch.int32)
+    q = torch.clamp(q, -8, 7).reshape(*lead, F)
+    qu = (q + 8).to(torch.uint8)
+    return qu[..., 0::2] | (qu[..., 1::2] << 4), scale
+
+
+def _dequant_impl(packed: torch.Tensor, scale: torch.Tensor, group: int):
+    """Inverse of ``_quantize_rows`` -> (..., F) f32."""
+    lo = (packed & 0xF).to(torch.int32) - 8
+    hi = ((packed >> 4) & 0xF).to(torch.int32) - 8
+    *lead, F2 = packed.shape
+    q = torch.stack([lo, hi], dim=-1).reshape(*lead, F2 * 2)
+    w = (q.reshape(*lead, (F2 * 2) // group, group).to(torch.float32)
+         * scale[..., None])
+    return w.reshape(*lead, F2 * 2)
+
+
+def quantize_kv_rows(x, group: Optional[int] = None):
+    """Quantize cache rows (..., F) -> (packed, scale) tensors on ``x``'s
+    device.  Takes a tensor or a numpy array."""
+    x = torch.as_tensor(x).to(torch.float32)
+    g = group or kv_group(x.shape[-1])
+    return _quantize_rows(x, g)
+
+
+def dequantize_kv_rows(packed, scale, group: int, dtype=torch.bfloat16):
+    """Inverse of ``quantize_kv_rows`` -> (..., F) of ``dtype`` (the
+    cache's compute precision)."""
+    return _dequant_impl(torch.as_tensor(packed), torch.as_tensor(scale),
+                         group).to(dtype)
+
+
+def kv_roundtrip_rows(x, group: Optional[int] = None):
+    """quantize -> dequantize rows, cast back to the input dtype."""
+    x = torch.as_tensor(x)
+    g = group or kv_group(x.shape[-1])
+    packed, scale = quantize_kv_rows(x, g)
+    return dequantize_kv_rows(packed, scale, g, x.dtype)
+
+
+class PackedRows(NamedTuple):
+    """A packed KV leaf as a load returns it: ``(b, S, F//2)`` uint8 and
+    ``(b, S, F//group)`` f32 scales on the device, the rows' compute
+    dtype (what a dequantized value rounds to before use) and their
+    feature shape."""
+    packed: torch.Tensor
+    scale: torch.Tensor
+    group: int
+    dtype: torch.dtype
+    feat: Tuple[int, ...]
+
+    def dequantize(self) -> torch.Tensor:
+        """(b, S, *feat) at the compute dtype (the plain path)."""
+        b, S = self.packed.shape[:2]
+        return _dequant_impl(self.packed, self.scale, self.group).reshape(
+            (b, S) + self.feat).to(self.dtype)
+
+
+@dataclass
+class _LeafMeta:
+    """Per-leaf layout (``leaf_meta`` keeps it public for tests and byte
+    accounting)."""
+    kind: str                 # cache kind ("kv"/"rep"/...)
+    feat: Tuple[int, ...]     # trailing feature shape after (b[, L])
+    dtype: torch.dtype        # compute-precision dtype of the leaf
+    quant: bool = False       # stored packed INT4
+    group: int = 0            # quant group over the flattened features
+
+    @property
+    def itemsize(self) -> int:
+        return torch.empty(0, dtype=self.dtype).element_size()
+
+
+@dataclass
+class _QuantLeaf:
+    packed: torch.Tensor      # (b, L, F//2) uint8, host
+    scale: torch.Tensor       # (b, L, F//g) f32, host
+    group: int
+
+
 class TieredKVStore:
-    """Host-resident decode cache with live-row loads (fp32 rows).
+    """Host-resident decode cache with live-row loads and optional INT4
+    row packing (module docstring).
 
     ``unit_shapes``/``unit_kinds``: one dict per schedulable unit, name ->
-    ((b_max, [max_len,] *feat) shape, numpy dtype) / name -> cache kind
-    (``"kv"`` for sequence-extent leaves).  ``link`` is a
+    ((b_max, [max_len,] *feat) shape, numpy or torch dtype) / name ->
+    cache kind (``"kv"`` for sequence-extent leaves).  ``link`` is a
     ``transfer.SimLink`` shared with the weight store.  ``device`` is
     where loads land (CUDA unless the caller passes "cpu"; raises without
     a card); ``pin`` page-locks the host tensors."""
@@ -52,11 +186,7 @@ class TieredKVStore:
                  unit_kinds: List[Dict[str, str]], *, b_max: int,
                  max_len: int, kv_mode: str = "fp32", link=None,
                  device="cuda", pin: bool = False):
-        if kv_mode == "int4":
-            raise NotImplementedError(
-                "kv_mode='int4' (packed KV rows + decode_attention_int4_"
-                "kernel) comes with the next slice of the port")
-        if kv_mode != "fp32":
+        if kv_mode not in ("fp32", "int4"):
             raise ValueError(f"kv_mode {kv_mode!r}")
         self.b_max = b_max
         self.max_len = max_len
@@ -64,61 +194,118 @@ class TieredKVStore:
         self.link = link
         self.device = resolve_device(device)
         self.kinds: List[Dict[str, str]] = [dict(k) for k in unit_kinds]
-        self._units: List[Dict[str, torch.Tensor]] = []
-        self._feat: List[Dict[str, Tuple[int, ...]]] = []
+        self.dequant_bytes_total = 0
+        self._units: List[Dict[str, Any]] = []
+        self._meta: List[Dict[str, _LeafMeta]] = []
+        zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, pin_memory=pin)
         for shapes, kinds in zip(unit_shapes, unit_kinds):
-            leaves, feats = {}, {}
+            leaves, meta = {}, {}
             for name, (shape, dtype) in shapes.items():
-                feats[name] = (tuple(shape[2:]) if kinds[name] == "kv"
-                               else tuple(shape[1:]))
-                tdt = torch.from_numpy(np.empty(0, dtype)).dtype
-                leaves[name] = torch.zeros(shape, dtype=tdt, pin_memory=pin)
+                kind = kinds[name]
+                feat = tuple(shape[2:]) if kind == "kv" else tuple(shape[1:])
+                m = _LeafMeta(kind, feat, _torch_dtype(dtype))
+                if kv_mode == "int4" and kv_eligible(kind, feat):
+                    F = int(np.prod(feat))
+                    m.quant, m.group = True, kv_group(F)
+                    leaves[name] = _QuantLeaf(
+                        zeros((shape[0], shape[1], F // 2), torch.uint8),
+                        zeros((shape[0], shape[1], F // m.group),
+                              torch.float32), m.group)
+                else:
+                    leaves[name] = zeros(shape, m.dtype)
+                meta[name] = m
             self._units.append(leaves)
-            self._feat.append(feats)
+            self._meta.append(meta)
+
+    # ---- layout introspection ----------------------------------------------
+    def __len__(self):
+        return len(self._units)
+
+    def leaf_meta(self, j: int) -> Dict[str, _LeafMeta]:
+        return self._meta[j]
+
+    def _arrays(self, j: int, name: str):
+        leaf = self._units[j][name]
+        if isinstance(leaf, _QuantLeaf):
+            return (leaf.packed, leaf.scale)
+        return (leaf,)
 
     # ---- byte accounting (any thread; non-blocking) ------------------------
-    def load_nbytes(self, j: int, live_b: Optional[int] = None,
-                    live_len: Optional[int] = None) -> int:
-        """Bytes one ``load(j, live_b, live_len)`` moves over the link —
-        exactly the sliced rows."""
+    def _extent(self, live_b, live_len):
         lb = self.b_max if live_b is None else min(int(live_b), self.b_max)
         ll = self.max_len if live_len is None else min(int(live_len),
                                                       self.max_len)
+        return lb, ll
+
+    def load_nbytes(self, j: int, live_b: Optional[int] = None,
+                    live_len: Optional[int] = None) -> int:
+        """Bytes one ``load(j, live_b, live_len)`` moves over the link —
+        exactly the sliced rows (packed bytes and scales for INT4
+        leaves)."""
+        lb, ll = self._extent(live_b, live_len)
         total = 0
-        for name, arr in self._units[j].items():
-            shape = list(arr.shape)
-            shape[0] = lb
-            if self.kinds[j][name] == "kv":
-                shape[1] = ll
-            total += int(np.prod(shape)) * arr.element_size()
+        for name, m in self._meta[j].items():
+            for a in self._arrays(j, name):
+                shape = list(a.shape)
+                shape[0] = lb
+                if m.kind == "kv":
+                    shape[1] = ll
+                total += int(np.prod(shape)) * a.element_size()
         return total
+
+    def slab_nbytes(self, j: int) -> int:
+        """Bytes the full ``(b_max, max_len)`` slab would move."""
+        return self.load_nbytes(j, self.b_max, self.max_len)
 
     def save_nbytes(self, j: int, live_b: Optional[int] = None,
                     rows: int = 1) -> int:
         """Bytes one decode ``save_decode`` payload moves device->host:
-        ``rows`` fresh rows of ``live_b`` slots."""
-        lb = self.b_max if live_b is None else min(int(live_b), self.b_max)
+        ``rows`` fresh rows of ``live_b`` slots at compute precision
+        (quantization happens at the host tier)."""
+        lb, _ = self._extent(live_b, None)
         total = 0
-        for name, arr in self._units[j].items():
-            row = int(np.prod(self._feat[j][name])) * arr.element_size()
-            if self.kinds[j][name] == "kv":
+        for m in self._meta[j].values():
+            row = int(np.prod(m.feat)) * m.itemsize
+            if m.kind == "kv":
                 row *= max(1, int(rows))
             total += lb * row
         return total
 
     def prefill_save_nbytes(self, j: int, live_b: int = 1,
                             length: Optional[int] = None) -> int:
-        """Bytes a prefill save moves: ``live_b`` slots' rows, ``length``
-        positions each for kv kinds (default the full per-slot extent)."""
+        """Bytes a prefill save moves, priced as the reference prices it:
+        ``live_b`` slots' rows at compute precision, ``length`` positions
+        each for kv kinds (default the full per-slot extent, the serving
+        engine's admission payload)."""
         ll = self.max_len if length is None else min(int(length),
                                                      self.max_len)
         total = 0
-        for name, arr in self._units[j].items():
-            n = int(np.prod(self._feat[j][name])) * arr.element_size()
-            if self.kinds[j][name] == "kv":
+        for m in self._meta[j].values():
+            n = int(np.prod(m.feat)) * m.itemsize
+            if m.kind == "kv":
                 n *= ll
             total += n
         return total * max(1, int(live_b))
+
+    def dequant_nbytes(self, j: int, live_b: Optional[int] = None,
+                       live_len: Optional[int] = None) -> int:
+        """Compute-precision bytes of the INT4 rows one load carries
+        (0 in fp32 mode); see the module docstring for where the port
+        unpacks them."""
+        lb, ll = self._extent(live_b, live_len)
+        return sum(lb * ll * int(np.prod(m.feat)) * m.itemsize
+                   for m in self._meta[j].values() if m.quant)
+
+    def max_live_load_nbytes(self, live_b: int, live_len: int) -> int:
+        """Largest per-unit live KV_LOAD payload at the given extents."""
+        return max((self.load_nbytes(j, live_b, live_len)
+                    for j in range(len(self._units))), default=0)
+
+    def host_nbytes(self) -> int:
+        """Total host bytes the store holds (packed bytes under INT4)."""
+        return sum(a.numel() * a.element_size()
+                   for j in range(len(self._units))
+                   for name in self._units[j] for a in self._arrays(j, name))
 
     # ---- loads (transfer-pool thread) --------------------------------------
     def _bucket_len(self, ll: int) -> int:
@@ -126,66 +313,158 @@ class TieredKVStore:
         return min(self.max_len,
                    -(-int(ll) // KV_LEN_BUCKET) * KV_LEN_BUCKET)
 
+    def _ship(self, arr: torch.Tensor, lb: int, ll: int, seq: bool):
+        """Live rows of one host array -> a zeroed device slab of
+        ``(b_max, bucket(ll + 1), ...)`` (sequence leaves) or the full
+        per-slot shape."""
+        if seq:
+            cap = self._bucket_len(ll + 1)
+            dev = torch.zeros((arr.shape[0], cap) + tuple(arr.shape[2:]),
+                              dtype=arr.dtype, device=self.device)
+            for s in range(lb):
+                dev[s, :ll].copy_(arr[s, :ll], non_blocking=True)
+        else:
+            dev = torch.zeros(arr.shape, dtype=arr.dtype, device=self.device)
+            dev[:lb].copy_(arr[:lb], non_blocking=True)
+        return dev
+
     def load(self, j: int, live_b: Optional[int] = None,
-             live_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """KV_LOAD body: live host rows -> a zeroed device slab of
-        ``(b_max, bucket(live_len + 1), *feat)`` for kv leaves (room for
-        the step's own row) and the full per-slot shape otherwise.  Pays
-        the link floor on exactly the live bytes."""
+             live_len: Optional[int] = None) -> Dict[str, Any]:
+        """KV_LOAD body: live host rows -> device slabs; INT4 leaves come
+        back as ``PackedRows``.  Pays the link floor on exactly the live
+        bytes."""
         t0 = time.perf_counter()
         lb = self.b_max if live_b is None else \
             max(1, min(int(live_b), self.b_max))
         ll = self.max_len if live_len is None else \
             max(1, min(int(live_len), self.max_len))
-        out: Dict[str, torch.Tensor] = {}
-        for name, arr in self._units[j].items():
-            if self.kinds[j][name] == "kv":
-                cap = self._bucket_len(ll + 1)
-                dev = torch.zeros((arr.shape[0], cap) + arr.shape[2:],
-                                  dtype=arr.dtype, device=self.device)
-                for s in range(lb):
-                    dev[s, :ll].copy_(arr[s, :ll], non_blocking=True)
+        out: Dict[str, Any] = {}
+        for name, m in self._meta[j].items():
+            leaf = self._units[j][name]
+            seq = m.kind == "kv"
+            if isinstance(leaf, _QuantLeaf):
+                out[name] = PackedRows(self._ship(leaf.packed, lb, ll, True),
+                                       self._ship(leaf.scale, lb, ll, True),
+                                       leaf.group, m.dtype, m.feat)
+                self.dequant_bytes_total += lb * ll \
+                    * int(np.prod(m.feat)) * m.itemsize
             else:
-                dev = torch.zeros(arr.shape, dtype=arr.dtype,
-                                  device=self.device)
-                dev[:lb].copy_(arr[:lb], non_blocking=True)
-            out[name] = dev
+                out[name] = self._ship(leaf, lb, ll, seq)
         if self.link is not None:
             self.link.floor(self.load_nbytes(j, lb, ll), t0)
         return out
 
     # ---- saves (transfer-pool thread) --------------------------------------
+    def _quant_into(self, leaf: _QuantLeaf, m: _LeafMeta, rows: torch.Tensor):
+        """Cast rows (..., *feat) to the leaf's compute dtype FIRST (the
+        reference quantizes the cast cache rows), then quantize them."""
+        lead = rows.shape[:rows.ndim - len(m.feat)]
+        flat = rows.to(m.dtype).reshape(*lead, -1)
+        return _quantize_rows(flat.to(torch.float32), leaf.group)
+
+    def save_prefill(self, j: int, slot: int,
+                     rows: Dict[str, torch.Tensor]) -> None:
+        """Scatter one slot's freshly-prefilled rows (name -> ``(n,
+        *feat)`` for kv kinds, n <= max_len; per-slot state otherwise).
+        Positions ``n..`` become zeros, as the reference's zero-padded
+        full-extent payload leaves them; INT4 leaves quantize that whole
+        extent once, so the packed bytes equal the reference's."""
+        for name, m in self._meta[j].items():
+            leaf = self._units[j][name]
+            row = rows[name].to("cpu")
+            if m.kind == "kv" and row.shape[0] < self.max_len:
+                full = torch.zeros((self.max_len,) + tuple(row.shape[1:]),
+                                   dtype=row.dtype)
+                full[:row.shape[0]] = row
+                row = full
+            if isinstance(leaf, _QuantLeaf):
+                leaf.packed[slot], leaf.scale[slot] = self._quant_into(
+                    leaf, m, row)
+            else:
+                leaf[slot] = row.to(m.dtype)
+
     def save_prefill_batch(self, j: int, rows: Dict[str, torch.Tensor],
                            length: Optional[int] = None) -> None:
         """Scatter ALL slots' freshly-prefilled rows at once (name ->
         ``(b, length, *feat)`` for kv kinds, ``(b, *feat)`` for per-slot
         state).  Positions beyond ``length`` reset to zeros."""
-        for name, arr in self._units[j].items():
+        for name, m in self._meta[j].items():
+            leaf = self._units[j][name]
             row = rows[name].to("cpu")
             b = row.shape[0]
-            if self.kinds[j][name] == "kv":
-                ll = row.shape[1] if length is None else int(length)
-                arr[:b, :ll] = row[:, :ll]
-                arr[:b, ll:] = 0
+            if m.kind != "kv":
+                leaf[:b] = row.to(m.dtype)
+                continue
+            ll = row.shape[1] if length is None else int(length)
+            if isinstance(leaf, _QuantLeaf):
+                packed, scale = self._quant_into(leaf, m, row[:, :ll])
+                leaf.packed[:b, :ll], leaf.scale[:b, :ll] = packed, scale
+                leaf.packed[:b, ll:] = 0
+                leaf.scale[:b, ll:] = 0
             else:
-                arr[:b] = row
+                leaf[:b, :ll] = row[:, :ll].to(m.dtype)
+                leaf[:b, ll:] = 0
 
     def save_decode(self, j: int, rows: Dict[str, torch.Tensor],
                     active: Sequence[int], pos: np.ndarray) -> None:
         """Scatter a decode step's new rows: for kv kinds ``rows[name]``
         is ``(live_b, n, *feat)`` (slot s's ``n`` rows at positions
         ``pos[s]..pos[s]+n-1``); other kinds carry the full per-slot
-        state.  One device->host copy per leaf, then a host scatter."""
-        for name, arr in self._units[j].items():
+        state.  One device->host copy per leaf, then a host scatter;
+        INT4 leaves quantize the new rows, the only time they ever are."""
+        for name, m in self._meta[j].items():
+            leaf = self._units[j][name]
             row = rows[name].to("cpu")
-            if self.kinds[j][name] == "kv":
+            if isinstance(leaf, _QuantLeaf):
+                packed, scale = self._quant_into(leaf, m, row)
                 n = row.shape[1]
                 for s in active:
                     p = int(pos[s])
-                    arr[s, p:p + n] = row[s]
+                    leaf.packed[s, p:p + n] = packed[s]
+                    leaf.scale[s, p:p + n] = scale[s]
+            elif m.kind == "kv":
+                n = row.shape[1]
+                for s in active:
+                    p = int(pos[s])
+                    leaf[s, p:p + n] = row[s].to(m.dtype)
             else:
                 for s in active:
-                    arr[s] = row[s]
+                    leaf[s] = row[s].to(m.dtype)
+
+    def truncate(self, slot: int, new_len: int) -> None:
+        """Zero one slot's positions ``new_len..`` in every kv leaf
+        (packed-INT4-safe: zero bytes under zero scales dequantize to
+        zeros).  Other kinds carry no position extent."""
+        nl = max(0, min(int(new_len), self.max_len))
+        for j in range(len(self._units)):
+            for name, m in self._meta[j].items():
+                if m.kind == "kv":
+                    for a in self._arrays(j, name):
+                        a[slot, nl:] = 0
+
+    # ---- slot spill/restore ------------------------------------------------
+    def _spill_keys(self, ns: str, j: int, name: str):
+        if isinstance(self._units[j][name], _QuantLeaf):
+            return (f"{ns}/{j}/{name}#q", f"{ns}/{j}/{name}#s")
+        return (f"{ns}/{j}/{name}",)
+
+    def spill(self, host, ns: str, slot: int) -> None:
+        """Copy one slot's rows into ``host`` under ``{ns}/{unit}/{name}``
+        keys; INT4 rows spill packed (``...#q``/``...#s``), losslessly."""
+        for j in range(len(self._units)):
+            for name in self._units[j]:
+                for key, a in zip(self._spill_keys(ns, j, name),
+                                  self._arrays(j, name)):
+                    host.put(key, a[slot])
+
+    def restore(self, host, ns: str, slot: int) -> None:
+        """Inverse of ``spill``: bring a parked request's rows back into
+        ``slot``, bit for bit."""
+        for j in range(len(self._units)):
+            for name in self._units[j]:
+                for key, a in zip(self._spill_keys(ns, j, name),
+                                  self._arrays(j, name)):
+                    a[slot] = host.get(key)
 
 
 class PhasedKVExtents:

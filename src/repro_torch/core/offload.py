@@ -48,6 +48,9 @@ class Store:
     def peak_bytes(self) -> int:
         return self._peak
 
+    def keys(self):
+        return list(self._items)
+
     def delete(self, key: str):
         item = self._items.pop(key, None)
         if item is not None:

@@ -58,6 +58,20 @@ from repro_torch.core.tasks import Task, TaskType, Trace, VirtualClock
 PIPELINE_MODES = ("performance", "memory", "sequential")
 
 
+def adopt(device: torch.device, loaded):
+    """Tell the caching allocator that the compute stream uses what a
+    transfer worker allocated on its own stream: a tensor, a dict of
+    tensors, or of ``kvstore.PackedRows`` (anything with ``packed`` and
+    ``scale``).  The worker waited for its copy before the task
+    completed, so no stream wait is needed.  Main thread."""
+    if device.type != "cuda" or loaded is None:
+        return
+    cur = torch.cuda.current_stream(device)
+    for t in (loaded.values() if isinstance(loaded, dict) else (loaded,)):
+        for a in ((t.packed, t.scale) if hasattr(t, "packed") else (t,)):
+            a.record_stream(cur)
+
+
 class ThreadPool:
     """3 transfer workers pulling from a two-level (priority) queue.
 

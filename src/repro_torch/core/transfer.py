@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.offload import DiskStore
-from repro_torch.quant.int4 import GROUP, dequantize_int4
+from repro_torch.quant.int4 import GROUP, dequantize_int4, quantize_int4
 
 DEFAULT_BLOCK = 8 * 2**20          # 8MB disk blocks (paper Appendix A)
 
@@ -96,6 +96,26 @@ def int4_group(arr) -> Optional[int]:
         return None
     g = math.gcd(int(shape[0]), GROUP)
     return g if g >= QUANT_MIN_GROUP else None
+
+
+def quantize_unit(tensors: Dict[str, object], device="cpu"
+                  ) -> Dict[str, np.ndarray]:
+    """Quantize a unit's eligible tensors to packed INT4 (``int4_group``):
+    each eligible ``name`` becomes ``name#q`` (packed uint8, half the
+    columns) and ``name#s`` (groupwise f32 scales); the rest pass
+    through.  Quantizes on ``device`` (bit-identical to the CPU result)
+    and returns numpy arrays.  Build time, main thread."""
+    out = {}
+    for name, arr in tensors.items():
+        g = int4_group(arr)
+        if g is None:
+            out[name] = _numpy(arr)
+            continue
+        packed, scale = quantize_int4(
+            torch.as_tensor(arr).to(device, torch.float32), g)
+        out[name + "#q"] = packed.cpu().numpy()
+        out[name + "#s"] = scale.cpu().numpy()
+    return out
 
 
 # ---------------------------------------------------------------------------

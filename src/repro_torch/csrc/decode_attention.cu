@@ -1,7 +1,7 @@
 // One-token GQA decode attention for Hopper (sm_90a).
 //
-//   q (b, h, dh) f32; k/v caches (b, S, hkv, dh) f32; pos (b,) int32
-//   out[r, head] = softmax_{t <= pos[r]}(q . k_t / sqrt(dh)) @ v_t
+//   q (b, h, dh) f32; k/v caches (b, S, hkv, dh) f32 or bf16; pos (b,) int32
+//   out[r, head] = softmax_{t <= pos[r]}(q . k_t / sqrt(dh)) @ v_t   (f32)
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention_kernel (body _kernel), which took a scalar pos, asserted
@@ -18,6 +18,10 @@
 // registers.  A fully masked history gives alpha = 0 and an output of 0.
 // With b * hkv blocks the card is far from full at small batch; splitting
 // S across blocks (flash-decoding) is later work.
+//
+// Caches come as f32 (batch generation) or bf16 (the serving engine's cache
+// dtype); a bf16 value widens to f32 exactly as it is loaded, and all
+// arithmetic stays f32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,9 +45,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// cache element -> f32: f32 as is; bf16 (raw 16 bits) into the top half
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ kc,
-                        const float* __restrict__ vc, const int* __restrict__ pos,
+decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc, const int* __restrict__ pos,
                         float* __restrict__ out, int S, int h, int hkv, int dh,
                         float scale) {
   const int kh = blockIdx.x, bi = blockIdx.y;
@@ -70,8 +81,8 @@ decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   const int last = min(pos[bi], S - 1);  // attend rows 0..last
   const size_t row_stride = (size_t)hkv * dh;
-  const float* kb = kc + (size_t)bi * S * row_stride + (size_t)kh * dh;
-  const float* vb = vc + (size_t)bi * S * row_stride + (size_t)kh * dh;
+  const T* kb = kc + (size_t)bi * S * row_stride + (size_t)kh * dh;
+  const T* vb = vc + (size_t)bi * S * row_stride + (size_t)kh * dh;
   __syncthreads();
 
   for (int t0 = 0; t0 <= last; t0 += TILE) {
@@ -81,8 +92,8 @@ decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       float kv = 0.f, vv = 0.f;
       if (t < nt) {
         const size_t off = (size_t)(t0 + t) * row_stride + d;
-        kv = __ldg(kb + off);
-        vv = __ldg(vb + off);
+        kv = load_f32(kb + off);
+        vv = load_f32(vb + off);
       }
       ks[t * (dh + 1) + d] = kv;
       vs[t * dh + d] = vv;
@@ -135,26 +146,39 @@ decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int decode_attention_launch(const float* q, const float* k, const float* v,
-                            const int* pos, float* out, int b, int S, int h,
-                            int hkv, int dh, float scale, void* stream) {
+template <typename T>
+int launch(const float* q, const void* k, const void* v, const int* pos,
+           float* out, int b, int S, int h, int hkv, int dh, float scale,
+           cudaStream_t stream) {
   const int g = h / hkv;
   const size_t smem = sizeof(float) * ((size_t)g * dh + (size_t)TILE * (dh + 1) +
                                        (size_t)TILE * dh + (size_t)g * TILE + 3 * (size_t)g);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel,
+    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(hkv, b);
-  decode_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, pos, out, S, h, hkv, dh, scale);
+  decode_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v), pos, out, S, h,
+      hkv, dh, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// cache_bf16: 0 for f32 caches, 1 for bf16 caches (passed as raw 16 bits)
+int decode_attention_launch(const float* q, const void* k, const void* v,
+                            const int* pos, float* out, int b, int S, int h,
+                            int hkv, int dh, int cache_bf16, float scale,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cache_bf16)
+    return launch<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, st);
+  return launch<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, st);
 }
 
 const char* kernel_error_string(int e) {

@@ -27,7 +27,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-SOURCES = ("decode_attention", "flash_attention", "int4_matmul")
+SOURCES = ("decode_attention", "decode_attention_int4", "flash_attention",
+           "int4_matmul")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

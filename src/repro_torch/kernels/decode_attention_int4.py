@@ -1,0 +1,93 @@
+"""Single-token GQA decode attention over packed INT4 KV rows.
+
+Replaces the TPU kernel
+``src/repro/kernels/decode_attention.py:decode_attention_int4_kernel``
+with the hand-written CUDA kernel ``csrc/decode_attention_int4.cu`` (see
+its header for what bounds it and how the design answers).  It reads the
+KV store's packed row layout directly and dequantizes in registers; it
+takes a ``(b,)`` ``pos``, and optionally the decode step's own K/V row,
+which it attends unquantized at ``pos[r]`` after the packed rows
+``< pos[r]`` (what both engines compute).  With ``cache_dtype``
+bf16 every value is rounded to bf16 before use (the serving cache's
+compute dtype).  A CPU tensor runs the plain version
+``decode_attention_int4_ref``; a CUDA tensor launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import decode_attention_int4_ref
+
+NAME = "decode_attention_int4"
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                     ctypes.c_void_p]
+
+plain = decode_attention_int4_ref
+
+
+def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
+                          hkv: int, group: int, k_new=None, v_new=None,
+                          cache_dtype=torch.float32) -> torch.Tensor:
+    """q (b, h, dh) f32; packed K/V (b, S, hkv*dh//2) uint8 with scales
+    (b, S, hkv*dh//group) f32; ``pos`` an int or (b,) int tensor;
+    optional fresh rows (b, hkv, dh) -> (b, h, dh) f32 (module
+    docstring)."""
+    b, h, dh = q.shape
+    _, S, F2 = k_packed.shape
+    F = hkv * dh
+    if (h % hkv or F2 * 2 != F or F % group
+            or k_scale.shape != (b, S, F // group)
+            or v_packed.shape != k_packed.shape
+            or v_scale.shape != k_scale.shape or k_packed.shape[0] != b
+            or (k_new is None) != (v_new is None)
+            or (k_new is not None and (tuple(k_new.shape) != (b, hkv, dh)
+                                       or v_new.shape != k_new.shape))):
+        raise ValueError(
+            f"decode_attention_int4: q {tuple(q.shape)}, packed "
+            f"{tuple(k_packed.shape)} {tuple(v_packed.shape)}, scales "
+            f"{tuple(k_scale.shape)} {tuple(v_scale.shape)}, hkv {hkv}, "
+            f"group {group}, fresh rows "
+            f"{None if k_new is None else tuple(k_new.shape)}")
+    if cache_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_attention_int4: cache_dtype {cache_dtype}")
+    if q.device.type == "cpu":
+        return plain(q, k_packed, k_scale, v_packed, v_scale, pos, hkv=hkv,
+                     group=group, k_new=k_new, v_new=v_new,
+                     cache_dtype=cache_dtype)
+    if (h // hkv) * dh > 32 * 128:
+        raise ValueError("decode_attention_int4: needs (h // hkv) * dh <= "
+                         "4096")
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(-1)
+        pos_t = pos_t.expand(b).contiguous()
+    else:
+        pos_t = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
+    has_new = k_new is not None
+    if has_new:
+        k_new = k_new.to(torch.float32).contiguous()
+        v_new = v_new.to(torch.float32).contiguous()
+    tensors = (q, k_packed, k_scale, v_packed, v_scale, pos_t) + (
+        (k_new, v_new) if has_new else ())
+    _build.require_cuda(NAME, *tensors)
+    if (q.dtype, k_packed.dtype, v_packed.dtype, k_scale.dtype,
+            v_scale.dtype) != (torch.float32, torch.uint8, torch.uint8,
+                               torch.float32, torch.float32):
+        raise ValueError("decode_attention_int4: needs f32 q, uint8 packed "
+                         "rows and f32 scales")
+    out = torch.empty_like(q)
+    fn = _build.launcher(NAME, "decode_attention_int4_launch", _ARGS)
+    err = fn(q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(),
+             v_packed.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
+             k_new.data_ptr() if has_new else None,
+             v_new.data_ptr() if has_new else None, out.data_ptr(),
+             b, S, h, hkv, dh, group, int(has_new),
+             int(cache_dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
+             _build.stream_ptr(q.device))
+    _build.check(NAME, err)
+    _build.LAUNCHES[NAME] += 1
+    return out

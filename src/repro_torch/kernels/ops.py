@@ -8,14 +8,18 @@ each wrapper's kernel launches; ``reset_launches`` zeroes them.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref as R
 from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention_int4 import decode_attention_int4
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int4_matmul import int4_matmul
 
 __all__ = ["use_kernels", "int4_matmul_op",
-           "flash_attention_op", "decode_attention_op", "LAUNCHES",
+           "flash_attention_op", "decode_attention_op",
+           "decode_attention_int4_op", "LAUNCHES",
            "reset_launches"]
 
 _STATE = {"enabled": True}
@@ -43,3 +47,15 @@ def decode_attention_op(q, k_cache, v_cache, pos):
     if not _STATE["enabled"]:
         return R.decode_attention_ref(q, k_cache, v_cache, pos)
     return decode_attention(q, k_cache, v_cache, pos)
+
+
+def decode_attention_int4_op(q, k_packed, k_scale, v_packed, v_scale, pos, *,
+                             hkv: int, group: int, k_new=None, v_new=None,
+                             cache_dtype=torch.float32):
+    kw = dict(hkv=hkv, group=group, k_new=k_new, v_new=v_new,
+              cache_dtype=cache_dtype)
+    if not _STATE["enabled"]:
+        return R.decode_attention_int4_ref(q, k_packed, k_scale, v_packed,
+                                           v_scale, pos, **kw)
+    return decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale,
+                                 pos, **kw)

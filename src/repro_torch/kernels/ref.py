@@ -4,7 +4,10 @@ held against on the card, and what the wrappers run for CPU tensors.
 They mirror the JAX package's jnp code: ``ref_attention`` and
 ``attn_partials`` are ``models/attention.py``'s, the three ``*_ref``
 functions are ``kernels/ref.py``'s (``decode_attention_ref`` also takes
-a ragged ``(b,)`` ``pos``).
+a ragged ``(b,)`` ``pos``).  ``decode_attention_int4_ref`` is the INT4-KV
+decode the engines compute: dequantize the packed history with the KV
+store's codec, round to the cache dtype, write the step's fresh row at
+``pos``, then ``decode_attention_ref``.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.core.kvstore import _dequant_impl
 from repro_torch.models.common import NEG_INF, finalize_partials
 from repro_torch.quant.int4 import dequantize_int4
 
@@ -96,3 +100,30 @@ def decode_attention_ref(q, k_cache, v_cache, pos):
     valid = (kv_pos[None, :] <= pos[:, None])[:, None, :]     # (b, 1, S)
     m, l, o = attn_partials(q[:, None], k_cache, v_cache, valid)
     return finalize_partials(m, l, o)[:, :, 0].to(q.dtype)   # (b, h, dh)
+
+
+def decode_attention_int4_ref(q, k_packed, k_scale, v_packed, v_scale, pos,
+                              *, hkv: int, group: int, k_new=None,
+                              v_new=None, cache_dtype=torch.float32):
+    """q (b, h, dh); packed history (b, S, F//2) uint8 with scales
+    (b, S, F//group) f32, F = hkv * dh; ``pos`` an int or (b,) tensor.
+    Without a fresh row, row r attends packed positions ``<= pos[r]``;
+    with ``k_new``/``v_new`` (b, hkv, dh) it attends positions
+    ``< pos[r]`` and the fresh row at ``pos[r]``.  Dequantized values and
+    the fresh row are cast to ``cache_dtype`` first."""
+    b, h, dh = q.shape
+    S = k_packed.shape[1]
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+    kc, vc = (_dequant_impl(p, s, group).reshape(b, S, hkv, dh)
+              .to(cache_dtype) for p, s in ((k_packed, k_scale),
+                                            (v_packed, v_scale)))
+    if k_new is not None:
+        need = int(pos.max()) + 1
+        if need > S:                          # room for the fresh row
+            pad = (0, 0, 0, 0, 0, need - S)
+            kc = torch.nn.functional.pad(kc, pad)
+            vc = torch.nn.functional.pad(vc, pad)
+        rows = torch.arange(b, device=q.device)
+        kc[rows, pos.long()] = k_new.to(cache_dtype)
+        vc[rows, pos.long()] = v_new.to(cache_dtype)
+    return decode_attention_ref(q, kc, vc, pos)

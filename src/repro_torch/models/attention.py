@@ -5,7 +5,11 @@
 ``decode_attention`` is the single-shard decode step of the JAX
 package's ``models/attention.py``: write the step's new K/V row at
 ``pos`` (a scalar or a ragged ``(b,)`` tensor), then attend through the
-kernel dispatch.  Layout BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
+kernel dispatch.  ``decode_attention_packed`` is the same step over a
+``kv_mode="int4"`` history that stays packed (``kvstore.PackedRows``):
+the fresh row is not quantized before it is attended, as in the
+reference, which writes it into its dequantized cache.  Layout BSHD:
+q (b, sq, h, dh), k/v (b, sk, hkv, dh).
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attn_partials, ref_attention
 
-__all__ = ["ref_attention", "attn_partials", "decode_attention"]
+__all__ = ["ref_attention", "attn_partials", "decode_attention",
+           "decode_attention_packed"]
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
@@ -35,3 +40,18 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
         v_cache[:, int(pos)] = v_new[:, 0].to(v_cache.dtype)
     out = ops.decode_attention_op(q[:, 0].contiguous(), k_cache, v_cache, pos)
     return out[:, None], k_cache, v_cache
+
+
+def decode_attention_packed(q, k_rows, v_rows, k_new, v_new, pos):
+    """q (b, 1, h, dh); ``k_rows``/``v_rows`` ``PackedRows`` of the history
+    (b, S, F//2); k_new/v_new (b, 1, hkv, dh); pos: int or (b,) tensor.
+    Row r attends the packed rows ``< pos[r]`` and its fresh row at
+    ``pos[r]``, every value at the rows' compute dtype.  Returns
+    (b, 1, h, dh)."""
+    hkv = k_new.shape[2]
+    out = ops.decode_attention_int4_op(
+        q[:, 0].contiguous(), k_rows.packed, k_rows.scale, v_rows.packed,
+        v_rows.scale, pos, hkv=hkv, group=k_rows.group,
+        k_new=k_new[:, 0].contiguous(), v_new=v_new[:, 0].contiguous(),
+        cache_dtype=k_rows.dtype)
+    return out[:, None]

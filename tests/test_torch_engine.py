@@ -28,12 +28,13 @@ PCFG = PB.ModelConfig(**KW, pattern=(PB.LayerSpec(PB.ATTN, PB.DENSE),))
 B, PROMPT, GEN, MAX_LEN = 2, 12, 6, 48
 
 
-def _plans(tmp, placement, pipeline, quant, fused, depth, cache_on="host"):
+def _plans(tmp, placement, pipeline, quant, fused, depth, cache_on="host",
+           kv_mode=None):
     spec = EngineSpec(arch="pipo-tiny", cfg=JCFG, offload=True,
                       placement=placement, b_max=B, max_len=MAX_LEN,
                       pipeline=pipeline, quant=quant, fused_int4=fused,
-                      depth=depth, cache_on=cache_on, seed=0,
-                      disk_root=str(tmp / "jax_disk"))
+                      depth=depth, cache_on=cache_on, kv_mode=kv_mode,
+                      seed=0, disk_root=str(tmp / "jax_disk"))
     jplan = spec.resolve()
     pplan = dataclasses.replace(ResolvedPlan.from_json(jplan.to_json()),
                                 cfg=PCFG, disk_root=str(tmp / "port_disk"))
@@ -78,11 +79,34 @@ GRID = [  # placement, pipeline, quant, fused_int4, depth, cache_on
 ]
 
 
+# kv_mode="int4": packed KV rows, decode through decode_attention_int4
+GRID_KV_INT4 = [  # pipeline, quant, depth
+    ("performance", None, 1), ("performance", None, 2),
+    ("sequential", None, 1), ("performance", "int4", 1),
+    ("performance", "int4", 2), ("sequential", "int4", 1),
+]
+
+
 @pytest.mark.parametrize("placement,pipeline,quant,fused,depth,cache_on", GRID)
 def test_port_matches_reference(tmp_path, placement, pipeline, quant, fused,
                                 depth, cache_on):
-    jplan, pplan = _plans(tmp_path, placement, pipeline, quant, fused, depth,
-                          cache_on)
+    _check_parity(*_plans(tmp_path, placement, pipeline, quant, fused, depth,
+                          cache_on))
+
+
+@pytest.mark.parametrize("pipeline,quant,depth", GRID_KV_INT4)
+def test_port_matches_reference_kv_int4(tmp_path, pipeline, quant, depth):
+    jplan, pplan = _plans(tmp_path, "host", pipeline, quant, True, depth,
+                          kv_mode="int4")
+    assert pplan.kv_mode == "int4"
+    plm = _check_parity(jplan, pplan)
+    assert plm.kvstore.leaf_meta(0)["k"].quant
+    assert plm.kvstore.dequant_bytes_total > 0
+
+
+def _check_parity(jplan, pplan):
+    """Greedy tokens and the virtual-clock trace of the port equal the
+    JAX engine's on its weights; returns the port engine run on threads."""
     jlm = JaxLM(jplan)
     jpool = JaxVirtualPool(3)
     jtoks, _ = jlm.generate(_prompt(), GEN, pool=jpool)
@@ -105,6 +129,7 @@ def test_port_matches_reference(tmp_path, placement, pipeline, quant, fused,
     toks_threads, stats = plm2.generate(_prompt(), GEN)
     np.testing.assert_array_equal(toks_threads, jtoks)
     assert 0 < stats["compute_busy"] <= 1.0
+    return plm2
 
 
 @pytest.mark.parametrize("quant", [None, "int4"])
@@ -132,8 +157,8 @@ def test_plan_json_roundtrip_and_gates(tmp_path):
     assert ResolvedPlan.from_json(pplan.to_json()) == pplan
     with pytest.raises(SpecError):
         ResolvedPlan.from_json({**pplan.to_json(), "bogus": 1})
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_lm(dataclasses.replace(pplan, kv_mode="int4"), device="cpu")
+    assert build_lm(dataclasses.replace(pplan, kv_mode="int4"),
+                    device="cpu").kvstore.kv_mode == "int4"
     with pytest.raises(SpecError):
         build_lm(dataclasses.replace(pplan, kv_mode="int4",
                                      cache_on="device"), device="cpu")

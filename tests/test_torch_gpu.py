@@ -65,6 +65,62 @@ def test_decode_attention_kernel(dev, S, pos):
                                plain(q, kc, vc, p), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("S,pos", [(160, [159, 0, 77, 131]),
+                                   (100, [0, 50, 99, 77])])
+def test_decode_attention_kernel_bf16_caches(dev, S, pos):
+    """bf16 caches (the serving cache): f32 arithmetic in the kernel, the
+    plain version rounds probabilities to bf16 (atol 2e-2)."""
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    rng = np.random.default_rng(S + 1)
+    q = _t(rng, dev, 4, 32, 64)
+    kc, vc = (_t(rng, dev, 4, S, 4, 64).bfloat16() for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(decode_attention(q, kc, vc, p),
+                               plain(q, kc, vc, p), rtol=0, atol=2e-2)
+
+
+# (b, S, h, hkv, dh, pos): main-path, S not a multiple of 32, g = 16
+# (F = 48), and g = 32 spanning two heads (dh = 16, F = 64)
+INT4_CASES = [(4, 160, 32, 4, 64, [159, 0, 77, 131]),
+              (4, 100, 32, 4, 64, [0, 50, 99, 77]),
+              (3, 77, 6, 3, 16, [76, 0, 40]),
+              (2, 64, 8, 4, 16, [63, 5])]
+
+
+@pytest.mark.parametrize("b,S,h,hkv,dh,pos", INT4_CASES)
+@pytest.mark.parametrize("fresh,cdt", [(False, torch.float32),
+                                       (True, torch.float32),
+                                       (True, torch.bfloat16)])
+def test_decode_attention_int4_kernel(dev, b, S, h, hkv, dh, pos, fresh,
+                                      cdt):
+    """Against the plain version (atol 2e-5 at f32, 2e-2 with bf16
+    rounding) and, without a fresh row at f32, against decode_attention
+    over the dequantized cache (atol 1e-6)."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    rng = np.random.default_rng(S + h)
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, h, dh)
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    kn, vn = ((_t(rng, dev, b, hkv, dh), _t(rng, dev, b, hkv, dh)) if fresh
+              else (None, None))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
+    out = decode_attention_int4(q, kq, ks, vq, vs, p, **kw)
+    tol = 2e-5 if cdt == torch.float32 else 2e-2
+    torch.testing.assert_close(out, plain(q, kq, ks, vq, vs, p, **kw),
+                               rtol=0, atol=tol)
+    if not fresh:
+        kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+        vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+        torch.testing.assert_close(out, decode_attention(q, kd, vd, p),
+                                   rtol=0, atol=1e-6)
+
+
 def test_kernel_rejects_cpu_mix(dev):
     from repro_torch.kernels.int4_matmul import int4_matmul
     x = torch.zeros(4, 128, device=dev)

@@ -3,7 +3,9 @@ kernels (interpret mode) and jnp oracles, on the same numpy inputs.
 
 Shape sweeps and tolerances follow tests/test_kernels.py: atol 2e-5 for
 both fp32 attentions, rtol 1e-5 with atol 1e-5 * max|ref| for the fp32
-INT4 matmul (the two sides sum in different orders).
+INT4 matmul (the two sides sum in different orders), atol 1e-6 for the
+INT4-KV decode against the fp decode over the dequantized cache, and
+2e-2 where caches are bf16 (test_kernels.py's bf16 tolerance).
 """
 import numpy as np
 import pytest
@@ -12,7 +14,11 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.kvstore import dequantize_kv_rows as jax_dequant_rows  # noqa: E402
+from repro.core.kvstore import kv_group, quantize_kv_rows  # noqa: E402
 from repro.kernels.decode_attention import decode_attention_kernel  # noqa: E402
+from repro.kernels.decode_attention import decode_attention_int4_kernel  # noqa: E402
+from repro.models.attention import decode_attention as jax_decode_step  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.int4_matmul import int4_matmul as jax_int4  # noqa: E402
 from repro.kernels.ref import decode_attention_ref as jax_decode_ref  # noqa: E402
@@ -20,6 +26,7 @@ from repro.kernels.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
 from repro.quant.int4 import quantize_int4 as jax_quantize  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention_int4 import decode_attention_int4  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.int4_matmul import int4_matmul, split_plan  # noqa: E402
 
@@ -154,3 +161,140 @@ def test_use_kernels_false_is_plain_path():
         ops.use_kernels(True)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# decode over packed INT4 KV rows, and decode over bf16 caches
+# ---------------------------------------------------------------------------
+
+
+def _packed_cache(rng, b, S, hkv, dh):
+    """(packed, scale) of random K and V rows, and their group."""
+    F = hkv * dh
+    g = kv_group(F)
+    out = [quantize_kv_rows(_normal(rng, b, S, F), g) for _ in range(2)]
+    return out[0], out[1], g
+
+
+def _deq(pk_sc, g, shape, dtype=jnp.float32):
+    return jnp.asarray(jax_dequant_rows(*pk_sc, g, dtype).reshape(shape))
+
+
+@pytest.mark.parametrize("pos", [0, 63, 127])
+@pytest.mark.parametrize("h,hkv", [(8, 2), (4, 4)])
+def test_decode_int4_matches_pallas(pos, h, hkv):
+    """The plain INT4-KV decode against the Pallas INT4 kernel in
+    interpret mode and the fp kernel over the dequantized cache (atol
+    1e-6), and against the oracle (2e-5): test_kernels.py:77-106."""
+    rng = np.random.default_rng(pos + 10 * h)
+    b, S, dh = 2, 128, 16
+    q = _normal(rng, b, h, dh)
+    (kq, ks), (vq, vs), g = _packed_cache(rng, b, S, hkv, dh)
+    out = decode_attention_int4(_t(q), _t(kq), _t(ks), _t(vq), _t(vs), pos,
+                                hkv=hkv, group=g).numpy()
+    pallas = np.asarray(decode_attention_int4_kernel(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks), jnp.asarray(vq),
+        jnp.asarray(vs), pos, hkv=hkv, group=g, block_s=32, interpret=True))
+    kd = _deq((kq, ks), g, (b, S, hkv, dh))
+    vd = _deq((vq, vs), g, (b, S, hkv, dh))
+    fp = np.asarray(decode_attention_kernel(jnp.asarray(q), kd, vd, pos,
+                                            block_s=32, interpret=True))
+    oracle = np.asarray(jax_decode_ref(jnp.asarray(q)[:, None], kd, vd,
+                                       pos))[:, 0]
+    np.testing.assert_allclose(out, pallas, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out, fp, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out, oracle, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("hkv,dh", [(2, 16), (3, 16), (4, 16)])
+def test_decode_int4_ragged_pos_row_by_row(hkv, dh):
+    """A (b,) pos: each row equals the Pallas INT4 kernel run on that row
+    alone at its own scalar position.  F = 48 gives g = 16; F = 64 gives
+    g = 32, one group spanning two heads."""
+    rng = np.random.default_rng(hkv)
+    pos = [127, 0, 45, 96]
+    b, S, h = len(pos), 128, 2 * hkv
+    q = _normal(rng, b, h, dh)
+    (kq, ks), (vq, vs), g = _packed_cache(rng, b, S, hkv, dh)
+    out = decode_attention_int4(
+        _t(q), _t(kq), _t(ks), _t(vq), _t(vs),
+        torch.tensor(pos, dtype=torch.int32), hkv=hkv, group=g).numpy()
+    for r, p in enumerate(pos):
+        sl = slice(r, r + 1)
+        ref = np.asarray(decode_attention_int4_kernel(
+            jnp.asarray(q[sl]), jnp.asarray(kq[sl]), jnp.asarray(ks[sl]),
+            jnp.asarray(vq[sl]), jnp.asarray(vs[sl]), p, hkv=hkv, group=g,
+            block_s=32, interpret=True))
+        np.testing.assert_allclose(out[sl], ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16"])
+@pytest.mark.parametrize("S,pos", [(64, [0, 63, 17]), (77, [76, 5, 40])])
+def test_decode_int4_fresh_row_matches_decode_step(cache, S, pos):
+    """The fresh-row form (the engines' decode step): attend packed rows
+    < pos and the step's own row at pos, every value at the cache dtype
+    — against the JAX step: dequantize the rows to the cache dtype, then
+    ``models.attention.decode_attention`` writes the fresh row at the
+    ragged pos and attends (atol 2e-5 at f32, 2e-2 at bf16)."""
+    rng = np.random.default_rng(S)
+    b, h, hkv, dh = len(pos), 8, 2, 16
+    jdt, pdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[cache]
+    q = _normal(rng, b, h, dh)
+    (kq, ks), (vq, vs), g = _packed_cache(rng, b, S, hkv, dh)
+    kn, vn = _normal(rng, b, hkv, dh), _normal(rng, b, hkv, dh)
+    out = decode_attention_int4(
+        _t(q), _t(kq), _t(ks), _t(vq), _t(vs),
+        torch.tensor(pos, dtype=torch.int32), hkv=hkv, group=g,
+        k_new=_t(kn), v_new=_t(vn), cache_dtype=pdt).numpy()
+    ref, _, _ = jax_decode_step(
+        jnp.asarray(q)[:, None], _deq((kq, ks), g, (b, S, hkv, dh), jdt),
+        _deq((vq, vs), g, (b, S, hkv, dh), jdt), jnp.asarray(kn)[:, None],
+        jnp.asarray(vn)[:, None], jnp.asarray(pos, jnp.int32))
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32)[:, 0],
+                               atol=2e-5 if cache == "f32" else 2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("S,pos", [(128, [0, 127, 63]), (77, [5, 76, 40])])
+def test_decode_attention_bf16_caches(S, pos):
+    """bf16 caches (the serving cache) against the JAX decode step over
+    the same bf16 cache, row by row at ragged positions (atol 2e-2)."""
+    rng = np.random.default_rng(S + 1)
+    b, h, hkv, dh = len(pos), 8, 2, 16
+    q = _normal(rng, b, h, dh)
+    kc, vc = (np.asarray(jnp.asarray(_normal(rng, b, S, hkv, dh))
+                         .astype(jnp.bfloat16)) for _ in range(2))
+    out = decode_attention(_t(q), torch.from_numpy(
+        np.asarray(kc, np.float32)).bfloat16(), torch.from_numpy(
+        np.asarray(vc, np.float32)).bfloat16(),
+        torch.tensor(pos, dtype=torch.int32)).numpy()
+    p = np.asarray(pos)
+    rows = np.arange(b)
+    ref, _, _ = jax_decode_step(
+        jnp.asarray(q)[:, None], jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(kc[rows, p])[:, None], jnp.asarray(vc[rows, p])[:, None],
+        jnp.asarray(p, jnp.int32))
+    np.testing.assert_allclose(out, np.asarray(ref, np.float32)[:, 0],
+                               atol=2e-2, rtol=0)
+
+
+def test_decode_int4_op_plain_path_and_shape_checks():
+    """``use_kernels(False)`` routes the INT4-KV op to its plain version
+    with no launch; malformed inputs raise before any dispatch."""
+    rng = np.random.default_rng(3)
+    q = _t(_normal(rng, 2, 4, 16))
+    (kq, ks), (vq, vs), g = _packed_cache(rng, 2, 32, 2, 16)
+    args = (q, _t(kq), _t(ks), _t(vq), _t(vs), 20)
+    ops.reset_launches()
+    a = ops.decode_attention_int4_op(*args, hkv=2, group=g)
+    ops.use_kernels(False)
+    try:
+        b_ = ops.decode_attention_int4_op(*args, hkv=2, group=g)
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(a, b_, rtol=0, atol=0)
+    assert sum(ops.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError):
+        decode_attention_int4(*args, hkv=4, group=g)
+    with pytest.raises(ValueError):
+        decode_attention_int4(*args, hkv=2, group=g, k_new=q[:, :2])
