@@ -51,6 +51,7 @@ SRC = ROOT / "src"
 
 HBM_BPS = 3.35e12        # H100 SXM device memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS = 495e12      # H100 SXM TF32 on the tensor cores, dense
 ATTN_ATOL = 2e-5         # tests/test_kernels.py, fp32 attentions
 BF16_ATOL = 2e-2         # tests/test_kernels.py, bf16 attention
 INT4_KV_ATOL = 1e-6      # tests/test_kernels.py:101, int4 KV vs dequantized
@@ -156,8 +157,11 @@ def timings(torch, kernel, plain, library, iters: int) -> dict:
             "call_ms": call_ms(torch, kernel, iters)}
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BPS, flops / FP32_FLOPS
+def bound_ms(nbytes: float, flops: float, rate: float = None):
+    """The larger of bytes over the memory rate and operations over the
+    peak rate of their type (fp32 outside the tensor cores unless
+    ``rate`` says otherwise), in ms, and which of the two it is."""
+    t_b, t_f = nbytes / HBM_BPS, flops / (rate or FP32_FLOPS)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -166,18 +170,20 @@ def bound_ms(nbytes: float, flops: float):
 # ---------------------------------------------------------------------------
 
 def check_int4(torch, rng, dev):
-    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    """``int4_matmul`` against its plain version (rtol 1e-5, atol 1e-5 *
+    max|ref|), timed at every main-path shape: decode M = 4 (the kernels
+    line's head: 2048x2048), batch prefill M = 512 and serving prefill
+    M = 37 and 160, each at the four projection shapes."""
+    from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
-    cases = [(M, K, N, 128, True) for M in (4, 512)
-             for K, N in ((2048, 2048), (2048, 256), (2048, 5632),
-                          (5632, 2048))]
-    # serving prefill: one slot's prompt, M = its length
-    cases += [(M, K, N, 128, False) for M in (37, 160)
-              for K, N in ((2048, 2048), (2048, 256), (2048, 5632),
-                           (5632, 2048))]
-    cases += [(1, 2048, 2048, 128, False), (3, 384, 256, 32, False),
-              (16, 512, 384, 128, False), (512, 384, 200, 32, False),
-              (3, 96, 10, 32, False), (16, 64, 6, 32, False)]
+    shapes = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
+    cases = [(M, K, N, 128, True if (M, K, N) == (4, 2048, 2048) else
+              f"M={M} {K}x{N}") for M in (4, 512, 37, 160)
+             for K, N in shapes]
+    cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
+              (16, 512, 384, 128, None), (512, 384, 200, 32, None),
+              (3, 96, 10, 32, None), (16, 64, 6, 32, None),
+              (17, 5632, 5632, 128, None), (16, 5632, 256, 128, None)]
     rows = []
     for M, K, N, G, main in cases:
         x = torch.tensor(rng.standard_normal((M, K)), dtype=torch.float32,
@@ -187,12 +193,15 @@ def check_int4(torch, rng, dev):
         packed, scale = quantize_int4(w, G)
         out = int4_matmul(x, packed, scale, group=G)
         ref = plain(x, packed, scale, G)
+        again = int4_matmul(x, packed, scale, group=G)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = INT4_RTOL * ref.abs() + INT4_RTOL * ref.abs().max()
         ok = bool(((out - ref).abs() <= tol).all())
         row = dict(shape=f"M={M} K={K} N={N} G={G}", max_abs_err=err,
-                   ok=ok, main=main)
+                   err_over_max=err / ref.abs().max().item(),
+                   deterministic=bool(torch.equal(out, again)),
+                   ok=ok and bool(torch.equal(out, again)), main=main)
         if main:
             wd = dequantize_int4(packed, scale, torch.float32, G)
             row.update(timings(
@@ -200,7 +209,15 @@ def check_int4(torch, rng, dev):
                 lambda: plain(x, packed, scale, G),
                 lambda: torch.matmul(x, wd), 50 if M <= 16 else 10))
             nbytes = 4 * M * K + K * N // 2 + 4 * (K // G) * N + 4 * M * N
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * M * K * N)
+            flops = 2.0 * M * K * N
+            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
+            if M > SMALL_M:    # two TF32 terms on the tensor cores
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, 2 * flops, TF32_FLOPS)
+                row["bound_rate"] = "tf32 x2 terms, 495 TFLOP/s"
+            else:
+                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+                row["bound_rate"] = "fp32, 67 TFLOP/s"
         rows.append(row)
     return rows
 
@@ -343,7 +360,19 @@ def check_decode_int4(torch, rng, dev):
               (3, 77, 6, 3, 16, [76, 0, 40], False, torch.float32, None),
               (3, 77, 6, 3, 16, [76, 0, 40], True, torch.bfloat16, None),
               (2, 64, 8, 4, 16, [63, 5], False, torch.float32, None),
-              (2, 64, 8, 4, 16, [63, 5], True, torch.float32, None)]
+              (2, 64, 8, 4, 16, [63, 5], True, torch.float32, None),
+              # the S split: chunks past pos[r], pos 0 on every row, pos
+              # inside the first chunk, S not a multiple of the chunk
+              (B, 256, 32, 4, 64, [3, 40, 0, 255], False, torch.float32,
+               None),
+              (B, 256, 32, 4, 64, [3, 40, 0, 255], True, torch.bfloat16,
+               None),
+              (B, S, 32, 4, 64, [0, 0, 0, 0], False, torch.float32, None),
+              (B, S, 32, 4, 64, [0, 0, 0, 0], True, torch.float32, None),
+              (B, 33, 32, 4, 64, [32, 0, 31, 1], False, torch.float32, None),
+              (B, 33, 32, 4, 64, [32, 0, 31, 1], True, torch.float32, None),
+              (B, 1024, 32, 4, 64, [1023, 700, 0, 64], False, torch.float32,
+               None)]
     rows = []
     for b, S_, h, hkv, dh, pos, fresh, cdt, timed in cases:
         F, mk = hkv * dh, (lambda *s: torch.tensor(
@@ -696,10 +725,14 @@ def main(argv=None) -> int:
                               "per_source_s": secs}}))
     for name in _build.SOURCES:
         logf = _build.build_dir() / f"{name}.log"
+        fn = "?"
         if logf.exists():
             for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1] if "'" in line else line
+                elif "registers" in line or "spill" in line:
+                    log(f"ptxas {name} {fn}: "
+                        f"{line.split(':', 1)[-1].strip()}")
 
     # 3. kernels vs plain versions
     rng = np.random.default_rng(0)
@@ -796,7 +829,8 @@ def main(argv=None) -> int:
         for v in variants:
             entry[v["main"]] = {k: v[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "call_ms",
-                "bound_ms", "bound_by", "max_abs_err")}
+                "bound_ms", "bound_by", "bound_rate", "bound_fp32_ms",
+                "max_abs_err") if k in v}
         kernels.append(entry)
     torch.cuda.synchronize()
     log(f"card: {card}")

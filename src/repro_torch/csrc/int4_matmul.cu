@@ -6,221 +6,567 @@
 // byte j, column 2j+1 in the high nibble (the JAX package's quant/int4.py
 // layout).  Replaces the TPU kernel src/repro/kernels/int4_matmul.py:
 // int4_matmul (body _kernel), whose grid walked K sequentially with an
-// accumulator in VMEM.
+// accumulator in VMEM.  Both paths split K in whole quantization groups
+// across the blocks of one thread-block cluster (at most 8) and sum the
+// slices from distributed shared memory in rank order, inside the one
+// launch: deterministic, no atomics, no scratch in device memory.
 //
-// What bounds it on this card, and what the design does about it:
-//  * Decode (M = batch < 16) is a matrix-vector product: it reads K*N/2
-//    packed bytes once and does 2*M*K*N flops, far below the card's
-//    flop-per-byte balance, so it is bound by bytes.  Packed bytes are the
-//    only weight traffic: each lane loads 4 packed bytes (8 columns) per
-//    row and unpacks the nibbles in registers.  A matrix this small
-//    (<= 6 MB) cannot fill 132 SMs with one block per column tile, so K is
-//    split across blocks in whole quantization groups; a second small
-//    kernel sums the slices in a fixed order (deterministic, no atomics).
-//  * Prefill (M = batch * prompt) is bound by fp32 operations (the
-//    slice runs in fp32: no tensor cores, whose TF32 would cost the
-//    1e-5 tolerance).  A classic shared-memory tiled SGEMM: 64x64 output
-//    tiles, 32-deep K steps, 4x4 outputs per thread; each K step dequantizes
-//    its 32x64 weight tile once into shared memory for all 64 rows.
-// Tails in M, N and K are masked; K % G == 0 and an even N are required.
+// Decode (M <= 16, int4_gemv_kernel): bound by bytes.  A matrix-vector
+// product reads K*N/2 packed bytes once for 2*M*K*N flops, far below the
+// card's flop-per-byte balance.  Each block copies its whole slice (packed
+// rows, x, scales) into shared memory with cp.async, every copy in flight
+// at once, so the slice costs one memory round trip; threads then unpack 16
+// columns of a row from one 8-byte shared load, nibbles to floats with the
+// magic-number conversion (0x4B000000 | nibble is 2^23 + nibble), scales
+// read once per group.  Rows that share columns are summed by warp
+// shuffles and then across warps in warp order; each block sends its sums
+// to the rank that owns them and, after one cluster barrier, every rank
+// adds its inbox in rank order.  kernels/int4_matmul.py decode_plan picks
+// the column tile (8 to 128 packed bytes) and the K split.  Where the time
+// goes (tools/int4_phases.py, PERF.md): mostly to the unpacking and
+// multiply-adds (about 8 instructions for 4 multiply-adds per weight),
+// then to the copy round trip and the two reductions, not to the bytes.
+//
+// Prefill (M > 16, int4_tc_kernel): bound by operations, run on the tensor
+// cores (wgmma m64n128k8 TF32, f32 accumulation) at fp32 accuracy.  The
+// weights are exact small integers q in [-8, 7], exact in TF32, so the
+// scale factors out of each group's product:
+//   out[m, n] = sum_g scale[g, n] * sum_{k in g} x[m, k] * q[k, n].
+// x is split into x_hi = tf32(x) and x_lo = tf32(x - x_hi); each group's
+// sum runs as two products (x_lo first, then x_hi) into a group
+// accumulator, which folds into the output accumulator in registers at the
+// group's end (acc = fma(scale, acc_g, acc)), groups in order.  One
+// warpgroup per 64 x 128 output tile: raw x and packed tiles arrive through
+// a 4-deep cp.async ring; each 32-deep k tile is converted into shared
+// operand slabs (x_hi, x_lo, q in the K-major no-swizzle core-matrix
+// layout) while the previous tile's wgmmas run.
+// Error analysis: x_hi keeps 11 significant bits, x_lo the next 11, so
+// |x - x_hi - x_lo| <= 2^-22 |x|; x_hi * q and x_lo * q (<= 15 bits) are
+// exact, and the tensor core adds them in f32 (its internal alignment
+// truncates, a relative error of a few 2^-23 per step).  Over a group of
+// 128 terms that is ~1e-6 of sum |x q|, against the tolerance
+// rtol 1e-5 + 1e-5 * max|ref| (tests/test_kernels.py:29); the CPU test
+// test_torch_kernels.py emulates this arithmetic against the Pallas
+// kernel at K = 2048 and 5632, and shows one term is not enough.  Bound:
+// 2 TF32 terms at 495 TFLOP/s.
+//
+// ptxas (-Xptxas -v, sm_90a): registers, shared memory and spills are
+// printed by chip_smoke.py from the build log and recorded in PERF.md.
+//
+// Requires K % G == 0 and an even N; decode a power-of-two G, prefill
+// G % 8 == 0.  Tails in M, N and K are masked.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// ---- small M: split-K matrix-vector ----------------------------------------
+// ---- shared helpers -----------------------------------------------------------
+__device__ __forceinline__ float nib_f(uint32_t v) {   // v in [0, 15] -> v - 8
+  return __uint_as_float(0x4B000000u | v) - 8388616.0f;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// cp.async of B bytes (16, 8 or 4) of which the first n come from src and
+// the rest are zero
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int n) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(B), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- decode: M <= 16, split-K matrix-vector in one cluster --------------------
 constexpr int GV_THREADS = 256;
 constexpr int GV_WARPS = GV_THREADS / 32;
-constexpr int GV_MT = 4;                        // rows of x per block
-constexpr int GV_BYTES = 4;                     // packed bytes per lane
-constexpr int GV_COLS = 32 * GV_BYTES * 2;      // 256 output columns per block
+constexpr int GV_MT = 4;            // rows of x per block
+constexpr int GV_LB = 8;            // packed bytes per thread and row
+constexpr int GV_C = 2 * GV_LB;     // columns per thread
 
+// grid (column tiles, splits, ceil(M / 4)), cluster (1, splits, 1).  A
+// block owns 2^lg_tpr * 8 packed bytes of every row of its K slice and
+// copies the whole slice (weights, x, scales) into shared memory with
+// cp.async, every copy in flight at once; 2^lg_tpr threads share a row and
+// GV_THREADS / 2^lg_tpr rows are summed in parallel.  flags: bit 0 = packed rows
+// in 16-byte (2^lg_tpr >= 2) or 8-byte chunks, else byte loads; bit 1 = x
+// in 16-byte chunks; bit 2 = scales in 16-byte chunks.  Shared memory:
+// gv_smem().
 __global__ void __launch_bounds__(GV_THREADS)
 int4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ scale, float* __restrict__ partial,
-                 int M, int K, int N, int group, int groups_per_split, int vec) {
+                 const float* __restrict__ scale, float* __restrict__ out,
+                 int M, int K, int N, int lg_group, int lg_tpr, int gps, int flags) {
+  extern __shared__ __align__(16) uint8_t gsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tpr = 1 << lg_tpr;                  // threads per row
+  const int rp = GV_THREADS >> lg_tpr;          // rows in parallel
+  const int cb = tpr * GV_LB;                   // packed bytes per column tile
+  const int cols = 2 * cb;                      // output columns per tile
   const int N2 = N / 2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int pc0 = blockIdx.x * (32 * GV_BYTES) + lane * GV_BYTES;  // packed col
-  const int split = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tc = tid & (tpr - 1), tr = tid >> lg_tpr;
   const int m0 = blockIdx.z * GV_MT;
-  const int g_begin = split * groups_per_split;
-  const int g_end = min(K / group, g_begin + groups_per_split);
+  const int n_groups = K >> lg_group;
+  const int g_begin = min(n_groups, (int)blockIdx.y * gps);
+  const int g_end = min(n_groups, g_begin + gps);
+  const int k_begin = g_begin << lg_group;
+  const int nk = (g_end - g_begin) << lg_group;
+  const int nkp = gps << lg_group;              // rows reserved
+  const int splits = (int)gridDim.y;
+  const int per_rank = (GV_MT * cols + splits - 1) / splits;
 
-  float acc[GV_MT][2 * GV_BYTES];
+  uint8_t* ws = gsm;                                          // [nkp][cb]
+  float* xs = reinterpret_cast<float*>(ws + (size_t)nkp * cb); // [GV_MT][nkp]
+  float* ss = xs + (size_t)GV_MT * nkp;                       // [gps][cols]
+  float* wred = ss + (size_t)gps * cols;                      // [GV_WARPS][GV_MT][cols]
+  float* inbox = wred + (size_t)GV_WARPS * GV_MT * cols;      // [splits][per_rank]
+
+  // 1. the slice into shared memory, every copy in flight at once
+  if (flags & 2) {
+    const int c4 = nk >> 2;
+    for (int i = tid; i < GV_MT * c4; i += GV_THREADS) {
+      const int m = i / c4, c = (i - m * c4) << 2;
+      const bool ok = m0 + m < M;
+      cp_async<16>(xs + m * nkp + c, ok ? x + (size_t)(m0 + m) * K + k_begin + c : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < GV_MT * nk; i += GV_THREADS) {
+      const int m = i / nk, c = i - m * nk;
+      xs[m * nkp + c] = m0 + m < M ? __ldg(x + (size_t)(m0 + m) * K + k_begin + c) : 0.f;
+    }
+  }
+  if (flags & 4) {
+    const int c4 = cols >> 2;
+    for (int i = tid; i < (g_end - g_begin) * c4; i += GV_THREADS) {
+      const int gl = i / c4, c = (i - gl * c4) << 2;
+      const int n0 = blockIdx.x * cols + c;
+      const int n = max(0, min(4, N - n0)) * 4;
+      cp_async<16>(ss + gl * cols + c, scale + (size_t)(g_begin + gl) * N + (n ? n0 : 0), n);
+    }
+  } else {
+    for (int i = tid; i < (g_end - g_begin) * cols; i += GV_THREADS) {
+      const int gl = i / cols, c = i - gl * cols;
+      const int n = blockIdx.x * cols + c;
+      ss[i] = n < N ? __ldg(scale + (size_t)(g_begin + gl) * N + n) : 0.f;
+    }
+  }
+  const long long pcb = (long long)blockIdx.x * cb;   // the tile's first packed byte
+  if ((flags & 1) && cb >= 16) {
+    const int cpr = cb >> 4;
+    for (int i = tid; i < nk * cpr; i += GV_THREADS) {
+      const int r = i / cpr, c = (i - r * cpr) << 4;
+      const int n = (int)max(0LL, min(16LL, (long long)N2 - pcb - c));
+      cp_async<16>(ws + r * cb + c, packed + (size_t)(k_begin + r) * N2 + (n ? pcb + c : 0), n);
+    }
+  } else if (flags & 1) {
+    for (int r = tid; r < nk; r += GV_THREADS) {
+      const int n = (int)max(0LL, min(8LL, (long long)N2 - pcb));
+      cp_async<8>(ws + r * cb, packed + (size_t)(k_begin + r) * N2 + (n ? pcb : 0), n);
+    }
+  } else {
+    for (int i = tid; i < nk * cb; i += GV_THREADS) {
+      const int r = i / cb, c = i - r * cb;
+      ws[r * cb + c] = pcb + c < N2 ? __ldg(packed + (size_t)(k_begin + r) * N2 + pcb + c)
+                                    : (uint8_t)0x88;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. each thread: 16 columns of rows tr, tr + rp, ...
+  float acc[GV_MT][GV_C];
 #pragma unroll
   for (int m = 0; m < GV_MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 2 * GV_BYTES; ++j) acc[m][j] = 0.f;
-
-  const bool full = vec && (pc0 + GV_BYTES <= N2);
-  for (int g = g_begin; g < g_end; ++g) {
-    float sc[2 * GV_BYTES];
+    for (int j = 0; j < GV_C; ++j) acc[m][j] = 0.f;
+  if (pcb + tc * GV_LB < N2) {
+    float sc[GV_C];
+    int cur = -1;
+#pragma unroll 4
+    for (int r = tr; r < nk; r += rp) {
+      const int gl = r >> lg_group;
+      if (gl != cur) {
+        cur = gl;
+        const float4* sp = reinterpret_cast<const float4*>(ss + gl * cols + tc * GV_C);
 #pragma unroll
-    for (int j = 0; j < 2 * GV_BYTES; ++j) {
-      const int n = 2 * pc0 + j;
-      sc[j] = n < N ? __ldg(scale + (size_t)g * N + n) : 0.f;
-    }
-    for (int r = warp; r < group; r += GV_WARPS) {
-      const int k = g * group + r;
-      const uint8_t* prow = packed + (size_t)k * N2 + pc0;
-      uint32_t word;
-      if (full) {
-        word = __ldg(reinterpret_cast<const uint32_t*>(prow));
-      } else {
-        word = 0x88888888u;                     // nibble 8 dequantizes to 0
-#pragma unroll
-        for (int j = 0; j < GV_BYTES; ++j)
-          if (pc0 + j < N2)
-            word = (word & ~(0xFFu << (8 * j))) | ((uint32_t)__ldg(prow + j) << (8 * j));
-      }
-      float xv[GV_MT];
-#pragma unroll
-      for (int m = 0; m < GV_MT; ++m)
-        xv[m] = (m0 + m < M) ? __ldg(x + (size_t)(m0 + m) * K + k) : 0.f;
-#pragma unroll
-      for (int j = 0; j < GV_BYTES; ++j) {
-        const uint32_t byte = (word >> (8 * j)) & 0xFFu;
-        const float w0 = (float)((int)(byte & 0xFu) - 8) * sc[2 * j];
-        const float w1 = (float)((int)(byte >> 4) - 8) * sc[2 * j + 1];
-#pragma unroll
-        for (int m = 0; m < GV_MT; ++m) {
-          acc[m][2 * j] = fmaf(xv[m], w0, acc[m][2 * j]);
-          acc[m][2 * j + 1] = fmaf(xv[m], w1, acc[m][2 * j + 1]);
+        for (int j = 0; j < GV_C / 4; ++j) {
+          const float4 s4 = sp[j];
+          sc[4 * j] = s4.x; sc[4 * j + 1] = s4.y; sc[4 * j + 2] = s4.z; sc[4 * j + 3] = s4.w;
         }
+      }
+      const uint2 wv = *reinterpret_cast<const uint2*>(ws + r * cb + tc * GV_LB);
+      const float x0 = xs[r], x1 = xs[nkp + r], x2 = xs[2 * nkp + r], x3 = xs[3 * nkp + r];
+#pragma unroll
+      for (int j = 0; j < GV_C; ++j) {
+        const uint32_t word = j < 8 ? wv.x : wv.y;
+        const float w = nib_f((word >> (4 * (j & 7))) & 0xFu) * sc[j];
+        acc[0][j] = fmaf(x0, w, acc[0][j]);
+        acc[1][j] = fmaf(x1, w, acc[1][j]);
+        acc[2][j] = fmaf(x2, w, acc[2][j]);
+        acc[3][j] = fmaf(x3, w, acc[3][j]);
       }
     }
   }
 
-  // sum the 8 warps' row slices: red[warp][m][j][lane] (padded rows)
-  __shared__ float red[GV_WARPS][GV_MT][2 * GV_BYTES][33];
+  // 3. rows of one warp that share columns (lane = tc + tpr * row):
+  // butterfly; each warp's sums to shared memory
+  for (int o = 16; o >= tpr; o >>= 1) {         // 64 independent shuffles a round
 #pragma unroll
-  for (int m = 0; m < GV_MT; ++m)
+    for (int m = 0; m < GV_MT; ++m)
 #pragma unroll
-    for (int j = 0; j < 2 * GV_BYTES; ++j) red[warp][m][j][lane] = acc[m][j];
+      for (int j = 0; j < GV_C; ++j) acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], o);
+  }
+  if (lane < tpr) {
+#pragma unroll
+    for (int m = 0; m < GV_MT; ++m)
+#pragma unroll
+      for (int j = 0; j < GV_C; j += 4)
+        *reinterpret_cast<float4*>(wred + (warp * GV_MT + m) * cols + tc * GV_C + j) =
+            make_float4(acc[m][j], acc[m][j + 1], acc[m][j + 2], acc[m][j + 3]);
+  }
   __syncthreads();
-  const int c = threadIdx.x;                    // output column in the tile
-  const int n = blockIdx.x * GV_COLS + c;
-  const int src_lane = c / (2 * GV_BYTES), src_j = c % (2 * GV_BYTES);
-#pragma unroll
-  for (int m = 0; m < GV_MT; ++m) {
-    if (m0 + m >= M || n >= N) continue;
+
+  // 4. the warps summed in order, each sum sent to the rank that writes its
+  // output; after one cluster barrier every rank sums its inbox in rank order
+  const int rank = (int)cluster.block_rank();
+  for (int e = tid; e < GV_MT * cols; e += GV_THREADS) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < GV_WARPS; ++w) s += red[w][m][src_j][src_lane];
-    partial[((size_t)split * M + (m0 + m)) * N + n] = s;
+    for (int wi = 0; wi < GV_WARPS; ++wi) s += wred[wi * GV_MT * cols + e];
+    const int owner = e / per_rank;
+    cluster.map_shared_rank(inbox, owner)[rank * per_rank + e - owner * per_rank] = s;
+  }
+  cluster.sync();
+  for (int el = tid; el < per_rank; el += GV_THREADS) {
+    const int e = rank * per_rank + el;
+    if (e >= GV_MT * cols) break;
+    const int m = e / cols, c = e - m * cols;
+    const int n = blockIdx.x * cols + c;
+    if (m0 + m >= M || n >= N) continue;
+    float s = 0.f;
+    for (int p = 0; p < splits; ++p) s += inbox[p * per_rank + el];
+    out[(size_t)(m0 + m) * N + n] = s;
   }
 }
 
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, int MN, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += partial[(size_t)sp * MN + i];
-  out[i] = s;
+size_t gv_smem(int group, int lg_tpr, int gps) {
+  const size_t cb = (size_t)GV_LB << lg_tpr, cols = 2 * cb, nkp = (size_t)gps * group;
+  return nkp * cb + sizeof(float) * (GV_MT * nkp + gps * cols + (GV_WARPS + 1) * GV_MT * cols + 8);
 }
 
-// ---- large M: tiled SGEMM with the weight tile dequantized in smem -----------
-constexpr int BM = 64, BN = 64, BK = 32, TM = 4, TN = 4;
-constexpr int GM_THREADS = (BM / TM) * (BN / TN);   // 256
+// ---- prefill: M > 16, wgmma over exact integer weights --------------------------
+constexpr int WG_M = 64, WG_N = 128, WG_K = 32;
+constexpr int WG_THREADS = 128;                 // one warpgroup
+constexpr int WG_RAW = 4;                       // raw tiles in flight (cp.async ring)
+constexpr int WG_XLD = WG_K + 4;                // floats per raw x row
+constexpr int WG_CA = WG_M * 8;                 // floats of one A slab (64 rows x 8 k)
+constexpr int WG_CB = WG_N * 8;                 // floats of one B slab (128 rows x 8 k)
+constexpr int RED_LD = WG_N + 4;
 
-__global__ void __launch_bounds__(GM_THREADS)
-int4_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ scale, float* __restrict__ out,
-                 int M, int K, int N, int group) {
-  __shared__ float As[BM][BK + 1];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  const int N2 = N / 2;
+// Operand slabs for one k8 step, 64 (A) or 128 (B) rows x 8 k, tf32, in the
+// K-major no-swizzle core-matrix layout: 8 rows x 16 bytes per core matrix,
+// the two k halves 128 bytes apart (LBO), row blocks 256 bytes apart (SBO).
+__device__ __forceinline__ int wg_off(int row, int k) {
+  return (row >> 3) * 64 + (k >> 2) * 32 + (row & 7) * 4 + (k & 3);
+}
+
+__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+  const uint64_t a = (uint64_t)__cvta_generic_to_shared(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+struct WgSmem {
+  float x[WG_RAW][WG_M][WG_XLD];                // raw x tiles (cp.async ring)
+  uint8_t p[WG_RAW][WG_K][WG_N / 2];            // raw packed tiles
+  float ahi[2][WG_K / 8][WG_CA];                // tf32(x), two tiles in flight
+  float alo[2][WG_K / 8][WG_CA];                // tf32(x - tf32(x))
+  float b[2][WG_K / 8][WG_CB];                  // q, exact
+};
+
+__device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32, this thread's 64) = A (64 x 8) * B (8 x 128) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_load(WgSmem& sm, int st, const float* x, const uint8_t* packed,
+                                        int M, int K, int N2, int m0, int n0, int k0,
+                                        int k_end, int bvec) {
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile: 64 rows x 32 cols, lanes along K (coalesced)
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / GM_THREADS; ++i) {
-      const int idx = tid + i * GM_THREADS;
-      const int r = idx / BK, c = idx % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r][c] = (gm < M && gk < K) ? __ldg(x + (size_t)gm * K + gk) : 0.f;
+  for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
+    const int c = tid + i * WG_THREADS;
+    const int r = c / (WG_K / 4), kc = (c % (WG_K / 4)) * 4;
+    const bool ok = m0 + r < M && k0 + kc < k_end;
+    cp_async<16>(&sm.x[st][r][kc], ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok ? 16 : 0);
+  }
+  if (bvec) {
+    if (tid < WG_K * (WG_N / 2) / 16) {
+      const int r = tid / (WG_N / 32), bc = (tid % (WG_N / 32)) * 16;
+      const bool ok = k0 + r < k_end && n0 / 2 + bc < N2;
+      cp_async<16>(&sm.p[st][r][bc], ok ? packed + (size_t)(k0 + r) * N2 + n0 / 2 + bc : packed,
+                   ok ? 16 : 0);
     }
-    // weight tile: 32 rows x 32 packed bytes, 4 bytes (8 columns) per thread
-    {
-      const int r = tid / 8, cb = (tid % 8) * 4;
-      const int gk = k0 + r;
-      const int g = gk / group;
+  } else {
+    for (int i = tid; i < WG_K * (WG_N / 2); i += WG_THREADS) {
+      const int r = i / (WG_N / 2), bc = i % (WG_N / 2);
+      const bool ok = k0 + r < k_end && n0 / 2 + bc < N2;
+      sm.p[st][r][bc] = ok ? __ldg(packed + (size_t)(k0 + r) * N2 + n0 / 2 + bc) : (uint8_t)0x88;
+    }
+  }
+}
+
+// grid (ceil(N / 128), ceil(M / 64), splits), cluster (1, 1, splits); one
+// warpgroup per 64 x 128 output tile.  bvec: 16-byte packed tile copies.
+__global__ void __launch_bounds__(WG_THREADS)
+int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+               const float* __restrict__ scale, float* __restrict__ out,
+               int M, int K, int N, int group, int gps, int bvec) {
+  extern __shared__ __align__(128) uint8_t wsm[];
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(wsm);
+  const int N2 = N / 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * WG_M, n0 = blockIdx.x * WG_N;
+  const int n_groups = K / group;
+  const int g_begin = min(n_groups, (int)blockIdx.z * gps);
+  const int g_end = min(n_groups, g_begin + gps);
+  const int k_begin = g_begin * group, k_end = g_end * group;
+  const int n_tiles = (k_end - k_begin + WG_K - 1) / WG_K;
+
+  // accumulator element i: row 16 warp + gq + 8 ((i >> 1) & 1), column
+  // 8 (i >> 2) + 2 tq + (i & 1)
+  float acc[64], accg[64], sc[32];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pc = n0 / 2 + cb + j;
-        float w0 = 0.f, w1 = 0.f;
-        if (gk < K && pc < N2) {
-          const uint32_t byte = __ldg(packed + (size_t)gk * N2 + pc);
-          w0 = (float)((int)(byte & 0xFu) - 8) * __ldg(scale + (size_t)g * N + 2 * pc);
-          w1 = (float)((int)(byte >> 4) - 8) * __ldg(scale + (size_t)g * N + 2 * pc + 1);
+  for (int i = 0; i < 64; ++i) acc[i] = accg[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+
+#pragma unroll
+  for (int r = 0; r < WG_RAW - 1; ++r) {
+    if (r < n_tiles) wg_load(sm, r, x, packed, M, K, N2, m0, n0, k_begin + r * WG_K, k_end, bvec);
+    cp_async_commit();
+  }
+  int kg = 0, g = g_begin;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, rs = t % WG_RAW;
+    const int k0 = k_begin + t * WG_K;
+    if (t + WG_RAW - 1 < n_tiles)
+      wg_load(sm, (t + WG_RAW - 1) % WG_RAW, x, packed, M, K, N2, m0, n0,
+              k0 + (WG_RAW - 1) * WG_K, k_end, bvec);
+    cp_async_commit();
+    cp_async_wait<WG_RAW - 1>();
+    // the slabs of tile t - 2 are free once at most one group is in flight
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    __syncthreads();
+    // convert: x -> (tf32 hi, tf32 lo), packed -> q, into the operand slabs
+#pragma unroll
+    for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
+      const int c = tid + i * WG_THREADS;
+      const int r = c % WG_M, kq = (c / WG_M) * 4;   // 8 lanes: 8 rows of a core
+      const float4 v = *reinterpret_cast<const float4*>(&sm.x[rs][r][kq]);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      float hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = __uint_as_float(to_tf32(vs[e]));
+        lo[e] = __uint_as_float(to_tf32(vs[e] - hi[e]));
+      }
+      const int o = wg_off(r, kq & 7);
+      *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<float4*>(&sm.alo[st][kq >> 3][o]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < (WG_K / 4) * (WG_N / 2) / WG_THREADS; ++i) {
+      const int u = tid + i * WG_THREADS;
+      const int bc = u % (WG_N / 2), kq = (u / (WG_N / 2)) * 4;
+      float lo4[4], hi4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t byte = sm.p[rs][kq + e][bc];
+        lo4[e] = nib_f(byte & 0xFu);
+        hi4[e] = nib_f(byte >> 4);
+      }
+      *reinterpret_cast<float4*>(&sm.b[st][kq >> 3][wg_off(2 * bc, kq & 7)]) =
+          make_float4(lo4[0], lo4[1], lo4[2], lo4[3]);
+      *reinterpret_cast<float4*>(&sm.b[st][kq >> 3][wg_off(2 * bc + 1, kq & 7)]) =
+          make_float4(hi4[0], hi4[1], hi4[2], hi4[3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // tile t's products, asynchronous: they run while tile t + 1 converts
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < WG_K / 8; ++kk) {
+      if (k0 + kk * 8 < k_end) {
+        if (kg == 0) {                               // a group starts: its scales
+#pragma unroll
+          for (int j = 0; j < WG_N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = n0 + 8 * j + 2 * tq + e;
+              sc[2 * j + e] = n < N ? __ldg(scale + (size_t)g * N + n) : 0.f;
+            }
         }
-        Bs[r][2 * (cb + j)] = w0;
-        Bs[r][2 * (cb + j) + 1] = w1;
+        wgmma_tf32(accg, wg_desc(sm.alo[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
+        wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), 1);
+        kg += 8;
+        if (kg == group) {                           // the group ends: fold it
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          wg_fence_acc(accg);
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[i] = fmaf(sc[2 * (i >> 2) + (i & 1)], accg[i], acc[i]);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          kg = 0;
+          ++g;
+        }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[ty * TM + i][kk];
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_fence_acc(accg);
+  cp_async_wait<0>();
+
+  if (gridDim.z == 1) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
+    for (int j = 0; j < WG_N / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx * TN + j;
-      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j];
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 16 * warp + gq + 8 * h;
+        const int n = n0 + 8 * j + 2 * tq;
+        if (m >= M) continue;
+        if (n + 1 < N) {
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        } else if (n < N) {
+          out[(size_t)m * N + n] = acc[4 * j + 2 * h];
+        }
+      }
+    return;
   }
+
+  // split K: the cluster's slices, summed in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  float* red = &sm.x[0][0][0];                    // WG_M x RED_LD floats
+  static_assert(sizeof(WgSmem) >= sizeof(float) * WG_M * RED_LD, "red fits");
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = 16 * warp + gq + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+    red[r * RED_LD + c] = acc[i];
+  }
+  cluster.sync();
+  const int splits = (int)gridDim.z;
+  const int rank = (int)cluster.block_rank();
+  for (int e = rank * WG_THREADS + tid; e < WG_M * WG_N; e += splits * WG_THREADS) {
+    const int r = e / WG_N, c = e - r * WG_N;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float v[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      v[p] = p < splits ? cluster.map_shared_rank(red, p)[r * RED_LD + c] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (p < splits) s += v[p];
+    out[(size_t)m * N + n] = s;
+  }
+  cluster.sync();
+}
+
+template <typename Kern, typename... Args>
+cudaError_t launch_cluster(Kern kernel, dim3 grid, dim3 block, dim3 cluster,
+                           size_t smem, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace
 
 extern "C" {
 
-// partial: (splits, M, N) scratch when splits > 1 (may alias out when 1).
+// Decode (M <= 16, a power-of-two group): lg_tpr, splits and gps from
+// decode_plan; flags bits 0-2 as int4_gemv_kernel's.  Prefill: splits and
+// gps from prefill_plan; flags bit 3 = 16-byte packed tile copies.
 int int4_matmul_launch(const float* x, const uint8_t* packed, const float* scale,
-                       float* out, float* partial, int M, int K, int N, int group,
-                       int splits, int groups_per_split, int vec, void* stream) {
+                       float* out, int M, int K, int N, int group, int lg_tpr,
+                       int splits, int gps, int flags, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 16) {
-    dim3 grid((N + GV_COLS - 1) / GV_COLS, splits, (M + GV_MT - 1) / GV_MT);
-    int4_gemv_kernel<<<grid, GV_THREADS, 0, s>>>(
-        x, packed, scale, splits > 1 ? partial : out, M, K, N, group,
-        groups_per_split, vec);
-    if (splits > 1) {
-      cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  if (M <= 16) {                                // group is a power of two
+    int lg_group = 0;
+    while ((1 << lg_group) < group) ++lg_group;
+    const int cols = GV_C << lg_tpr;
+    const size_t smem = gv_smem(group, lg_tpr, gps);
+    static size_t smem_set = 48 * 1024;
+    if (smem > smem_set) {
+      e = cudaFuncSetAttribute(int4_gemv_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
-      const int MN = M * N;
-      splitk_reduce_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN, splits);
+      smem_set = smem;
     }
+    dim3 grid((N + cols - 1) / cols, splits, (M + GV_MT - 1) / GV_MT);
+    e = launch_cluster(int4_gemv_kernel, grid, dim3(GV_THREADS), dim3(1, splits, 1),
+                       smem, s, x, packed, scale, out, M, K, N, lg_group, lg_tpr,
+                       gps, flags & 7);
   } else {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    int4_gemm_kernel<<<grid, GM_THREADS, 0, s>>>(x, packed, scale, out, M, K, N, group);
+    static bool smem_set = false;
+    if (!smem_set) {
+      e = cudaFuncSetAttribute(int4_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(WgSmem));
+      if (e != cudaSuccess) return (int)e;
+      smem_set = true;
+    }
+    dim3 grid((N + WG_N - 1) / WG_N, (M + WG_M - 1) / WG_M, splits);
+    e = launch_cluster(int4_tc_kernel, grid, dim3(WG_THREADS), dim3(1, 1, splits),
+                       sizeof(WgSmem), s, x, packed, scale, out, M, K, N, group, gps, (flags >> 3) & 1);
   }
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -24,10 +24,40 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                     ctypes.c_void_p]
+CHUNK = 32                       # positions per chunk (kernel's CH)
+MAX_CLUSTER = 8                  # blocks per (row, kv head)
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
+         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 plain = decode_attention_int4_ref
+
+
+def chunk_plan(S: int, has_new: bool):
+    """(ranks, chunks per rank): the sequence's chunks of ``CHUNK``
+    positions (the packed rows, plus the fresh row) spread over a cluster
+    of at most ``MAX_CLUSTER`` blocks per (row, kv head), each rank a run
+    of consecutive chunks."""
+    n_chunks = max(1, -(-(S + int(has_new)) // CHUNK))
+    cpr = -(-n_chunks // MAX_CLUSTER)
+    return -(-n_chunks // cpr), cpr
+
+
+def _seg(dh: int, F2: int, *ptrs: int) -> int:
+    """Packed bytes per vector load: the widest that divides a head's
+    slice of a row, the row and every base address."""
+    for seg in (16, 8, 4, 2):
+        if (dh // 2) % seg == 0 and F2 % seg == 0 and all(
+                p % seg == 0 for p in ptrs):
+            return seg
+    return 1
+
+
+def _rows(t: torch.Tensor, name: str):
+    """Row stride of a (b, n, dh) tensor whose rows are contiguous."""
+    if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
+        raise ValueError(f"decode_attention_int4: {name} needs contiguous "
+                         f"(heads, dh) rows, strides {t.stride()}")
+    return t.stride(0)
 
 
 def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
@@ -36,7 +66,7 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
     """q (b, h, dh) f32; packed K/V (b, S, hkv*dh//2) uint8 with scales
     (b, S, hkv*dh//group) f32; ``pos`` an int or (b,) int tensor;
     optional fresh rows (b, hkv, dh) -> (b, h, dh) f32 (module
-    docstring)."""
+    docstring).  q and the fresh rows may have any batch stride."""
     b, h, dh = q.shape
     _, S, F2 = k_packed.shape
     F = hkv * dh
@@ -59,35 +89,50 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         return plain(q, k_packed, k_scale, v_packed, v_scale, pos, hkv=hkv,
                      group=group, k_new=k_new, v_new=v_new,
                      cache_dtype=cache_dtype)
-    if (h // hkv) * dh > 32 * 128:
-        raise ValueError("decode_attention_int4: needs (h // hkv) * dh <= "
-                         "4096")
+    if h // hkv > 32 or dh > 128 or group & (group - 1):
+        raise ValueError(f"decode_attention_int4: needs h // hkv <= 32, dh "
+                         f"<= 128 and a power-of-two group, got {h // hkv}, "
+                         f"{dh}, {group}")
+    pos_t, pos0 = None, 0              # an int goes to the kernel as is
     if isinstance(pos, torch.Tensor):
-        pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(-1)
-        pos_t = pos_t.expand(b).contiguous()
+        pos_t = pos
+        if not (pos.dtype == torch.int32 and pos.device == q.device
+                and pos.shape == (b,) and pos.is_contiguous()):
+            pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(-1)
+            pos_t = pos_t.expand(b).contiguous()
     else:
-        pos_t = torch.full((b,), int(pos), dtype=torch.int32, device=q.device)
+        pos0 = int(pos)
     has_new = k_new is not None
     if has_new:
-        k_new = k_new.to(torch.float32).contiguous()
-        v_new = v_new.to(torch.float32).contiguous()
-    tensors = (q, k_packed, k_scale, v_packed, v_scale, pos_t) + (
-        (k_new, v_new) if has_new else ())
-    _build.require_cuda(NAME, *tensors)
+        k_new, v_new = (t if t.dtype == torch.float32 else t.float()
+                        for t in (k_new, v_new))
+    _build.require_cuda(NAME, k_packed, k_scale, v_packed, v_scale,
+                        *(() if pos_t is None else (pos_t,)))
+    for t in (q,) + ((k_new, v_new) if has_new else ()):
+        if t.device != k_packed.device:
+            raise ValueError(f"{NAME}: tensors on {t.device} and "
+                             f"{k_packed.device}")
     if (q.dtype, k_packed.dtype, v_packed.dtype, k_scale.dtype,
             v_scale.dtype) != (torch.float32, torch.uint8, torch.uint8,
                                torch.float32, torch.float32):
         raise ValueError("decode_attention_int4: needs f32 q, uint8 packed "
                          "rows and f32 scales")
-    out = torch.empty_like(q)
+    q_rs = _rows(q, "q")
+    kn_rs, vn_rs = ((_rows(k_new, "k_new"), _rows(v_new, "v_new"))
+                    if has_new else (0, 0))
+    ranks, cpr = chunk_plan(S, has_new)
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
     fn = _build.launcher(NAME, "decode_attention_int4_launch", _ARGS)
     err = fn(q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(),
-             v_packed.data_ptr(), v_scale.data_ptr(), pos_t.data_ptr(),
+             v_packed.data_ptr(), v_scale.data_ptr(),
+             None if pos_t is None else pos_t.data_ptr(),
              k_new.data_ptr() if has_new else None,
              v_new.data_ptr() if has_new else None, out.data_ptr(),
-             b, S, h, hkv, dh, group, int(has_new),
+             b, S, h, hkv, dh, group.bit_length() - 1, int(has_new),
              int(cache_dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
-             _build.stream_ptr(q.device))
+             ranks, cpr, _seg(dh, F2, k_packed.data_ptr(),
+                              v_packed.data_ptr()),
+             q_rs, kn_rs, vn_rs, pos0, _build.stream_ptr(q.device))
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
     return out

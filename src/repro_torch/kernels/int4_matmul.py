@@ -18,8 +18,12 @@ from repro_torch.kernels.ref import int4_matmul_ref
 
 NAME = "int4_matmul"
 SMALL_M = 16                     # <= this: the split-K matrix-vector path
-_GV_COLS, _GV_MT = 256, 4        # columns / x rows per small-M block
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MAX_CLUSTER = 8                  # blocks per cluster (the portable limit)
+_GV_MT, _GV_LB = 4, 8            # small M: x rows per block, bytes per lane
+_GV_WARPS = 8                    # small M: warps per block
+_TB_M, _TB_N = 64, 128           # prefill: output tile
+SMEM_MAX = 232448                # shared memory a block may use (H100)
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 plain = int4_matmul_ref
 
@@ -29,20 +33,65 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(M: int, K: int, N: int, group: int, n_sms: int):
-    """(splits, groups_per_split) for the small-M path: split K in whole
-    groups until the grid holds about two blocks per SM."""
-    n_groups = K // group
-    blocks = -(-N // _GV_COLS) * -(-M // _GV_MT)
-    want = max(1, -(-2 * n_sms // blocks))
-    gps = -(-n_groups // min(n_groups, want))
+def fill(n_sms: int) -> int:
+    """Blocks that count as filling the card: about one per SM."""
+    return -(-95 * n_sms // 100)
+
+
+def _whole_groups(n_groups: int, splits: int):
+    """(splits, groups per split) covering every group, none empty."""
+    gps = -(-n_groups // max(1, min(splits, n_groups)))
     return -(-n_groups // gps), gps
+
+
+def decode_smem(group: int, lg_tpr: int, gps: int) -> int:
+    """Shared memory of a small-M block (``csrc/int4_matmul.cu``
+    gv_smem): its slice of packed rows, x and scales, and the sums."""
+    cb = _GV_LB << lg_tpr
+    nkp = gps * group
+    return nkp * cb + 4 * (_GV_MT * nkp + gps * 2 * cb
+                           + (_GV_WARPS + 1) * _GV_MT * 2 * cb + 8)
+
+
+def decode_plan(M: int, K: int, N: int, group: int, n_sms: int):
+    """(lg_tpr, splits, gps) for the small-M path: K split in whole groups
+    over a cluster of at most ``MAX_CLUSTER`` blocks, and column tiles of
+    2**lg_tpr * 8 packed bytes (at most 128), the widest that still gives
+    a block to about every other SM and whose slice fits in shared
+    memory.  (Filling every SM is slower on the H100: clusters of 8 then
+    put two blocks on some SMs, and the launch waits for those.)"""
+    splits, gps = _whole_groups(K // group, MAX_CLUSTER)
+    m_chunks = -(-M // _GV_MT)
+    for lg in range(4, -1, -1):        # wider tiles leave one block an SM
+        if (-(-(N // 2) // (_GV_LB << lg)) * splits * m_chunks
+                >= fill(n_sms) // 2
+                and decode_smem(group, lg, gps) <= SMEM_MAX):
+            break
+    if decode_smem(group, lg, gps) > SMEM_MAX:
+        raise ValueError(f"int4_matmul: K={K} is too deep for the small-M "
+                         f"path's shared memory")
+    return lg, splits, gps
+
+
+def prefill_plan(M: int, K: int, N: int, group: int, n_sms: int):
+    """(splits, gps) for the tensor-core path: 64 x 128 output tiles, K
+    split in whole groups (a cluster of at most 8 blocks) until the grid
+    holds about two blocks per SM (a block's shared memory lets two share
+    an SM, which hides the copies' latency)."""
+    n_groups = K // group
+    tiles = -(-N // _TB_N) * -(-M // _TB_M)
+    splits = 1
+    while (splits < MAX_CLUSTER and 2 * splits <= n_groups
+           and tiles * splits < 2 * fill(n_sms)):
+        splits *= 2
+    return _whole_groups(n_groups, splits)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 *, group: int = 128) -> torch.Tensor:
     """x (M, K) f32 @ W -> (M, N) f32 with W = dequant(packed (K, N//2)
-    uint8, scale (K//group, N) f32).  Any M; K % group == 0."""
+    uint8, scale (K//group, N) f32).  Any M; K % group == 0, and on the
+    card a power-of-two group when M <= SMALL_M, group % 8 == 0 above."""
     M, K = x.shape
     Kp, N2 = packed.shape
     N = 2 * N2
@@ -56,19 +105,31 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if (x.dtype, packed.dtype, scale.dtype) != (torch.float32, torch.uint8,
                                                 torch.float32):
         raise ValueError("int4_matmul: needs f32 x, uint8 packed, f32 scale")
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    splits, gps = 1, K // group
-    partial = out
+    n_sms = _num_sms(x.device.index)
+    xa = x.data_ptr() % 16 == 0
     if M <= SMALL_M:
-        splits, gps = split_plan(M, K, N, group, _num_sms(x.device.index))
-        if splits > 1:
-            partial = torch.empty((splits, M, N), dtype=torch.float32,
-                                  device=x.device)
-    vec = int(N2 % 4 == 0 and packed.data_ptr() % 4 == 0)
+        if group & (group - 1):
+            raise ValueError(f"int4_matmul: the small-M path needs a "
+                             f"power-of-two group, got {group}")
+        lg, splits, gps = decode_plan(M, K, N, group, n_sms)
+        chunk = 16 if lg else 8
+        flags = (int(N2 % chunk == 0 and packed.data_ptr() % chunk == 0)
+                 | 2 * int(K % 4 == 0 and group % 4 == 0 and xa)
+                 | 4 * int(N % 4 == 0 and scale.data_ptr() % 16 == 0))
+    else:
+        if group % 8:
+            raise ValueError(f"int4_matmul: the tensor-core path needs "
+                             f"group % 8 == 0, got {group}")
+        if not xa:
+            x = x.clone()
+        lg = 0
+        splits, gps = prefill_plan(M, K, N, group, n_sms)
+        flags = 8 * int(N2 % 16 == 0 and packed.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     fn = _build.launcher(NAME, "int4_matmul_launch", _ARGS)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-             out.data_ptr(), partial.data_ptr(), M, K, N, group, splits, gps,
-             vec, _build.stream_ptr(x.device))
+             out.data_ptr(), M, K, N, group, lg, splits, gps, flags,
+             _build.stream_ptr(x.device))
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -50,8 +50,7 @@ def decode_attention_packed(q, k_rows, v_rows, k_new, v_new, pos):
     (b, 1, h, dh)."""
     hkv = k_new.shape[2]
     out = ops.decode_attention_int4_op(
-        q[:, 0].contiguous(), k_rows.packed, k_rows.scale, v_rows.packed,
-        v_rows.scale, pos, hkv=hkv, group=k_rows.group,
-        k_new=k_new[:, 0].contiguous(), v_new=v_new[:, 0].contiguous(),
-        cache_dtype=k_rows.dtype)
+        q[:, 0], k_rows.packed, k_rows.scale, v_rows.packed, v_rows.scale,
+        pos, hkv=hkv, group=k_rows.group, k_new=k_new[:, 0],
+        v_new=v_new[:, 0], cache_dtype=k_rows.dtype)
     return out[:, None]

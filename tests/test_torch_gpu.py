@@ -40,6 +40,26 @@ def test_int4_matmul_kernel(dev, M, K, N, group):
                                atol=1e-5 * ref.abs().max().item())
 
 
+@pytest.mark.parametrize("N", [256, 5632])
+@pytest.mark.parametrize("M", [4, 16, 17, 37, 160, 512])
+def test_int4_matmul_kernel_paths(dev, M, N):
+    """Both paths (M <= 16: one-launch split-K matrix-vector; M > 16:
+    tensor cores over exact integer weights, two TF32 terms) at K = 5632
+    against the plain version, rtol 1e-5 and atol 1e-5 * max|ref|; the
+    cluster's fixed-order sum makes two calls equal bit for bit."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(M * N)
+    K = 5632
+    x = _t(rng, dev, M, K)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), 128)
+    out = int4_matmul(x, packed, scale)
+    ref = plain(x, packed, scale, 128)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(out, int4_matmul(x, packed, scale))
+
+
 @pytest.mark.parametrize("sq,sk,q_offset,window", [(128, 128, 0, 0),
                                                    (45, 65, 20, 13),
                                                    (77, 77, 0, 0)])
@@ -119,6 +139,47 @@ def test_decode_attention_int4_kernel(dev, b, S, h, hkv, dh, pos, fresh,
         vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
         torch.testing.assert_close(out, decode_attention(q, kd, vd, p),
                                    rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("S,pos", [(256, [3, 40, 0, 255]), (160, [0, 0, 0, 0]),
+                                   (33, [32, 0, 31, 1]), (33, [0, 0, 0, 0]),
+                                   (160, [159, 31, 32, 64])])
+@pytest.mark.parametrize("fresh", [False, True])
+def test_decode_attention_int4_chunks(dev, S, pos, fresh):
+    """The S split: chunks past pos[r] (early exit), pos = 0 on every
+    row, a pos inside the first chunk, S not a multiple of 32; q and the
+    fresh rows as strided views.  Against the plain version (atol 2e-5)
+    and, without a fresh row, decode_attention over the dequantized cache
+    (atol 1e-6); an int pos equals the same pos as a tensor."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    rng = np.random.default_rng(S + sum(pos))
+    b, h, hkv, dh = 4, 32, 4, 64
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, h + 3, dh)[:, :h]
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    kn = vn = None
+    if fresh:
+        kn = _t(rng, dev, b, 1, 3 * hkv, dh)[:, 0, :hkv]
+        vn = _t(rng, dev, b, 1, 3 * hkv, dh)[:, 0, hkv:2 * hkv]
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn)
+    out = decode_attention_int4(q, kq, ks, vq, vs, p, **kw)
+    torch.testing.assert_close(out, plain(q, kq, ks, vq, vs, p, **kw),
+                               rtol=0, atol=2e-5)
+    if not fresh:
+        kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+        vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+        torch.testing.assert_close(out, decode_attention(q.contiguous(), kd,
+                                                         vd, p),
+                                   rtol=0, atol=1e-6)
+    if len(set(pos)) == 1:
+        assert torch.equal(out, decode_attention_int4(q, kq, ks, vq, vs,
+                                                      pos[0], **kw))
 
 
 def test_kernel_rejects_cpu_mix(dev):
