@@ -234,31 +234,41 @@ def _attn_flops(torch, sq, sk, h, dh, b, causal, window, q_offset):
 
 
 def check_flash(torch, rng, dev):
+    """``flash_attention`` against its plain version (atol 2e-5), two
+    calls bit-equal; timed at the generation prefill shape (the kernels
+    line's head) and at serving prefill of one slot (b = 1, sq = 37 and
+    141, run (e)'s shortest-but-one and longest prompts), each beside
+    SDPA.  The bound counts three TF32 products per multiply-add on the
+    tensor cores (495 TFLOP/s), ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, plain
-    # (b, sq, sk, h, hkv, dh, causal, window, q_offset, main)
+    # (b, sq, sk, h, hkv, dh, causal, window, q_offset, timed as)
     cases = [(B, PROMPT, PROMPT, 32, 4, 64, True, 0, 0, True),
-             (2, 77, 77, 8, 2, 32, True, 0, 0, False),
-             (2, 45, 65, 8, 2, 32, True, 13, 20, False),
-             (1, 50, 70, 4, 4, 16, False, 0, 0, False),
-             (2, 33, 33, 4, 1, 128, True, 0, 0, False),
+             (2, 77, 77, 8, 2, 32, True, 0, 0, None),
+             (2, 45, 65, 8, 2, 32, True, 13, 20, None),
+             (1, 50, 70, 4, 4, 16, False, 0, 0, None),
+             (2, 33, 33, 4, 1, 128, True, 0, 0, None),
+             (2, 100, 140, 32, 4, 64, True, 17, 40, None),
              # serving prefill: one slot, the prompt's own length
-             (1, 37, 37, 32, 4, 64, True, 0, 0, False),
-             (1, 160, 160, 32, 4, 64, True, 0, 0, False)]
+             (1, 37, 37, 32, 4, 64, True, 0, 0, "serving sq=37"),
+             (1, 141, 141, 32, 4, 64, True, 0, 0, "serving sq=141")]
     rows = []
-    for b, sq, sk, h, hkv, dh, causal, window, q_offset, main in cases:
+    for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
                                      dtype=torch.float32, device=dev)
         q, k, v = mk(b, sq, h, dh), mk(b, sk, hkv, dh), mk(b, sk, hkv, dh)
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         out = flash_attention(q, k, v, **kw)
         ref = plain(q, k, v, **kw)
+        again = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
         row = dict(shape=f"b={b} sq={sq} sk={sk} h={h} hkv={hkv} dh={dh} "
                    f"causal={causal} window={window} q_offset={q_offset}",
-                   max_abs_err=err, ok=err <= ATTN_ATOL, main=main)
-        if main:
+                   max_abs_err=err, deterministic=same,
+                   ok=err <= ATTN_ATOL and same, main=timed)
+        if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             row.update(timings(
                 torch, lambda: flash_attention(q, k, v, **kw),
@@ -266,9 +276,12 @@ def check_flash(torch, rng, dev):
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), 20))
             nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                nbytes, _attn_flops(torch, sq, sk, h, dh, b, causal, window,
-                                    q_offset))
+            flops = _attn_flops(torch, sq, sk, h, dh, b, causal, window,
+                                q_offset)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                        TF32_FLOPS)
+            row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
+            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
         rows.append(row)
     return rows
 
@@ -289,6 +302,11 @@ def _sdpa_decode(torch, q, kc, vc, pos_t, fresh=None):
 
 
 def check_decode(torch, rng, dev):
+    """``decode_attention`` against its plain version (atol 2e-5 at f32,
+    2e-2 over bf16 caches), two calls bit-equal, and the same result for
+    an int ``pos`` and a strided ``q`` where the case has them; timed at
+    the generation shape (f32) and the serving shape (bf16, ragged pos)
+    beside SDPA."""
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
@@ -299,10 +317,14 @@ def check_decode(torch, rng, dev):
              (B, 100, 32, 4, 64, [0, 50, 99, 77], torch.float32, None),
              (3, 77, 8, 2, 32, [76, 0, 40], torch.float32, None),
              (2, 64, 4, 4, 16, [63, 5], torch.float32, None),
+             (2, 300, 8, 8, 128, [299, 3], torch.float32, None),
+             (B, 1024, 32, 4, 64, [1023, 700, 0, 64], torch.float32, None),
+             (B, S, 32, 4, 64, [0, 0, 0, 0], torch.float32, None),
              # serving with kv_mode="fp32": bf16 caches, ragged positions
              (B, S, 32, 4, 64, SERVE_POS, torch.bfloat16, "bf16"),
              (B, 100, 32, 4, 64, [0, 50, 99, 77], torch.bfloat16, None),
-             (3, 77, 8, 2, 32, [76, 0, 40], torch.bfloat16, None)]
+             (3, 77, 8, 2, 32, [76, 0, 40], torch.bfloat16, None),
+             (2, 33, 32, 32, 16, [32, 0], torch.bfloat16, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -312,12 +334,18 @@ def check_decode(torch, rng, dev):
         pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
         out = decode_attention(q, kc, vc, pos_t)
         ref = plain(q, kc, vc, pos_t)
+        same = torch.equal(out, decode_attention(q, kc, vc, pos_t))
+        if len(set(pos)) == 1:         # an int pos, q as a strided view
+            qv = mk(b, 1, h + 2, dh)[:, 0, 1:h + 1]
+            qv.copy_(q)
+            same &= torch.equal(out, decode_attention(qv, kc, vc, pos[0]))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = ATTN_ATOL if cdt == torch.float32 else BF16_ATOL
         row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} pos={pos} "
                    f"cache={str(cdt)[6:]}", max_abs_err=err, tol=tol,
-                   ok=err <= tol, main=timed)
+                   deterministic=bool(same), ok=err <= tol and bool(same),
+                   main=timed)
         if timed:
             row.update(timings(
                 torch, lambda: decode_attention(q, kc, vc, pos_t),
@@ -398,6 +426,7 @@ def check_decode_int4(torch, rng, dev):
             twin = decode_attention(q, kd, vd, pos_t)
             torch.cuda.synchronize()
             row["err_vs_decode_attention"] = (out - twin).abs().max().item()
+            row["bit_equal_to_decode_attention"] = bool(torch.equal(out, twin))
             row["ok"] &= row["err_vs_decode_attention"] <= INT4_KV_ATOL
         if timed:
             if fresh:                    # the yardstick attends the same rows
@@ -824,6 +853,8 @@ def main(argv=None) -> int:
             "library_ms": m["library_ms"], "call_ms": m["call_ms"],
             "parity": "ok", "shape": m["shape"],
             "launches_by_run": {k: c[name] for k, c in counts.items()}}
+        entry.update({k: m[k] for k in ("bound_rate", "bound_fp32_ms")
+                      if k in m})
         variants = [r for r in rows
                     if isinstance(r["main"], str) and r is not m]
         for v in variants:

@@ -1,184 +1,138 @@
 // One-token GQA decode attention for Hopper (sm_90a).
 //
-//   q (b, h, dh) f32; k/v caches (b, S, hkv, dh) f32 or bf16; pos (b,) int32
+//   q (b, h, dh) f32 (row stride q_rs); k/v caches (b, S, hkv, dh) f32 or
+//   bf16; pos (b,) int32, or null and every row at pos0
 //   out[r, head] = softmax_{t <= pos[r]}(q . k_t / sqrt(dh)) @ v_t   (f32)
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention_kernel (body _kernel), which took a scalar pos, asserted
 // S % block_s == 0 and walked S as a sequential grid axis with (m, l, acc)
-// in VMEM scratch.  Here the loop over S runs inside the block.
+// in VMEM scratch.
 //
 // What bounds it on this card, and what the design does about it: it reads
 // each live K and V row once and does ~4*h*dh flops per row, so it is bound
-// by bytes.  One block serves one (batch row, kv head) and its g = h/hkv query
-// heads, so each K/V row is read from memory once for all g heads.  Rows
-// stream through shared memory in tiles of 32 positions, only up to pos[r]
-// (rows past it are never read; a partial last tile is masked), with the
-// online-softmax state (m, l) in shared memory and the g x dh accumulator in
-// registers.  A fully masked history gives alpha = 0 and an output of 0.
-// With b * hkv blocks the card is far from full at small batch; splitting
-// S across blocks (flash-decoding) is later work.
-//
-// Caches come as f32 (batch generation) or bf16 (the serving engine's cache
-// dtype); a bf16 value widens to f32 exactly as it is loaded, and all
+// by bytes, and at decode sizes (~1.3 MB at f32, b = 4, S = 160) by
+// latency: one block per (row, kv head) is 16 blocks on 132 SMs, each
+// walking the whole sequence.  So the sequence is spread over the card:
+// flash-decoding over a
+// thread-block cluster, shared with decode_attention_int4.cu through
+// decode_attention_common.cuh (its header has the scores, the softmax, P.V
+// and the in-launch combine of the ranks' partials).  What is this file's
+// own is how a chunk is staged: every thread loads one 16-byte piece of a K
+// or V row (a float4 of f32, or 8 bf16 widened to f32 exactly as they
+// load) into the chunk's f32 tile; rows past pos[r] are never read.  All
 // arithmetic stays f32.
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_attention_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
-constexpr int TILE = 32;                 // positions per tile (one per lane)
-constexpr int MAX_ACC = 32;              // g * dh <= THREADS * MAX_ACC
-constexpr float NEG_INF = -1e30f;
+// vec cache elements (p aligned to vec) into f32: f32 as is; bf16 (raw 16
+// bits) into the top half
+__device__ __forceinline__ void load_vec(float (&x)[8], const float* p, int vec) {
+  if (vec == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else if (vec == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = __ldg(p);
+  }
+}
 
-__device__ __forceinline__ float warp_max(float v) {
+__device__ __forceinline__ void load_vec(float (&x)[8], const uint16_t* p, int vec) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (vec == 8) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  } else if (vec == 4) {
+    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = a.x; w[1] = a.y;
+  } else if (vec == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    w[0] = __ldg(p);
+  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = __uint_as_float(w[j] << 16);
+    x[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// cache element -> f32: f32 as is; bf16 (raw 16 bits) into the top half
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const uint16_t* p) {
-  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// grid (hkv, b, C), cluster (1, 1, C)
+template <int HPW, typename T>
+__global__ void __launch_bounds__(da::THREADS)
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ pos,
-                        float* __restrict__ out, int S, int h, int hkv, int dh,
-                        float scale) {
+                        float* __restrict__ out, int S, int h, int hkv, int dh, float scale,
+                        int cpr, int vec, int q_rs, int pos0) {
+  extern __shared__ __align__(16) float smem[];
   const int kh = blockIdx.x, bi = blockIdx.y;
   const int g = h / hkv;
-  const int gd = g * dh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p = pos != nullptr ? pos[bi] : pos0;
+  const size_t rs = (size_t)hkv * dh;
+  const T* kb = kc + (size_t)bi * S * rs + (size_t)kh * dh;
+  const T* vb = vc + (size_t)bi * S * rs + (size_t)kh * dh;
+  const int nvec = dh / vec;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                      // g * dh
-  float* ks = qs + gd;                   // TILE * (dh + 1)
-  float* vs = ks + TILE * (dh + 1);      // TILE * dh
-  float* ps = vs + TILE * dh;            // g * TILE  scores, then probs
-  float* ms = ps + g * TILE;             // g  running max
-  float* ls = ms + g;                    // g  running denominator
-  float* as = ls + g;                    // g  this tile's rescale
-
-  const float* qb = q + ((size_t)bi * h + (size_t)kh * g) * dh;
-  for (int i = tid; i < gd; i += THREADS) qs[i] = qb[i];
-  for (int i = tid; i < g; i += THREADS) { ms[i] = NEG_INF; ls[i] = 0.f; }
-
-  float acc[MAX_ACC];
+  auto stage = [&](const da::Smem& sm, int t0, int nt) {
+    // one vec-element piece of a K or V row per thread
+    for (int i = threadIdx.x; i < 2 * nt * nvec; i += da::THREADS) {
+      const int tensor = i / (nt * nvec);
+      const int rem = i - tensor * nt * nvec;
+      const int t = rem / nvec, d0 = (rem - t * nvec) * vec;
+      float x[8];
+      load_vec(x, (tensor == 0 ? kb : vb) + (size_t)(t0 + t) * rs + d0, vec);
+      float* dst = tensor == 0 ? sm.ks + t * (dh + 1) + d0 : sm.vs + t * dh + d0;
 #pragma unroll
-  for (int r = 0; r < MAX_ACC; ++r) acc[r] = 0.f;
-
-  const int last = min(pos[bi], S - 1);  // attend rows 0..last
-  const size_t row_stride = (size_t)hkv * dh;
-  const T* kb = kc + (size_t)bi * S * row_stride + (size_t)kh * dh;
-  const T* vb = vc + (size_t)bi * S * row_stride + (size_t)kh * dh;
-  __syncthreads();
-
-  for (int t0 = 0; t0 <= last; t0 += TILE) {
-    const int nt = min(TILE, last - t0 + 1);
-    for (int i = tid; i < TILE * dh; i += THREADS) {
-      const int t = i / dh, d = i - t * dh;
-      float kv = 0.f, vv = 0.f;
-      if (t < nt) {
-        const size_t off = (size_t)(t0 + t) * row_stride + d;
-        kv = load_f32(kb + off);
-        vv = load_f32(vb + off);
-      }
-      ks[t * (dh + 1) + d] = kv;
-      vs[t * dh + d] = vv;
+      for (int j = 0; j < 8; ++j)
+        if (j < vec) dst[j] = x[j];
     }
-    __syncthreads();
-    for (int i = tid; i < g * TILE; i += THREADS) {
-      const int gi = i / TILE, t = i - gi * TILE;
-      float s = NEG_INF;
-      if (t < nt) {
-        float a = 0.f;
-        for (int d = 0; d < dh; ++d) a = fmaf(qs[gi * dh + d], ks[t * (dh + 1) + d], a);
-        s = a * scale;
-      }
-      ps[i] = s;
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += NWARPS) {
-      const float s = ps[gi * TILE + lane];
-      const float m_prev = ms[gi];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < nt ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      ps[gi * TILE + lane] = p;
-      if (lane == 0) {
-        const float alpha = m_prev > NEG_INF / 2 ? expf(m_prev - m_new) : 0.f;
-        ls[gi] = ls[gi] * alpha + sum;
-        ms[gi] = m_new;
-        as[gi] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < MAX_ACC; ++r) {
-      const int idx = tid + r * THREADS;
-      if (idx < gd) {
-        const int gi = idx / dh, d = idx - gi * dh;
-        float a = acc[r] * as[gi];
-        for (int t = 0; t < nt; ++t) a = fmaf(ps[gi * TILE + t], vs[t * dh + d], a);
-        acc[r] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  float* ob = out + ((size_t)bi * h + (size_t)kh * g) * dh;
-#pragma unroll
-  for (int r = 0; r < MAX_ACC; ++r) {
-    const int idx = tid + r * THREADS;
-    if (idx < gd) ob[idx] = acc[r] / fmaxf(ls[idx / dh], 1e-30f);
-  }
+  };
+  da::decode_block<HPW>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
+                        out + ((size_t)bi * h + (size_t)kh * g) * dh,
+                        max(0, min(p + 1, S)), g, dh, scale, cpr, stage);
 }
 
 template <typename T>
-int launch(const float* q, const void* k, const void* v, const int* pos,
-           float* out, int b, int S, int h, int hkv, int dh, float scale,
-           cudaStream_t stream) {
+cudaError_t launch(const float* q, const void* k, const void* v, const int* pos, float* out,
+                   int b, int S, int h, int hkv, int dh, float scale, int n_ranks, int cpr,
+                   int vec, int q_rs, int pos0, cudaStream_t s) {
   const int g = h / hkv;
-  const size_t smem = sizeof(float) * ((size_t)g * dh + (size_t)TILE * (dh + 1) +
-                                       (size_t)TILE * dh + (size_t)g * TILE + 3 * (size_t)g);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(hkv, b);
-  decode_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), pos, out, S, h,
-      hkv, dh, scale);
-  return (int)cudaGetLastError();
+  const dim3 grid(hkv, b, n_ranks);
+  const size_t smem = da::smem_bytes(g, dh);
+  const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
+  const T* kc = static_cast<const T*>(k);
+  const T* vc = static_cast<const T*>(v);
+#define DA_LAUNCH(H)                                                                      \
+  da::launch_cluster(decode_attention_kernel<H, T>, grid, smem, s, q, kc, vc, pos, out, S, h, \
+                     hkv, dh, scale, cpr, vec, q_rs, pos0)
+  return hpw <= 1 ? DA_LAUNCH(1) : hpw <= 2 ? DA_LAUNCH(2) : hpw <= 4 ? DA_LAUNCH(4)
+                                                                      : DA_LAUNCH(8);
+#undef DA_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// cache_bf16: 0 for f32 caches, 1 for bf16 caches (passed as raw 16 bits)
-int decode_attention_launch(const float* q, const void* k, const void* v,
-                            const int* pos, float* out, int b, int S, int h,
-                            int hkv, int dh, int cache_bf16, float scale,
+// n_ranks blocks per (row, kv head), each walking cpr chunks of 32
+// positions; vec = cache elements per load (f32: 4, 2, 1; bf16: 8, 4, 2,
+// 1); cache_bf16: 0 for f32 caches, 1 for bf16 caches (passed as raw 16
+// bits).
+int decode_attention_launch(const float* q, const void* k, const void* v, const int* pos,
+                            float* out, int b, int S, int h, int hkv, int dh, int cache_bf16,
+                            float scale, int n_ranks, int cpr, int vec, int q_rs, int pos0,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cache_bf16)
-    return launch<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, st);
-  return launch<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, st);
+    return (int)launch<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                                 q_rs, pos0, st);
+  return (int)launch<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec, q_rs,
+                            pos0, st);
 }
 
 const char* kernel_error_string(int e) {

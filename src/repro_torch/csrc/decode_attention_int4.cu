@@ -23,49 +23,23 @@
 // of tinyllama is 128 packed bytes + 8 scales (160 B against 1024 B at f32),
 // read once for ~4*h*dh flops, so the kernel is bound by bytes, and at decode
 // sizes (~0.2 MB) by latency.  So the design spreads the sequence over the
-// card (flash-decoding): grid (hkv, b, C), one cluster of C <= 8 blocks per
-// (batch row, kv head), rank c walking its own run of 32-position chunks.
-// Each block serves the g = h/hkv query heads of its kv head from one read
-// of each packed row: every thread loads one 16-byte (or 8-byte) segment of
-// a K or V row, the segment's scales once per group (a shift, not a divide),
-// unpacks the nibbles in registers and writes the chunk's dequantized tile
-// to shared memory, one __syncthreads per chunk.  Then a warp owns query
-// heads and a lane owns a position: scores, the chunk's max and sum by warp
-// shuffles, probabilities kept in registers and broadcast by shuffle into
-// the P.V sums, where a lane owns output features.  Chunks past a row's last
-// position are never read: such a rank keeps the empty partial (m = -1e30,
-// l = 0).  The ranks' partials (m, l, o) meet in distributed shared memory
-// and are combined in rank order with models/common.py's merge_partials /
-// finalize_partials arithmetic, inside the same launch: deterministic, no
-// scratch in device memory, no second kernel.  A scale is indexed by the
-// flattened feature (feature >> log2 group), so a group that spans two
-// heads is read right.
-#include <cooperative_groups.h>
+// card: flash-decoding over a thread-block cluster, shared with
+// decode_attention.cu through decode_attention_common.cuh (its header has
+// the scores, the softmax, P.V and the in-launch combine).  What is this
+// file's own is how a chunk is staged: every thread loads one 16-byte (or
+// 8-byte) segment of a packed K or V row, the segment's scales once per
+// group (a shift, not a divide), and unpacks the nibbles in registers into
+// the chunk's f32 tile.  A scale is indexed by the flattened feature
+// (feature >> log2 group), so a group that spans two heads is read right.
+// Over the same chunk plan, this kernel without a fresh row at f32 computes
+// what decode_attention.cu computes over the dequantized cache, in the same
+// order.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "decode_attention_common.cuh"
 
 namespace {
-
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
-constexpr int CH = 32;                   // positions per chunk (one per lane)
-constexpr int DPL = 4;                   // output features per lane: dh <= 128
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -91,9 +65,9 @@ __device__ __forceinline__ void load_seg(uint32_t (&wd)[4], const uint8_t* p, in
   }
 }
 
-// grid (hkv, b, C), cluster (1, 1, C); rank c walks chunks [c*cpr, c*cpr+cpr).
+// grid (hkv, b, C), cluster (1, 1, C)
 template <int HPW>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(da::THREADS)
 decode_attention_int4_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ kq,
                              const float* __restrict__ ksc,
@@ -106,59 +80,28 @@ decode_attention_int4_kernel(const float* __restrict__ q,
                              int dh, int lg_group, int has_new, int bf16,
                              float scale, int cpr, int seg, int q_rs,
                              int kn_rs, int vn_rs, int pos0) {
-  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
   const int kh = blockIdx.x, bi = blockIdx.y;
-  const int rank = (int)cluster.block_rank();
-  const int n_ranks = (int)gridDim.z;
   const int g = h / hkv;
-  const int gd = g * dh;
   const int F2 = hkv * dh / 2, Fg = (hkv * dh) >> lg_group;
   const int group = 1 << lg_group;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // g * dh
-  float* ks = qs + gd;                   // CH * (dh + 1)
-  float* vs = ks + CH * (dh + 1);        // CH * dh
-  float* pm = vs + CH * dh;              // g   this rank's max
-  float* pl = pm + g;                    // g   this rank's denominator
-  float* po = pl + g;                    // g * dh  this rank's unnormalized sum
-
-  const float* qb = q + (size_t)bi * q_rs + (size_t)kh * gd;
-  for (int i = tid; i < gd; i += THREADS) qs[i] = qb[i];
-
   // packed history rows 0..n_hist-1, then the fresh row (if any) as the
   // last position of the sequence
   const int p = pos != nullptr ? pos[bi] : pos0;
   const int n_hist = has_new ? max(0, min(p, S)) : max(0, min(p + 1, S));
-  const int n_total = n_hist + (has_new ? 1 : 0);
-  const int c_begin = rank * cpr;
-  const int c_end = min(c_begin + cpr, (n_total + CH - 1) / CH);
   const size_t row0 = (size_t)bi * S;
   const int nseg = (dh / 2) / seg;
 
-  float m_run[HPW], l_run[HPW], acc[HPW][DPL];
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    m_run[i] = NEG_INF;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = 0.f;
-  }
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int t0 = c * CH;
-    const int nt = min(CH, n_total - t0);
-    __syncthreads();                     // qs ready; the last chunk's tiles read
-    // stage the chunk: one packed segment of a K or V row per thread
-    for (int i = tid; i < 2 * CH * nseg; i += THREADS) {
-      const int tensor = i / (CH * nseg);
-      const int rem = i - tensor * CH * nseg;
+  auto stage = [&](const da::Smem& sm, int t0, int nt) {
+    // one packed segment of a K or V row per thread
+    for (int i = threadIdx.x; i < 2 * nt * nseg; i += da::THREADS) {
+      const int tensor = i / (nt * nseg);
+      const int rem = i - tensor * nt * nseg;
       const int t = rem / nseg, sg = rem - t * nseg;
       const int row = t0 + t;
       const int d0 = sg * 2 * seg;
-      float* dst = tensor == 0 ? ks + t * (dh + 1) + d0 : vs + t * dh + d0;
-      if (t < nt && row < n_hist) {
+      float* dst = tensor == 0 ? sm.ks + t * (dh + 1) + d0 : sm.vs + t * dh + d0;
+      if (row < n_hist) {
         const uint8_t* src = (tensor == 0 ? kq : vq) + (row0 + row) * F2 + kh * dh / 2 + sg * seg;
         const float* sb = (tensor == 0 ? ksc : vsc) + (row0 + row) * Fg;
         uint32_t wd[4];
@@ -173,115 +116,16 @@ decode_attention_int4_kernel(const float* __restrict__ q,
             dst[j] = bf16 ? round_bf16(v) : v;
           }
         }
-      } else if (t < nt) {               // the fresh row
+      } else {                           // the fresh row
         const float* src = (tensor == 0 ? k_new + (size_t)bi * kn_rs : v_new + (size_t)bi * vn_rs)
                            + kh * dh + d0;
         for (int j = 0; j < 2 * seg; ++j) dst[j] = bf16 ? round_bf16(src[j]) : src[j];
-      } else {
-        for (int j = 0; j < 2 * seg; ++j) dst[j] = 0.f;
       }
     }
-    __syncthreads();
-
-    // scores for this warp's heads: lane = position
-    float s[HPW];
-#pragma unroll
-    for (int i = 0; i < HPW; ++i) s[i] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      const float kv = ks[lane * (dh + 1) + d];
-#pragma unroll
-      for (int i = 0; i < HPW; ++i) {
-        const int gi = warp + NWARPS * i;
-        if (gi < g) s[i] = fmaf(qs[gi * dh + d], kv, s[i]);
-      }
-    }
-    float pr[HPW];
-#pragma unroll
-    for (int i = 0; i < HPW; ++i) {
-      const float sv = lane < nt ? s[i] * scale : NEG_INF;
-      const float m_new = fmaxf(m_run[i], warp_max(sv));
-      pr[i] = lane < nt ? expf(sv - m_new) : 0.f;
-      const float alpha = m_run[i] > NEG_INF / 2 ? expf(m_run[i] - m_new) : 0.f;
-      l_run[i] = l_run[i] * alpha + warp_sum(pr[i]);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) acc[i][dd] *= alpha;
-    }
-    // P.V: lane = output feature (lane + 32 dd)
-    for (int t = 0; t < nt; ++t) {
-#pragma unroll
-      for (int i = 0; i < HPW; ++i) {
-        const float pt = __shfl_sync(0xffffffffu, pr[i], t);
-#pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) {
-          const int d = lane + 32 * dd;
-          if (d < dh) acc[i][dd] = fmaf(pt, vs[t * dh + d], acc[i][dd]);
-        }
-      }
-    }
-  }
-
-  // this rank's partial, then the cluster's combine in rank order
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    const int gi = warp + NWARPS * i;
-    if (gi < g) {
-      if (lane == 0) {
-        pm[gi] = m_run[i];
-        pl[gi] = l_run[i];
-      }
-#pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) {
-        const int d = lane + 32 * dd;
-        if (d < dh) po[gi * dh + d] = acc[i][dd];
-      }
-    }
-  }
-  cluster.sync();
-  float* ob = out + ((size_t)bi * h + (size_t)kh * g) * dh;
-  for (int e = rank * THREADS + tid; e < gd; e += n_ranks * THREADS) {
-    const int gi = e / dh;
-    float m = NEG_INF;
-    for (int r = 0; r < n_ranks; ++r) m = fmaxf(m, cluster.map_shared_rank(pm, r)[gi]);
-    float l = 0.f, o = 0.f;
-    for (int r = 0; r < n_ranks; ++r) {
-      const float cr = expf(cluster.map_shared_rank(pm, r)[gi] - m);
-      l += cluster.map_shared_rank(pl, r)[gi] * cr;
-      o += cluster.map_shared_rank(po, r)[e] * cr;
-    }
-    ob[e] = o / fmaxf(l, 1e-30f);
-  }
-  cluster.sync();
-}
-
-template <int HPW>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s, const float* q,
-                   const uint8_t* kq, const float* ks, const uint8_t* vq,
-                   const float* vs, const int* pos, const float* k_new,
-                   const float* v_new, float* out, int S, int h, int hkv, int dh,
-                   int lg_group, int has_new, int bf16, float scale, int cpr,
-                   int seg, int q_rs, int kn_rs, int vn_rs, int pos0) {
-  auto kernel = decode_attention_int4_kernel<HPW>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = grid.z;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, q, kq, ks, vq, vs, pos, k_new, v_new, out,
-                            S, h, hkv, dh, lg_group, has_new, bf16, scale, cpr, seg,
-                            q_rs, kn_rs, vn_rs, pos0);
+  };
+  da::decode_block<HPW>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
+                        out + ((size_t)bi * h + (size_t)kh * g) * dh,
+                        n_hist + (has_new ? 1 : 0), g, dh, scale, cpr, stage);
 }
 
 }  // namespace
@@ -300,22 +144,18 @@ int decode_attention_int4_launch(const float* q, const uint8_t* kq,
                                  int q_rs, int kn_rs, int vn_rs, int pos0,
                                  void* stream) {
   const int g = h / hkv;
-  const size_t smem = sizeof(float) * (2 * (size_t)g * dh + (size_t)CH * (dh + 1) +
-                                       (size_t)CH * dh + 2 * (size_t)g);
   const dim3 grid(hkv, b, n_ranks);
+  const size_t smem = da::smem_bytes(g, dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hpw = (g + NWARPS - 1) / NWARPS;
-  cudaError_t e;
-#define DA4_LAUNCH(H)                                                               \
-  e = launch<H>(grid, smem, s, q, kq, ks, vq, vs, pos, k_new, v_new, out, S, h, hkv, \
-                dh, lg_group, has_new, bf16, scale, cpr, seg, q_rs, kn_rs, vn_rs, pos0)
-  if (hpw <= 1) DA4_LAUNCH(1);
-  else if (hpw <= 2) DA4_LAUNCH(2);
-  else if (hpw <= 4) DA4_LAUNCH(4);
-  else DA4_LAUNCH(8);
+  const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
+#define DA4_LAUNCH(H)                                                                      \
+  da::launch_cluster(decode_attention_int4_kernel<H>, grid, smem, s, q, kq, ks, vq, vs, pos, \
+                     k_new, v_new, out, S, h, hkv, dh, lg_group, has_new, bf16, scale, cpr,  \
+                     seg, q_rs, kn_rs, vn_rs, pos0)
+  cudaError_t e = hpw <= 1 ? DA4_LAUNCH(1) : hpw <= 2 ? DA4_LAUNCH(2)
+                  : hpw <= 4 ? DA4_LAUNCH(4) : DA4_LAUNCH(8);
 #undef DA4_LAUNCH
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 const char* kernel_error_string(int e) {

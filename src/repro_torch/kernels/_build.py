@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled on
 first use, with ``nvcc`` for ``sm_90a``, into its own shared library
 under the git-ignored ``build/`` directory beside ``csrc/`` (override
 with ``REPRO_TORCH_BUILD_DIR``), then loaded with ``ctypes``.  A library
-is named by the hash of its source and flags, so an edited source
-rebuilds and an unchanged one loads at once.  ``build_all`` starts one
-``nvcc`` per source, all together, and waits for them.
+is named by the hash of its source, the shared headers and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once.
+``build_all`` starts one ``nvcc`` per source, all together, and waits
+for them.
 
 Every launcher returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but ``cudaSuccess``.  ``LAUNCHES`` counts
@@ -16,6 +17,7 @@ launch, nowhere else).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -60,9 +62,13 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{h}.so"
+    """The library of ``name``, named by the hash of its source, every
+    shared header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -124,6 +130,12 @@ def check(name: str, err: int):
         msg = _LIBS[name].kernel_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -11,7 +11,8 @@ which it attends unquantized at ``pos[r]`` after the packed rows
 bf16 every value is rounded to bf16 before use (the serving cache's
 compute dtype).  A CPU tensor runs the plain version
 ``decode_attention_int4_ref``; a CUDA tensor launches the kernel or
-raises.
+raises.  Its sequence split (``chunk_plan``) and chunk step are
+``decode_attention``'s (``csrc/decode_attention_common.cuh``).
 """
 from __future__ import annotations
 
@@ -21,25 +22,15 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import (chunk_plan, pos_args,
+                                                  row_stride)
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
-CHUNK = 32                       # positions per chunk (kernel's CH)
-MAX_CLUSTER = 8                  # blocks per (row, kv head)
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 plain = decode_attention_int4_ref
-
-
-def chunk_plan(S: int, has_new: bool):
-    """(ranks, chunks per rank): the sequence's chunks of ``CHUNK``
-    positions (the packed rows, plus the fresh row) spread over a cluster
-    of at most ``MAX_CLUSTER`` blocks per (row, kv head), each rank a run
-    of consecutive chunks."""
-    n_chunks = max(1, -(-(S + int(has_new)) // CHUNK))
-    cpr = -(-n_chunks // MAX_CLUSTER)
-    return -(-n_chunks // cpr), cpr
 
 
 def _seg(dh: int, F2: int, *ptrs: int) -> int:
@@ -50,14 +41,6 @@ def _seg(dh: int, F2: int, *ptrs: int) -> int:
                 p % seg == 0 for p in ptrs):
             return seg
     return 1
-
-
-def _rows(t: torch.Tensor, name: str):
-    """Row stride of a (b, n, dh) tensor whose rows are contiguous."""
-    if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
-        raise ValueError(f"decode_attention_int4: {name} needs contiguous "
-                         f"(heads, dh) rows, strides {t.stride()}")
-    return t.stride(0)
 
 
 def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
@@ -93,15 +76,7 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         raise ValueError(f"decode_attention_int4: needs h // hkv <= 32, dh "
                          f"<= 128 and a power-of-two group, got {h // hkv}, "
                          f"{dh}, {group}")
-    pos_t, pos0 = None, 0              # an int goes to the kernel as is
-    if isinstance(pos, torch.Tensor):
-        pos_t = pos
-        if not (pos.dtype == torch.int32 and pos.device == q.device
-                and pos.shape == (b,) and pos.is_contiguous()):
-            pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(-1)
-            pos_t = pos_t.expand(b).contiguous()
-    else:
-        pos0 = int(pos)
+    pos_t, pos0 = pos_args(pos, b, q.device)
     has_new = k_new is not None
     if has_new:
         k_new, v_new = (t if t.dtype == torch.float32 else t.float()
@@ -117,8 +92,9 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
                                torch.float32, torch.float32):
         raise ValueError("decode_attention_int4: needs f32 q, uint8 packed "
                          "rows and f32 scales")
-    q_rs = _rows(q, "q")
-    kn_rs, vn_rs = ((_rows(k_new, "k_new"), _rows(v_new, "v_new"))
+    q_rs = row_stride(q, NAME + ": q")
+    kn_rs, vn_rs = ((row_stride(k_new, NAME + ": k_new"),
+                     row_stride(v_new, NAME + ": v_new"))
                     if has_new else (0, 0))
     ranks, cpr = chunk_plan(S, has_new)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)

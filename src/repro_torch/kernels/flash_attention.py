@@ -18,10 +18,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 NAME = "flash_attention"
+ROWS = 16                        # query rows per warp (the kernel's ROWS)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-         + [ctypes.c_float, ctypes.c_void_p])
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 plain = flash_attention_ref
+
+
+def flash_plan(b: int, sq: int, h: int, hkv: int):
+    """(warps per block, blocks): a warp owns ``ROWS`` query rows of one
+    head; the warps of a block are heads of one kv group at the same
+    rows and share each K/V tile.  The most warps (at most 4) that
+    divide the group: on the H100 four warps per block beat one and two
+    at every main-path shape, the serving prefill ones too, where one
+    warp per block gives four times the blocks (``tools/flash_phases.py``;
+    PERF.md)."""
+    g = h // hkv
+    w = next(w for w in (4, 2, 1) if g % w == 0)
+    return w, b * hkv * -(-sq // ROWS) * (g // w)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -36,16 +50,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      q_offset=q_offset)
-    if dh > 128:
-        raise ValueError("flash_attention: needs head_dim <= 128")
+    if dh > 128 or dh % 4:
+        raise ValueError(f"flash_attention: needs head_dim <= 128 and a "
+                         f"multiple of 4, got {dh}")
     _build.require_cuda(NAME, q, k, v)
     if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
         raise ValueError("flash_attention: needs f32 q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
+    warps, _ = flash_plan(b, sq, h, hkv)
     fn = _build.launcher(NAME, "flash_attention_launch", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, sq, sk, h, hkv, dh, int(causal), int(window), int(q_offset),
-             1.0 / math.sqrt(dh), _build.stream_ptr(q.device))
+             1.0 / math.sqrt(dh), warps, _build.stream_ptr(q.device))
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
     return out

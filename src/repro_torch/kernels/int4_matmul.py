@@ -9,7 +9,6 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -26,11 +25,6 @@ SMEM_MAX = 232448                # shared memory a block may use (H100)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 plain = int4_matmul_ref
-
-
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fill(n_sms: int) -> int:
@@ -105,7 +99,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     if (x.dtype, packed.dtype, scale.dtype) != (torch.float32, torch.uint8,
                                                 torch.float32):
         raise ValueError("int4_matmul: needs f32 x, uint8 packed, f32 scale")
-    n_sms = _num_sms(x.device.index)
+    n_sms = _build.num_sms(x.device.index)
     xa = x.data_ptr() % 16 == 0
     if M <= SMALL_M:
         if group & (group - 1):

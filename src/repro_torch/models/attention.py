@@ -38,7 +38,7 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
     else:
         k_cache[:, int(pos)] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, int(pos)] = v_new[:, 0].to(v_cache.dtype)
-    out = ops.decode_attention_op(q[:, 0].contiguous(), k_cache, v_cache, pos)
+    out = ops.decode_attention_op(q[:, 0], k_cache, v_cache, pos)
     return out[:, None], k_cache, v_cache
 
 

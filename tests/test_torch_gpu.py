@@ -182,6 +182,90 @@ def test_decode_attention_int4_chunks(dev, S, pos, fresh):
                                                       pos[0], **kw))
 
 
+# (b, sq, sk, h, hkv, dh, causal, window, q_offset): dh 16/32/64/128;
+# g = 1, 4, 8; sq and sk multiples of neither 16 nor 32; window and
+# q_offset (chunked prefill), alone and together; no causal mask
+FLASH_EDGES = [(2, 45, 45, 8, 8, 16, True, 0, 0),
+               (2, 33, 61, 8, 2, 32, True, 0, 28),
+               (1, 37, 37, 32, 4, 64, True, 0, 0),
+               (2, 70, 70, 4, 1, 128, True, 0, 0),
+               (1, 50, 83, 16, 2, 64, True, 19, 33),
+               (3, 17, 17, 8, 1, 128, True, 5, 0),
+               (2, 29, 51, 8, 2, 32, False, 0, 0),
+               (1, 141, 141, 32, 4, 64, True, 0, 0)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset",
+                         FLASH_EDGES)
+def test_flash_attention_kernel_edges(dev, b, sq, sk, h, hkv, dh, causal,
+                                      window, q_offset):
+    """Against the plain version (atol 2e-5), and two calls bit-equal (no
+    atomics: each output row is summed by one warp in a fixed order)."""
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    rng = np.random.default_rng(sq * 7 + dh)
+    q, k, v = (_t(rng, dev, b, sq, h, dh), _t(rng, dev, b, sk, hkv, dh),
+               _t(rng, dev, b, sk, hkv, dh))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(out, plain(q, k, v, **kw), rtol=0, atol=2e-5)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+
+
+# (b, S, h, hkv, dh, pos): dh 16/32/64/128; g = 1, 4, 8; S not a multiple
+# of 32; pos 0 on every row; ranks with no chunk to read (a short row in a
+# long cache); one chunk per rank and several
+DECODE_EDGES = [(2, 45, 8, 8, 16, [44, 0]),
+                (3, 77, 16, 4, 32, [76, 0, 40]),
+                (4, 160, 32, 4, 64, [0, 0, 0, 0]),
+                (2, 300, 16, 2, 128, [299, 3]),
+                (4, 1024, 32, 4, 64, [1023, 700, 0, 64]),
+                (2, 33, 8, 1, 64, [32, 31])]
+
+
+@pytest.mark.parametrize("b,S,h,hkv,dh,pos", DECODE_EDGES)
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_edges(dev, b, S, h, hkv, dh, pos, cdt):
+    """q as a strided view, against the plain version (atol 2e-5 at f32,
+    2e-2 over bf16 caches); two calls bit-equal (the cluster's partials
+    combine in rank order); an int pos equals the same pos as a tensor."""
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    rng = np.random.default_rng(S + dh)
+    q = _t(rng, dev, b, 1, h + 3, dh)[:, 0, 2:h + 2]
+    kc, vc = (_t(rng, dev, b, S, hkv, dh).to(cdt) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = decode_attention(q, kc, vc, p)
+    tol = 2e-5 if cdt == torch.float32 else 2e-2
+    torch.testing.assert_close(out, plain(q, kc, vc, p), rtol=0, atol=tol)
+    assert torch.equal(out, decode_attention(q, kc, vc, p))
+    one = decode_attention(q, kc, vc, pos[-1])
+    assert torch.equal(one, decode_attention(
+        q, kc, vc, torch.full((b,), pos[-1], dtype=torch.int32, device=dev)))
+
+
+@pytest.mark.parametrize("S,pos", [(160, [159, 0, 77, 131]),
+                                   (1024, [1023, 700, 0, 64]),
+                                   (33, [32, 0, 31, 1])])
+def test_decode_int4_bit_equal_to_decode_attention(dev, S, pos):
+    """The two decode kernels share one chunk plan, chunk step and
+    combine: over packed rows without a fresh row at f32, the INT4 kernel
+    equals ``decode_attention`` over the dequantized cache bit for bit."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import decode_attention_int4
+    rng = np.random.default_rng(S)
+    b, h, hkv, dh = 4, 32, 4, 64
+    g = kv_group(hkv * dh)
+    q = _t(rng, dev, b, h, dh)
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, hkv * dh), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, hkv * dh), g)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+    vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+    assert torch.equal(decode_attention_int4(q, kq, ks, vq, vs, p, hkv=hkv,
+                                             group=g),
+                       decode_attention(q, kd, vd, p))
+
+
 def test_kernel_rejects_cpu_mix(dev):
     from repro_torch.kernels.int4_matmul import int4_matmul
     x = torch.zeros(4, 128, device=dev)

@@ -28,7 +28,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention_int4 import decode_attention_int4  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.decode_attention_int4 import CHUNK, chunk_plan  # noqa: E402
+from repro_torch.kernels.decode_attention import CHUNK, chunk_plan  # noqa: E402
 from repro_torch.kernels.int4_matmul import decode_plan, fill, int4_matmul  # noqa: E402
 from repro_torch.kernels.int4_matmul import MAX_CLUSTER, prefill_plan  # noqa: E402
 from repro_torch.quant.int4 import unpack_int4  # noqa: E402
@@ -194,6 +194,151 @@ def test_flash_attention_ragged_shapes_match_oracle(sq, sk, q_offset, causal,
                                    jnp.asarray(v), **kw))
     out = flash_attention(_t(q), _t(k), _t(v), **kw).numpy()
     np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
+def _tc_flash(q, k, v, causal=True, window=0, q_offset=0, terms=3):
+    """``csrc/flash_attention.cu``'s arithmetic in numpy: 16 query rows
+    at a time, key tiles of 32 from the first the rows can attend to the
+    last, each 8-deep step of Q.K and of P.V summed in f32 from TF32
+    terms (lo*hi, hi*lo, hi*hi, small terms first; ``terms=1``: hi*hi
+    alone), scores scaled by the f32 1/sqrt(dh) and masked by position,
+    the online softmax with its alpha rescale, out = o / max(l, 1e-30)."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qh = q.transpose(0, 2, 1, 3)                      # (b, h, sq, dh)
+    kh, vh = (np.repeat(t.transpose(0, 2, 1, 3), g, axis=1) for t in (k, v))
+    scale = np.float32(1.0 / np.sqrt(dh))
+    neg = np.float32(-1e30)
+
+    def products(a, b_):
+        ah, bh = _tf32(a), _tf32(b_)
+        if terms == 1:
+            return [(ah, bh)]
+        return [(_tf32(a - ah), bh), (ah, _tf32(b_ - bh)), (ah, bh)]
+
+    out = np.zeros((b, h, sq, dh), np.float32)
+    for r0 in range(0, sq, 16):
+        nr = min(16, sq - r0)
+        qt = np.zeros((b, h, 16, dh), np.float32)
+        qt[:, :, :nr] = qh[:, :, r0:r0 + nr]
+        qp = (q_offset + r0 + np.arange(16))[:, None]
+        k_hi = min(sk - 1, q_offset + r0 + nr - 1) if causal else sk - 1
+        k_lo = max(0, q_offset + r0 - window + 1) if window else 0
+        m = np.full((b, h, 16), neg)
+        l = np.zeros((b, h, 16), np.float32)
+        o = np.zeros((b, h, 16, dh), np.float32)
+        for t0 in range(k_lo // 32 * 32, k_hi + 1, 32):
+            kt = np.zeros((b, h, 32, dh), np.float32)
+            vt = np.zeros_like(kt)
+            n = min(32, sk - t0)
+            kt[:, :, :n], vt[:, :, :n] = (kh[:, :, t0:t0 + n],
+                                          vh[:, :, t0:t0 + n])
+            s = np.zeros((b, h, 16, 32), np.float32)
+            for d0 in range(0, dh, 8):
+                for a, b_ in products(qt[..., d0:d0 + 8],
+                                      kt[..., d0:d0 + 8].swapaxes(-1, -2)):
+                    s = s + a @ b_
+            kp = (t0 + np.arange(32))[None, :]
+            ok = kp < sk
+            if causal:
+                ok = ok & (kp <= qp)
+            if window:
+                ok = ok & (qp - kp < window)
+            s = np.where(ok, s * scale, neg)
+            m_new = np.maximum(m, s.max(-1))
+            alpha = np.where(m > neg / 2, np.exp(m - m_new), np.float32(0))
+            p = np.where(ok, np.exp(s - m_new[..., None]), np.float32(0))
+            l = l * alpha + p.sum(-1, dtype=np.float32)
+            o = o * alpha[..., None]
+            for c0 in range(0, 32, 8):
+                for a, b_ in products(p[..., c0:c0 + 8], vt[..., c0:c0 + 8, :]):
+                    o = o + a @ b_
+            m = m_new
+        res = o / np.maximum(l, np.float32(1e-30))[..., None]
+        out[:, :, r0:r0 + nr] = res[:, :, :nr]
+    return out.transpose(0, 2, 1, 3)
+
+
+# (b, sq, sk, h, hkv, dh, causal, window, q_offset): the Pallas cases'
+# window, sq and sk not multiples of 16 or 32, q_offset (chunked prefill),
+# no causal mask, g = 1 and 8
+TC_FLASH_CASES = [(2, 64, 64, 8, 2, 16, True, 13, 0),
+                  (2, 64, 64, 4, 1, 16, True, 0, 0),
+                  (2, 45, 65, 8, 2, 32, True, 0, 20),
+                  (2, 30, 50, 8, 2, 32, True, 9, 20),
+                  (2, 77, 77, 8, 2, 32, True, 0, 0),
+                  (1, 50, 70, 4, 4, 16, False, 0, 0),
+                  (1, 37, 37, 16, 2, 64, True, 0, 0)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset",
+                         TC_FLASH_CASES)
+def test_flash_tensor_core_split_holds_tolerance(b, sq, sk, h, hkv, dh,
+                                                 causal, window, q_offset):
+    """The flash design before any card: three TF32 terms per product
+    hold atol 2e-5 against the Pallas kernel (interpret mode) where it
+    takes the shape, else the jnp oracle; one TF32 term does not."""
+    rng = np.random.default_rng(sq * sk + h)
+    q, k, v = (_normal(rng, b, sq, h, dh), _normal(rng, b, sk, hkv, dh),
+               _normal(rng, b, sk, hkv, dh))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if sq == sk and sq % 16 == 0 and not q_offset:
+        ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), block_q=16, block_k=16,
+                                   interpret=True, causal=causal,
+                                   window=window))
+    else:
+        ref = np.asarray(jax_flash_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), **kw))
+    np.testing.assert_allclose(_tc_flash(q, k, v, **kw), ref, atol=2e-5,
+                               rtol=0)
+    assert not np.allclose(_tc_flash(q, k, v, terms=1, **kw), ref,
+                           atol=2e-5, rtol=0)
+
+
+def test_flash_tensor_core_split_at_generation_shape():
+    """The same at the generation prefill shape (b 4, sq 128, h 32, hkv 4,
+    dh 64) against the plain version."""
+    rng = np.random.default_rng(128)
+    q, k, v = (_normal(rng, 4, 128, 32, 64), _normal(rng, 4, 128, 4, 64),
+               _normal(rng, 4, 128, 4, 64))
+    ref = flash_attention(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(_tc_flash(q, k, v), ref, atol=2e-5, rtol=0)
+    assert not np.allclose(_tc_flash(q, k, v, terms=1), ref, atol=2e-5,
+                           rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,h,hkv,blocks", [(4, 128, 32, 4, 256),
+                                               (1, 37, 32, 4, 24),
+                                               (1, 141, 32, 4, 72),
+                                               (1, 34, 32, 4, 24),
+                                               (2, 45, 8, 2, 12),
+                                               (3, 7, 6, 6, 18),
+                                               (1, 300, 12, 4, 228),
+                                               (2, 33, 12, 2, 36)])
+def test_flash_plan_covers_every_row(b, sq, h, hkv, blocks):
+    """``flash_plan`` and the kernel's block -> (heads, 16 rows) map:
+    every query row of every head covered exactly once; warps the most
+    (at most 4) that divide the group; the block count at the main-path
+    shapes (generation prefill, serving prefill of one slot at sq 37 and
+    141) and odd ones."""
+    from repro_torch.kernels.flash_attention import ROWS, flash_plan
+    g = h // hkv
+    w, n_blocks = flash_plan(b, sq, h, hkv)
+    assert w == max(d for d in (1, 2, 4) if g % d == 0)
+    assert n_blocks == blocks
+    n_qt, n_groups = -(-sq // ROWS), g // w
+    assert n_blocks == n_qt * n_groups * hkv * b
+    seen = np.zeros((b, sq, h), np.int64)
+    for bi in range(b):
+        for kh in range(hkv):
+            for x in range(n_qt * n_groups):       # the kernel's blockIdx.x
+                hg, qt = x % n_groups, n_qt - 1 - x // n_groups
+                for warp in range(w):
+                    head = kh * g + hg * w + warp
+                    seen[bi, qt * ROWS:min(sq, (qt + 1) * ROWS), head] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("pos", [0, 63, 127])
@@ -382,26 +527,25 @@ def test_decode_int4_op_plain_path_and_shape_checks():
         decode_attention_int4(*args, hkv=2, group=g, k_new=q[:, :2])
 
 
-def _chunked_decode(q, kq, ks, vq, vs, pos, hkv, group, k_new=None,
-                    v_new=None):
-    """The S split of ``csrc/decode_attention_int4.cu`` in torch (f32):
-    each rank of ``chunk_plan`` walks its run of CHUNK-position chunks
-    with an online softmax (empty ranks keep m = -1e30, l = 0), then the
-    partials combine in rank order as merge_partials / finalize_partials
-    do."""
-    from repro_torch.core.kvstore import _dequant_impl
+def _chunked_decode(q, kc, vc, pos, k_new=None, v_new=None):
+    """The S split of ``csrc/decode_attention_common.cuh`` in torch (f32)
+    over caches (b, S, hkv, dh) of any float dtype (widened to f32): each
+    rank of ``chunk_plan`` walks its run of CHUNK-position chunks with an
+    online softmax (empty ranks keep m = -1e30, l = 0), then the partials
+    combine in rank order as merge_partials / finalize_partials do.  With
+    ``k_new``/``v_new`` (b, hkv, dh) a row attends positions < pos and the
+    fresh row after them (``decode_attention_int4``'s form)."""
     b, h, dh = q.shape
-    S = kq.shape[1]
+    S, hkv = kc.shape[1], kc.shape[2]
     g = h // hkv
-    kd, vd = (_dequant_impl(p, s_, group).reshape(b, S, hkv, dh)
-              for p, s_ in ((kq, ks), (vq, vs)))
+    kd, vd = kc.float(), vc.float()
     ranks, cpr = chunk_plan(S, k_new is not None)
     out = torch.zeros(b, h, dh)
     neg = torch.tensor(-1e30)
     for r in range(b):
         p = int(pos[r])
         n_hist = min(p, S) if k_new is not None else min(p + 1, S)
-        kr, vr = kd[r, :n_hist], vd[r, :n_hist]
+        kr, vr = kd[r, :max(0, n_hist)], vd[r, :max(0, n_hist)]
         if k_new is not None:
             kr = torch.cat([kr, k_new[r][None]])
             vr = torch.cat([vr, v_new[r][None]])
@@ -437,6 +581,14 @@ def _chunked_decode(q, kq, ks, vq, vs, pos, hkv, group, k_new=None,
     return out
 
 
+def _deq_t(kq, ks, vq, vs, hkv, group):
+    """Packed K/V rows (numpy) -> f32 caches (b, S, hkv, dh) in torch."""
+    from repro_torch.core.kvstore import _dequant_impl
+    b, S = kq.shape[:2]
+    return tuple(_dequant_impl(_t(p), _t(s_), group).reshape(b, S, hkv, -1)
+                 for p, s_ in ((kq, ks), (vq, vs)))
+
+
 # (S, pos, hkv, dh): ragged pos with 0, pos inside the first chunk, S not
 # a multiple of the chunk, g = 16 (F = 48), a group spanning two heads
 # (F = 64, dh = 16), and S long enough that a rank walks several chunks
@@ -455,8 +607,8 @@ def test_chunked_decode_int4_matches_pallas(S, pos, hkv, dh):
     b, h = len(pos), 2 * hkv
     q = _normal(rng, b, h, dh)
     (kq, ks), (vq, vs), g = _packed_cache(rng, b, S, hkv, dh)
-    out = _chunked_decode(_t(q), _t(kq), _t(ks), _t(vq), _t(vs), pos, hkv,
-                          g).numpy()
+    out = _chunked_decode(_t(q), *_deq_t(kq, ks, vq, vs, hkv, g),
+                          pos).numpy()
     kd = _deq((kq, ks), g, (b, S, hkv, dh))
     vd = _deq((vq, vs), g, (b, S, hkv, dh))
     for r, p in enumerate(pos):
@@ -481,8 +633,8 @@ def test_chunked_decode_int4_fresh_row_matches_decode_step(S, pos, hkv, dh):
     q = _normal(rng, b, h, dh)
     (kq, ks), (vq, vs), g = _packed_cache(rng, b, S, hkv, dh)
     kn, vn = _normal(rng, b, hkv, dh), _normal(rng, b, hkv, dh)
-    out = _chunked_decode(_t(q), _t(kq), _t(ks), _t(vq), _t(vs), pos, hkv,
-                          g, _t(kn), _t(vn)).numpy()
+    out = _chunked_decode(_t(q), *_deq_t(kq, ks, vq, vs, hkv, g), pos,
+                          _t(kn), _t(vn)).numpy()
     ref, _, _ = jax_decode_step(
         jnp.asarray(q)[:, None], _deq((kq, ks), g, (b, S, hkv, dh)),
         _deq((vq, vs), g, (b, S, hkv, dh)), jnp.asarray(kn)[:, None],
@@ -508,3 +660,86 @@ def test_decode_int4_wrapper_takes_views_and_int_pos():
                               v_new=kn.contiguous())
     torch.testing.assert_close(a, b_, rtol=0, atol=0)
     torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S,pos,hkv,dh", SPLIT_CASES)
+def test_chunked_decode_matches_pallas(S, pos, hkv, dh):
+    """``decode_attention``'s chunked decode and rank-order combine over
+    f32 caches against the Pallas ``decode_attention_kernel`` (interpret
+    mode) run on each row alone at its own scalar position (atol 2e-5)."""
+    rng = np.random.default_rng(S + 3 * hkv)
+    b, h = len(pos), 2 * hkv
+    q = _normal(rng, b, h, dh)
+    kc, vc = _normal(rng, b, S, hkv, dh), _normal(rng, b, S, hkv, dh)
+    out = _chunked_decode(_t(q), _t(kc), _t(vc), pos).numpy()
+    for r, p in enumerate(pos):
+        sl = slice(r, r + 1)
+        ref = np.asarray(decode_attention_kernel(
+            jnp.asarray(q[sl]), jnp.asarray(kc[sl]), jnp.asarray(vc[sl]), p,
+            block_s=32 if S % 32 == 0 else S, interpret=True))
+        np.testing.assert_allclose(out[sl], ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("S,pos,hkv,dh", SPLIT_CASES)
+def test_chunked_decode_bf16_caches(S, pos, hkv, dh):
+    """The chunked decode over bf16 caches (the serving cache; values
+    widened to f32, arithmetic f32) against the plain version over the
+    same caches (atol 2e-2: it rounds probabilities to bf16) and over the
+    caches widened to f32 (atol 2e-5)."""
+    rng = np.random.default_rng(S + 5 * hkv)
+    b, h = len(pos), 2 * hkv
+    q = _t(_normal(rng, b, h, dh))
+    kc, vc = (_t(_normal(rng, b, S, hkv, dh)).bfloat16() for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32)
+    out = _chunked_decode(q, kc, vc, pos)
+    torch.testing.assert_close(out, decode_attention(q, kc, vc, p), rtol=0,
+                               atol=2e-2)
+    torch.testing.assert_close(out, decode_attention(q, kc.float(),
+                                                     vc.float(), p),
+                               rtol=0, atol=2e-5)
+
+
+def test_decode_wrapper_host_arguments():
+    """The decode wrappers' host side: an int pos stays a kernel argument
+    (no tensor made), a (b,) int32 tensor on the device passes as it is,
+    anything else becomes one; q's batch stride is read from a view whose
+    rows are contiguous and refused otherwise; the plain path gives the
+    same result for an int pos, a tensor pos and a strided q."""
+    from repro_torch.kernels.decode_attention import pos_args, row_stride
+    cpu = torch.device("cpu")
+    assert pos_args(7, 3, cpu) == (None, 7)
+    p32 = torch.tensor([1, 2, 3], dtype=torch.int32)
+    assert pos_args(p32, 3, cpu)[0] is p32
+    pt, p0 = pos_args(torch.tensor(5), 3, cpu)
+    assert p0 == 0 and pt.dtype == torch.int32 and pt.tolist() == [5, 5, 5]
+    rng = np.random.default_rng(13)
+    b, h, hkv, dh, S = 3, 8, 2, 16, 40
+    qf = _t(_normal(rng, b, 1, h + 4, dh))
+    q = qf[:, 0, :h]
+    assert row_stride(q, "q") == (h + 4) * dh
+    with pytest.raises(ValueError):
+        row_stride(qf[:, 0, :, :8], "q")
+    kc, vc = _t(_normal(rng, b, S, hkv, dh)), _t(_normal(rng, b, S, hkv, dh))
+    a = decode_attention(q, kc, vc, 20)
+    torch.testing.assert_close(a, decode_attention(q, kc, vc, torch.full(
+        (b,), 20, dtype=torch.int32)), rtol=0, atol=0)
+    torch.testing.assert_close(a, decode_attention(q.contiguous(), kc, vc,
+                                                   20), rtol=0, atol=0)
+
+
+def test_lib_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed by its source and every shared header:
+    editing ``csrc/*.cuh`` gives a new path (a stale library is never
+    loaded); the same bytes give the same path."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.lib_path("k") != first
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    assert _build.lib_path("k") == first
+    (tmp_path / "other.cuh").write_text("\n")
+    assert _build.lib_path("k") != first
