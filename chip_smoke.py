@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(i)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -30,7 +31,27 @@ before the result line:
    with a slot preempted mid-run (same tokens required), then kernels
    against ``use_kernels(False)`` on its weights; (f) bf16 caches
    (``kv_mode="fp32"``), 4 requests;
-7. print the ``kernels`` JSON line, the card, then the result line.
+7. (g) the paper's configuration, built only through the plan entry
+   point: ``create_engine(EngineSpec(arch="llama3.1-8b",
+   quant="int4").resolve())`` against the default ``MemoryBudget``
+   (Llama-3.1-8B at full width and depth, 32 layers; depth-8 window),
+   4 requests of ragged lengths, a short profiled serve for the card's
+   busy share, then kernels against ``use_kernels(False)`` on its
+   weights (final hidden states of a prefill within 1e-4 x max, of a
+   decode step over the bf16 caches within 2e-2 x max, as run (e):
+   the plain version rounds probabilities to bf16); peak device memory
+   beside the plan's budget and the memory model's estimate, the host's
+   RAM and the seconds spent drawing and packing the weights;
+8. (h) the CLI in-process: ``repro_torch.launch.serve.main`` serving
+   llama3.2-1b offloaded with INT4 weights and KV and
+   ``--depth-policy adaptive``, the depth chosen at each step printed;
+9. (i) the resident engine: ``create_engine(EngineSpec(
+   arch="tinyllama-1.1b").resolve())`` (full width and depth) serves run
+   (e)'s requests, is profiled, is held against ``use_kernels(False)``
+   (the tolerances of run (g)), and its tokens are compared with the
+   offloaded engine's on the same weights (agreement printed; the first
+   divergence, if any, with the resident model's logit margin there);
+10. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +92,10 @@ REPLACES = {
 
 # main path: tinyllama-1.1b, b=4, prompt 128, gen 32, max_len 256
 B, PROMPT, GEN, MAX_LEN = 4, 128, 32, 256
+PAPER_REQS, PAPER_NEW = 4, 16      # run (g): requests, new tokens each
+CLI_ARGV = ["--arch", "llama3.2-1b", "--offload", "--quant", "int4",
+            "--kv-mode", "int4", "--depth-policy", "adaptive",
+            "--requests", "8"]     # run (h)
 SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
 SERVE_REQS = 8                     # serving run (e): requests, all submitted
 
@@ -180,16 +205,26 @@ def check_int4(torch, rng, dev):
     cases = [(M, K, N, 128, True if (M, K, N) == (4, 2048, 2048) else
               f"M={M} {K}x{N}") for M in (4, 512, 37, 160)
              for K, N in shapes]
+    # the Llama-3 projections: run (g)'s llama3.1-8b (d 4096, kv 1024,
+    # d_ff 14336) at decode and at its longest prefill, run (h)'s
+    # llama3.2-1b (d 2048, kv 512, d_ff 8192) at decode, and the 8B's
+    # vocabulary head as if it were packed (K 4096, N 128256)
+    l8 = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+    cases += [(M, K, N, 128, f"llama3.1-8b M={M} {K}x{N}")
+              for M in (4, 128) for K, N in l8]
+    cases += [(4, K, N, 128, f"llama3.2-1b M=4 {K}x{N}")
+              for K, N in ((2048, 512), (2048, 8192), (8192, 2048))]
+    cases += [(4, 4096, 128256, 128, None)]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
               (16, 512, 384, 128, None), (512, 384, 200, 32, None),
               (3, 96, 10, 32, None), (16, 64, 6, 32, None),
               (17, 5632, 5632, 128, None), (16, 5632, 256, 128, None)]
     rows = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
     for M, K, N, G, main in cases:
-        x = torch.tensor(rng.standard_normal((M, K)), dtype=torch.float32,
-                         device=dev)
-        w = torch.tensor(rng.standard_normal((K, N)) * 0.05,
-                         dtype=torch.float32, device=dev)
+        x = torch.randn((M, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
         packed, scale = quantize_int4(w, G)
         out = int4_matmul(x, packed, scale, group=G)
         ref = plain(x, packed, scale, G)
@@ -251,7 +286,13 @@ def check_flash(torch, rng, dev):
              (2, 100, 140, 32, 4, 64, True, 17, 40, None),
              # serving prefill: one slot, the prompt's own length
              (1, 37, 37, 32, 4, 64, True, 0, 0, "serving sq=37"),
-             (1, 141, 141, 32, 4, 64, True, 0, 0, "serving sq=141")]
+             (1, 141, 141, 32, 4, 64, True, 0, 0, "serving sq=141"),
+             # Llama-3: head_dim 128 and a GQA group of 4 (run g's
+             # prefill, one slot), llama3.2-1b's dh 64 (run h)
+             (1, 128, 128, 32, 8, 128, True, 0, 0, "llama3.1-8b sq=128"),
+             (1, 37, 37, 32, 8, 128, True, 0, 0, None),
+             (4, 128, 128, 32, 8, 128, True, 0, 0, None),
+             (1, 15, 15, 32, 8, 64, True, 0, 0, "llama3.2-1b sq=15")]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -324,7 +365,14 @@ def check_decode(torch, rng, dev):
              (B, S, 32, 4, 64, SERVE_POS, torch.bfloat16, "bf16"),
              (B, 100, 32, 4, 64, [0, 50, 99, 77], torch.bfloat16, None),
              (3, 77, 8, 2, 32, [76, 0, 40], torch.bfloat16, None),
-             (2, 33, 32, 32, 16, [32, 0], torch.bfloat16, None)]
+             (2, 33, 32, 32, 16, [32, 0], torch.bfloat16, None),
+             # Llama-3.1-8B serving (run g): dh 128, group 4, bf16 caches
+             (B, S, 32, 8, 128, SERVE_POS, torch.bfloat16,
+              "llama3.1-8b bf16"),
+             (B, S, 32, 8, 128, [last] * B, torch.float32, None),
+             # the resident engine (run i): the whole max_len slab
+             (B, MAX_LEN, 32, 4, 64, SERVE_POS, torch.bfloat16,
+              "resident S=256")]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -400,7 +448,15 @@ def check_decode_int4(torch, rng, dev):
               (B, 33, 32, 4, 64, [32, 0, 31, 1], False, torch.float32, None),
               (B, 33, 32, 4, 64, [32, 0, 31, 1], True, torch.float32, None),
               (B, 1024, 32, 4, 64, [1023, 700, 0, 64], False, torch.float32,
-               None)]
+               None),
+              # llama3.2-1b (run h): F = 8 x 64, the CLI's short prompts
+              (B, 32, 32, 8, 64, [22, 15, 9, 20], True, torch.bfloat16,
+               "llama3.2-1b"),
+              (B, 32, 32, 8, 64, [22, 15, 9, 20], False, torch.float32,
+               None),
+              # head_dim 128, group 4 (Llama-3.1-8B with kv_mode="int4")
+              (B, S, 32, 8, 128, SERVE_POS, True, torch.bfloat16, None),
+              (B, S, 32, 8, 128, SERVE_POS, False, torch.float32, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, fresh, cdt, timed in cases:
         F, mk = hkv * dh, (lambda *s: torch.tensor(
@@ -455,6 +511,8 @@ def check_decode_int4(torch, rng, dev):
 # ---------------------------------------------------------------------------
 
 def make_plan(quant, pipeline, kv_mode="fp32"):
+    """A tinyllama-1.1b plan for runs (a)-(f), written out field by
+    field."""
     from repro_torch.serving.spec import ResolvedPlan
     return ResolvedPlan(
         arch="tinyllama-1.1b", scaled=False, engine="offloaded", b_max=B,
@@ -487,7 +545,8 @@ def generate_once(torch, ops, lm, name, prompt, expect):
     toks, stats = lm.generate(prompt, GEN)
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
-    if toks.shape != (B, GEN) or not ((toks >= 0) & (toks < 32000)).all():
+    vocab = lm.cfg.vocab_size
+    if toks.shape != (B, GEN) or not ((toks >= 0) & (toks < vocab)).all():
         raise RuntimeError(f"run {name}: bad tokens {toks.shape}")
     check_launches(name, counts, expect)
     return toks, stats, counts
@@ -596,6 +655,7 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
     torch.cuda.synchronize()
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated() / 2**30
     before = dict(eng.stats)
     for i, (p, m) in enumerate(reqs):
         eng.submit(Request(rid=rid0 + i, prompt=p.copy(), max_new=m))
@@ -617,6 +677,7 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
     outs = {r.rid - rid0: list(r.out) for r in done}
     return dict(outs=outs, steps=steps, wall=wall, stats=stats,
                 counts=dict(ops.LAUNCHES), preempted=preempted,
+                device_allocated_at_start_gb=at_start,
                 device_max_allocated_gb=torch.cuda.max_memory_allocated()
                 / 2**30)
 
@@ -626,24 +687,31 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
     with ``preempt``, once more with a slot preempted mid-run, which must
     give the same tokens); fails on bad tokens or launch counts other
     than flash = layers x prefills and ``decode_kernel`` = layers x
-    decode steps (the other decode kernel 0)."""
+    decode steps (the other decode kernel 0), and, with packed weights,
+    int4_matmul = 7 projections x layers x (prefills + decode steps)."""
     from repro_torch.serving.spec import create_engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = create_engine(plan)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
     r = serve_once(torch, ops, eng, reqs, 0)
     report = eng.pipeline_report()
     other = ({"decode_attention", "decode_attention_int4"}
              - {decode_kernel}).pop()
     n = plan.model_config().num_layers
+    vocab = plan.model_config().vocab_size
     st = r["stats"]
     check_launches(name, r["counts"], {
         "flash_attention": n * st["prefills"],
-        decode_kernel: n * st["decode_steps"], other: 0}, exact=True)
+        decode_kernel: n * st["decode_steps"], other: 0,
+        "int4_matmul": (7 * n * (st["prefills"] + st["decode_steps"])
+                        if plan.quant == "int4" else 0)}, exact=True)
     outs = r["outs"]
     if sorted(outs) != list(range(len(reqs))) or any(
-            len(outs[i]) != m or not all(0 <= t < 32000 for t in outs[i])
+            len(outs[i]) != m or not all(0 <= t < vocab for t in outs[i])
             for i, (_, m) in enumerate(reqs)):
         raise RuntimeError(f"run {name}: bad tokens {outs}")
     steps_ms = sorted(1e3 * s for s in r["steps"])
@@ -652,7 +720,8 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
         "run": name, "plan": f"quant={plan.quant} kv_mode={plan.kv_mode} "
         f"pipeline={plan.pipeline} depth={plan.depth} b_max={plan.b_max} "
         f"max_len={plan.max_len} placement={plan.placement}",
-        "build_s": build_s, "requests": len(reqs),
+        "build_s": build_s, "build_device_peak_gb": build_peak,
+        "requests": len(reqs),
         "prompt_lens": [len(p) for p, _ in reqs],
         "max_new": [m for _, m in reqs], **st, "wall_s": r["wall"],
         "tok_s": st["tokens_out"] / r["wall"],
@@ -663,6 +732,7 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
         "compute_busy": eng.trace.busy_fraction("compute"),
         "host_peak_gb": eng.host.peak_bytes / 2**30,
         "device_peak_gb": eng.device.peak_bytes / 2**30,
+        "device_allocated_at_start_gb": r["device_allocated_at_start_gb"],
         "device_max_allocated_gb": r["device_max_allocated_gb"],
         "kv_dequant_bytes": eng.kvstore.dequant_bytes_total,
         "launches": r["counts"]}
@@ -723,10 +793,280 @@ def serving_whole_path(torch, ops, eng, reqs):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: the plan entry point, the CLI and the resident engine
+# ---------------------------------------------------------------------------
+
+def host_mem_gb() -> float:
+    """The host's RAM (``MemTotal``) in GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) / 2**20
+    raise RuntimeError("no MemTotal in /proc/meminfo")
+
+
+def modeled_device_bytes(plan) -> int:
+    """The memory model's device footprint of the plan's window: the
+    depth-0 peak plus ``depth`` in-flight layers, each at its weights
+    (quant-scaled) and its KV slab — the terms behind the plan's depth
+    provenance (``core.autoconfig.serving_depth_decision``)."""
+    from repro_torch.core.memory_model import (estimate, quant_kv_ratio,
+                                               quant_weight_ratio)
+    cfg = plan.model_config()
+    est0 = estimate(cfg, batch=plan.b_max, seq=plan.max_len, p=4, preload=0)
+    per = (int(max(est0.w_mha, est0.w_mlp) * quant_weight_ratio(4, plan.quant))
+           + int(est0.kv_cache // cfg.num_layers
+                 * quant_kv_ratio(4, plan.kv_mode)))
+    return max(est0.peak_prefill, est0.peak_decode) + plan.depth * per
+
+
+def run_paper(torch, ops, np):
+    """Run (g): Llama-3.1-8B, INT4 weights, through ``EngineSpec.resolve``
+    and ``create_engine`` on the default budget; 4 ragged requests, then
+    the whole path against ``use_kernels(False)``."""
+    from repro_torch.serving.spec import EngineSpec
+    plan = EngineSpec(arch="llama3.1-8b", quant="int4").resolve()
+    cfg = plan.model_config()
+    log(f"(g) plan: {plan.summary()}")
+    log(f"(g) depth: {plan.provenance['depth']}")
+    log(f"(g) host RAM (MemTotal): {host_mem_gb():.1f} GiB")
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
+             PAPER_NEW) for n in rng.integers(32, 129, PAPER_REQS)]
+    eng, counts, summary = run_serving(torch, ops, "g", plan, reqs,
+                                       "decode_attention")
+    short = [(p, 4) for p, _ in reqs]
+    summary["profiled"] = {"requests": PAPER_REQS, "max_new": 4, **busy_share(
+        device_events(torch, lambda: serve_once(torch, ops, eng, short, 400)))}
+    summary.update(
+        host_mem_gb=host_mem_gb(), device_budget_gb=plan.device_budget / 2**30,
+        modeled_device_gb=modeled_device_bytes(plan) / 2**30,
+        params=cfg.param_count(), depth=eng.sched.depth,
+        depth_provenance=plan.provenance["depth"])
+    log(json.dumps({"paper_config": summary}))
+    whole = serving_whole_path(torch, ops, eng, [(p, 2) for p, _ in reqs])
+    eng.shutdown()
+    return eng, counts, summary, whole
+
+
+def run_cli(torch, ops):
+    """Run (h): ``launch.serve.main`` in-process at full width; the depth
+    the adaptive window chose at each decode step is recorded by wrapping
+    ``PipelineScheduler.set_depth`` for the call."""
+    import contextlib
+    import io
+    from repro_torch.core.pipeline import PipelineScheduler
+    from repro_torch.launch import serve
+    depths, orig = [], PipelineScheduler.set_depth
+
+    def set_depth(self, depth):
+        depths.append(orig(self, depth))
+        return depths[-1]
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    PipelineScheduler.set_depth = set_depth
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            eng = serve.main(CLI_ARGV)
+    finally:
+        PipelineScheduler.set_depth = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"(h) {line}")
+    n, st = eng.cfg.num_layers, eng.stats
+    if "completed=8 " not in text or "pipeline[performance] depth=" not in text:
+        raise RuntimeError(f"run h: the CLI printed {text!r}")
+    check_launches("h", counts, {
+        "flash_attention": n * st["prefills"],
+        "decode_attention_int4": n * st["decode_steps"],
+        "decode_attention": 0,
+        "int4_matmul": 7 * n * (st["prefills"] + st["decode_steps"])},
+        exact=True)
+    if len(depths) != st["decode_steps"] or not all(1 <= d <= 8
+                                                    for d in depths):
+        raise RuntimeError(f"run h: depths {depths} over "
+                           f"{st['decode_steps']} decode steps")
+    summary = {"run": "h", "argv": CLI_ARGV, "wall_s": wall,
+               "stats": st, "depth_per_step": depths, "launches": counts}
+    log(json.dumps({"cli": summary}))
+    return counts, summary
+
+
+def logit_margin(torch, eng, tokens):
+    """(top-1 minus top-2 logit, top-1 id, top-2 id) of ``eng``'s model
+    (a resident engine) at the last position of ``tokens``."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    t = torch.tensor(np.asarray(tokens, np.int32)[None], device=eng.dev)
+    ctx = L.Ctx(cfg=eng.cfg, mode="prefill", angles=T._angles(
+        eng.cfg, torch.arange(t.shape[1], device=eng.dev)))
+    x, _ = T._run_stack(eng.params, L.embed_tokens(eng.params["embed"], t),
+                        ctx, None, eng.cfg)
+    x = L.rms_norm(x[:, -1], eng.params["final_norm"]["scale"],
+                   eng.cfg.norm_eps)
+    p = eng.params["embed"]
+    w = p["emb"].T if eng.cfg.tie_embeddings else p["w_out"]
+    top = torch.topk((x @ w)[0, :eng.cfg.vocab_size], 2)
+    return ((top.values[0] - top.values[1]).item(),
+            int(top.indices[0]), int(top.indices[1]))
+
+
+def run_resident(torch, ops, reqs):
+    """Run (i): the resident engine through ``EngineSpec.resolve`` ->
+    ``create_engine``; its whole path against ``use_kernels(False)`` (the
+    final hidden states of a prefill and of a decode step, caught at the
+    head); its tokens against the offloaded engine's on the same weights
+    (both draw them from the plan's seed)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch="tinyllama-1.1b").resolve()
+    log(f"(i) plan: {plan.summary()}; engine: {plan.provenance['engine']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if type(eng) is not ServingEngine:
+        raise RuntimeError(f"run i: built {type(eng).__name__}")
+    r = serve_once(torch, ops, eng, reqs, 0)
+    n, st = eng.cfg.num_layers, r["stats"]
+    check_launches("i", r["counts"], {
+        "flash_attention": n * st["prefills"],
+        "decode_attention": n * st["decode_steps"],
+        "decode_attention_int4": 0, "int4_matmul": 0}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != m for i, (_, m) in enumerate(reqs)):
+        raise RuntimeError(f"run i: bad tokens {outs}")
+    steps_ms = sorted(1e3 * x for x in r["steps"])
+    summary = {"run": "i", "plan": plan.summary(), "build_s": build_s,
+               **st, "wall_s": r["wall"], "tok_s": st["tokens_out"] / r["wall"],
+               "step_ms_median": statistics.median(steps_ms),
+               "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+               "device_max_allocated_gb": r["device_max_allocated_gb"],
+               "launches": r["counts"]}
+    summary["profiled"] = {"requests": B, "max_new": 8, **busy_share(
+        device_events(torch, lambda: serve_once(
+            torch, ops, eng, [(p, 8) for p, _ in reqs[:B]], 400)))}
+
+    # kernels vs plain: hidden states at the head, prefill and decode
+    seen, head = [], T._head
+
+    def grab(params, x, cfg):
+        seen.append(x[:, -1].detach().clone())
+        return head(params, x, cfg)
+
+    T._head = grab
+    try:
+        short = [(p, 2) for p, _ in reqs[:B]]
+        serve_once(torch, ops, eng, short, 200)
+        hk, seen[:] = list(seen), []
+        ops.use_kernels(False)
+        serve_once(torch, ops, eng, short, 300)
+        hp = list(seen)
+    finally:
+        ops.use_kernels(True)
+        T._head = head
+    whole = {}
+    for phase, a, b in (("prefill", hk[0], hp[0]),
+                        ("decode", hk[B], hp[B])):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"run i {phase}: non-finite hidden states")
+        whole[phase + "_rel_err"] = ((a - b).abs().max()
+                                     / b.abs().max()).item()
+    whole["tolerance_rel"] = {"prefill": HIDDEN_RTOL,
+                              "decode": BF16_HIDDEN_RTOL}
+    log(json.dumps({"resident_whole_path": whole}))
+    if whole["prefill_rel_err"] > HIDDEN_RTOL \
+            or whole["decode_rel_err"] > BF16_HIDDEN_RTOL:
+        raise RuntimeError(f"run i: hidden states differ: {whole}")
+
+    # the offloaded engine on the same weights (same seed), same requests
+    oplan = EngineSpec(arch="tinyllama-1.1b", offload=True).resolve()
+    oeng = create_engine(oplan)
+    ro = serve_once(torch, ops, oeng, reqs, 0)
+    oeng.shutdown()
+    pairs = [(x, y) for i in outs for x, y in zip(outs[i], ro["outs"][i])]
+    agree = {"offloaded_plan": oplan.summary(),
+             "tokens_compared": len(pairs),
+             "tokens_equal": sum(x == y for x, y in pairs),
+             "requests_equal": sum(outs[i] == ro["outs"][i] for i in outs)}
+    first = next(((i, k) for i in sorted(outs) for k, (x, y) in
+                  enumerate(zip(outs[i], ro["outs"][i])) if x != y), None)
+    if first is not None:
+        i, k = first
+        prefix = list(reqs[i][0]) + outs[i][:k]
+        agree["first_divergence"] = {
+            "request": i, "step": k, "resident": outs[i][k],
+            "offloaded": ro["outs"][i][k],
+            "resident_logit_margin": logit_margin(torch, eng, prefix)}
+    summary["vs_offloaded"] = agree
+    log(json.dumps({"resident": summary}))
+    eng.shutdown()
+    return r["counts"], summary
+
+
+def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release):
+    """Runs (a)-(f): tinyllama-1.1b, generation and offloaded serving."""
+    # 4. the main path: batch generation (a)-(d)
+    prompt = rng.integers(0, 32000, (B, PROMPT)).astype(np.int32)
+    n_layers = 22
+    attn_expect = {"flash_attention": n_layers,
+                   "decode_attention": n_layers * (GEN - 1),
+                   "decode_attention_int4": 0}
+    int4_expect = {**attn_expect, "int4_matmul": 7 * n_layers * GEN}
+    lm, _, counts["a"], summaries["a"] = run_main(
+        torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
+    release(lm)
+    lm, toks_b, counts["b"], summaries["b"] = run_main(
+        torch, ops, "b", make_plan("int4", "performance"), prompt,
+        int4_expect)
+
+    # 5. the whole path against the plain versions, same weights
+    whole_path_check(torch, ops, lm, prompt, toks_b)
+    release(lm)
+    lm, _, counts["c"], summaries["c"] = run_main(
+        torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
+    release(lm)
+    lm, _, counts["d"], summaries["d"] = run_main(
+        torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
+        {**int4_expect, "decode_attention": 0,
+         "decode_attention_int4": n_layers * (GEN - 1)})
+    release(lm)
+    log(json.dumps({"kv_load_bytes": {
+        "b_fp32_kv": summaries["b"]["bytes"]["kv_load"],
+        "d_int4_kv": summaries["d"]["bytes"]["kv_load"],
+        "ratio": summaries["b"]["bytes"]["kv_load"]
+        / summaries["d"]["bytes"]["kv_load"]}}))
+
+    # 6. serving: (e) int4 KV with a preempted rerun and the whole-path
+    # check, (f) fp32 KV over bf16 caches
+    eng, counts["e"], summaries["e"] = run_serving(
+        torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
+        "decode_attention_int4", preempt=True)
+    serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
+    eng.shutdown()
+    release(eng)
+    eng, counts["f"], summaries["f"] = run_serving(
+        torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
+        "decode_attention")
+    eng.shutdown()
+    release(eng)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="stop after the kernel checks")
+    ap.add_argument("--only", choices=("kernels", "plan"), default=None,
+                    help="stop after the kernel checks (kernels), or run "
+                         "them and runs (g)-(i) only (plan)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -782,60 +1122,33 @@ def main(argv=None) -> int:
     if args.only == "kernels":
         return 0
 
-    # 4. the main path: batch generation (a)-(d)
-    prompt = rng.integers(0, 32000, (B, PROMPT)).astype(np.int32)
-    n_layers = 22
-    attn_expect = {"flash_attention": n_layers,
-                   "decode_attention": n_layers * (GEN - 1),
-                   "decode_attention_int4": 0}
-    int4_expect = {**attn_expect, "int4_matmul": 7 * n_layers * GEN}
     counts, summaries = {}, {}
+    reqs = serving_requests(SERVE_REQS)
 
     def release(lm):
         del lm
         gc.collect()
         torch.cuda.empty_cache()
 
-    lm, _, counts["a"], summaries["a"] = run_main(
-        torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
-    release(lm)
-    lm, toks_b, counts["b"], summaries["b"] = run_main(
-        torch, ops, "b", make_plan("int4", "performance"), prompt,
-        int4_expect)
+    if args.only != "plan":
+        run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release)
+        gc.collect()                # the engines hold reference cycles
+        torch.cuda.empty_cache()
 
-    # 5. the whole path against the plain versions, same weights
-    whole_path_check(torch, ops, lm, prompt, toks_b)
-    release(lm)
-    lm, _, counts["c"], summaries["c"] = run_main(
-        torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
-    release(lm)
-    lm, _, counts["d"], summaries["d"] = run_main(
-        torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
-        {**int4_expect, "decode_attention": 0,
-         "decode_attention_int4": n_layers * (GEN - 1)})
-    release(lm)
-    log(json.dumps({"kv_load_bytes": {
-        "b_fp32_kv": summaries["b"]["bytes"]["kv_load"],
-        "d_int4_kv": summaries["d"]["bytes"]["kv_load"],
-        "ratio": summaries["b"]["bytes"]["kv_load"]
-        / summaries["d"]["bytes"]["kv_load"]}}))
+    # 7.-9. the plan entry point: (g) the paper's Llama-3.1-8B, (h) the
+    # CLI, (i) the resident engine
+    eng, counts["g"], summaries["g"], _ = run_paper(torch, ops, np)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["h"], summaries["h"] = run_cli(torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["i"], summaries["i"] = run_resident(torch, ops, reqs)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 6. serving: (e) int4 KV with a preempted rerun and the whole-path
-    # check, (f) fp32 KV over bf16 caches
-    reqs = serving_requests(SERVE_REQS)
-    eng, counts["e"], summaries["e"] = run_serving(
-        torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
-        "decode_attention_int4", preempt=True)
-    serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
-    eng.shutdown()
-    release(eng)
-    eng, counts["f"], summaries["f"] = run_serving(
-        torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
-        "decode_attention")
-    eng.shutdown()
-    release(eng)
-
-    # 7. the kernels line: each kernel's launches in the run its timed
+    # 10. the kernels line: each kernel's launches in the run its timed
     # shape comes from, and per run
     home = {"flash_attention": "b", "decode_attention": "b",
             "int4_matmul": "b", "decode_attention_int4": "e"}
@@ -845,8 +1158,10 @@ def main(argv=None) -> int:
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": counts[home[name]][name],
-            "launches_run": home[name],
+            "replaces": REPLACES[name],
+            "launches": counts[home[name]][name] if home[name] in counts
+            else max(c[name] for c in counts.values()),
+            "launches_run": home[name] if home[name] in counts else None,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],

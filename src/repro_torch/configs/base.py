@@ -1,8 +1,10 @@
 """Config dataclasses for the PyTorch port.
 
 A copy of the JAX package's ``configs/base.py`` fields, so a plan
-resolved there describes the same model here.  The port carries only
-what its slice runs: the dataclasses, the layer kinds and
+resolved there describes the same model here: the dataclasses, the
+layer kinds, the parameter counts the memory model reads
+(``mixer_params``, ``ffn_params``, ``param_count``,
+``kv_bytes_per_token_layer``, ``attn_layer_indices``) and
 ``scaled_down``.  Standard library only.
 """
 from __future__ import annotations
@@ -122,6 +124,73 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: pattern*periods+remainder={total} != "
                 f"num_layers={self.num_layers}")
+
+    # ---- parameter counting (read by core.memory_model) -------------------
+    def mixer_params(self, spec: LayerSpec) -> int:
+        d, hd = self.d_model, self.head_dim
+        if spec.mixer in (ATTN, ATTN_LOCAL, ENC):
+            q = d * self.num_heads * hd
+            kv = 2 * d * self.num_kv_heads * hd
+            o = self.num_heads * hd * d
+            return q + kv + o
+        if spec.mixer == CROSS:  # self-attn + cross-attn
+            self_p = self.mixer_params(LayerSpec(ATTN, spec.ffn))
+            cross = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+                + self.num_heads * hd * d
+            return self_p + cross
+        if spec.mixer == MLA:
+            m = self.mla
+            q = d * m.q_lora_rank + m.q_lora_rank * self.num_heads * (
+                m.qk_nope_head_dim + m.qk_rope_head_dim)
+            kv = d * (m.kv_lora_rank + m.qk_rope_head_dim) + m.kv_lora_rank * \
+                self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            o = self.num_heads * m.v_head_dim * d
+            return q + kv + o
+        if spec.mixer == SSM:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            in_proj = d * (2 * d_in + 2 * s.n_groups * s.d_state + nheads)
+            conv = (d_in + 2 * s.n_groups * s.d_state) * s.d_conv
+            out = d_in * d
+            return in_proj + conv + out + 2 * nheads  # A_log, D
+        raise ValueError(spec.mixer)
+
+    def ffn_params(self, spec: LayerSpec, active_only: bool = False) -> int:
+        d = self.d_model
+        if spec.ffn == DENSE:
+            return 3 * d * self.d_ff
+        m = self.moe
+        n_routed = m.top_k if active_only else m.num_experts
+        routed = n_routed * 3 * d * m.expert_d_ff
+        shared = m.num_shared * 3 * d * m.shared_d_ff
+        router = d * m.num_experts
+        return routed + shared + router
+
+    def _all_specs(self):
+        return list(self.pattern) * self.num_periods + list(self.remainder)
+
+    def param_count(self, active_only: bool = False) -> int:
+        n = self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
+        for spec in self._all_specs():
+            n += self.mixer_params(spec) + self.ffn_params(spec, active_only)
+            n += 2 * self.d_model  # norms
+        if self.enc_dec:
+            enc_spec = LayerSpec(ENC, DENSE)
+            n += self.num_encoder_layers * (
+                self.mixer_params(enc_spec) + self.ffn_params(enc_spec)
+                + 2 * self.d_model)
+        return n
+
+    def kv_bytes_per_token_layer(self, p: int = 2) -> int:
+        """Bytes of KV cache one token adds in one attention layer."""
+        if self.mla is not None:
+            return p * (self.mla.kv_lora_rank + self.mla.qk_rope_head_dim)
+        return p * 2 * self.num_kv_heads * self.head_dim
+
+    def attn_layer_indices(self):
+        return [i for i, s in enumerate(self._all_specs())
+                if s.mixer in (ATTN, ATTN_LOCAL, MLA, CROSS)]
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:

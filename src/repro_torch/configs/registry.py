@@ -1,14 +1,30 @@
-"""``arch`` registry of the port: only the architectures it has copied."""
+"""``arch`` registry of the port: the JAX package's registry, name for
+name (the ten assigned architectures and the paper's models).  Every
+name resolves to a plan; building an engine for a family the port does
+not run yet raises ``NotImplementedError`` naming its later slice."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3
+from repro_torch.configs.gemma3_4b import CONFIG as GEMMA3_4B
+from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as LLAMA4_SCOUT
+from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
+from repro_torch.configs.paper_models import PAPER_MODELS
+from repro_torch.configs.qwen2_vl_72b import CONFIG as QWEN2_VL_72B
+from repro_torch.configs.qwen3_8b import CONFIG as QWEN3_8B
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA
+from repro_torch.configs.whisper_base import CONFIG as WHISPER_BASE
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (TINYLLAMA,)}
+ASSIGNED: dict[str, ModelConfig] = {c.name: c for c in (
+    GRANITE_8B, TINYLLAMA, GEMMA3_4B, QWEN3_8B, QWEN2_VL_72B,
+    JAMBA_1_5, LLAMA4_SCOUT, DEEPSEEK_V3, MAMBA2_1_3B, WHISPER_BASE)}
+
+REGISTRY: dict[str, ModelConfig] = {**ASSIGNED, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[name]

@@ -334,6 +334,18 @@ class PipelineScheduler:
             return 1
         return max(1, min(int(depth), max(1, num_layers - 1)))
 
+    def set_depth(self, depth: int) -> int:
+        """Re-size the preload window between ``generate()`` calls (main
+        thread) — the ``AdaptiveDepth`` policy's hook.  Takes effect for
+        every *subsequent* preload decision: when shrinking at a warm
+        tail, loads already in flight beyond the new window are simply
+        consumed by the next call's first computes (weights are
+        immutable, so nothing is stale), after which residency settles
+        to the new ``depth + 1`` bound.  Clamped exactly like the
+        constructor; returns the effective depth."""
+        self.depth = self.clamp_depth(self.mode, self.n, depth)
+        return self.depth
+
     @staticmethod
     def pool_size(depth: int) -> int:
         """Transfer workers for a depth-D window: depth workers for the

@@ -3,7 +3,8 @@
 The single-device ``ATTN`` + ``DENSE`` subset of the JAX package's
 ``models/layers.py``: the tables (``name -> ParamDef(shape, axes,
 scale)``) that drive ``models.transformer.init_params``, and the layer
-math the serving engine runs per unit.  Sharding (``Dist``), the other
+math the serving engines run (the offloaded one per unit, the resident
+one over the whole stack).  Sharding (``Dist``), the other
 mixers and MoE come with later slices.
 
 On the card every attention goes through the port's kernels: prefill

@@ -1,17 +1,32 @@
-"""Model assembly for the serving engine: parameter tables, an own
-parameter init, cache shapes and rope angles (the dense subset of the
-JAX package's ``models/transformer.py``).
+"""Model assembly for the dense stack: parameter tables, an own parameter
+init, cache shapes and rope angles, and the whole-model forward passes
+(``init_cache``, ``_run_stack``, ``prefill``, ``decode_step``) — the
+``ATTN`` + ``DENSE`` subset of the JAX package's ``models/transformer.py``.
 
 ``init_params`` draws every table's shapes at the reference's scales (a
 matrix at 1/sqrt(fan-in), a zero-scale vector as zeros, the embedding at
-1/sqrt(d_model)) from one explicit ``numpy.random.default_rng(seed)``, in
-sorted table order.  The reference draws with ``jax.random``, whose
-numbers the port cannot reproduce; the tests carry the reference's
-weights across instead (``core.convert.from_reference_serving``).
+1/sqrt(d_model)).  Each table of each layer draws from its own numpy
+generator, seeded by ``(seed, part, position, period, entry)``
+(``table_params``), so an engine can draw one unit at a time — the
+offloaded engine packs and frees each unit as it goes, on several
+threads (``draw_tables``) — and still hold the numbers the whole-tree
+``init_params`` gives the resident engine.  The reference draws with
+``jax.random``, whose numbers the port cannot reproduce; the tests carry
+the reference's weights across instead (``core.convert``).
+
+The forward passes keep the JAX package's layout (``pat`` tables and
+caches stacked over periods, ``rem`` unstacked) and loop over layers in
+Python where the JAX package scans.  Decode updates the caches in place
+(the JAX package returns new ones).
 """
 from __future__ import annotations
 
+import collections
+import itertools
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +34,8 @@ import torch
 from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.rope import rope_angles
+
+PARTS = ("embed", "final_norm", "pat", "rem")
 
 
 def model_tables(cfg: ModelConfig):
@@ -33,17 +50,55 @@ def model_tables(cfg: ModelConfig):
     }
 
 
-def _init_entry(rng: np.random.Generator, pd: L.ParamDef, stack: int):
-    shape = ((stack,) + pd.shape) if stack else pd.shape
+def _init_entry(rng: np.random.Generator, pd: L.ParamDef) -> np.ndarray:
     if pd.scale == 0.0:
-        return np.zeros(shape, np.float32)
+        return np.zeros(pd.shape, np.float32)
     scale = pd.scale if pd.scale > 0 else 1.0 / math.sqrt(max(1, pd.shape[0]))
-    return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+    out = rng.standard_normal(pd.shape, dtype=np.float32)
+    out *= np.float32(scale)
+    return out
 
 
-def _init_table(table, rng, stack: int):
-    return {name: _init_entry(rng, pd, stack)
-            for name, pd in sorted(table.items())}
+def table_params(cfg: ModelConfig, seed: int, part: str, q: int = 0,
+                 p: int = 0, tables=None) -> Dict[str, np.ndarray]:
+    """One table's f32 tensors: ``embed`` or ``final_norm``, or the layer
+    at pattern position ``q`` of period ``p`` (``pat``) / remainder
+    position ``q`` (``rem``).  Every entry has its own generator."""
+    tabs = tables or model_tables(cfg)
+    tab = tabs[part][q] if part in ("pat", "rem") else tabs[part]
+    k = PARTS.index(part)
+    return {name: _init_entry(np.random.default_rng([seed, k, q, p, i]), pd)
+            for i, (name, pd) in enumerate(sorted(tab.items()))}
+
+
+def table_keys(cfg: ModelConfig):
+    """``(part, q, p)`` of every layer table, in schedulable-unit order
+    (period-major over the pattern, then the remainder)."""
+    return ([("pat", q, p) for p in range(cfg.num_periods)
+             for q in range(len(cfg.pattern))]
+            + [("rem", q, 0) for q in range(len(cfg.remainder))])
+
+
+def draw_tables(cfg: ModelConfig, seed: int, keys: Iterable[Tuple],
+                workers: int = 0) -> Iterator[Tuple[Tuple, Dict]]:
+    """Yield ``(key, table_params(cfg, seed, *key))`` in the order of
+    ``keys``, drawing up to ``workers`` tables ahead on threads (numpy's
+    generators release the interpreter lock while they fill).  0: the
+    host's core count, at most 8."""
+    workers = workers or min(8, os.cpu_count() or 1)
+    tabs = model_tables(cfg)
+    it = iter(keys)
+    with ThreadPoolExecutor(workers) as ex:
+        ahead = collections.deque(
+            (k, ex.submit(table_params, cfg, seed, *k, tables=tabs))
+            for k in itertools.islice(it, workers))
+        while ahead:
+            key, fut = ahead.popleft()
+            nxt = next(it, None)
+            if nxt is not None:
+                ahead.append((nxt, ex.submit(table_params, cfg, seed, *nxt,
+                                             tables=tabs)))
+            yield key, fut.result()
 
 
 def init_params(cfg: ModelConfig, seed: int):
@@ -51,14 +106,24 @@ def init_params(cfg: ModelConfig, seed: int):
     ``final_norm``, ``pat`` (one table per pattern position, stacked over
     periods) and ``rem``."""
     tabs = model_tables(cfg)
-    rng = np.random.default_rng(seed)
-    return {
-        "embed": _init_table(tabs["embed"], rng, 0),
-        "final_norm": _init_table(tabs["final_norm"], rng, 0),
-        "pat": tuple(_init_table(t, rng, cfg.num_periods)
-                     for t in tabs["pat"]),
-        "rem": tuple(_init_table(t, rng, 0) for t in tabs["rem"]),
-    }
+    params = {part: table_params(cfg, seed, part, tables=tabs)
+              for part in ("embed", "final_norm")}
+    pat = [{name: np.empty((cfg.num_periods,) + pd.shape, np.float32)
+            for name, pd in t.items()} for t in tabs["pat"]]
+    rem = [None] * len(cfg.remainder)
+    for (part, q, p), t in draw_tables(cfg, seed, table_keys(cfg)):
+        if part == "pat":
+            for name, a in t.items():
+                pat[q][name][p] = a
+        else:
+            rem[q] = t
+    params["pat"], params["rem"] = tuple(pat), tuple(rem)
+    return params
+
+
+# ===========================================================================
+# Caches
+# ===========================================================================
 
 
 def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
@@ -86,6 +151,20 @@ def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
             {"pat": tuple(k for _, k in pat), "rem": tuple(k for _, k in rem)})
 
 
+def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cpu"):
+    """The zeroed decode cache (bf16 rows, as the reference's) on
+    ``device``."""
+    struct, _ = cache_struct(cfg, b, cache_len)
+    return {grp: tuple({n: torch.zeros(s, dtype=dt, device=device)
+                        for n, (s, dt) in t.items()} for t in struct[grp])
+            for grp in ("pat", "rem")}
+
+
+# ===========================================================================
+# Forward passes
+# ===========================================================================
+
+
 def _angles(cfg: ModelConfig, positions: torch.Tensor):
     """Rope angles (..., s, head_dim // 2) for integer ``positions``
     (..., s); None for a rope-free model."""
@@ -95,3 +174,69 @@ def _angles(cfg: ModelConfig, positions: torch.Tensor):
         raise NotImplementedError("M-RoPE and MLA rope come with later "
                                   "slices of the port")
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig):
+    """Every layer in order (the periods of ``pat``, then ``rem``).
+    Returns (x, each layer's new cache rows: ``pat`` a list per pattern
+    position over periods, ``rem`` a list)."""
+    new_pat = [[] for _ in cfg.pattern]
+    for p in range(cfg.num_periods):
+        for q, spec in enumerate(cfg.pattern):
+            ps = {n: t[p] for n, t in params["pat"][q].items()}
+            cs = (None if caches is None else
+                  {n: c[p] for n, c in caches["pat"][q].items()})
+            x, nc = L.apply_layer(ps, x, ctx, cs, spec)
+            new_pat[q].append(nc)
+    new_rem = []
+    for q, spec in enumerate(cfg.remainder):
+        x, nc = L.apply_layer(params["rem"][q], x, ctx,
+                              None if caches is None else caches["rem"][q],
+                              spec)
+        new_rem.append(nc)
+    return x, {"pat": new_pat, "rem": new_rem}
+
+
+def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return L.lm_head_argmax(params["embed"], x[:, -1:], cfg)
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+    """Process the prompt ``batch["tokens"]`` (b, s); returns
+    (next_token (b,), caches): every layer's rows laid into a zeroed
+    ``cache_len`` slab at compute precision."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    ctx = L.Ctx(cfg=cfg, mode="prefill",
+                angles=_angles(cfg, torch.arange(s, device=tokens.device)))
+    x = L.embed_tokens(params["embed"], tokens)
+    x, rows = _run_stack(params, x, ctx, None, cfg)
+
+    def slab(r):                     # (..., b, s, hkv, dh) -> cache_len
+        out = r.new_zeros(r.shape[:-3] + (cache_len,) + r.shape[-2:])
+        out[..., :s, :, :] = r
+        return out
+    caches = {
+        "pat": tuple({n: slab(torch.stack([c[n] for c in per]))
+                      for n in per[0]} for per in rows["pat"]),
+        "rem": tuple({n: slab(r) for n, r in t.items()}
+                     for t in rows["rem"])}
+    return _head(params, x, cfg), caches
+
+
+def decode_step(params, batch, caches, cfg: ModelConfig):
+    """One decode step.  batch: {"token": (b, 1), "pos": int or (b,)
+    ragged positions}.  Writes each row's K/V at its position into
+    ``caches`` in place and returns (next_token (b,), caches)."""
+    pos = batch["pos"]
+    tok = batch["token"]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        positions = pos[:, None]
+    else:
+        positions = torch.tensor([int(pos)], device=tok.device)
+    ctx = L.Ctx(cfg=cfg, mode="decode", angles=_angles(cfg, positions),
+                pos=pos)
+    x = L.embed_tokens(params["embed"], tok)
+    x, _ = _run_stack(params, x, ctx, caches, cfg)
+    return _head(params, x, cfg), caches

@@ -6,8 +6,8 @@ compute: the request queue, slot assignment, ragged per-slot positions,
 completion/preemption bookkeeping, and slot-granularity KV spill/restore
 orchestration.  Concrete engines supply the compute:
 
-  * ``ServingEngine`` — fully-resident weights (a later slice of the
-    port).
+  * ``ServingEngine`` (serving.engine) — fully-resident weights, one
+    whole-model decode per step.
   * ``OffloadedServingEngine`` (serving.offload_engine) — weights live on
     host/disk tiers and stream through the PIPO ``PipelineScheduler``
     per layer.  Serves models larger than device memory.

@@ -21,10 +21,14 @@ the device and go to ``int4_matmul``.
 
 The dense, single-stage, monolithic-prefill subset of the JAX package's
 ``serving/offload_engine.py``: MoE layers, chunked prefill, speculative
-decoding, pipeline stages and ``AdaptiveDepth`` each raise
-``NotImplementedError`` naming a later slice.  The port draws its own
-weights (``models.transformer.init_params``); ``core.convert.
-from_reference_serving`` loads the JAX engine's instead.
+decoding and pipeline stages each raise ``NotImplementedError`` naming a
+later slice.  ``depth_policy="adaptive"`` re-sizes the window between
+decode steps from the live pressure and the measured link
+(``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
+one unit at a time (``models.transformer.draw_tables``: each unit is
+drawn, packed under ``quant="int4"`` and merged before the next one's
+f32 copy is needed); ``core.convert.from_reference_serving`` loads the
+JAX engine's instead.
 
 Pipeline modes: "performance" (preload the next ``depth`` units during a
 unit's compute; ``warm`` adds the cross-step preload), "memory" and
@@ -42,13 +46,14 @@ from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
 from repro_torch.core.kvstore import TieredKVStore
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
 from repro_torch.core.pipeline import PipelineScheduler, ThreadPool, adopt
-from repro_torch.core.tasks import Trace
+from repro_torch.core.tasks import Trace, _merged_busy
 from repro_torch.core.transfer import DEFAULT_BLOCK, TieredWeightStore
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.base import Request, SlotEngineBase
-from repro_torch.serving.spec import (ResolvedPlan, UnsupportedModelError,
+from repro_torch.serving.spec import (AdaptiveDepth, Pressure, ResolvedPlan,
+                                      StaticDepth, UnsupportedModelError,
                                       offload_capability, preload_policy_for,
                                       quant_policy_for, sched_policy_for)
 
@@ -133,7 +138,7 @@ class OffloadedServingEngine(SlotEngineBase):
         self.stats["preload_depth"] = depth
         self.stats["depth_resizes"] = 0
         self.units: List[_Unit] = []
-        self._split_params(T.init_params(cfg, plan.seed))
+        self._split_params(plan.seed)
         self._kv_init()
         # live decode view, (scheduler iteration base, live_batch,
         # live_len): ONE tuple so transfer-thread reads are atomic under
@@ -141,6 +146,12 @@ class OffloadedServingEngine(SlotEngineBase):
         # preload for iteration base+1 prices itself at live_len+1.
         self._decode_view = (0, self.b_max, self.max_len)
         self._extent_memo: Dict[int, tuple] = {}
+        # per-step Trace cursor + policy feedback (AdaptiveDepth only)
+        self._trace_mark = 0
+        if isinstance(self.preload_policy, AdaptiveDepth):
+            self.preload_policy.set_link_profile(
+                sum(self.weights.nbytes(u.key) for u in self.units)
+                // max(1, len(self.units)))
         self.sched = PipelineScheduler(len(self.units), plan.pipeline,
                                        pool=pool, trace=self.trace,
                                        warm=self.warm, depth=depth,
@@ -155,22 +166,26 @@ class OffloadedServingEngine(SlotEngineBase):
         return cfg.num_periods * len(cfg.pattern) + len(cfg.remainder)
 
     # ---- weight tiering -----------------------------------------------------
-    def _split_params(self, params):
+    def _split_params(self, seed: int):
         """The embedding, LM head and final norm go to the device; each
         layer's tensors (INT4-packed under ``quant="int4"``) merge into
-        one tiered buffer.  Main thread, build time only."""
-        self.resident = {
-            part: {name: self.device.put(f"{part}/{name}", arr)
-                   for name, arr in params[part].items()}
-            for part in ("embed", "final_norm")}
+        one tiered buffer.  Tables are drawn on threads a few units
+        ahead, so at most that many units' f32 copies exist at once.
+        Main thread, build time only."""
         cfg = self.cfg
-        for p in range(cfg.num_periods):
-            for q, spec in enumerate(cfg.pattern):
-                self._put_unit("pat", p, q, spec, f"u[{p}][{q}]",
-                               {n: a[p] for n, a in params["pat"][q].items()})
-        for q, spec in enumerate(cfg.remainder):
-            self._put_unit("rem", 0, q, spec, f"rem[{q}]",
-                           dict(params["rem"][q]))
+        keys = [("embed", 0, 0), ("final_norm", 0, 0)] + T.table_keys(cfg)
+        self.resident = {}
+        for (part, q, p), tensors in T.draw_tables(cfg, seed, keys):
+            if part in ("embed", "final_norm"):
+                self.resident[part] = {
+                    name: self.device.put(f"{part}/{name}", arr)
+                    for name, arr in tensors.items()}
+            elif part == "pat":
+                self._put_unit("pat", p, q, cfg.pattern[q], f"u[{p}][{q}]",
+                               tensors)
+            else:
+                self._put_unit("rem", 0, q, cfg.remainder[q], f"rem[{q}]",
+                               tensors)
 
     def _put_unit(self, group, p, q, spec, key, tensors):
         self.weights.put(key, self.quant_policy.prepare_unit(tensors,
@@ -301,12 +316,55 @@ class OffloadedServingEngine(SlotEngineBase):
         x0 = self._embed(np.asarray(req.prompt)[None])
         toks = self.sched.generate(self, lambda i: x0, 1)
         self.sched.drop_kv_preloads()
+        # skip the prefill's trace window for the bandwidth feedback: a
+        # full-prompt forward costs far more per layer than a decode step
+        self._trace_mark = len(self.trace.events())
         return int(toks[-1][0])
 
+    def _observe_trace(self):
+        """Feed the Trace delta since the last step into the adaptive
+        policy's bandwidth/compute EWMAs (main thread, between steps):
+        transfer bytes over merged transfer busy time is the measured
+        link bandwidth."""
+        evs = self.trace.events()
+        new, self._trace_mark = evs[self._trace_mark:], len(evs)
+        if not new:
+            return
+        xfer = [e for e in new if e.kind in ("weight_load", "kv_load")]
+        comp = [e for e in new if e.kind == "compute"]
+        self.preload_policy.observe(
+            transfer_bytes=sum(e.nbytes for e in xfer),
+            transfer_busy_s=_merged_busy((e.t_start, e.t_end)
+                                         for e in xfer),
+            compute_busy_s=_merged_busy((e.t_start, e.t_end)
+                                        for e in comp),
+            layers=len(comp))
+
+    def _resize_window(self, active: List[int]):
+        """Consult the preload policy with the live pressure snapshot and
+        re-size the scheduler's window between steps (main thread).
+        ``StaticDepth`` always answers the same; ``AdaptiveDepth`` prices
+        the per-layer KV term at the store's exact live payload and the
+        link at the measured-bandwidth EWMA."""
+        if isinstance(self.preload_policy, StaticDepth):
+            return
+        self._observe_trace()
+        lb = max(active) + 1
+        max_pos = int(max(self.pos[s] for s in active))
+        p = Pressure(active=len(active), max_pos=max_pos,
+                     spills=len(self._spill_lru),
+                     kv_layer_bytes=self.kvstore.max_live_load_nbytes(
+                         lb, max(1, max_pos)))
+        d = self.sched.set_depth(self.preload_policy.depth(p))
+        if d != self.stats["preload_depth"]:
+            self.stats["depth_resizes"] += 1
+            self.stats["preload_depth"] = d
+
     def _step_setup(self, active: List[int]):
-        """Per-step state refresh (main thread): phase, position snapshot
-        and the atomic live view for this step's KV extents (occupied
-        slots, written positions)."""
+        """Per-step state refresh (main thread): preload-policy resize,
+        phase, position snapshot and the atomic live view for this step's
+        KV extents (occupied slots, written positions)."""
+        self._resize_window(active)
         self._phase = "decode"
         self._active = list(active)
         self._pos_snap = self.pos.copy()

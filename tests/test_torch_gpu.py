@@ -296,3 +296,107 @@ def test_compute_task_ends_when_the_card_finishes(dev):
     pool.shutdown()
     (ev,) = [e for e in pool.trace.events() if e.kind == "compute"]
     assert ev.t_end - ev.t_start >= 0.01 > launched
+
+
+# ---------------------------------------------------------------------------
+# Llama-3 shapes: head_dim 128, a GQA group of 4, d_ff 14336, the 128256
+# vocabulary (Llama-3.1-8B; llama3.2-1b: d 2048, d_ff 8192, kv 512)
+# ---------------------------------------------------------------------------
+
+_PACKED = {}
+
+
+def _packed(dev, K, N):
+    """One quantized (K, N) weight per shape for the module (drawn on the
+    card: the head is 525M values)."""
+    if (K, N) not in _PACKED:
+        from repro_torch.quant.int4 import quantize_int4
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(K * 7 + N)
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+        _PACKED[(K, N)] = quantize_int4(w, 128)
+    return _PACKED[(K, N)]
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (2048, 512), (2048, 8192),
+                                 (8192, 2048), (4096, 128256)])
+@pytest.mark.parametrize("M", [4, 16, 17, 128])
+def test_int4_matmul_llama3_shapes(dev, M, K, N):
+    """Both paths at every Llama-3 projection and the packed head,
+    against the plain version (rtol 1e-5, atol 1e-5 * max|ref|), two
+    calls equal bit for bit."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    packed, scale = _packed(dev, K, N)
+    x = _t(np.random.default_rng(M + K), dev, M, K)
+    out = int4_matmul(x, packed, scale)
+    ref = plain(x, packed, scale, 128)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(out, int4_matmul(x, packed, scale))
+
+
+@pytest.mark.parametrize("b,sq,dh", [(1, 128, 128), (1, 37, 128),
+                                     (4, 128, 128), (1, 15, 64),
+                                     (2, 77, 128)])
+def test_flash_attention_llama3(dev, b, sq, dh):
+    """h 32, hkv 8 (group 4) at dh 128 and 64, causal, against the plain
+    version (atol 2e-5)."""
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    rng = np.random.default_rng(b * sq + dh)
+    q, k, v = (_t(rng, dev, b, sq, 32, dh), _t(rng, dev, b, sq, 8, dh),
+               _t(rng, dev, b, sq, 8, dh))
+    torch.testing.assert_close(flash_attention(q, k, v), plain(q, k, v),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("S,pos", [(160, [159, 0, 77, 131]),
+                                   (256, [255, 3, 128, 31]),
+                                   (32, [22, 15, 9, 20])])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_decode_attention_llama3(dev, S, pos, cdt):
+    """b 4, h 32, hkv 8 (group 4), dh 128, ragged pos: atol 2e-5 at f32,
+    2e-2 over bf16 caches (the plain version rounds probabilities)."""
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    rng = np.random.default_rng(S + sum(pos))
+    q = _t(rng, dev, 4, 32, 128)
+    kc, vc = (_t(rng, dev, 4, S, 8, 128).to(cdt) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = decode_attention(q, kc, vc, p)
+    torch.testing.assert_close(out, plain(q, kc, vc, p), rtol=0,
+                               atol=2e-5 if cdt == torch.float32 else 2e-2)
+    assert torch.equal(out, decode_attention(q, kc, vc, p))
+
+
+@pytest.mark.parametrize("dh,S,pos", [(64, 32, [22, 15, 9, 20]),
+                                      (128, 160, [159, 0, 77, 131])])
+@pytest.mark.parametrize("fresh,cdt", [(False, torch.float32),
+                                       (True, torch.bfloat16)])
+def test_decode_attention_int4_llama3(dev, dh, S, pos, fresh, cdt):
+    """Packed INT4 KV rows at hkv 8 (F = 512 for llama3.2-1b, 1024 at
+    dh 128), group 4: against the plain version (atol 2e-5 at f32, 2e-2
+    with bf16 rounding) and, without a fresh row, bit-equal to
+    decode_attention over the dequantized cache."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    rng = np.random.default_rng(dh + S)
+    b, h, hkv = 4, 32, 8
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, h, dh)
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    kn, vn = ((_t(rng, dev, b, hkv, dh), _t(rng, dev, b, hkv, dh)) if fresh
+              else (None, None))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
+    out = decode_attention_int4(q, kq, ks, vq, vs, p, **kw)
+    torch.testing.assert_close(out, plain(q, kq, ks, vq, vs, p, **kw),
+                               rtol=0,
+                               atol=2e-5 if cdt == torch.float32 else 2e-2)
+    if not fresh:
+        kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+        vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+        assert torch.equal(out, decode_attention(q, kd, vd, p))

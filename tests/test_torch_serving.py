@@ -170,8 +170,7 @@ def test_entry_points_default_to_cuda():
 def test_gates_name_later_slices():
     _, pplan = _plans("fp32", None, 1)
     rp = lambda **kw: dataclasses.replace(pplan, **kw)
-    for kw in (dict(engine="resident"), dict(depth_policy="adaptive"),
-               dict(sched="online", prefill_chunk=4), dict(stages=2),
+    for kw in (dict(sched="online", prefill_chunk=4), dict(stages=2),
                dict(draft_arch="x", spec_k=2),
                dict(kv_mode="int4", cache_on="device")):
         with pytest.raises(NotImplementedError):
