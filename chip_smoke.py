@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(i)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(l)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -30,7 +30,11 @@ before the result line:
    requests of ragged lengths on 4 slots, then the same requests again
    with a slot preempted mid-run (same tokens required), then kernels
    against ``use_kernels(False)`` on its weights; (f) bf16 caches
-   (``kv_mode="fp32"``), 4 requests;
+   (``kv_mode="fp32"``), 4 requests; (j) on tinyllama: (e)'s requests
+   through the online engine (``sched="online"``, chunks of 32, INT4 KV:
+   chunked prefill's final chunks take ``int4_matmul``'s small-M path),
+   each prompt's last-position hidden state against a monolithic prefill
+   (1e-4 x max) and the tokens against (e)'s;
 7. (g) the paper's configuration, built only through the plan entry
    point: ``create_engine(EngineSpec(arch="llama3.1-8b",
    quant="int4").resolve())`` against the default ``MemoryBudget``
@@ -40,8 +44,17 @@ before the result line:
    weights (final hidden states of a prefill within 1e-4 x max, of a
    decode step over the bf16 caches within 2e-2 x max, as run (e):
    the plain version rounds probabilities to bf16); peak device memory
-   beside the plan's budget and the memory model's estimate, the host's
-   RAM and the seconds spent drawing and packing the weights;
+   beside the plan's budget, the memory model's estimate and the
+   engine's resident bytes (embedding and head), the host's RAM and the
+   seconds spent drawing and packing the weights; then (k) a Poisson
+   arrival trace of 8 requests (prompts of 32-160 tokens, 16 new each,
+   at half of (g)'s completion rate) through (g)'s engine with
+   ``run_trace`` (TTFT and TBT p50/p99, tok/s); then (j): the same plan
+   with ``sched="online"`` (chunks of 32) on the same seed serves (g)'s
+   requests (``flash_attention`` with ``q_offset > 0`` counted; hidden
+   states and tokens against (g)'s, the logit margin at a first
+   divergence; TTFT per request; the peak beside the budget, also at a
+   3.5 GiB budget, which resolves to the same plan), and (k) through it;
 8. (h) the CLI in-process: ``repro_torch.launch.serve.main`` serving
    llama3.2-1b offloaded with INT4 weights and KV and
    ``--depth-policy adaptive``, the depth chosen at each step printed;
@@ -51,13 +64,19 @@ before the result line:
    (the tolerances of run (g)), and its tokens are compared with the
    offloaded engine's on the same weights (agreement printed; the first
    divergence, if any, with the resident model's logit margin there);
-10. print the ``kernels`` JSON line, the card, then the result line.
+10. (l) replay (``core.replay``) of the traces recorded in (b), (c) and
+   (g): the measured steady decode step beside the replay at the
+   recorded knobs, in sequential mode and at depths 1-8; (b)'s predicted
+   sequential step beside (c)'s measured one; ``resolve(trace=...)`` on
+   (g)'s trace beside the memory model's depth;
+11. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -98,6 +117,8 @@ CLI_ARGV = ["--arch", "llama3.2-1b", "--offload", "--quant", "int4",
             "--requests", "8"]     # run (h)
 SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
 SERVE_REQS = 8                     # serving run (e): requests, all submitted
+TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
+TRAFFIC_REQS = 8                   # run (k): arrivals
 
 
 def log(msg=""):
@@ -198,20 +219,26 @@ def check_int4(torch, rng, dev):
     """``int4_matmul`` against its plain version (rtol 1e-5, atol 1e-5 *
     max|ref|), timed at every main-path shape: decode M = 4 (the kernels
     line's head: 2048x2048), batch prefill M = 512 and serving prefill
-    M = 37 and 160, each at the four projection shapes."""
+    M = 37 and 160, each at the four projection shapes; and at the
+    prefill chunks of run (j): a full chunk M = 32 and the final chunks
+    M = 18 (the 8B) and 13 (tinyllama), checked as well at M = 16 and 17
+    on either side of the GEMV/tensor-core switch at the 8B's shapes."""
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     shapes = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
     cases = [(M, K, N, 128, True if (M, K, N) == (4, 2048, 2048) else
-              f"M={M} {K}x{N}") for M in (4, 512, 37, 160)
+              f"M={M} {K}x{N}") for M in (4, 512, 37, 160, 13, TINY_CHUNK)
              for K, N in shapes]
     # the Llama-3 projections: run (g)'s llama3.1-8b (d 4096, kv 1024,
-    # d_ff 14336) at decode and at its longest prefill, run (h)'s
+    # d_ff 14336) at decode, at its longest prefill and at (j)'s chunks
+    # of 18 and 32 rows, run (h)'s
     # llama3.2-1b (d 2048, kv 512, d_ff 8192) at decode, and the 8B's
     # vocabulary head as if it were packed (K 4096, N 128256)
     l8 = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
     cases += [(M, K, N, 128, f"llama3.1-8b M={M} {K}x{N}")
-              for M in (4, 128) for K, N in l8]
+              for M in (4, 128, 18, 32) for K, N in l8]
+    cases += [(M, K, N, 128, None) for M in (SMALL_M, SMALL_M + 1)
+              for K, N in l8]
     cases += [(4, K, N, 128, f"llama3.2-1b M=4 {K}x{N}")
               for K, N in ((2048, 512), (2048, 8192), (8192, 2048))]
     cases += [(4, 4096, 128256, 128, None)]
@@ -292,7 +319,15 @@ def check_flash(torch, rng, dev):
              (1, 128, 128, 32, 8, 128, True, 0, 0, "llama3.1-8b sq=128"),
              (1, 37, 37, 32, 8, 128, True, 0, 0, None),
              (4, 128, 128, 32, 8, 128, True, 0, 0, None),
-             (1, 15, 15, 32, 8, 64, True, 0, 0, "llama3.2-1b sq=15")]
+             (1, 15, 15, 32, 8, 64, True, 0, 0, "llama3.2-1b sq=15"),
+             # run (j)'s prefill chunks (chunk 32 of the 8B's 114-token
+             # prompt): each chunk over the prefix held so far
+             (1, 32, 64, 32, 8, 128, True, 0, 32,
+              "llama3.1-8b chunk sq=32 q_offset=32"),
+             (1, 32, 96, 32, 8, 128, True, 0, 64,
+              "llama3.1-8b chunk sq=32 q_offset=64"),
+             (1, 18, 114, 32, 8, 128, True, 0, 96,
+              "llama3.1-8b final chunk sq=18 q_offset=96")]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -311,11 +346,17 @@ def check_flash(torch, rng, dev):
                    ok=err <= ATTN_ATOL and same, main=timed)
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            # SDPA's is_causal aligns the top left; a chunk's rows sit at
+            # q_offset, so it takes the mask
+            mask = (torch.arange(sk, device=dev)[None, :]
+                    <= q_offset + torch.arange(sq, device=dev)[:, None])
+            sdpa = (dict(attn_mask=mask) if q_offset else
+                    dict(is_causal=True))
             row.update(timings(
                 torch, lambda: flash_attention(q, k, v, **kw),
                 lambda: plain(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), 20))
+                    qt, kt, vt, enable_gqa=True, **sdpa), 20))
             nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
             flops = _attn_flops(torch, sq, sk, h, dh, b, causal, window,
                                 q_offset)
@@ -537,7 +578,8 @@ def generate_once(torch, ops, lm, name, prompt, expect):
     """One main-path ``generate`` on a fresh trace (the engine's trace
     otherwise accumulates across calls), its launch counts zeroed before
     and read after; fails on bad tokens or a kernel launched too
-    rarely (or, where ``expect`` says 0, at all)."""
+    rarely (or, where ``expect`` says 0, at all).  Returns the tokens,
+    the stats, the counts and the run's trace."""
     from repro_torch.core.tasks import Trace
     lm.trace = Trace()
     torch.cuda.synchronize()
@@ -549,13 +591,15 @@ def generate_once(torch, ops, lm, name, prompt, expect):
     if toks.shape != (B, GEN) or not ((toks >= 0) & (toks < vocab)).all():
         raise RuntimeError(f"run {name}: bad tokens {toks.shape}")
     check_launches(name, counts, expect)
-    return toks, stats, counts
+    return toks, stats, counts, lm.trace
 
 
 def run_main(torch, ops, name, plan, prompt, expect):
     """``REPEATS[name]`` runs on one engine (medians and every value of the
     end-to-end metrics), then one profiled ``PROFILE_GEN``-token run for
-    the card's busy share."""
+    the card's busy share.  Returns the engine, run 1's tokens and
+    counts, the summary and the trace of the run of median total time
+    (run (l) replays it)."""
     from repro_torch.serving.spec import build_lm
     t0 = time.perf_counter()
     lm = build_lm(plan)
@@ -563,10 +607,12 @@ def run_main(torch, ops, name, plan, prompt, expect):
     build_s = time.perf_counter() - t0
     runs = [generate_once(torch, ops, lm, name, prompt, expect)
             for _ in range(REPEATS[name])]
-    toks, _, counts = runs[0]
+    toks, _, counts, _ = runs[0]
     keys = ("throughput_tok_s", "decode_tok_s", "ttft_s", "total_s",
             "compute_busy")
-    stats = [s for _, s, _ in runs]
+    stats = [s for _, s, _, _ in runs]
+    order = sorted(range(len(runs)), key=lambda k: stats[k]["total_s"])
+    trace = runs[order[len(order) // 2]][3]
     pk = stats[0]["pipeline"]["per_kind"]
     summary = {
         "run": name, "plan": f"quant={plan.quant} kv_mode={plan.kv_mode} "
@@ -582,12 +628,14 @@ def run_main(torch, ops, name, plan, prompt, expect):
             s["pipeline"]["per_kind"][k]["busy_s"] for s in stats)
             for k in pk},
         "launches": counts,
-        "repeats_tokens_equal": all((t == toks).all() for t, _, _ in runs)}
+        "repeats_tokens_equal": all((t == toks).all() for t, *_ in runs)}
     summary["profiled_gen"] = PROFILE_GEN
+    from repro_torch.core.tasks import Trace
+    lm.trace = Trace()                  # keep the timed runs' traces
     summary.update(busy_share(device_events(
         torch, lambda: lm.generate(prompt, PROFILE_GEN))))
     log(json.dumps({"main_path": summary}))
-    return lm, toks, counts, summary
+    return lm, toks, counts, summary, trace
 
 
 def whole_path_check(torch, ops, lm, prompt, toks_b):
@@ -672,23 +720,34 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = {k: eng.stats[k] - before.get(k, 0) for k in (
-        "prefills", "decode_steps", "tokens_out", "slot_saves",
-        "slot_restores")}
+        "prefills", "prefill_chunks", "decode_steps", "tokens_out",
+        "slot_saves", "slot_restores")}
+    done.sort(key=lambda r: r.rid)
     outs = {r.rid - rid0: list(r.out) for r in done}
     return dict(outs=outs, steps=steps, wall=wall, stats=stats,
+                ttft_s=[r.t_first_token - r.t_arrive for r in done],
+                req_tok_s=[len(r.out) / (r.t_done - r.t_arrive)
+                           for r in done],
                 counts=dict(ops.LAUNCHES), preempted=preempted,
                 device_allocated_at_start_gb=at_start,
                 device_max_allocated_gb=torch.cuda.max_memory_allocated()
                 / 2**30)
 
 
-def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
-    """Build the engine with ``create_engine``, serve ``reqs`` once (and,
-    with ``preempt``, once more with a slot preempted mid-run, which must
-    give the same tokens); fails on bad tokens or launch counts other
-    than flash = layers x prefills and ``decode_kernel`` = layers x
-    decode steps (the other decode kernel 0), and, with packed weights,
-    int4_matmul = 7 projections x layers x (prefills + decode steps)."""
+def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
+                on_build=None):
+    """Build the engine with ``create_engine`` (``on_build(eng)`` runs
+    then), serve ``reqs`` once (and, with ``preempt``, once more with a
+    slot preempted mid-run, which must give the same tokens); fails on
+    bad tokens or launch counts other than flash = layers x prefill
+    passes (whole prompts, or chunks under a chunked ``sched``, those
+    after a prompt's first with q_offset > 0) and ``decode_kernel`` =
+    layers x decode steps (the other decode kernel 0), and, with packed
+    weights, int4_matmul = 7 projections x layers x (prefill passes +
+    decode steps).  Returns the engine, the counts, the summary and the
+    served run (tokens, per-request latency, and a copy of its trace:
+    run (l) replays it)."""
+    from repro_torch.core.tasks import Trace
     from repro_torch.serving.spec import create_engine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -697,17 +756,24 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() / 2**30
+    if on_build is not None:
+        on_build(eng)
     r = serve_once(torch, ops, eng, reqs, 0)
+    r["trace"] = Trace.from_json(json.dumps(eng.trace.to_json()))
     report = eng.pipeline_report()
     other = ({"decode_attention", "decode_attention_int4"}
              - {decode_kernel}).pop()
     n = plan.model_config().num_layers
     vocab = plan.model_config().vocab_size
     st = r["stats"]
+    chunked = plan.sched != "monolithic"
+    passes = st["prefill_chunks"] if chunked else st["prefills"]
     check_launches(name, r["counts"], {
-        "flash_attention": n * st["prefills"],
+        "flash_attention": n * passes,
+        "flash_attention_q_offset": (
+            n * (st["prefill_chunks"] - st["prefills"]) if chunked else 0),
         decode_kernel: n * st["decode_steps"], other: 0,
-        "int4_matmul": (7 * n * (st["prefills"] + st["decode_steps"])
+        "int4_matmul": (7 * n * (passes + st["decode_steps"])
                         if plan.quant == "int4" else 0)}, exact=True)
     outs = r["outs"]
     if sorted(outs) != list(range(len(reqs))) or any(
@@ -727,6 +793,7 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
         "tok_s": st["tokens_out"] / r["wall"],
         "step_ms_median": statistics.median(steps_ms),
         "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+        "ttft_s": r["ttft_s"], "request_tok_s": r["req_tok_s"],
         "busy_s": {k: pk[k]["busy_s"] for k in pk},
         "bytes": {k: pk[k]["bytes"] for k in pk},
         "compute_busy": eng.trace.busy_fraction("compute"),
@@ -735,6 +802,8 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
         "device_allocated_at_start_gb": r["device_allocated_at_start_gb"],
         "device_max_allocated_gb": r["device_max_allocated_gb"],
         "kv_dequant_bytes": eng.kvstore.dequant_bytes_total,
+        "resident_gb": eng.resident_bytes / 2**30,
+        "device_budget_gb": plan.device_budget / 2**30,
         "launches": r["counts"]}
     if preempt:
         p = serve_once(torch, ops, eng, reqs, 100, preempt_after=6)
@@ -745,7 +814,7 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False):
             raise RuntimeError(f"run {name}: the preempted run differs: "
                                f"{summary['preempt']}")
     log(json.dumps({"serving": summary}))
-    return eng, r["counts"], summary
+    return eng, r["counts"], summary, r
 
 
 def serving_whole_path(torch, ops, eng, reqs):
@@ -820,21 +889,29 @@ def modeled_device_bytes(plan) -> int:
     return max(est0.peak_prefill, est0.peak_decode) + plan.depth * per
 
 
+def paper_requests(np, vocab: int):
+    """Run (g)'s requests: prompts of 114, 93, 81 and 58 tokens
+    (``default_rng(0)``), ``PAPER_NEW`` new tokens each."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, (int(n),)).astype(np.int32), PAPER_NEW)
+            for n in rng.integers(32, 129, PAPER_REQS)]
+
+
 def run_paper(torch, ops, np):
     """Run (g): Llama-3.1-8B, INT4 weights, through ``EngineSpec.resolve``
     and ``create_engine`` on the default budget; 4 ragged requests, then
-    the whole path against ``use_kernels(False)``."""
+    the whole path against ``use_kernels(False)``.  Returns the engine
+    (still up: run (k) drives it), its counts and summary, and the served
+    run."""
     from repro_torch.serving.spec import EngineSpec
     plan = EngineSpec(arch="llama3.1-8b", quant="int4").resolve()
     cfg = plan.model_config()
     log(f"(g) plan: {plan.summary()}")
     log(f"(g) depth: {plan.provenance['depth']}")
     log(f"(g) host RAM (MemTotal): {host_mem_gb():.1f} GiB")
-    rng = np.random.default_rng(0)
-    reqs = [(rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
-             PAPER_NEW) for n in rng.integers(32, 129, PAPER_REQS)]
-    eng, counts, summary = run_serving(torch, ops, "g", plan, reqs,
-                                       "decode_attention")
+    reqs = paper_requests(np, cfg.vocab_size)
+    eng, counts, summary, served = run_serving(torch, ops, "g", plan, reqs,
+                                               "decode_attention")
     short = [(p, 4) for p, _ in reqs]
     summary["profiled"] = {"requests": PAPER_REQS, "max_new": 4, **busy_share(
         device_events(torch, lambda: serve_once(torch, ops, eng, short, 400)))}
@@ -842,11 +919,215 @@ def run_paper(torch, ops, np):
         host_mem_gb=host_mem_gb(), device_budget_gb=plan.device_budget / 2**30,
         modeled_device_gb=modeled_device_bytes(plan) / 2**30,
         params=cfg.param_count(), depth=eng.sched.depth,
+        plan_depth=plan.depth,
         depth_provenance=plan.provenance["depth"])
     log(json.dumps({"paper_config": summary}))
-    whole = serving_whole_path(torch, ops, eng, [(p, 2) for p, _ in reqs])
-    eng.shutdown()
-    return eng, counts, summary, whole
+    summary["whole_path"] = serving_whole_path(torch, ops, eng,
+                                               [(p, 2) for p, _ in reqs])
+    return eng, counts, summary, served
+
+
+def head_margin(torch, eng, x):
+    """(top-1 minus top-2 logit, top-1 id, top-2 id) of an offloaded
+    engine's head on the hidden state ``x`` (1, d) of one position."""
+    from repro_torch.models import layers as L
+    xn = L.rms_norm(x, eng.resident["final_norm"]["scale"], eng.cfg.norm_eps)
+    p = eng.resident["embed"]
+    w = p["emb"].T if eng.cfg.tie_embeddings else p["w_out"]
+    top = torch.topk((xn @ w)[0, :eng.cfg.vocab_size], 2)
+    return ((top.values[0] - top.values[1]).item(),
+            int(top.indices[0]), int(top.indices[1]))
+
+
+def monolithic_head(torch, eng, tokens):
+    """The hidden state at the last position of ``tokens`` after a
+    monolithic b=1 prefill on ``eng`` (into free slot 0; its rows are
+    overwritten by the next admission), as the head receives it."""
+    import numpy as np
+    from repro_torch.serving.base import Request
+    seen = []
+    head = eng._head
+    eng._head = lambda x: (seen.append(x[:, -1].detach().clone()),
+                           head(x))[1]
+    try:
+        eng._prefill_into_slot(0, Request(
+            rid=-1, prompt=np.asarray(tokens, np.int32)))
+    finally:
+        del eng._head
+    return seen[0]
+
+
+def capture_chunk_heads(heads):
+    """An ``on_build`` hook for ``run_serving``: records the hidden state
+    the head receives at each chunked prompt's last position (the b=1
+    head calls, in admission order)."""
+    def hook(eng):
+        head = eng._head
+
+        def grab(x):
+            if x.shape[0] == 1:
+                heads.append(x[:, -1].detach().clone())
+            return head(x)
+        eng._head = grab
+    return hook
+
+
+def chunked_vs_monolithic(torch, eng, name, reqs, outs, heads, mono_outs):
+    """Run ``name``'s chunked prefill against the monolithic engine's on
+    the same weights: each prompt's last-position hidden state against a
+    monolithic prefill on the same engine (fails above 1e-4 x max), the
+    tokens against ``mono_outs``, and at the first token where they
+    part, the monolithic path's logit margin there."""
+    rel = []
+    for (prompt, _), h in zip(reqs, heads):
+        m = monolithic_head(torch, eng, prompt)
+        if not torch.isfinite(h).all():
+            raise RuntimeError(f"run {name}: non-finite hidden states")
+        rel.append(((h - m).abs().max() / m.abs().max()).item())
+    pairs = [(x, y) for i in outs for x, y in zip(outs[i], mono_outs[i])]
+    res = {"hidden_rel_err": rel, "tolerance_rel": HIDDEN_RTOL,
+           "tokens_compared": len(pairs),
+           "tokens_equal": sum(x == y for x, y in pairs),
+           "requests_equal": sum(outs[i] == mono_outs[i] for i in outs)}
+    first = next(((i, k) for i in sorted(outs) for k, (x, y) in
+                  enumerate(zip(outs[i], mono_outs[i])) if x != y), None)
+    if first is not None:
+        i, k = first
+        prefix = list(reqs[i][0]) + mono_outs[i][:k]
+        res["first_divergence"] = {
+            "request": i, "token": k, "chunked": outs[i][k],
+            "monolithic": mono_outs[i][k],
+            "monolithic_logit_margin": head_margin(
+                torch, eng, monolithic_head(torch, eng, prefix))}
+    log(json.dumps({"chunked_vs_monolithic": {"run": name, **res}}))
+    if len(heads) != len(reqs) or max(rel) > HIDDEN_RTOL:
+        raise RuntimeError(f"run {name}: chunked prefill hidden states "
+                           f"differ from monolithic: {rel}")
+    return res
+
+
+def run_chunked(torch, ops, np, g_outs, g_depth):
+    """Run (j): Llama-3.1-8B, INT4 weights, ``sched="online"`` (chunks of
+    32) through ``EngineSpec.resolve`` and ``create_engine`` on (g)'s
+    seed; (g)'s 4 requests; against (g)'s tokens; the memory report,
+    also at a 3.5 GiB device budget.  Returns the engine (run (k) drives
+    it), its counts and summary."""
+    from repro_torch.core.offload import MemoryBudget
+    from repro_torch.serving.spec import EngineSpec
+    spec = EngineSpec(arch="llama3.1-8b", quant="int4", sched="online")
+    plan = spec.resolve()
+    cfg = plan.model_config()
+    log(f"(j) plan: {plan.summary()}; prefill_chunk: "
+        f"{plan.provenance['prefill_chunk']}")
+    if plan.prefill_chunk != 32 or plan.depth != g_depth:
+        raise RuntimeError(f"run j: unexpected plan {plan.summary()}")
+    reqs = paper_requests(np, cfg.vocab_size)
+    heads = []
+    eng, counts, summary, served = run_serving(
+        torch, ops, "j", plan, reqs, "decode_attention",
+        on_build=capture_chunk_heads(heads))
+    del eng._head
+    if counts["flash_attention_q_offset"] <= 0:
+        raise RuntimeError("run j: no flash_attention launch with q_offset")
+    summary["vs_g"] = chunked_vs_monolithic(torch, eng, "j", reqs,
+                                            served["outs"], heads, g_outs)
+    b35 = MemoryBudget(device=int(3.5 * 2**30))
+    plan35 = spec.resolve(b35)
+    peak = summary["device_max_allocated_gb"]
+    summary.update(
+        modeled_device_gb=modeled_device_bytes(plan) / 2**30,
+        budget_3_5gib={
+            "depth": plan35.depth, "depth_provenance":
+            plan35.provenance["depth"],
+            "same_plan_but_budget": dataclasses.replace(
+                plan35, device_budget=plan.device_budget,
+                provenance=plan.provenance) == plan,
+            "budget_gb": b35.device / 2**30,
+            "modeled_device_gb": modeled_device_bytes(plan35) / 2**30,
+            "resident_breach_gb": summary["resident_gb"] - 3.5,
+            "peak_breach_gb": peak - 3.5})
+    log(json.dumps({"chunked_paper_config": summary}))
+    return eng, counts, summary
+
+
+def run_traffic(torch, ops, name, eng, atrace, rate):
+    """Run (k): ``run_trace`` drives ``eng`` through the arrival trace on
+    the wall clock; TTFT and TBT percentiles from the engine's trace
+    report, tok/s over the run."""
+    from repro_torch.serving.workload import run_trace
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    before = dict(eng.stats)
+    t0 = time.perf_counter()
+    done = run_trace(eng, atrace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    lat = eng.trace.report()["latency"]
+    vocab = eng.cfg.vocab_size
+    n = len(atrace.arrivals)
+    if len(done) != n or any(
+            len(r.out) != a.max_new or not all(0 <= t < vocab for t in r.out)
+            for r, a in zip(sorted(done, key=lambda r: r.rid),
+                            sorted(atrace.arrivals, key=lambda a: a.rid))):
+        raise RuntimeError(f"run {name}: bad requests")
+    toks = sum(len(r.out) for r in done)
+    summary = {
+        "run": name, "sched": eng.sched_policy.name,
+        "rate_req_s": rate, "requests": n,
+        "prompt_lens": [len(a.prompt) for a in atrace.arrivals],
+        "wall_s": wall, "tokens_out": toks, "tok_s": toks / wall,
+        **{f"{k}_{q}_s": lat[k][f"{q}_s"] for k in ("ttft", "tbt")
+           for q in ("p50", "p99")},
+        "stats": {k: eng.stats[k] - before.get(k, 0) for k in (
+            "prefills", "prefill_chunks", "decode_steps", "tokens_out")},
+        "launches": counts}
+    log(json.dumps({"traffic": summary}))
+    return counts, summary
+
+
+def run_replay(torch, recs, g_plan_depth):
+    """Run (l): replay the recorded traces of runs (b), (c) and (g) on
+    the virtual clock (``core.replay``): the measured steady step beside
+    the replay at the recorded knobs, in sequential mode and at depths
+    1-8, each over the decode steps (the first decode step dropped, as
+    ``steady_step_s`` drops a run's first step); then
+    ``EngineSpec.resolve(trace=<(g)'s trace>)``."""
+    from repro_torch.core.replay import (ReplayKnobs, best_depth, replay,
+                                         steady_step_s, step_boundaries)
+    from repro_torch.serving.spec import EngineSpec
+    out = {}
+    for name, (trace, start) in recs.items():
+        b = step_boundaries(trace)[start:]
+        measured = (b[-1] - b[0]) / (len(b) - 1)
+        rec = replay(trace, start_iter=start)
+        seq = replay(trace, ReplayKnobs(mode="sequential"), start_iter=start)
+        best, preds = best_depth(trace, depth_cap=8, start_iter=start)
+        out[name] = {
+            "recorded": {k: trace.meta.get(k) for k in (
+                "mode", "warm", "depth", "pool_size", "quant", "kv_mode")},
+            "steady_step_s_ms": 1e3 * steady_step_s(trace),
+            "decode_steps": len(b), "measured_step_ms": 1e3 * measured,
+            "replay_recorded_ms": 1e3 * rec.steady_step_s,
+            "gap_ms": 1e3 * (measured - rec.steady_step_s),
+            "replay_sequential_ms": 1e3 * seq.steady_step_s,
+            "replay_depth_ms": {d: 1e3 * t for d, t in preds.items()},
+            "best_depth": best}
+    if "b" in out and "c" in out:
+        out["b_vs_c"] = {
+            "b_predicted_sequential_ms": out["b"]["replay_sequential_ms"],
+            "c_measured_ms": out["c"]["measured_step_ms"],
+            "c_replay_recorded_ms": out["c"]["replay_recorded_ms"]}
+    plan = EngineSpec(arch="llama3.1-8b", quant="int4").resolve(
+        trace=recs["g"][0])
+    out["resolve_g"] = {"depth": plan.depth,
+                        "provenance": plan.provenance["depth"],
+                        "memory_model_depth": g_plan_depth}
+    if not plan.provenance["depth"].startswith("replay:"):
+        raise RuntimeError(f"run l: resolve(trace=...) did not replay: "
+                           f"{plan.provenance['depth']}")
+    log(json.dumps({"replay": out}))
+    return out
 
 
 def run_cli(torch, ops):
@@ -1014,8 +1295,11 @@ def run_resident(torch, ops, reqs):
     return r["counts"], summary
 
 
-def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release):
-    """Runs (a)-(f): tinyllama-1.1b, generation and offloaded serving."""
+def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
+                  traces):
+    """Runs (a)-(f) and (j) on tinyllama-1.1b: generation, offloaded
+    serving, and (e)'s requests through the online (chunked) engine.
+    Records (b)'s and (c)'s traces in ``traces`` for run (l)."""
     # 4. the main path: batch generation (a)-(d)
     prompt = rng.integers(0, 32000, (B, PROMPT)).astype(np.int32)
     n_layers = 22
@@ -1023,20 +1307,20 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release):
                    "decode_attention": n_layers * (GEN - 1),
                    "decode_attention_int4": 0}
     int4_expect = {**attn_expect, "int4_matmul": 7 * n_layers * GEN}
-    lm, _, counts["a"], summaries["a"] = run_main(
+    lm, _, counts["a"], summaries["a"], _ = run_main(
         torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
     release(lm)
-    lm, toks_b, counts["b"], summaries["b"] = run_main(
+    lm, toks_b, counts["b"], summaries["b"], traces["b"] = run_main(
         torch, ops, "b", make_plan("int4", "performance"), prompt,
         int4_expect)
 
     # 5. the whole path against the plain versions, same weights
     whole_path_check(torch, ops, lm, prompt, toks_b)
     release(lm)
-    lm, _, counts["c"], summaries["c"] = run_main(
+    lm, _, counts["c"], summaries["c"], traces["c"] = run_main(
         torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
     release(lm)
-    lm, _, counts["d"], summaries["d"] = run_main(
+    lm, _, counts["d"], summaries["d"], _ = run_main(
         torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
         {**int4_expect, "decode_attention": 0,
          "decode_attention_int4": n_layers * (GEN - 1)})
@@ -1049,15 +1333,30 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release):
 
     # 6. serving: (e) int4 KV with a preempted rerun and the whole-path
     # check, (f) fp32 KV over bf16 caches
-    eng, counts["e"], summaries["e"] = run_serving(
+    eng, counts["e"], summaries["e"], served_e = run_serving(
         torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
         "decode_attention_int4", preempt=True)
     serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
     eng.shutdown()
     release(eng)
-    eng, counts["f"], summaries["f"] = run_serving(
+    eng, counts["f"], summaries["f"], _ = run_serving(
         torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
         "decode_attention")
+    eng.shutdown()
+    release(eng)
+
+    # 6b. (j) on tinyllama: (e)'s requests through the online engine
+    # (chunks of 32: final chunks of 13, 18, 1, 2, 7, 5, 9, 2 tokens, so
+    # most take int4_matmul's small-M path), INT4 KV in the mixed steps
+    heads = []
+    plan = dataclasses.replace(make_plan("int4", "performance", "int4"),
+                               sched="online", prefill_chunk=TINY_CHUNK)
+    eng, counts["j_tiny"], summaries["j_tiny"], served = run_serving(
+        torch, ops, "j_tiny", plan, reqs, "decode_attention_int4",
+        on_build=capture_chunk_heads(heads))
+    del eng._head
+    summaries["j_tiny"]["vs_e"] = chunked_vs_monolithic(
+        torch, eng, "j_tiny", reqs, served["outs"], heads, served_e["outs"])
     eng.shutdown()
     release(eng)
 
@@ -1081,6 +1380,13 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def stamp(phase):
+        """Seconds since the last stamp, under ``phase``."""
+        phase_s[phase] = time.perf_counter() - t_start - sum(
+            phase_s.values())
 
     # 1. the card
     card = card_line()
@@ -1119,6 +1425,7 @@ def main(argv=None) -> int:
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
+    stamp("card, build, kernel checks")
     if args.only == "kernels":
         return 0
 
@@ -1130,25 +1437,59 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    traces = {}
     if args.only != "plan":
-        run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release)
+        run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
+                      traces)
         gc.collect()                # the engines hold reference cycles
         torch.cuda.empty_cache()
+        stamp("tinyllama runs a-f, j_tiny")
 
-    # 7.-9. the plan entry point: (g) the paper's Llama-3.1-8B, (h) the
-    # CLI, (i) the resident engine
-    eng, counts["g"], summaries["g"], _ = run_paper(torch, ops, np)
+    # 7.-9. the plan entry point: (g) the paper's Llama-3.1-8B, then (k)
+    # arrival traffic through it; (j) the same model and seed with
+    # chunked prefill, then (k) through it; (h) the CLI, (i) the
+    # resident engine, (l) replay of the recorded traces
+    eng, counts["g"], summaries["g"], served_g = run_paper(torch, ops, np)
+    stamp("g")
+    traces["g"] = (served_g["trace"], summaries["g"]["prefills"])
+    rate = 0.5 * PAPER_REQS / summaries["g"]["wall_s"]
+    from repro_torch.serving.workload import poisson_trace
+    atrace = poisson_trace(TRAFFIC_REQS, rate, seed=0,
+                           vocab=eng.cfg.vocab_size, prompt_len=(32, 160),
+                           max_new=PAPER_NEW)
+    log(f"(k) rate {rate:.4f} req/s: half of the {PAPER_REQS} requests "
+        f"over (g)'s {summaries['g']['wall_s']:.2f} s")
+    counts["k_mono"], summaries["k_mono"] = run_traffic(
+        torch, ops, "k_mono", eng, atrace, rate)
+    stamp("k_mono")
+    eng.shutdown()
+    del eng                     # before (j) builds: (j)'s peak is its own
+    release(None)
+    eng, counts["j"], summaries["j"] = run_chunked(
+        torch, ops, np, served_g["outs"], summaries["g"]["plan_depth"])
+    stamp("j")
+    counts["k_online"], summaries["k_online"] = run_traffic(
+        torch, ops, "k_online", eng, atrace, rate)
+    stamp("k_online")
+    eng.shutdown()
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    release(None)
     counts["h"], summaries["h"] = run_cli(torch, ops)
+    stamp("h")
     gc.collect()
     torch.cuda.empty_cache()
     counts["i"], summaries["i"] = run_resident(torch, ops, reqs)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("i")
+    # (b) and (c) replay from their first decode step, (g) after its
+    # four prefills
+    summaries["l"] = run_replay(torch, {k: (t, 1) if k in ("b", "c") else t
+                                        for k, t in traces.items()},
+                                summaries["g"]["plan_depth"])
+    stamp("l")
 
-    # 10. the kernels line: each kernel's launches in the run its timed
+    # 11. the kernels line: each kernel's launches in the run its timed
     # shape comes from, and per run
     home = {"flash_attention": "b", "decode_attention": "b",
             "int4_matmul": "b", "decode_attention_int4": "e"}
@@ -1168,6 +1509,9 @@ def main(argv=None) -> int:
             "library_ms": m["library_ms"], "call_ms": m["call_ms"],
             "parity": "ok", "shape": m["shape"],
             "launches_by_run": {k: c[name] for k, c in counts.items()}}
+        if name == "flash_attention":
+            entry["q_offset_launches_by_run"] = {
+                k: c["flash_attention_q_offset"] for k, c in counts.items()}
         entry.update({k: m[k] for k in ("bound_rate", "bound_fp32_ms")
                       if k in m})
         variants = [r for r in rows
@@ -1179,6 +1523,8 @@ def main(argv=None) -> int:
                 "max_abs_err") if k in v}
         kernels.append(entry)
     torch.cuda.synchronize()
+    log(json.dumps({"wall_s": {"total": time.perf_counter() - t_start,
+                               "by_phase": phase_s}}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ back to depth 1.  docs/TUNING.md walks a worked example.
 
 The port of the JAX package's ``core/autoconfig.py``: the same
 arithmetic and the same why strings, so a plan resolves to the same
-JSON in both packages.  ``replay_depth_decision`` waits for the
-``core/replay.py`` slice of the port.
+JSON in both packages.  ``replay_depth_decision`` picks the depth from
+a recorded trace through ``core.replay``.
 """
 from __future__ import annotations
 
@@ -165,9 +165,17 @@ def replay_depth_decision(trace, *, depth_cap: int = 8,
     predictions and names ``replay`` as the source —
     ``EngineSpec.resolve(budget, trace=...)`` stores it as the depth
     field's provenance."""
-    raise NotImplementedError(
-        "replay_depth_decision needs the trace-replay simulator "
-        "(core/replay.py), which comes with a later slice of the port")
+    from repro_torch.core.replay import ReplayKnobs, best_depth
+    knobs = ReplayKnobs(quant="fp32" if quant is None else quant,
+                        kv_mode="fp32" if kv_mode is None else kv_mode,
+                        sim_bw=sim_bw)
+    d, preds = best_depth(trace, depth_cap=depth_cap, knobs=knobs,
+                          start_iter=start_iter, stop_iter=stop_iter)
+    table = ", ".join(f"d{k}={v * 1e3:.2f}ms" for k, v in
+                      sorted(preds.items()))
+    return d, (f"simulated argmin over depths 1..{depth_cap}: depth {d} "
+               f"predicts the fastest steady step ({table}) "
+               f"(source=replay)")
 
 
 def serving_preload_depth(cfg: ModelConfig, *, b_max: int, max_len: int,

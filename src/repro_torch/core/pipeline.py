@@ -292,11 +292,19 @@ class PipelineScheduler:
     def __init__(self, num_layers: int, mode: str = "performance",
                  pool: Optional[ThreadPool] = None,
                  trace: Optional[Trace] = None, warm: bool = False,
-                 depth: int = 1, device: Optional[torch.device] = None):
+                 depth: int = 1, device: Optional[torch.device] = None,
+                 stage: int = 0, unit_base: int = 0):
         if mode not in PIPELINE_MODES:
             raise ValueError(f"mode {mode!r} not in {PIPELINE_MODES}")
         self.n = num_layers
         self.mode = mode
+        # pipeline-parallel placement: ``stage`` tags every task this
+        # scheduler submits; ``unit_base`` offsets task NAMES to the
+        # global unit index so a shared multi-stage trace stays
+        # replayable — callbacks still receive stage-local indices (a
+        # StagedScheduler's per-stage model view translates).
+        self.stage = int(stage)
+        self.unit_base = int(unit_base)
         self.trace = trace or Trace()
         # cross-call ("warm pipeline") state: preloading across generate()
         # calls only makes sense in performance mode — memory mode's
@@ -366,6 +374,7 @@ class PipelineScheduler:
         t.nbytes = nbytes            # before submit: VirtualPool traces here
         t.extent = extent
         t.after = after
+        t.stage = self.stage
         self.pool.submit(t, priority)
         if self.mode == "sequential":
             t.wait()
@@ -421,7 +430,7 @@ class PipelineScheduler:
             if j in self._w_tasks:
                 continue
             self._w_tasks[j] = self._submit(
-                TaskType.WEIGHT_LOAD, f"w[{j}]",
+                TaskType.WEIGHT_LOAD, f"w[{self.unit_base + j}]",
                 lambda j=j: model.load_weights(j),
                 nbytes=nbytes_of(j) if nbytes_of else 0)
             submitted += 1
@@ -451,11 +460,12 @@ class PipelineScheduler:
         # not just the load directions)
         kv_extent_of = getattr(model, "kv_extent", None)
         kv_save_nbytes_of = getattr(model, "kv_save_nbytes", None)
+        ub = self.unit_base                    # global-name offset
 
         def submit_weight(j):
             if j is not None and j < n and j not in w_tasks:
                 w_tasks[j] = self._submit(
-                    TaskType.WEIGHT_LOAD, f"w[{j}]",
+                    TaskType.WEIGHT_LOAD, f"w[{ub + j}]",
                     lambda j=j: model.load_weights(j),
                     nbytes=nbytes_of(j) if nbytes_of else 0)
 
@@ -477,7 +487,7 @@ class PipelineScheduler:
                 save_tasks.pop((i - 1, j))
                 prev_save.wait()
             kv_tasks[(i, j)] = self._submit(
-                TaskType.KV_LOAD, f"kv[{i},{j}]",
+                TaskType.KV_LOAD, f"kv[{i},{ub + j}]",
                 lambda i=i, j=j: model.load_kv(i, j),
                 nbytes=kv_nbytes_of(i, j) if kv_nbytes_of else 0,
                 extent=kv_extent_of(i, j) if kv_extent_of else None)
@@ -537,8 +547,9 @@ class PipelineScheduler:
                     preload_window(it * n + j)
 
                 # --- Compute(i, j) on the main thread ----------------------
-                ct = Task(TaskType.COMPUTE, f"c[{gi},{j}]",
+                ct = Task(TaskType.COMPUTE, f"c[{gi},{ub + j}]",
                           lambda: model.compute(gi, j, x, weights, kv))
+                ct.stage = self.stage
                 self.pool.run_on_main(ct)
                 if self.mode != "performance":
                     self.pool.settle()
@@ -546,7 +557,7 @@ class PipelineScheduler:
 
                 # --- CallStoreCache(i, j) ----------------------------------
                 if model.is_mha(j) and new_kv is not None:
-                    st = self._submit(TaskType.KV_SAVE, f"sv[{gi},{j}]",
+                    st = self._submit(TaskType.KV_SAVE, f"sv[{gi},{ub + j}]",
                                       lambda gi=gi, j=j, kv=new_kv:
                                       model.save_kv(gi, j, kv),
                                       priority=1,  # lower priority
@@ -573,3 +584,196 @@ class PipelineScheduler:
         self.drain_saves()
         if self._owns_pool:
             self.pool.shutdown()
+
+
+class _StageView:
+    """One stage's view of a global model: the child scheduler hands it
+    stage-local unit indices, the wrapped model speaks global ones.
+    Non-final stages return ``(activation, t_ready)`` from ``finalize``
+    so the downstream stage's activation provider can advance its own
+    virtual clock to the handoff point (real pools carry no virtual
+    clock; the timestamp is then unused)."""
+
+    def __init__(self, model, base: int, final: bool, clock=None):
+        self._m = model
+        self._b = base
+        self._final = final
+        self._clock = clock
+        b = base
+        # byte-accounting hooks are optional on models; mirror exactly the
+        # ones present so generate()'s getattr probes see the same surface
+        if hasattr(model, "weight_nbytes"):
+            self.weight_nbytes = lambda j: model.weight_nbytes(b + j)
+        if hasattr(model, "kv_nbytes"):
+            self.kv_nbytes = lambda i, j: model.kv_nbytes(i, b + j)
+        if hasattr(model, "kv_extent"):
+            self.kv_extent = lambda i, j: model.kv_extent(i, b + j)
+        if hasattr(model, "kv_save_nbytes"):
+            self.kv_save_nbytes = \
+                lambda i, j: model.kv_save_nbytes(i, b + j)
+
+    def is_mha(self, j):
+        return self._m.is_mha(self._b + j)
+
+    def load_weights(self, j):
+        return self._m.load_weights(self._b + j)
+
+    def release_weights(self, j, handle):
+        return self._m.release_weights(self._b + j, handle)
+
+    def load_kv(self, i, j):
+        return self._m.load_kv(i, self._b + j)
+
+    def save_kv(self, i, j, new_kv):
+        return self._m.save_kv(i, self._b + j, new_kv)
+
+    def compute(self, i, j, x, weights, kv):
+        return self._m.compute(i, self._b + j, x, weights, kv)
+
+    def finalize(self, it, x):
+        if self._final:
+            return self._m.finalize(it, x)
+        t = self._clock.now() if self._clock is not None else 0.0
+        return (x, t)
+
+
+class StagedScheduler:
+    """Pipeline-parallel composition of per-stage Algorithm-1 schedulers.
+
+    The layer stack is split into contiguous stages; each stage owns its
+    OWN scheduler, transfer pool, and (on the engines) tiered stores —
+    so every stage streams only its slice and aggregate link bandwidth
+    scales with stage count.  Microbatched activations hand stage to
+    stage: stage ``s+1`` computes microbatch ``m`` while stage ``s``
+    computes ``m+1`` and both overlap their own WEIGHT/KV loads.
+
+    On the virtual harness each stage's pool carries its own
+    ``VirtualClock`` over ONE shared ``Trace`` (all clocks start at the
+    trace origin): stages execute sequentially in wall order, but the
+    downstream provider advances its stage clock to
+    ``max(own time, upstream handoff time)`` — exactly the pipeline
+    recurrence — so overlap, fill/drain bubbles, and per-stage residency
+    are all assertable on virtual timestamps.  Task names use GLOBAL
+    unit indices (``unit_base``), every task carries its ``stage`` tag,
+    and ``meta`` records ``stages``/``stage_units``/``stage_depths`` so
+    ``core.replay`` can rebuild the staged run.
+
+    ``handoff(stage, it, x)`` is the activation-transport seam: identity
+    here (queue handoff).  The staged serving engines, which would move
+    the activation between devices, come with a later slice of the port.
+    """
+
+    def __init__(self, stage_units, mode: str = "performance", pools=None,
+                 trace: Optional[Trace] = None, warm: bool = False,
+                 depths=None):
+        units = [(int(lo), int(hi)) for lo, hi in stage_units]
+        if not (units and all(lo < hi for lo, hi in units)
+                and units[0][0] == 0
+                and all(units[s][1] == units[s + 1][0]
+                        for s in range(len(units) - 1))):
+            raise ValueError(f"stages must tile the stack contiguously: "
+                             f"{units}")
+        self.stage_units = units
+        self.n = units[-1][1]
+        self.mode = mode
+        if depths is None:
+            depths = [1] * len(units)
+        if pools is None:
+            pools = [None] * len(units)
+        self.trace = trace or Trace()
+        self.scheds = [
+            PipelineScheduler(hi - lo, mode, pool=pools[s], trace=self.trace,
+                              warm=warm, depth=depths[s], stage=s,
+                              unit_base=lo)
+            for s, (lo, hi) in enumerate(units)]
+        self.warm = self.scheds[0].warm
+        self.depths = [sc.depth for sc in self.scheds]
+        self.depth = max(self.depths)
+        # each child stamped the shared meta with its own local view (last
+        # writer won); restamp the staged run as a whole
+        self.trace.meta.update(
+            mode=self.mode, warm=self.warm, depth=self.depth,
+            n_units=self.n,
+            pool_size=max(getattr(sc.pool, "n_workers", 0)
+                          or PipelineScheduler.pool_size(sc.depth)
+                          for sc in self.scheds),
+            stages=len(self.scheds),
+            stage_units=[list(u) for u in units],
+            stage_depths=list(self.depths))
+        self.trace.meta.setdefault("calls", [])
+
+    # -- activation transport (override on real meshes) ---------------------
+    def handoff(self, stage: int, it: int, x):
+        """Move microbatch ``it``'s activation onto stage ``stage``:
+        identity queue-handoff here."""
+        return x
+
+    @property
+    def _iter0(self) -> int:
+        """Global iteration base (all stages advance in lockstep — the
+        serving engines read this to anchor their live decode view)."""
+        return self.scheds[0]._iter0
+
+    def prime_weights(self, model, count: Optional[int] = None) -> int:
+        """Fan ``prime_weights`` out to every stage (each primes its own
+        window through its stage view); returns total loads submitted."""
+        last = len(self.scheds) - 1
+        return sum(
+            sc.prime_weights(
+                _StageView(model, sc.unit_base, s == last,
+                           getattr(sc.pool, "clock", None)), count)
+            for s, sc in enumerate(self.scheds))
+
+    # -- staged Algorithm 1 --------------------------------------------------
+    def generate(self, model, x0, num_iterations: int):
+        """Run ``num_iterations`` microbatches through every stage.  The
+        model's callbacks use GLOBAL unit indices (each stage sees its
+        slice through a ``_StageView``).  Blocks the calling thread;
+        returns the final stage's outputs."""
+        calls = self.trace.meta.setdefault("calls", [])
+        mark = len(calls)                    # children append; collapse below
+        outs = None
+        for s, sched in enumerate(self.scheds):
+            final = s == len(self.scheds) - 1
+            clock = getattr(sched.pool, "clock", None)
+            view = _StageView(model, sched.unit_base, final, clock)
+            # all stages start streaming their first window at the current
+            # stage-local time — never gated on upstream activations
+            sched.prime_weights(view)
+            if s == 0:
+                prov = x0
+            else:
+                handed = outs
+
+                def prov(it, _h=handed, _c=clock, _s=s):
+                    x, t_ready = _h[it]
+                    if isinstance(_c, VirtualClock):
+                        _c.advance_to(t_ready)
+                    return self.handoff(_s, it, x)
+            outs = sched.generate(view, prov, num_iterations)
+        # each child recorded the call; the staged run is ONE call
+        del calls[mark:]
+        calls.append(num_iterations)
+        return outs
+
+    # -- maintenance fan-out (main thread) -----------------------------------
+    def set_depth(self, depth: int) -> int:
+        """Uniform window re-size across stages (per-stage caps apply);
+        returns the largest effective depth."""
+        self.depths = [sc.set_depth(depth) for sc in self.scheds]
+        self.depth = max(self.depths)
+        self.trace.meta.update(depth=self.depth,
+                               stage_depths=list(self.depths))
+        return self.depth
+
+    def drop_kv_preloads(self):
+        for sc in self.scheds:
+            sc.drop_kv_preloads()
+
+    def drain_saves(self):
+        for sc in self.scheds:
+            sc.drain_saves()
+
+    def shutdown(self):
+        for sc in self.scheds:
+            sc.shutdown()

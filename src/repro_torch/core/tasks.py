@@ -290,6 +290,13 @@ class Trace:
             return 0.0
         return self.busy_time(kind) / max(1e-9, span)
 
+    def bytes_moved(self, kind: str, name_prefix: str = "") -> int:
+        """Sum of per-event payload sizes for one task kind (0-byte events
+        are tasks whose submitter didn't know the size).  ``name_prefix``
+        filters events by name."""
+        return sum(e.nbytes for e in self.events()
+                   if e.kind == kind and e.name.startswith(name_prefix))
+
     def report(self) -> Dict[str, Any]:
         """Pipeline instrumentation (Fig. 8/9 analogue): per-task-type busy
         time + counts, compute-thread utilization, and bubble accounting

@@ -12,7 +12,8 @@ for them.
 Every launcher returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but ``cudaSuccess``.  ``LAUNCHES`` counts
 the kernel launches of each wrapper (the wrappers add one where they
-launch, nowhere else).
+launch, nowhere else); ``flash_attention_q_offset`` counts the subset of
+``flash_attention``'s launches with ``q_offset > 0`` (prefill chunks).
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+Q_OFFSET = "flash_attention_q_offset"
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, Q_OFFSET)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}

@@ -66,4 +66,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              1.0 / math.sqrt(dh), warps, _build.stream_ptr(q.device))
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
+    if q_offset > 0:
+        _build.LAUNCHES[_build.Q_OFFSET] += 1
     return out

@@ -8,8 +8,10 @@ package's ``models/attention.py``: write the step's new K/V row at
 kernel dispatch.  ``decode_attention_packed`` is the same step over a
 ``kv_mode="int4"`` history that stays packed (``kvstore.PackedRows``):
 the fresh row is not quantized before it is attended, as in the
-reference, which writes it into its dequantized cache.  Layout BSHD:
-q (b, sq, h, dh), k/v (b, sk, hkv, dh).
+reference, which writes it into its dequantized cache.
+``chunk_prefill_attention`` is a prefill chunk's attention over the
+engine-held prefix (``flash_attention`` with ``q_offset``).  Layout
+BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attn_partials, ref_attention
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
-           "decode_attention_packed"]
+           "decode_attention_packed", "chunk_prefill_attention"]
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
@@ -54,3 +56,13 @@ def decode_attention_packed(q, k_rows, v_rows, k_new, v_new, pos):
         pos, hkv=hkv, group=k_rows.group, k_new=k_new[:, 0],
         v_new=v_new[:, 0], cache_dtype=k_rows.dtype)
     return out[:, None]
+
+
+def chunk_prefill_attention(q, k, v, *, q_offset: int):
+    """Prefill-chunk attention: the chunk's queries (global positions
+    ``q_offset .. q_offset+sq-1``) attend causally over the running
+    prefix ``k``/``v`` (``sk = q_offset + sq`` rows: the engine-held K/V
+    of earlier chunks, then the chunk's own).  Each query row sees
+    exactly the columns a monolithic prefill leaves unmasked for it.
+    q (b, sq, h, dh), k/v (b, sk, hkv, dh) -> (b, sq, h, dh)."""
+    return ops.flash_attention_op(q, k, v, causal=True, q_offset=q_offset)

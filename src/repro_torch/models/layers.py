@@ -25,7 +25,8 @@ import torch
 from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
-from repro_torch.models.attention import (decode_attention,
+from repro_torch.models.attention import (chunk_prefill_attention,
+                                          decode_attention,
                                           decode_attention_packed)
 from repro_torch.models.common import NEG_INF, rms_norm, silu
 from repro_torch.models.rope import apply_rope
@@ -156,6 +157,32 @@ def apply_attention(p, x, ctx: Ctx, cache, spec: LayerSpec):
         new_cache = _build_cache(k, v, ctx) if ctx.mode == "prefill" else None
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + _mm(out, p, "wo"), new_cache
+
+
+def apply_layer_chunk(p, x, ctx: Ctx, prefix_k, prefix_v, q_offset: int):
+    """One ATTN+DENSE layer applied to a prefill CHUNK.
+
+    ``x`` holds the chunk's rows (global positions ``q_offset ..``);
+    ``prefix_k``/``prefix_v`` are the engine-held K/V of the earlier
+    chunks (post-rope, f32: the values a monolithic prefill has in-pass,
+    not the cache tier's copies), or None for the first chunk.  The
+    row-wise twin of ``apply_attention``'s prefill.  Returns ``(x, k,
+    v)`` with the chunk's fresh rope'd K/V, for the caller to extend the
+    prefix and append to the KV store."""
+    cfg = ctx.cfg
+    _dense_only(cfg, LayerSpec(ATTN, DENSE))
+    b, s, d = x.shape
+    xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
+    q, k, v = _qkv(p, xn, cfg)
+    if ctx.angles is not None:
+        q = apply_rope(q, ctx.angles)
+        k = apply_rope(k, ctx.angles)
+    kk = k if prefix_k is None else torch.cat([prefix_k, k], dim=1)
+    vv = v if prefix_v is None else torch.cat([prefix_v, v], dim=1)
+    out = chunk_prefill_attention(q, kk, vv, q_offset=q_offset)
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    x = x + _mm(out, p, "wo")
+    return apply_dense_ffn(p, x, ctx), k, v
 
 
 def _build_cache(k, v, ctx: Ctx):

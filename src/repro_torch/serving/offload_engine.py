@@ -19,10 +19,18 @@ bf16, as the reference writes it into its dequantized bf16 cache).  With
 ``quant="int4"`` and ``fused_int4`` the packed projections stay packed on
 the device and go to ``int4_matmul``.
 
-The dense, single-stage, monolithic-prefill subset of the JAX package's
-``serving/offload_engine.py``: MoE layers, chunked prefill, speculative
-decoding and pipeline stages each raise ``NotImplementedError`` naming a
-later slice.  ``depth_policy="adaptive"`` re-sizes the window between
+Chunked prefill (``sched="online"|"offline"``, the plan's
+``SchedPolicy``): at most one prompt is in flight, advanced one chunk per
+engine step; the chunk rides the decode batch's ``generate`` call, so one
+WEIGHT_LOAD per unit serves both.  A chunk attends the engine-held f32
+prefix of its earlier chunks through ``flash_attention`` with
+``q_offset`` (``models.layers.apply_layer_chunk``), and its rows append
+to the KV store through the step's KV_SAVE.
+
+The dense, single-stage subset of the JAX package's
+``serving/offload_engine.py``: MoE layers, speculative decoding and
+pipeline stages each raise ``NotImplementedError`` naming a later
+slice.  ``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
 one unit at a time (``models.transformer.draw_tables``: each unit is
@@ -135,10 +143,20 @@ class OffloadedServingEngine(SlotEngineBase):
             n_io_threads=plan.n_io_threads, cold_reads=plan.cold_reads,
             sim_bw=plan.sim_bw)
         self._phase = "prefill"           # until the first _decode_active
+        # chunked-prefill admission: at most ONE prefill in flight,
+        # advanced one chunk per engine step
+        self._chunk = None                # dict(slot, req, done, prefix)
+        self._chunk_step = None           # (c0, c, final) during a step
+        self._chunk_tok = 0               # first token, set at final chunk
         self.stats["preload_depth"] = depth
         self.stats["depth_resizes"] = 0
         self.units: List[_Unit] = []
         self._split_params(plan.seed)
+        # the bytes that never stream (embedding, untied head, final
+        # norm), to report beside the plan's device budget
+        self.resident_bytes = sum(t.numel() * t.element_size()
+                                  for tab in self.resident.values()
+                                  for t in tab.values())
         self._kv_init()
         # live decode view, (scheduler iteration base, live_batch,
         # live_len): ONE tuple so transfer-thread reads are atomic under
@@ -258,7 +276,7 @@ class OffloadedServingEngine(SlotEngineBase):
         return ext
 
     def _kv_phase(self, i: int) -> str:
-        return self._phase                # "prefill" | "decode"
+        return self._phase                # "prefill" | "decode" | "chunk"
 
     def _kv_live(self, i: int):
         return self._live_extent(i)
@@ -269,6 +287,14 @@ class OffloadedServingEngine(SlotEngineBase):
     def _kv_prefill_save_nbytes(self, j: int) -> int:
         return self.kvstore.prefill_save_nbytes(j)
 
+    def _kv_chunk_save_nbytes(self, j: int) -> int:
+        """The in-flight prefill chunk's KV append: one slot's ``c`` fresh
+        rows ride this step's KV_SAVE beside the decode rows."""
+        if self._chunk_step is None:
+            return 0
+        _, c, _ = self._chunk_step
+        return self.kvstore.save_nbytes(j, 1, rows=c)
+
     def save_kv(self, i: int, j: int, new_kv):
         """KV_SAVE body (transfer worker): scatter the fresh rows into the
         store, which quantizes them (once per row) under
@@ -277,6 +303,25 @@ class OffloadedServingEngine(SlotEngineBase):
         if phase == "prefill":
             self.kvstore.save_prefill(j, meta, {n: l[0] for n, l in
                                                 payload.items()})
+        elif phase == "mixed":
+            # a step carrying a prefill chunk: the decode batch's rows
+            # (when a decode rode along), then the chunk's rows appended
+            # at its offset through the same quantize-once row path, so
+            # the stored bytes equal a monolithic prefill's
+            if payload is not None:
+                rows_d, (active, pos, live_b) = payload
+                self.kvstore.save_decode(j, {n: l[:live_b] for n, l in
+                                             rows_d.items()}, active, pos)
+            k_ck, v_ck, slot, c0 = meta
+            rows = {}
+            for name, t in (("k", k_ck), ("v", v_ck)):
+                a = t.to("cpu")                          # (1, c, *feat)
+                buf = torch.zeros((slot + 1,) + tuple(a.shape[1:]),
+                                  dtype=a.dtype)
+                buf[slot] = a[0]
+                rows[name] = buf
+            self.kvstore.save_decode(j, rows, [slot],
+                                     np.full(slot + 1, c0, np.int32))
         else:
             active, pos, live_b = meta
             self.kvstore.save_decode(j, {n: l[:live_b] for n, l in
@@ -292,18 +337,113 @@ class OffloadedServingEngine(SlotEngineBase):
             ctx = L.Ctx(cfg=self.cfg, mode="prefill", angles=self._angles)
             x, rows = L.apply_layer(weights, x, ctx, None, u.spec)
             return x, ("prefill", rows, self._slot)
+        if self._chunk_step is not None:
+            return self._compute_mixed(j, u, x, weights, kv)
+        x, (rows, meta) = self._decode_unit(u, x, weights, kv)
+        return x, ("decode", rows, meta)
+
+    def _decode_unit(self, u: _Unit, x, weights, kv):
+        """The decode batch through one unit: its output, the fresh
+        ``{name: (b, 1, *feat)}`` rows the save ships and the save's
+        ``(active, pos, live_b)``."""
         adopt(self.dev, kv)
         ctx = L.Ctx(cfg=self.cfg, mode="decode", angles=self._angles,
                     pos=self._pos_dev)
         x, rows = L.apply_layer(weights, x, ctx, kv, u.spec)
-        # rows: the fresh {name: (b, 1, *feat)} the save ships
-        return x, ("decode", rows,
-                   (self._active, self._pos_snap, self._decode_view[1]))
+        return x, (rows, (self._active, self._pos_snap,
+                          self._decode_view[1]))
+
+    def _compute_mixed(self, j: int, u: _Unit, x, weights, kv):
+        """One unit of a step carrying a prefill chunk (main thread): the
+        decode batch (when present) and the chunk run back to back under
+        the SAME weights handle — one WEIGHT_LOAD per unit serves both.
+        The chunk attends the engine-held f32 prefix (earlier chunks'
+        post-rope K/V, the values a monolithic prefill attends in-pass);
+        its fresh rows append to the store through the step's KV_SAVE."""
+        x_dec, x_ck = x
+        dec = None
+        if x_dec is not None:
+            x_dec, dec = self._decode_unit(u, x_dec, weights, kv)
+        pk, pv = self._chunk["prefix"].get(j, (None, None))
+        c0, _, _ = self._chunk_step
+        ctx = L.Ctx(cfg=self.cfg, mode="prefill", angles=self._chunk_angles)
+        x_ck, k_ck, v_ck = L.apply_layer_chunk(weights, x_ck, ctx, pk, pv,
+                                               c0)
+        self._chunk["prefix"][j] = (
+            k_ck if pk is None else torch.cat([pk, k_ck], dim=1),
+            v_ck if pv is None else torch.cat([pv, v_ck], dim=1))
+        return (x_dec, x_ck), ("mixed", dec,
+                               (k_ck, v_ck, self._chunk["slot"], c0))
 
     def finalize(self, i: int, x):
+        if self._chunk_step is not None:
+            x_dec, x_ck = x
+            if self._chunk_step[2]:
+                # the chunked request's first token: the argmax at the
+                # last prompt position, as the monolithic prefill's head
+                self._chunk_tok = int(self._head(x_ck)[0])
+            if x_dec is None:
+                return np.zeros(self.b_max, np.int32)
+            x = x_dec
         return self._head(x)
 
     # ---- SlotEngineBase compute hooks ---------------------------------------
+    def _begin_chunked_prefill(self, slot: int, req: Request) -> int:
+        """Admission-time hook: under a chunked policy, claim the slot
+        and stage the prompt for chunk-at-a-time prefill interleaved with
+        decode steps.  At most ONE chunked prefill is in flight; a second
+        arrival waits (BUSY)."""
+        if not self.sched_policy.chunked:
+            return self.CHUNK_OFF
+        if self._chunk is not None:
+            return self.CHUNK_BUSY
+        self._chunk = dict(slot=slot, req=req, done=0, prefix={})
+        return self.CHUNK_STARTED
+
+    def _chunk_slot(self):
+        return self._chunk["slot"] if self._chunk is not None else None
+
+    def _mixed_step(self, active: List[int]) -> np.ndarray:
+        """One pipeline step carrying the next chunk of the in-flight
+        chunked prefill, beside the decode batch when one exists (main
+        thread).  Both ride the SAME ``sched.generate`` call.  The decode
+        view widens to cover the chunk slot and extent, so warm tail
+        preloads priced during this step stay valid once the chunk's
+        rows land (rows past a slot's position are masked)."""
+        ck = self._chunk
+        req, slot = ck["req"], ck["slot"]
+        cap = max(1, self.sched_policy.chunk_cap())
+        c0 = ck["done"]
+        c1 = min(len(req.prompt), c0 + cap)
+        final = c1 == len(req.prompt)
+        self._chunk_step = (c0, c1 - c0, final)
+        if active:
+            self._step_setup(active)
+            base, lb, ll = self._decode_view
+            self._decode_view = (base, max(lb, slot + 1), max(ll, c1))
+            self._pos_dev = torch.from_numpy(self.pos.copy()).to(self.dev)
+            self._angles = T._angles(self.cfg, self._pos_dev[:, None])
+            x_dec = self._embed(self.tokens[:, None])
+        else:
+            # chunk-only step: nothing to load — the chunk attends only
+            # the engine-held prefix of its own earlier chunks
+            self._phase = "chunk"
+            x_dec = None
+        self._chunk_angles = T._angles(
+            self.cfg, torch.arange(c0, c1, device=self.dev))
+        x_ck = self._embed(np.asarray(req.prompt[c0:c1])[None])
+        toks = self.sched.generate(self, lambda i: (x_dec, x_ck), 1)
+        self.stats["prefill_chunks"] += 1
+        ck["done"] = c1
+        self._chunk_step = None
+        if x_dec is None:
+            # warm tail preloads captured phase "chunk" (value None)
+            self.sched.drop_kv_preloads()
+        if final:
+            self._chunk = None            # frees the device-held prefix
+            self._finish_prefill(slot, req, self._chunk_tok)
+        return toks[-1]
+
     def _prefill_into_slot(self, slot: int, req: Request) -> int:
         """b=1 prompt pass through the pipeline (main thread).  Any warm
         KV preload submitted at the tail of this call captured the prefill
@@ -376,7 +516,11 @@ class OffloadedServingEngine(SlotEngineBase):
 
     def _decode_active(self, active: List[int]) -> np.ndarray:
         """One batched decode step over every slot at its own position
-        (main thread)."""
+        (main thread); with a chunked prefill in flight, the mixed step
+        (the decode batch plus one prompt chunk under shared weight
+        loads)."""
+        if self._chunk is not None:
+            return self._mixed_step(active)
         self._step_setup(active)
         self._pos_dev = torch.from_numpy(self.pos.copy()).to(self.dev)
         self._angles = T._angles(self.cfg, self._pos_dev[:, None])

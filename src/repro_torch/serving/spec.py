@@ -14,9 +14,12 @@ spec.  The policy seams the offloaded engine consults live here too
 ``WeightsInt4``; ``SchedPolicy``), and ``CLI_FLAGS`` is the one
 flag<->field table ``launch.serve`` generates its argparse from.
 
-Plans that ask for speculation, chunked prefill or pipeline stages, and
-``resolve(trace=...)``, resolve as in the JAX package; building their
-engines (or replaying the trace) raises ``NotImplementedError`` naming
+``resolve(trace=...)`` replays the recorded trace (``core.replay``) to
+pick the depth, or on a staged recording the (stages, depth) pair, as
+the JAX package does.  ``sched="online"|"offline"`` builds the chunked-
+prefill offloaded engine (``OnlineSLO``/``OfflineThroughput``).  Plans
+that ask for speculation or pipeline stages resolve as in the JAX
+package; building their engines raises ``NotImplementedError`` naming
 the later slice of the port.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
@@ -308,9 +311,10 @@ class EngineSpec:
         (``core.replay``): the memory model still sets the affordable
         cap, but WITHIN the cap the simulated-argmin depth wins and the
         provenance records ``replay`` as the source.  Explicit depths
-        and non-performance pipelines ignore the trace.  The simulator
-        comes with the replay slice of the port; until then a trace that
-        would be replayed raises ``NotImplementedError``."""
+        and non-performance pipelines ignore the trace; a trace that
+        cannot be replayed keeps the heuristic depth, and the provenance
+        says so.  A trace recorded from a staged run re-resolves
+        ``(stages, depth)`` jointly (``core.replay.best_stage_depth``)."""
         from repro_torch.core.autoconfig import (choose_placement,
                                                  replay_depth_decision,
                                                  serving_depth_decision)
@@ -447,13 +451,18 @@ class EngineSpec:
                 prov["depth"] = f"auto: {why}"
                 if trace is not None:
                     # the memory model's fit is the cap; within it the
-                    # simulated argmin from the recorded trace wins (the
-                    # replay slice of the port; raises until then)
-                    d, why = replay_depth_decision(
-                        trace, depth_cap=max(1, d), quant=quant,
-                        kv_mode=kv_mode, sim_bw=self.sim_bw)
-                    depth = d
-                    prov["depth"] = f"replay: {why}"
+                    # simulated argmin from the recorded trace wins
+                    from repro_torch.core.replay import ReplayError
+                    try:
+                        d, why = replay_depth_decision(
+                            trace, depth_cap=max(1, d), quant=quant,
+                            kv_mode=kv_mode, sim_bw=self.sim_bw)
+                        depth = d
+                        prov["depth"] = f"replay: {why}"
+                    except ReplayError as e:
+                        prov["depth"] += (f"; trace given but not "
+                                          f"replayable ({e}), kept the "
+                                          f"heuristic depth")
             depth_policy = self.depth_policy
             if depth_policy == "adaptive":
                 prov["depth_policy"] = (
@@ -581,6 +590,33 @@ class EngineSpec:
             else:
                 prov["stages"] = ("auto: single stage (pass --stages N to "
                                   "partition the stack across a mesh)")
+            # joint (stages, depth) argmin: a trace RECORDED from a staged
+            # run re-resolves both knobs through the simulator; a
+            # single-stage trace keeps the replay-depth path above
+            depth_src_replay = False
+            if (trace is not None and self.stages is None
+                    and int(trace.meta.get("stages") or 1) > 1
+                    and self.depth is None
+                    and self.pipeline == "performance"
+                    and dense_cap is None and draft_arch is None
+                    and sched == "monolithic"):
+                from repro_torch.core.replay import (ReplayError,
+                                                     best_stage_depth)
+                try:
+                    (sb, db), _ = best_stage_depth(
+                        trace, stage_cap=min(4, n_units),
+                        depth_cap=max(1, depth))
+                    stages, depth = sb, db
+                    depth_src_replay = True
+                    prov["stages"] = (
+                        f"replay: joint (stages, depth) argmin over the "
+                        f"recorded staged trace -> {sb} stage(s)")
+                    prov["depth"] = (
+                        f"replay: depth {db} at {sb} stage(s) minimizes "
+                        f"simulated steady-state step time")
+                except ReplayError as e:
+                    prov["stages"] += (f"; staged trace given but not "
+                                       f"replayable ({e})")
             stage_plan = ()
             if stages > 1:
                 if depth_policy == "adaptive":
@@ -604,6 +640,9 @@ class EngineSpec:
                     if self.depth is not None:
                         sd, swhy = self.depth, (f"explicit: depth="
                                                 f"{self.depth} every stage")
+                    elif depth_src_replay:
+                        sd, swhy = depth, (f"replay: joint argmin depth "
+                                           f"{depth}")
                     else:
                         sd, swhy = serving_depth_decision(
                             cfg, b_max=self.b_max, max_len=self.max_len,
@@ -623,7 +662,7 @@ class EngineSpec:
                     f"{n_units} units tiled contiguously over {stages} "
                     f"stages; device budget split {stages} x {dev_each} B "
                     f"(per-stage §3.5 depth fit)")
-                if self.depth is None:
+                if self.depth is None and not depth_src_replay:
                     prov["depth"] = (
                         f"auto: max per-stage fit {depth} (see stage_plan; "
                         f"each stage sized on its budget split)")
@@ -998,24 +1037,71 @@ def quant_policy_for(quant: Optional[str],
 
 
 class SchedPolicy:
-    """How a new request's prefill meets the streamed weight window: the
-    monolithic b=1 prefill pass at admission."""
+    """Traffic-scheduling seam: HOW a new request's prefill meets the
+    streamed weight window.  The base policy is today's behavior bit for
+    bit — a dedicated monolithic b=1 prefill pass at admission that
+    blanks the warm window.  Chunking policies instead split the prompt
+    into per-step chunks that ride the SAME ``generate`` call (and the
+    same WEIGHT_LOADs) as the active batch's decode; ``chunk_cap()`` is
+    the per-engine-step token budget a chunk may consume."""
 
     name = "monolithic"
     chunked = False
 
     def chunk_cap(self) -> int:
+        """Prompt tokens a prefill chunk may take per engine step
+        (0 = no chunking: monolithic prefill at admission)."""
         return 0
 
     def __repr__(self):
         return f"{type(self).__name__}()"
 
 
+class _ChunkedPolicy(SchedPolicy):
+    """A policy that splits prompts into chunks of at most ``chunk``
+    tokens per engine step."""
+
+    chunked = True
+
+    def __init__(self, chunk: int):
+        if chunk < 1:
+            raise SpecError(f"prefill chunk must be >= 1, got {chunk}")
+        self.chunk = int(chunk)
+
+    def chunk_cap(self) -> int:
+        return self.chunk
+
+    def __repr__(self):
+        return f"{type(self).__name__}(chunk={self.chunk})"
+
+
+class OnlineSLO(_ChunkedPolicy):
+    """Latency regime: admit eagerly (FIFO), cap prefill tokens per
+    engine step so every step still advances the decode batch — the
+    chunk's compute bounds the decode stall (TBT) and queued requests
+    start streaming KV immediately instead of waiting for a window
+    restart (TTFT)."""
+
+    name = "online"
+
+
+class OfflineThroughput(_ChunkedPolicy):
+    """Throughput regime (the PipeMax batch case): run-to-completion
+    admission with whole-prompt chunks — the entire prefill rides one
+    decode step's weight window, so the streamed weights are amortized
+    over the largest possible token count and tok/s tracks the
+    steady-state decode rate."""
+
+    name = "offline"
+
+
 def sched_policy_for(plan: ResolvedPlan) -> SchedPolicy:
-    if plan.sched != "monolithic":
-        raise NotImplementedError(
-            f"sched={plan.sched!r} (chunked prefill) comes with a later "
-            f"slice of the port; use sched='monolithic'")
+    """The plan's traffic-scheduling policy instance (engine build
+    time), mirroring ``preload_policy_for``/``quant_policy_for``."""
+    if plan.sched == "online":
+        return OnlineSLO(plan.prefill_chunk or 32)
+    if plan.sched == "offline":
+        return OfflineThroughput(plan.prefill_chunk or plan.max_len)
     return SchedPolicy()
 
 

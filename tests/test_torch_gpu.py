@@ -400,3 +400,57 @@ def test_decode_attention_int4_llama3(dev, dh, S, pos, fresh, cdt):
         kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
         vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
         assert torch.equal(out, decode_attention(q, kd, vd, p))
+
+
+@pytest.mark.parametrize("sq,sk,q_offset", [(32, 64, 32), (32, 96, 64),
+                                            (18, 114, 96)])
+def test_flash_attention_chunk_shapes(dev, sq, sk, q_offset):
+    """Llama-3.1-8B prefill chunks (b 1, h 32, hkv 8, dh 128): a chunk of
+    ``sq`` rows at ``q_offset`` over the ``sk = q_offset + sq`` prefix,
+    against the plain version (atol 2e-5) and through the model path's
+    ``chunk_prefill_attention``, counted as a q_offset launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    from repro_torch.models.attention import chunk_prefill_attention
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (_t(rng, dev, 1, sq, 32, 128), _t(rng, dev, 1, sk, 8, 128),
+               _t(rng, dev, 1, sk, 8, 128))
+    ref = plain(q, k, v, causal=True, q_offset=q_offset)
+    out = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    ops.reset_launches()
+    assert torch.equal(chunk_prefill_attention(q, k, v, q_offset=q_offset),
+                       out)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.LAUNCHES["flash_attention_q_offset"] == 1
+
+
+@pytest.mark.parametrize("sched,chunk", [("online", 3), ("offline", None)])
+def test_online_engine_matches_monolithic(dev, sched, chunk):
+    """The scaled tinyllama served with chunked prefill (``"online"`` at
+    chunks of 3, ``"offline"`` at whole prompts) on the card gives the
+    monolithic engine's tokens on the same weights; online chunks after
+    a prompt's first run flash_attention with q_offset > 0."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.base import Request
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (6 + 3 * i,)).astype(np.int32)
+               for i in range(4)]
+    outs, counts = {}, {}
+    for s, c in (("monolithic", None), (sched, chunk)):
+        eng = create_engine(EngineSpec(
+            arch="tinyllama-1.1b", scaled=True, offload=True, b_max=2,
+            max_len=64, sched=s, prefill_chunk=c).resolve())
+        ops.reset_launches()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new=6))
+        outs[s] = {r.rid: list(r.out) for r in eng.run()}
+        torch.cuda.synchronize()
+        counts[s] = dict(ops.LAUNCHES)
+        assert (eng.stats["prefill_chunks"] > 0) == (s != "monolithic")
+        eng.shutdown()
+    assert outs[sched] == outs["monolithic"]
+    assert (counts[sched]["flash_attention_q_offset"] > 0) == (
+        sched == "online")
+    assert counts["monolithic"]["flash_attention_q_offset"] == 0

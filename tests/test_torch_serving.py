@@ -168,13 +168,20 @@ def test_entry_points_default_to_cuda():
 
 
 def test_gates_name_later_slices():
+    """Stages, speculation, device-resident INT4 KV and MoE still raise;
+    chunked prefill (``sched="online"|"offline"``) now builds."""
     _, pplan = _plans("fp32", None, 1)
     rp = lambda **kw: dataclasses.replace(pplan, **kw)
-    for kw in (dict(sched="online", prefill_chunk=4), dict(stages=2),
-               dict(draft_arch="x", spec_k=2),
+    for kw in (dict(stages=2), dict(draft_arch="x", spec_k=2),
                dict(kv_mode="int4", cache_on="device")):
         with pytest.raises(NotImplementedError):
             create_engine(rp(**kw), device="cpu")
+    for sched, cls in (("online", "OnlineSLO"),
+                       ("offline", "OfflineThroughput")):
+        eng = create_engine(rp(sched=sched, prefill_chunk=4), device="cpu")
+        assert type(eng.sched_policy).__name__ == cls
+        assert eng.sched_policy.chunk_cap() == 4
+        eng.shutdown()
     moe = dataclasses.replace(PCFG, pattern=(PB.LayerSpec(PB.ATTN, PB.MOE),),
                               moe=PB.MoEConfig(num_experts=2))
     with pytest.raises(NotImplementedError):

@@ -152,14 +152,22 @@ def test_capability_gates_match_reference():
 
 
 def test_trace_replay_waits_for_its_slice():
-    """A trace switches depth resolution to the replay simulator, which
-    the port does not have yet: it raises, naming the slice; where the
-    JAX package ignores the trace (an explicit depth), so does the
-    port."""
-    with pytest.raises(NotImplementedError, match="replay"):
-        PS.EngineSpec(offload=True).resolve(trace=object())
+    """A trace switches depth resolution to the replay simulator: the
+    plan carries replay provenance and equals the JAX package's for the
+    same recording; where the JAX package ignores the trace (an explicit
+    depth), so does the port."""
+    from pathlib import Path
+    from repro.core.tasks import Trace as JTrace
+    from repro_torch.core.tasks import Trace as PTrace
+    text = (Path(__file__).resolve().parent / "fixtures"
+            / "trace_warm_d2.json").read_text()
+    plan = PS.EngineSpec(offload=True).resolve(trace=PTrace.from_json(text))
+    assert plan.provenance["depth"].startswith("replay:")
+    assert "source=replay" in plan.provenance["depth"]
+    assert plan.to_json() == JS.EngineSpec(offload=True).resolve(
+        trace=JTrace.from_json(text)).to_json()
     spec = PS.EngineSpec(offload=True, depth=2)
-    assert spec.resolve(trace=object()) == spec.resolve()
+    assert spec.resolve(trace=PTrace.from_json(text)) == spec.resolve()
 
 
 _MM_KW = [dict(batch=1, seq=8), dict(batch=4, seq=256),
