@@ -16,7 +16,9 @@ before the result line:
    bf16 caches, one slot's prefill) and at edge shapes; time kernel,
    plain version and one library call computing the same function
    (device time per call from a torch.profiler trace) and compute the
-   roofline bound;
+   roofline bound; the speculative runs' own shapes among them
+   (``int4_matmul`` at M = b x (k+1) = 20, the llama3.2-1b draft's
+   decode over its ``max_len`` slab and its one-slot prefills);
 4. run tinyllama-1.1b at full width and depth through
    ``build_lm(plan).generate``: (a) fp32 weights, (b) int4 fused,
    (c) int4 fused sequential, (d) int4 fused with ``kv_mode="int4"`` —
@@ -69,7 +71,25 @@ before the result line:
    recorded knobs, in sequential mode and at depths 1-8; (b)'s predicted
    sequential step beside (c)'s measured one; ``resolve(trace=...)`` on
    (g)'s trace beside the memory model's depth;
-11. print the ``kernels`` JSON line, the card, then the result line.
+11. speculative decoding and pipeline stages: (b') on (b)'s and (d)'s
+   engines (no new build), a seeded random proposer (rejections) and an
+   oracle from the run's own tokens (full acceptance), ``SPEC_K = 4``,
+   tokens equal to the run's, then one verify step against
+   ``use_kernels(False)`` (hidden states of all k+1 positions within
+   1e-4 x max over f32 KV, 2e-2 x max over packed KV); (m)
+   ``create_engine(EngineSpec(arch="llama3.1-8b", quant="int4",
+   draft_arch="llama3.2-1b").resolve())``: (g)'s requests with the real
+   device-resident draft, then an oracle from (g)'s streams on the same
+   engine, tokens equal to (g)'s, the acceptance, step times, the
+   draft's time per step, the verify pass's launches and the peak memory
+   beside the budget, the memory model, the resident bytes and the
+   draft's, and the verify step against ``use_kernels(False)`` (2e-2 x
+   max, bf16 caches); (n) (g)'s spec with ``stages=2`` (two stages on
+   one card), tokens equal to (g)'s, each stage's weight-load busy time
+   and ``stage_bubbles``.  Phase 3 also
+   times the verify pass's attention at (m)'s shapes
+   (``spec_decode_attention``, plain and packed);
+12. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -119,6 +139,7 @@ SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
 SERVE_REQS = 8                     # serving run (e): requests, all submitted
 TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
 TRAFFIC_REQS = 8                   # run (k): arrivals
+SPEC_K = 4                         # runs (m), (b'): proposals per verify
 
 
 def log(msg=""):
@@ -222,21 +243,26 @@ def check_int4(torch, rng, dev):
     M = 37 and 160, each at the four projection shapes; and at the
     prefill chunks of run (j): a full chunk M = 32 and the final chunks
     M = 18 (the 8B) and 13 (tinyllama), checked as well at M = 16 and 17
-    on either side of the GEMV/tensor-core switch at the 8B's shapes."""
+    on either side of the GEMV/tensor-core switch at the 8B's shapes; and
+    at the speculative verify pass of runs (m) and (b'), M = b x (k+1) =
+    20, on the 8B's and tinyllama's projections."""
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
+    verify_m = B * (SPEC_K + 1)
+    label = lambda M: f"{'verify ' if M == verify_m else ''}M={M}"
     shapes = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
     cases = [(M, K, N, 128, True if (M, K, N) == (4, 2048, 2048) else
-              f"M={M} {K}x{N}") for M in (4, 512, 37, 160, 13, TINY_CHUNK)
+              f"{label(M)} {K}x{N}")
+             for M in (4, 512, 37, 160, 13, TINY_CHUNK, verify_m)
              for K, N in shapes]
     # the Llama-3 projections: run (g)'s llama3.1-8b (d 4096, kv 1024,
-    # d_ff 14336) at decode, at its longest prefill and at (j)'s chunks
-    # of 18 and 32 rows, run (h)'s
+    # d_ff 14336) at decode, at its longest prefill, at (j)'s chunks
+    # of 18 and 32 rows and at (m)'s verify pass, run (h)'s
     # llama3.2-1b (d 2048, kv 512, d_ff 8192) at decode, and the 8B's
     # vocabulary head as if it were packed (K 4096, N 128256)
     l8 = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
-    cases += [(M, K, N, 128, f"llama3.1-8b M={M} {K}x{N}")
-              for M in (4, 128, 18, 32) for K, N in l8]
+    cases += [(M, K, N, 128, f"llama3.1-8b {label(M)} {K}x{N}")
+              for M in (4, 128, 18, 32, verify_m) for K, N in l8]
     cases += [(M, K, N, 128, None) for M in (SMALL_M, SMALL_M + 1)
               for K, N in l8]
     cases += [(4, K, N, 128, f"llama3.2-1b M=4 {K}x{N}")
@@ -298,10 +324,12 @@ def _attn_flops(torch, sq, sk, h, dh, b, causal, window, q_offset):
 def check_flash(torch, rng, dev):
     """``flash_attention`` against its plain version (atol 2e-5), two
     calls bit-equal; timed at the generation prefill shape (the kernels
-    line's head) and at serving prefill of one slot (b = 1, sq = 37 and
-    141, run (e)'s shortest-but-one and longest prompts), each beside
-    SDPA.  The bound counts three TF32 products per multiply-add on the
-    tensor cores (495 TFLOP/s), ``bound_fp32_ms`` the same work at fp32."""
+    line's head), at serving prefill of one slot (b = 1, sq = 37 and
+    141, run (e)'s shortest-but-one and longest prompts) and at the
+    llama3.2-1b draft's prefills in run (m) (sq 114 and 58, its longest
+    and shortest prompts), each beside SDPA.  The bound counts three
+    TF32 products per multiply-add on the tensor cores (495 TFLOP/s),
+    ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, plain
     # (b, sq, sk, h, hkv, dh, causal, window, q_offset, timed as)
@@ -320,6 +348,9 @@ def check_flash(torch, rng, dev):
              (1, 37, 37, 32, 8, 128, True, 0, 0, None),
              (4, 128, 128, 32, 8, 128, True, 0, 0, None),
              (1, 15, 15, 32, 8, 64, True, 0, 0, "llama3.2-1b sq=15"),
+             # run (m): the draft's prefill of one slot, (g)'s prompts
+             (1, 114, 114, 32, 8, 64, True, 0, 0, "llama3.2-1b draft sq=114"),
+             (1, 58, 58, 32, 8, 64, True, 0, 0, "llama3.2-1b draft sq=58"),
              # run (j)'s prefill chunks (chunk 32 of the 8B's 114-token
              # prompt): each chunk over the prefix held so far
              (1, 32, 64, 32, 8, 128, True, 0, 32,
@@ -387,8 +418,9 @@ def check_decode(torch, rng, dev):
     """``decode_attention`` against its plain version (atol 2e-5 at f32,
     2e-2 over bf16 caches), two calls bit-equal, and the same result for
     an int ``pos`` and a strided ``q`` where the case has them; timed at
-    the generation shape (f32) and the serving shape (bf16, ragged pos)
-    beside SDPA."""
+    the generation shape (f32), the serving shape (bf16, ragged pos) and
+    the llama3.2-1b draft's proposal steps in run (m) (its bf16 caches
+    over the whole ``max_len`` slab, dh 64, group 4) beside SDPA."""
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
@@ -413,7 +445,13 @@ def check_decode(torch, rng, dev):
              (B, S, 32, 8, 128, [last] * B, torch.float32, None),
              # the resident engine (run i): the whole max_len slab
              (B, MAX_LEN, 32, 4, 64, SERVE_POS, torch.bfloat16,
-              "resident S=256")]
+              "resident S=256"),
+             # run (m)'s draft: (g)'s prompts a few proposals in, over
+             # the draft's own slab of the plan's max_len (256)
+             (B, MAX_LEN, 32, 8, 64, [118, 97, 85, 62], torch.bfloat16,
+              "llama3.2-1b draft S=256"),
+             (B, MAX_LEN, 32, 8, 64, [129, 108, 96, 73], torch.bfloat16,
+              None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -545,6 +583,80 @@ def check_decode_int4(torch, rng, dev):
                 nbytes, 4.0 * h * dh * live)
         rows.append(row)
     return rows
+
+
+def check_verify(torch, rng, dev):
+    """The speculative verify pass's attention at run (m)'s shapes
+    (Llama-3.1-8B, b 4, k = 4: five query positions from ragged first
+    positions, S = 160): ``spec_decode_attention`` over bf16 caches (one
+    ``decode_attention`` launch per query position) and its packed twin
+    (``decode_attention_int4``, the earlier fresh rows packed on the card
+    first), each against the same function on the plain versions (atol
+    2e-2 over bf16), timed beside one SDPA call over the same rows.  The
+    bound counts each live row read once.  Returns (rows for
+    ``decode_attention``, rows for ``decode_attention_int4``)."""
+    import torch.nn.functional as F
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    b, S, s, h, hkv, dh = PAPER_REQS, 160, SPEC_K + 1, 32, 8, 128
+    Fd, g = hkv * dh, kv_group(hkv * dh)
+    pos = [114, 93, 81, 58]
+    mk = lambda *sh: torch.tensor(rng.standard_normal(sh),
+                                  dtype=torch.float32, device=dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q, kn, vn = mk(b, s, h, dh), mk(b, s, hkv, dh), mk(b, s, hkv, dh)
+    live = torch.arange(S, device=dev)[None, :] < pos_t[:, None].long()
+    kc, vc = ((mk(b, S, hkv, dh) * live[..., None, None]).to(torch.bfloat16)
+              for _ in range(2))
+    packed = [PackedRows(*quantize_kv_rows(mk(b, S, Fd) * live[..., None],
+                                           g), g, torch.bfloat16, (hkv, dh))
+              for _ in range(2)]
+    hist = sum(pos)
+    flops = 4.0 * h * dh * sum(p + t + 1 for p in pos for t in range(s))
+    io = 4 * (2 * q.numel() + kn.numel() + vn.numel()) + 4 * b
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= (pos_t.long()[:, None] + torch.arange(s, device=dev))[
+                :, :, None])[:, None]                      # (b, 1, s, S)
+    qt = q.transpose(1, 2)
+
+    def sdpa(k, v):
+        kt, vt = k.float().transpose(1, 2), v.float().transpose(1, 2)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    def plain(fn):
+        def run():
+            ops.use_kernels(False)
+            try:
+                return fn()
+            finally:
+                ops.use_kernels(True)
+        return run
+
+    out_rows = []
+    for name, fn, lib, nbytes in (
+            ("decode_attention",
+             lambda: A.spec_decode_attention(q, kc, vc, kn, vn, pos_t)[0],
+             sdpa(kc, vc), io + 2 * hist * Fd * 2),
+            ("decode_attention_int4",
+             lambda: A.spec_decode_attention_packed(q, *packed, kn, vn,
+                                                    pos_t),
+             sdpa(*(p.dequantize() for p in packed)),
+             io + 2 * hist * (Fd // 2 + 4 * (Fd // g)))):
+        out, ref = fn(), plain(fn)()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        row = dict(shape=f"verify b={b} s={s} S={S} h={h} hkv={hkv} "
+                   f"dh={dh} pos={pos} cache=bfloat16"
+                   f"{' packed' if name.endswith('int4') else ''}",
+                   max_abs_err=err, tol=BF16_ATOL, ok=err <= BF16_ATOL,
+                   main=f"llama3.1-8b verify k={SPEC_K}",
+                   launches_per_call=s)
+        row.update(timings(torch, fn, plain(fn), lib, 20))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        out_rows.append(row)
+    return out_rows[:1], out_rows[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -1295,6 +1407,347 @@ def run_resident(torch, ops, reqs):
     return r["counts"], summary
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding (runs m, b') and pipeline stages (run n)
+# ---------------------------------------------------------------------------
+
+class RandomProposer:
+    """A draft stand-in proposing seeded random tokens: nearly every
+    proposal is rejected, so every verify pass truncates."""
+
+    def __init__(self, vocab: int, seed: int = 0):
+        import numpy as np
+        self.vocab, self.rng = vocab, np.random.default_rng(seed)
+
+    def prefill_slot(self, slot, prompt):
+        pass
+
+    def prefill_batch(self, tokens):
+        pass
+
+    def propose(self, tokens, pos, k):
+        return self.rng.integers(0, self.vocab, (len(pos), k)).astype(
+            "int32")
+
+
+class OracleProposer(RandomProposer):
+    """Proposals read from recorded token streams, so the target accepts
+    every one: ``streams`` is a list of (prompt, emitted tokens); a
+    serving slot finds its stream by its prompt at admission, a batch row
+    ``r`` takes stream ``r``.  At a step from ``pos`` the last emitted
+    token (stream index ``pos - len(prompt)``) is the verify input, so
+    the next proposal is the token after it."""
+
+    def __init__(self, streams):
+        super().__init__(1)
+        self.streams = [(list(map(int, p)), list(map(int, o)))
+                        for p, o in streams]
+        self.slot = {}
+
+    def prefill_slot(self, slot, prompt):
+        for p, out in self.streams:
+            if p == list(map(int, prompt)):
+                self.slot[slot] = (len(p), out)
+
+    def prefill_batch(self, tokens):
+        self.slot = {r: (len(p), out)
+                     for r, (p, out) in enumerate(self.streams)}
+
+    def propose(self, tokens, pos, k):
+        import numpy as np
+        out = np.zeros((len(pos), k), np.int32)
+        for r, (plen, st) in self.slot.items():
+            idx = int(pos[r]) - plen + 1
+            for t in range(k):
+                if 0 <= idx + t < len(st):
+                    out[r, t] = st[idx + t]
+        return out
+
+
+def spec_summary(stats, steps, wall, extra=None) -> dict:
+    """The speculative counters of one arm, with the draft's seconds per
+    verify step (median, p90)."""
+    draft = sorted(1e3 * s["draft_s"] for s in steps)
+    return {"spec_steps": stats["spec_steps"],
+            "accepted": stats["spec_accepted"],
+            "proposed": stats["spec_proposed"],
+            "accept_rate": stats["spec_accepted"]
+            / max(1, stats["spec_proposed"]),
+            "primed_per_step": statistics.median(s["primed"] for s in steps)
+            if steps else 0,
+            "draft_ms_median": statistics.median(draft) if draft else 0.0,
+            "draft_ms_p90": draft[int(0.9 * (len(draft) - 1))]
+            if draft else 0.0, "wall_s": wall, **(extra or {})}
+
+
+def verify_whole_path(torch, ops, name, eng, run, tol):
+    """Kernels vs ``use_kernels(False)`` on the speculative verify pass,
+    same engine and weights: ``run()`` drives ``eng`` (an oracle draft
+    attached, so both runs get the same proposals) through its first
+    verify step and returns the tokens emitted before it.  The final
+    hidden states of all k+1 positions of that step are held at ``tol``
+    x max|plain| when both runs fed it the same tokens (as
+    ``whole_path_check`` holds its decode step)."""
+    seen = []
+    orig = eng.finalize
+
+    def grab(i, x):
+        if (eng._phase == "decode" and isinstance(x, torch.Tensor)
+                and x.shape[1] > 1):
+            seen.append(x.detach().clone())
+        return orig(i, x)
+
+    eng.finalize = grab
+    try:
+        ops.use_kernels(True)
+        first_k = run()
+        hk, seen[:] = list(seen), []
+        ops.use_kernels(False)
+        first_p = run()
+        hp = list(seen)
+    finally:
+        ops.use_kernels(True)
+        eng.finalize = orig
+    torch.cuda.synchronize()
+    if not hk or not hp:
+        raise RuntimeError(f"run {name}: no verify pass was run")
+    a, b = hk[0], hp[0]
+    if not torch.isfinite(a).all():
+        raise RuntimeError(f"run {name}: non-finite verify hidden states")
+    res = {"run": name, "positions": int(a.shape[1]),
+           "rel_err": ((a - b).abs().max() / b.abs().max()).item(),
+           "rel_err_by_position": [
+               ((a[:, t] - b[:, t]).abs().max() / b.abs().max()).item()
+               for t in range(a.shape[1])],
+           "inputs_equal": bool(first_k == first_p), "tolerance_rel": tol}
+    log(json.dumps({"verify_whole_path": res}))
+    if res["inputs_equal"] and res["rel_err"] > tol:
+        raise RuntimeError(f"run {name}: verify hidden states differ: {res}")
+    return res
+
+
+def run_spec_lm(torch, ops, name, lm, prompt, toks):
+    """Run (b'): on run ``name``'s engine and weights (no new build),
+    attach a seeded random proposer (rejections) and then an oracle built
+    from the run's own tokens (full acceptance), ``SPEC_K`` proposals a
+    step; each arm's tokens must equal the non-speculative run's, and its
+    launches are exact: flash = layers, the decode kernel = layers x (the
+    verify rows + the plain steps), int4_matmul = 7 x layers x passes.
+    Then the verify pass against ``use_kernels(False)`` (hidden states
+    at 1e-4 x max over f32 KV, 2e-2 x max over packed KV)."""
+    from repro_torch.core.tasks import Trace
+    decode = ("decode_attention_int4" if lm.kv_mode == "int4"
+              else "decode_attention")
+    n = lm.cfg.num_layers
+    out = {}
+    for arm, draft in (("random", RandomProposer(lm.cfg.vocab_size, 0)),
+                       ("oracle", OracleProposer(zip(prompt, toks)))):
+        lm.attach_draft(draft, SPEC_K)
+        lm.trace = Trace()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got, stats = lm.generate(prompt, GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        steps = lm.trace.meta["spec_steps"]
+        passes = len(lm.trace.meta["calls"])      # prefill + decode steps
+        verify_rows = sum(s["k"] + 1 for s in steps)
+        plain_steps = passes - 1 - len(steps)
+        out[arm] = spec_summary(stats, steps, wall, {
+            "tokens_equal": int((got == toks).sum()),
+            "tokens": int(toks.size), "decode_tok_s": stats["decode_tok_s"],
+            "verify_rows": verify_rows, "plain_steps": plain_steps,
+            "launches": counts})
+        if not (got == toks).all():
+            raise RuntimeError(f"run {name}' {arm}: speculative tokens "
+                               f"differ from the run's: {out[arm]}")
+        check_launches(f"{name}' {arm}", counts, {
+            "flash_attention": n, decode: n * (verify_rows + plain_steps),
+            "int4_matmul": 7 * n * passes if lm.quant == "int4" else 0},
+            exact=True)
+    # the oracle stays attached: one verify step of SPEC_K proposals
+    out["whole_path"] = verify_whole_path(
+        torch, ops, name + "'", lm,
+        lambda: lm.generate(prompt, SPEC_K + 2)[0][:, 0].tolist(),
+        BF16_HIDDEN_RTOL if lm.kv_mode == "int4" else HIDDEN_RTOL)
+    log(json.dumps({"spec_lm": {"run": name + "'", **out}}))
+    return out
+
+
+def spec_serve(torch, ops, eng, reqs, rid0):
+    """``serve_once`` with the draft's own launches (its prefills and
+    proposals) counted apart, so the rest are the target's."""
+    draft = eng.draft
+    mine = {k: 0 for k in ops.LAUNCHES}
+    wrapped = {}
+    for meth in ("prefill_slot", "propose"):
+        fn = getattr(draft, meth)
+
+        def counted(*a, _fn=fn):
+            before = dict(ops.LAUNCHES)
+            r = _fn(*a)
+            for k in mine:
+                mine[k] += ops.LAUNCHES[k] - before.get(k, 0)
+            return r
+        wrapped[meth] = counted
+        setattr(draft, meth, counted)
+    try:
+        r = serve_once(torch, ops, eng, reqs, rid0)
+    finally:
+        for meth in wrapped:
+            delattr(draft, meth)
+    r["draft_launches"] = mine
+    return r
+
+
+def run_spec_paper(torch, ops, np, g_summary, g_outs):
+    """Run (m): Llama-3.1-8B, INT4 weights, with the llama3.2-1b draft
+    through ``EngineSpec(..., draft_arch=...).resolve()`` and
+    ``create_engine`` on (g)'s seed; (g)'s 4 requests with the real draft
+    (random weights: about no acceptance), then, on the same engine, an
+    oracle proposer built from (g)'s streams (full acceptance).  Each
+    arm's tokens must equal (g)'s; the target's launches are exact
+    (flash = layers x prefills, decode_attention = layers x (verify rows
+    + plain steps), int4_matmul = 7 x layers x passes) and the draft's
+    counted apart.  Prints per arm the acceptance, step median/p90,
+    tok/s beside (g)'s and the draft's time per step; and peak device
+    memory beside the plan's budget, the memory model's estimate, the
+    resident bytes and the draft's.  Then, with the oracle, the verify
+    pass against ``use_kernels(False)``: hidden states at 2e-2 x max (bf16
+    caches, as run (g)'s decode step)."""
+    from repro_torch.core.draft import ResidentDraft
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch="llama3.1-8b", quant="int4",
+                      draft_arch="llama3.2-1b").resolve()
+    log(f"(m) plan: {plan.summary()}; spec_k: {plan.provenance.get('spec_k')}")
+    # phase 3 checks the draft's decode over a MAX_LEN slab
+    if (plan.spec_k != SPEC_K or plan.depth != g_summary["plan_depth"]
+            or plan.max_len != MAX_LEN):
+        raise RuntimeError(f"run m: unexpected plan {plan.summary()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not isinstance(eng.draft, ResidentDraft):
+        raise RuntimeError(f"run m: draft {type(eng.draft).__name__}")
+    reqs = paper_requests(np, eng.cfg.vocab_size)
+    n, nd = eng.cfg.num_layers, eng.draft.cfg.num_layers
+    draft_gb = eng.draft.nbytes / 2**30
+    summary = {"run": "m", "plan": plan.summary(), "build_s": build_s,
+               "build_device_peak_gb":
+               torch.cuda.max_memory_allocated() / 2**30,
+               "g_tok_s": g_summary["tok_s"],
+               "g_step_ms_median": g_summary["step_ms_median"]}
+    arms = (("real_draft", None),
+            ("oracle", OracleProposer(
+                [(p, g_outs[i]) for i, (p, _) in enumerate(reqs)])))
+    for rid0, (arm, proposer) in enumerate(arms):
+        if proposer is not None:
+            eng.attach_draft(proposer, SPEC_K)
+        before = dict(eng.stats)
+        mark = len(eng.trace.meta.get("spec_steps", []))
+        r = spec_serve(torch, ops, eng, reqs, 100 * rid0)
+        steps = eng.trace.meta["spec_steps"][mark:]
+        st = {k: eng.stats[k] - before.get(k, 0) for k in (
+            "spec_steps", "spec_proposed", "spec_accepted")}
+        dl, c = r["draft_launches"], r["counts"]
+        verify_rows = sum(s["k"] + 1 for s in steps)
+        plain_steps = r["stats"]["decode_steps"] - len(steps)
+        passes = r["stats"]["prefills"] + r["stats"]["decode_steps"]
+        target = {k: c[k] - dl[k] for k in c}
+        equal = sum(x == y for i in g_outs
+                    for x, y in zip(r["outs"][i], g_outs[i]))
+        steps_ms = sorted(1e3 * x for x in r["steps"])
+        summary[arm] = spec_summary(st, steps, r["wall"], {
+            "tokens_equal": equal,
+            "tokens": sum(len(o) for o in g_outs.values()),
+            "tok_s": r["stats"]["tokens_out"] / r["wall"],
+            "step_ms_median": statistics.median(steps_ms),
+            "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+            "ttft_s": r["ttft_s"], **r["stats"],
+            "verify_rows": verify_rows, "plain_steps": plain_steps,
+            "verify_launches": {
+                "decode_attention": target["decode_attention"],
+                "int4_matmul": target["int4_matmul"]
+                - 7 * n * r["stats"]["prefills"]},
+            "target_launches": target, "draft_launches": dl,
+            "device_max_allocated_gb": r["device_max_allocated_gb"]})
+        if r["outs"] != g_outs:
+            raise RuntimeError(f"run m {arm}: tokens differ from (g)'s: "
+                               f"{equal} of {summary[arm]['tokens']}")
+        check_launches(f"m {arm}", target, {
+            "flash_attention": n * r["stats"]["prefills"],
+            "decode_attention": n * (verify_rows + plain_steps),
+            "decode_attention_int4": 0, "int4_matmul": 7 * n * passes},
+            exact=True)
+        if proposer is None:
+            check_launches("m draft", dl, {
+                "flash_attention": nd * r["stats"]["prefills"],
+                "decode_attention": nd * sum(s["k"] for s in steps),
+                "decode_attention_int4": 0, "int4_matmul": 0}, exact=True)
+        summary.setdefault("launches", {k: c[k] for k in c})
+    if summary["oracle"]["accepted"] != summary["oracle"]["proposed"]:
+        raise RuntimeError(f"run m: the oracle was not fully accepted: "
+                           f"{summary['oracle']}")
+    # the oracle stays attached: every request's prefill, then a verify
+    # step of SPEC_K proposals (the base class caps what it emits)
+    short = [(p, SPEC_K + 1) for p, _ in reqs]
+    summary["whole_path"] = verify_whole_path(
+        torch, ops, "m", eng, lambda: [
+            o[0] for _, o in sorted(serve_once(
+                torch, ops, eng, short, 400)["outs"].items())],
+        BF16_HIDDEN_RTOL)
+    summary["memory"] = {
+        "device_max_allocated_gb": max(summary[a]["device_max_allocated_gb"]
+                                       for a, _ in arms),
+        "build_device_peak_gb": summary["build_device_peak_gb"],
+        "device_budget_gb": plan.device_budget / 2**30,
+        "modeled_device_gb": modeled_device_bytes(plan) / 2**30,
+        "resident_gb": eng.resident_bytes / 2**30,
+        "draft_gb": draft_gb}
+    log(json.dumps({"spec_paper_config": summary}))
+    eng.shutdown()
+    return summary["launches"], summary
+
+
+def run_staged_paper(torch, ops, np, g_summary, g_outs):
+    """Run (n): (g)'s spec with ``stages=2``: two stages on one card, each
+    with its own stores, pool and window; (g)'s requests; tokens must
+    equal (g)'s (launch counts exact, as in (g)).  Prints the step
+    median, each stage's weight-load busy time and ``stage_bubbles``."""
+    from repro_torch.core.tasks import _merged_busy
+    from repro_torch.serving.spec import EngineSpec
+    plan = EngineSpec(arch="llama3.1-8b", quant="int4", stages=2).resolve()
+    log(f"(n) plan: {plan.summary()}; stages: {plan.provenance['stages']}")
+    reqs = paper_requests(np, plan.model_config().vocab_size)
+    eng, counts, summary, served = run_serving(torch, ops, "n", plan, reqs,
+                                               "decode_attention")
+    equal = sum(x == y for i in g_outs
+                for x, y in zip(served["outs"][i], g_outs[i]))
+    evs = served["trace"].events()
+    summary.update(
+        stage_bounds=eng.stage_bounds, stage_depths=eng._stage_depths,
+        stage_devices=[str(d) for d in eng.stage_devs],
+        stage_plan=[dataclasses.asdict(p) for p in plan.stage_plan],
+        weight_load_busy_s_by_stage={s: _merged_busy(
+            (e.t_start, e.t_end) for e in evs
+            if e.kind == "weight_load" and e.stage == s)
+            for s in range(eng.n_stages)},
+        stage_bubbles=served["trace"].report().get("stage_bubbles"),
+        tokens_equal=equal, g_tok_s=g_summary["tok_s"],
+        g_step_ms_median=g_summary["step_ms_median"])
+    log(json.dumps({"staged_paper_config": summary}))
+    eng.shutdown()
+    if served["outs"] != g_outs or eng.n_stages != 2:
+        raise RuntimeError(f"run n: tokens differ from (g)'s: {equal} of "
+                           f"{sum(len(o) for o in g_outs.values())}")
+    return counts, summary
+
+
 def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                   traces):
     """Runs (a)-(f) and (j) on tinyllama-1.1b: generation, offloaded
@@ -1316,14 +1769,20 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 
     # 5. the whole path against the plain versions, same weights
     whole_path_check(torch, ops, lm, prompt, toks_b)
+    # 5b. (b') speculative decoding on (b)'s engine and tokens
+    summaries["b_spec"] = run_spec_lm(torch, ops, "b", lm, prompt, toks_b)
+    counts["b_spec"] = summaries["b_spec"]["random"]["launches"]
     release(lm)
     lm, _, counts["c"], summaries["c"], traces["c"] = run_main(
         torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
     release(lm)
-    lm, _, counts["d"], summaries["d"], _ = run_main(
+    lm, toks_d, counts["d"], summaries["d"], _ = run_main(
         torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
         {**int4_expect, "decode_attention": 0,
          "decode_attention_int4": n_layers * (GEN - 1)})
+    # (b') on (d)'s engine: the verify pass over packed INT4 KV rows
+    summaries["d_spec"] = run_spec_lm(torch, ops, "d", lm, prompt, toks_d)
+    counts["d_spec"] = summaries["d_spec"]["random"]["launches"]
     release(lm)
     log(json.dumps({"kv_load_bytes": {
         "b_fp32_kv": summaries["b"]["bytes"]["kv_load"],
@@ -1415,6 +1874,9 @@ def main(argv=None) -> int:
               "flash_attention": check_flash(torch, rng, dev),
               "decode_attention": check_decode(torch, rng, dev),
               "decode_attention_int4": check_decode_int4(torch, rng, dev)}
+    verify, verify_int4 = check_verify(torch, rng, dev)
+    checks["decode_attention"] += verify
+    checks["decode_attention_int4"] += verify_int4
     torch.cuda.synchronize()
     failed = []
     for name, rows in checks.items():
@@ -1474,6 +1936,16 @@ def main(argv=None) -> int:
     eng.shutdown()
     del eng
     release(None)
+    # (m) speculative decoding on the 8B with the llama3.2-1b draft, then
+    # (n) the 8B in two pipeline stages; both against (g)'s tokens
+    counts["m"], summaries["m"] = run_spec_paper(
+        torch, ops, np, summaries["g"], served_g["outs"])
+    release(None)
+    stamp("m")
+    counts["n"], summaries["n"] = run_staged_paper(
+        torch, ops, np, summaries["g"], served_g["outs"])
+    release(None)
+    stamp("n")
     counts["h"], summaries["h"] = run_cli(torch, ops)
     stamp("h")
     gc.collect()
@@ -1489,7 +1961,7 @@ def main(argv=None) -> int:
                                 summaries["g"]["plan_depth"])
     stamp("l")
 
-    # 11. the kernels line: each kernel's launches in the run its timed
+    # 12. the kernels line: each kernel's launches in the run its timed
     # shape comes from, and per run
     home = {"flash_attention": "b", "decode_attention": "b",
             "int4_matmul": "b", "decode_attention_int4": "e"}

@@ -16,9 +16,15 @@ port's hand-written kernels: ``flash_attention`` (prefill),
 ``kv_mode="int4"``, ``decode_attention_int4`` over the packed rows the
 store ships (the step's own row attended unquantized), and, with
 ``quant="int4"`` and ``fused_int4``, ``int4_matmul`` for every packed
-projection, whose ``#q``/``#s`` pairs stay packed on the device.  Dense
-stacks only: MoE, speculative decoding and pipeline stages come with
-later slices.
+projection, whose ``#q``/``#s`` pairs stay packed on the device.
+
+Speculative decoding (a plan with ``draft_arch``, or ``attach_draft``):
+a device-resident draft proposes ``k`` tokens per step and the streamed
+target scores all ``k+1`` positions in one trip through the stack
+(``_decode_spec``); the batch advances by the shortest accepted run over
+its rows, so the tokens equal non-speculative greedy decode.  Dense
+stacks only (MoE comes with a later slice).  A plan's ``stages`` is not
+read here: batch generation runs one stage, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, DENSE, ModelConfig
+from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
                                       TieredKVStore)
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
@@ -42,12 +49,14 @@ from repro_torch.core.transfer import DEFAULT_BLOCK, Manifest, TieredWeightStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.attention import (decode_attention,
-                                         decode_attention_packed)
+                                         decode_attention_packed,
+                                         spec_decode_attention,
+                                         spec_decode_attention_packed)
 from repro_torch.models.common import rms_norm, silu
 from repro_torch.models.layers import _mm as _proj
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.quant.int4 import quantize_int4
-from repro_torch.serving.spec import ResolvedPlan
+from repro_torch.serving.spec import ResolvedPlan, draft_policy_for
 
 # ---------------------------------------------------------------------------
 # Per-unit compute
@@ -81,17 +90,22 @@ def _attn_prefill_unit(x, w, *, cfg: ModelConfig):
 
 
 def _attn_decode_unit(x, w, kc, vc, pos, *, cfg: ModelConfig):
-    """x (b, 1, d); kc/vc (b, L, hkv, dh) device caches, updated in place
-    at ``pos`` (int or ragged (b,) tensor) and attended through the
-    ``decode_attention`` kernel, or ``PackedRows`` attended with the
-    fresh row through ``decode_attention_int4`` (left as they are).
-    Returns (x', k_new, v_new, kc, vc)."""
+    """x (b, s, d): s == 1 for plain decode, k+1 for a speculative verify
+    pass (the current token and the draft's proposals from ``pos``, int
+    or ragged (b,) tensor).  kc/vc (b, L, hkv, dh) device caches, updated
+    in place at ``pos..pos+s-1`` and attended through the
+    ``decode_attention`` kernel (one launch per query position), or
+    ``PackedRows`` attended with each query's fresh row through
+    ``decode_attention_int4`` (a verify pass writes its earlier rows into
+    them packed).  Returns (x', k_new, v_new, kc, vc)."""
     b, s, d = x.shape
     q, k, v = _qkv(x, w, pos, cfg)
     if isinstance(kc, PackedRows):
-        out = decode_attention_packed(q, kc, vc, k, v, pos)
+        fn = spec_decode_attention_packed if s > 1 else decode_attention_packed
+        out = fn(q, kc, vc, k, v, pos)
     else:
-        out, kc, vc = decode_attention(q, kc, vc, k, v, pos)
+        fn = spec_decode_attention if s > 1 else decode_attention
+        out, kc, vc = fn(q, kc, vc, k, v, pos)
     return x + _proj(out.reshape(b, s, -1), w, "wo"), k, v, kc, vc
 
 
@@ -107,6 +121,15 @@ def _embed_unit(tokens, emb):
 
 def _head_unit(x, emb):
     return torch.argmax(x[:, -1].to(torch.float32) @ emb.T, dim=-1)
+
+
+def _spec_head_unit(x, emb):
+    """Per-position greedy argmax for the verify pass: each of the b*s
+    rows goes through ``_head_unit``'s row arithmetic.  x (b, s, d) ->
+    (b, s)."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d).to(torch.float32) @ emb.T
+    return torch.argmax(flat, dim=-1).reshape(b, s)
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +164,6 @@ class PipelinedLM(PhasedKVExtents):
             raise NotImplementedError(
                 "the port runs dense ATTN+DENSE stacks; MoE and the other "
                 "model families come with later slices")
-        if plan.draft_arch is not None:
-            raise NotImplementedError(
-                "speculative decoding comes with a later slice of the port")
-        if plan.stages != 1:
-            raise NotImplementedError(
-                "pipeline-parallel stages come with a later slice of the port")
         self.dev = resolve_device(device)
         self.plan = plan
         self.cfg = cfg
@@ -173,6 +190,29 @@ class PipelinedLM(PhasedKVExtents):
         self.units: list[UnitSpec] = []
         self._build(plan.seed)
         self._kv_init()
+        # speculative decoding: the draft proposes, the streamed target
+        # verifies k+1 positions per trip
+        self.draft = None
+        self._spec_k = 0
+        self._spec_s = 1                 # rows the current step writes
+        self._spec_mode = False
+        self._iter_pos: Dict[int, int] = {}   # global iter -> start pos
+        dp = draft_policy_for(plan)
+        if dp is not None:
+            self.attach_draft(dp.build(b_max=plan.b_max,
+                                       max_len=plan.max_len,
+                                       device=self.dev), dp.k)
+
+    def attach_draft(self, draft, k: int):
+        """Enable speculative decoding with ``draft``: anything with
+        ``prefill_batch(tokens)`` and ``propose(tokens, pos, k) -> (batch,
+        k)`` (``core.draft.ResidentDraft``, or a test fake).  The uniform
+        batch advances all rows in lockstep, so a step accepts the
+        shortest accepted run over its rows; rows that accepted more
+        re-derive their surplus next step.  Main thread, before
+        ``generate``."""
+        self.draft = draft
+        self._spec_k = max(1, int(k))
 
     # -- weights -------------------------------------------------------------
     def _unit_tensors(self, kind: str, rng: np.random.Generator):
@@ -264,7 +304,13 @@ class PipelinedLM(PhasedKVExtents):
 
     def _live_len(self, i: int) -> int:
         """Rows iteration ``i``'s decode attention reads: the prompt plus
-        the decode rows already saved.  Iteration 0 is the prefill."""
+        the decode rows already saved.  Iteration 0 is the prefill.  A
+        speculative step advances by 1..k+1 rows, so its start positions
+        are planned on the main thread before submission (``_iter_pos``;
+        the next iteration at full acceptance, a superset when rows are
+        rejected, whose extra rows are zeros the mask ignores)."""
+        if self._spec_mode:
+            return min(self._iter_pos.get(i, self.max_len), self.max_len)
         return min(self._prompt_len + i - 1, self.max_len)
 
     def _kv_phase(self, i: int) -> str:
@@ -320,7 +366,11 @@ class PipelinedLM(PhasedKVExtents):
         return x, ("decode", k, v, pos, x.shape[1])
 
     def finalize(self, i: int, x):
-        tok = _head_unit(x, self.device.get("emb"))
+        if self._phase == "decode" and x.shape[1] > 1:
+            # speculative verify: per-position argmax, (b, k+1)
+            tok = _spec_head_unit(x, self.device.get("emb"))
+        else:
+            tok = _head_unit(x, self.device.get("emb"))
         self._last_tokens = tok.cpu().numpy().astype(np.int32)
         return self._last_tokens
 
@@ -361,11 +411,15 @@ class PipelinedLM(PhasedKVExtents):
 
         # ---- decode ----
         self._phase = "decode"
-        for t in range(1, gen_len):
-            self._pos = s + t - 1
-            x_tok = _embed_unit(
-                torch.from_numpy(outs[-1][:, None]).to(self.dev), emb)
-            outs.append(sched.generate(self, lambda i: x_tok, 1)[-1])
+        spec = {"spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0}
+        if self.draft is None:
+            for t in range(1, gen_len):
+                self._pos = s + t - 1
+                x_tok = _embed_unit(
+                    torch.from_numpy(outs[-1][:, None]).to(self.dev), emb)
+                outs.append(sched.generate(self, lambda i: x_tok, 1)[-1])
+        else:
+            self._decode_spec(sched, prompt, gen_len, outs, emb, spec)
         sched.shutdown()
         dt = time.perf_counter() - t0
         toks = np.stack(outs, axis=1)
@@ -378,8 +432,77 @@ class PipelinedLM(PhasedKVExtents):
             "host_peak_gb": self.host.peak_bytes / 2**30,
             "device_peak_gb": self.device.peak_bytes / 2**30,
             "pipeline": self.trace.report(),
+            **spec,
         }
         if self.dev.type == "cuda":
             stats["device_max_allocated_gb"] = \
                 torch.cuda.max_memory_allocated(self.dev) / 2**30
         return toks, stats
+
+    def _decode_spec(self, sched, prompt, gen_len, outs, emb, spec):
+        """Draft-then-verify decode loop (main thread).  Each step: the
+        draft proposes ``k`` tokens while ``prime_weights`` streams the
+        verify pass's first weight loads; the target scores all ``k+1``
+        positions in one trip through the stack; the batch advances by
+        the shortest accepted run over its rows.  Rejection drains the
+        saves, drops the warm KV preloads (priced at full acceptance) and
+        truncates the store's rejected rows; full acceptance keeps
+        them."""
+        s = prompt.shape[1]
+        self._iter_pos.clear()
+        # plan the first decode iteration BEFORE flipping the mode flag:
+        # the prefill's warm tail preload may be in flight and must ship
+        # the extent it was priced at
+        self._iter_pos[sched._iter0] = s
+        self._spec_mode = True
+        self.draft.prefill_batch(prompt)
+        try:
+            while len(outs) < gen_len:
+                pos = s + len(outs) - 1
+                self._pos = pos
+                remaining = gen_len - len(outs)
+                k = min(self._spec_k, remaining - 1, self.max_len - 1 - pos)
+                gi = sched._iter0
+                if k < 1:
+                    self._spec_s = 1
+                    self._iter_pos[gi] = pos
+                    self._iter_pos[gi + 1] = pos + 1
+                    x_tok = _embed_unit(
+                        torch.from_numpy(outs[-1][:, None]).to(self.dev), emb)
+                    outs.append(sched.generate(self, lambda i: x_tok, 1)[-1])
+                    continue
+                self._spec_s = k + 1
+                self._iter_pos[gi] = pos
+                self._iter_pos[gi + 1] = pos + k + 1   # full-accept plan
+                t0 = time.perf_counter()
+                primed = sched.prime_weights(self)
+                props = np.asarray(self.draft.propose(
+                    outs[-1], np.full(self.batch, pos, np.int32), k),
+                    np.int32)                          # (b, k)
+                draft_s = time.perf_counter() - t0
+                seq = np.concatenate(
+                    [np.asarray(outs[-1], np.int32)[:, None], props], axis=1)
+                x_tok = _embed_unit(torch.from_numpy(seq).to(self.dev), emb)
+                tgt = sched.generate(self, lambda i: x_tok, 1)[-1]  # (b, k+1)
+                a_min = min(accept_length(props[r], tgt[r])
+                            for r in range(self.batch))
+                emitted = min(a_min + 1, remaining)
+                for t in range(emitted):
+                    outs.append(tgt[:, t])
+                if emitted < k + 1:
+                    # rejected (or generation-capped) rows: saves in
+                    # flight would re-write them after the truncate, and
+                    # the warm KV preloads priced the full-accept extent
+                    sched.drain_saves()
+                    sched.drop_kv_preloads()
+                    if self.kvstore is not None:
+                        for r in range(self.batch):
+                            self.kvstore.truncate(r, pos + emitted)
+                spec["spec_steps"] += 1
+                spec["spec_proposed"] += k * self.batch
+                spec["spec_accepted"] += int(a_min) * self.batch
+                self.trace.meta.setdefault("spec_steps", []).append(dict(
+                    k=int(k), primed=int(primed), draft_s=float(draft_s),
+                    accepts=[int(a_min)] * self.batch))
+        finally:
+            self._spec_mode = False

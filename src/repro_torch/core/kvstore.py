@@ -12,11 +12,13 @@ prices exactly the bytes that cross, which is what ``Task.nbytes``
 records on KV_LOAD trace events.
 
 The device slab a load returns is zero beyond the live rows and holds
-``KV_LEN_BUCKET``-rounded room for the decode step's own row: the caching
-allocator then sees one slab size per 32 positions instead of a new size
-every step, and the attention kernels read only rows ``<= pos``.  The
-reference returns the full ``max_len`` slab; the rows between are zeros
-either way, so the values attended are the same.
+``KV_LEN_BUCKET``-rounded room for the rows the decode step writes (its
+own row, or a speculative verify pass's k+1): the caching allocator then
+sees one slab size per 32 positions instead of a new size every step,
+and the attention kernels read only rows ``<= pos``.  The reference
+returns the full ``max_len`` slab; the rows between are zeros either
+way, so the values attended are the same, and the link still carries
+only the live rows.
 
 ``kv_mode="int4"``: sequence-extent rows are stored packed — each
 ``(slot, position)`` row group-quantized over its flattened ``F``
@@ -313,12 +315,13 @@ class TieredKVStore:
         return min(self.max_len,
                    -(-int(ll) // KV_LEN_BUCKET) * KV_LEN_BUCKET)
 
-    def _ship(self, arr: torch.Tensor, lb: int, ll: int, seq: bool):
+    def _ship(self, arr: torch.Tensor, lb: int, ll: int, seq: bool,
+              rows: int = 1):
         """Live rows of one host array -> a zeroed device slab of
-        ``(b_max, bucket(ll + 1), ...)`` (sequence leaves) or the full
+        ``(b_max, bucket(ll + rows), ...)`` (sequence leaves) or the full
         per-slot shape."""
         if seq:
-            cap = self._bucket_len(ll + 1)
+            cap = self._bucket_len(ll + rows)
             dev = torch.zeros((arr.shape[0], cap) + tuple(arr.shape[2:]),
                               dtype=arr.dtype, device=self.device)
             for s in range(lb):
@@ -329,10 +332,12 @@ class TieredKVStore:
         return dev
 
     def load(self, j: int, live_b: Optional[int] = None,
-             live_len: Optional[int] = None) -> Dict[str, Any]:
-        """KV_LOAD body: live host rows -> device slabs; INT4 leaves come
-        back as ``PackedRows``.  Pays the link floor on exactly the live
-        bytes."""
+             live_len: Optional[int] = None, rows: int = 1
+             ) -> Dict[str, Any]:
+        """KV_LOAD body: live host rows -> device slabs with room for the
+        ``rows`` per slot the step writes past ``live_len``; INT4 leaves
+        come back as ``PackedRows``.  Pays the link floor on exactly the
+        live bytes."""
         t0 = time.perf_counter()
         lb = self.b_max if live_b is None else \
             max(1, min(int(live_b), self.b_max))
@@ -343,13 +348,14 @@ class TieredKVStore:
             leaf = self._units[j][name]
             seq = m.kind == "kv"
             if isinstance(leaf, _QuantLeaf):
-                out[name] = PackedRows(self._ship(leaf.packed, lb, ll, True),
-                                       self._ship(leaf.scale, lb, ll, True),
-                                       leaf.group, m.dtype, m.feat)
+                out[name] = PackedRows(
+                    self._ship(leaf.packed, lb, ll, True, rows),
+                    self._ship(leaf.scale, lb, ll, True, rows),
+                    leaf.group, m.dtype, m.feat)
                 self.dequant_bytes_total += lb * ll \
                     * int(np.prod(m.feat)) * m.itemsize
             else:
-                out[name] = self._ship(leaf, lb, ll, seq)
+                out[name] = self._ship(leaf, lb, ll, seq, rows)
         if self.link is not None:
             self.link.floor(self.load_nbytes(j, lb, ll), t0)
         return out
@@ -504,6 +510,14 @@ class PhasedKVExtents:
         """Rows per live slot a decode save ships."""
         return getattr(self, "_spec_s", 1)
 
+    def _kv_slab_rows(self) -> int:
+        """Rows per slot a decode step may write past its live extent,
+        which the loaded slab must hold: 1, or ``k + 1`` while a draft
+        proposing up to ``k`` tokens is attached (``_spec_k``).  The
+        largest verify pass, not the current step's ``_spec_s``: a warm
+        preload may ship before the step that consumes it sets that."""
+        return 1 + getattr(self, "_spec_k", 0)
+
     def kv_nbytes(self, i: int, j: int) -> int:
         """Bytes iteration i's KV_LOAD of unit j moves over the link —
         the LIVE rows only, 0 outside decode."""
@@ -538,4 +552,4 @@ class PhasedKVExtents:
         if not self._kv_streams(j) or self._kv_phase(i) != "decode":
             return None
         lb, ll = self._kv_live(i)
-        return self.kvstore.load(j, lb, ll)
+        return self.kvstore.load(j, lb, ll, rows=self._kv_slab_rows())

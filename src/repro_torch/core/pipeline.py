@@ -659,8 +659,9 @@ class StagedScheduler:
     ``core.replay`` can rebuild the staged run.
 
     ``handoff(stage, it, x)`` is the activation-transport seam: identity
-    here (queue handoff).  The staged serving engines, which would move
-    the activation between devices, come with a later slice of the port.
+    here (queue handoff); the staged serving engine's subclass moves the
+    activation onto the receiving stage's device
+    (``serving.offload_engine._MeshStagedScheduler``).
     """
 
     def __init__(self, stage_units, mode: str = "performance", pools=None,

@@ -15,6 +15,14 @@ the window re-sized between decode steps:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --offload --quant int4 --kv-mode int4 --depth-policy adaptive
 
+Speculative decoding (a device-resident llama3.2-1b draft proposing 4
+tokens per verify pass of the streamed Llama-3.1-8B; the stats line
+counts spec_steps/spec_proposed/spec_accepted), and two pipeline stages:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
+      --offload --quant int4 --draft-arch llama3.2-1b --spec-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
+      --offload --quant int4 --stages 2
+
 Plans are first-class: --plan-json resolves the spec and dumps the plan
 (every auto field and why it got its value) WITHOUT building an engine;
 --spec-json loads an EngineSpec JSON as the base (explicit flags still

@@ -9,6 +9,9 @@ kernel dispatch.  ``decode_attention_packed`` is the same step over a
 ``kv_mode="int4"`` history that stays packed (``kvstore.PackedRows``):
 the fresh row is not quantized before it is attended, as in the
 reference, which writes it into its dequantized cache.
+``spec_decode_attention`` (and ``spec_decode_attention_packed`` over
+packed rows) is the speculative verify pass: ``s`` fresh rows per
+sequence, each query attended as its own ragged decode step.
 ``chunk_prefill_attention`` is a prefill chunk's attention over the
 engine-held prefix (``flash_attention`` with ``q_offset``).  Layout
 BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
@@ -17,11 +20,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.kvstore import quantize_kv_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attn_partials, ref_attention
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
-           "decode_attention_packed", "chunk_prefill_attention"]
+           "decode_attention_packed", "spec_decode_attention",
+           "spec_decode_attention_packed", "chunk_prefill_attention"]
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
@@ -56,6 +61,64 @@ def decode_attention_packed(q, k_rows, v_rows, k_new, v_new, pos):
         pos, hkv=hkv, group=k_rows.group, k_new=k_new[:, 0],
         v_new=v_new[:, 0], cache_dtype=k_rows.dtype)
     return out[:, None]
+
+
+def _locs(pos, b: int, s: int, device):
+    """(first positions (b,) int32, rows (b, 1), positions (b, s)) of a
+    step writing ``s`` rows per sequence from ``pos`` (int or (b,))."""
+    p0 = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
+    p0 = p0.expand(b).contiguous()
+    steps = torch.arange(s, device=device)
+    return (p0, torch.arange(b, device=device)[:, None],
+            p0.long()[:, None] + steps[None, :])
+
+
+def spec_decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
+    """The speculative verify pass over plain caches: one step appends
+    ``s`` rows per sequence (the current token and the draft's proposals)
+    and attends each query through its own causal prefix.  q (b, s, h,
+    dh); caches (b, S, hkv, dh); k_new/v_new (b, s, hkv, dh); ``pos``
+    (int or (b,)) is the position of the FIRST new row.  The fresh rows
+    are written at ``pos..pos+s-1`` in place, at the caches' dtype, then
+    query ``t`` runs as the ragged decode step at ``pos + t``
+    (``decode_attention``, one launch per query): it sees the loaded
+    prefix, the pass's earlier rows and its own, exactly the rows
+    sequential decode would see.  Returns (out (b, s, h, dh), k_cache,
+    v_cache)."""
+    b, s = k_new.shape[:2]
+    p0, rows, locs = _locs(pos, b, s, k_cache.device)
+    k_cache[rows, locs] = k_new.to(k_cache.dtype)
+    v_cache[rows, locs] = v_new.to(v_cache.dtype)
+    out = torch.stack([ops.decode_attention_op(q[:, t], k_cache, v_cache,
+                                               p0 + t) for t in range(s)],
+                      dim=1)
+    return out, k_cache, v_cache
+
+
+def spec_decode_attention_packed(q, k_rows, v_rows, k_new, v_new, pos):
+    """The verify pass over a ``kv_mode="int4"`` history that stays packed
+    (``PackedRows``).  Between sequential steps rows ``pos..pos+t-1``
+    would cross the store, quantized, before query ``t`` reads them; so
+    the first ``s - 1`` fresh rows are quantized with the store's row
+    codec (cast to the rows' compute dtype first, as the store's save
+    does) into the packed slab at ``pos..pos+s-2``, and query ``t`` runs
+    ``decode_attention_int4`` at ``pos + t`` with row ``t`` as its fresh
+    row: each earlier row at stored precision, its own row fresh.  The
+    packed slab is written in place.  Returns (b, s, h, dh)."""
+    b, s, hkv, dh = k_new.shape
+    p0, rows, locs = _locs(pos, b, s - 1, k_rows.packed.device)
+    if s > 1:
+        for pr, new in ((k_rows, k_new), (v_rows, v_new)):
+            flat = new[:, :s - 1].to(pr.dtype).reshape(b, s - 1, hkv * dh)
+            packed, scale = quantize_kv_rows(flat, pr.group)
+            pr.packed[rows, locs] = packed
+            pr.scale[rows, locs] = scale
+    return torch.stack([
+        ops.decode_attention_int4_op(
+            q[:, t], k_rows.packed, k_rows.scale, v_rows.packed,
+            v_rows.scale, p0 + t, hkv=hkv, group=k_rows.group,
+            k_new=k_new[:, t], v_new=v_new[:, t], cache_dtype=k_rows.dtype)
+        for t in range(s)], dim=1)
 
 
 def chunk_prefill_attention(q, k, v, *, q_offset: int):

@@ -27,7 +27,9 @@ from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
 from repro_torch.models.attention import (chunk_prefill_attention,
                                           decode_attention,
-                                          decode_attention_packed)
+                                          decode_attention_packed,
+                                          spec_decode_attention,
+                                          spec_decode_attention_packed)
 from repro_torch.models.common import NEG_INF, rms_norm, silu
 from repro_torch.models.rope import apply_rope
 
@@ -196,13 +198,17 @@ def _build_cache(k, v, ctx: Ctx):
 def _decode_attn(q, k_new, v_new, ctx: Ctx, cache):
     """One decode step at ``ctx.pos`` (int or ragged (b,)) over the
     loaded cache: a plain slab (the step's row written in at the slab's
-    dtype) or packed rows (the row attended beside them).  Returns
-    (out, the fresh rows at the cache's compute dtype)."""
+    dtype) or packed rows (the row attended beside them).  ``s > 1``
+    rows per sequence are a speculative verify pass from ``ctx.pos``.
+    Returns (out, the fresh rows at the cache's compute dtype)."""
     kc, vc = cache["k"], cache["v"]
+    spec = q.shape[1] > 1
     if isinstance(kc, PackedRows):
-        out = decode_attention_packed(q, kc, vc, k_new, v_new, ctx.pos)
+        fn = spec_decode_attention_packed if spec else decode_attention_packed
+        out = fn(q, kc, vc, k_new, v_new, ctx.pos)
     else:
-        out, _, _ = decode_attention(q, kc, vc, k_new, v_new, ctx.pos)
+        fn = spec_decode_attention if spec else decode_attention
+        out, _, _ = fn(q, kc, vc, k_new, v_new, ctx.pos)
     return out, {"k": k_new.to(kc.dtype), "v": v_new.to(kc.dtype)}
 
 
@@ -240,3 +246,12 @@ def lm_head_argmax(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
     logits = logits.masked_fill(pad, NEG_INF)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def lm_head_argmax_positions(p, x: torch.Tensor,
+                             cfg: ModelConfig) -> torch.Tensor:
+    """Per-position greedy tokens for the verify pass: every one of the
+    ``b * s`` positions goes through ``lm_head_argmax``'s row arithmetic
+    as a sequence of its own.  x (b, s, d) -> (b, s) int32."""
+    b, s, d = x.shape
+    return lm_head_argmax(p, x.reshape(b * s, 1, d), cfg).reshape(b, s)

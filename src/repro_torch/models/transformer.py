@@ -121,6 +121,16 @@ def init_params(cfg: ModelConfig, seed: int):
     return params
 
 
+def to_device(tree, device):
+    """A parameter tree of numpy arrays (``init_params``) as tensors on
+    ``device``, in the same structure."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, device) for v in tree)
+    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+
+
 # ===========================================================================
 # Caches
 # ===========================================================================

@@ -62,16 +62,9 @@ class ServingEngine(SlotEngineBase):
                          kv_pool=kv_pool, spill_cap=plan.spill_cap,
                          host=HostStore(pin=self.dev.type == "cuda"))
         self.model = build_model(cfg)
-        self.params = self._to_device(self.model.init(plan.seed))
+        self.params = T.to_device(self.model.init(plan.seed), self.dev)
         self.caches = self.model.init_cache(self.b_max, self.max_len,
                                             self.dev)
-
-    def _to_device(self, tree):
-        if isinstance(tree, dict):
-            return {k: self._to_device(v) for k, v in tree.items()}
-        if isinstance(tree, tuple):
-            return tuple(self._to_device(v) for v in tree)
-        return torch.from_numpy(np.ascontiguousarray(tree)).to(self.dev)
 
     # ---- compute ------------------------------------------------------------
     def _prefill_into_slot(self, slot: int, req: Request) -> int:

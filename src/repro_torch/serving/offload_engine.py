@@ -27,10 +27,19 @@ prefix of its earlier chunks through ``flash_attention`` with
 ``q_offset`` (``models.layers.apply_layer_chunk``), and its rows append
 to the KV store through the step's KV_SAVE.
 
-The dense, single-stage subset of the JAX package's
-``serving/offload_engine.py``: MoE layers, speculative decoding and
-pipeline stages each raise ``NotImplementedError`` naming a later
-slice.  ``depth_policy="adaptive"`` re-sizes the window between
+Speculative decoding (a plan with ``draft_arch``, or ``attach_draft``):
+a device-resident draft proposes ``k`` tokens per step while the verify
+pass's first weights stream; the target scores all ``k+1`` positions in
+one trip through the stack and greedy accept/reject emits up to ``k+1``
+tokens per slot, equal to non-speculative decode.  Pipeline-parallel
+stages (``stages > 1``): the stack splits into contiguous stages, each
+with its own weight and KV stores (its own link), transfer pool and
+window (``plan.stage_plan``), and activations hand stage to stage
+(``_MeshStagedScheduler``; on one card every stage shares it).
+
+The dense subset of the JAX package's ``serving/offload_engine.py``:
+MoE layers raise ``NotImplementedError`` naming a later slice.
+``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
 one unit at a time (``models.transformer.draw_tables``: each unit is
@@ -44,6 +53,8 @@ unit's compute; ``warm`` adds the cross-step preload), "memory" and
 """
 from __future__ import annotations
 
+import re
+import time
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -51,19 +62,24 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
+from repro_torch.core.draft import accepted_tokens
 from repro_torch.core.kvstore import TieredKVStore
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
-from repro_torch.core.pipeline import PipelineScheduler, ThreadPool, adopt
+from repro_torch.core.pipeline import (PipelineScheduler, StagedScheduler,
+                                       ThreadPool, adopt)
 from repro_torch.core.tasks import Trace, _merged_busy
 from repro_torch.core.transfer import DEFAULT_BLOCK, TieredWeightStore
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import stage_devices
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.base import Request, SlotEngineBase
 from repro_torch.serving.spec import (AdaptiveDepth, Pressure, ResolvedPlan,
                                       StaticDepth, UnsupportedModelError,
-                                      offload_capability, preload_policy_for,
-                                      quant_policy_for, sched_policy_for)
+                                      draft_policy_for, offload_capability,
+                                      preload_policy_for, quant_policy_for,
+                                      sched_policy_for,
+                                      spec_decode_capability)
 
 __all__ = ["Request", "OffloadedServingEngine"]
 
@@ -77,6 +93,109 @@ class _Unit:
     q: int              # pattern / remainder position
     spec: LayerSpec
     key: str            # TieredWeightStore key
+
+
+class _StagedWeightStore:
+    """Key-routing facade over per-stage ``TieredWeightStore``s: each
+    stage owns its own store (so its own link and device), and
+    ``route(key) -> stage`` parses the unit key; the host and disk tiers
+    are shared (keys are globally unique)."""
+
+    def __init__(self, stores, route):
+        self.stores = list(stores)
+        self._route = route
+        self.fused_int4 = self.stores[0].fused_int4
+
+    def _of(self, key: str) -> TieredWeightStore:
+        return self.stores[self._route(key)]
+
+    def put(self, key: str, tensors):
+        return self._of(key).put(key, tensors)
+
+    def nbytes(self, key: str) -> int:
+        return self._of(key).nbytes(key)
+
+    def fetch(self, key: str):
+        return self._of(key).fetch(key)
+
+    def split(self, key: str, buf):
+        return self._of(key).split(key, buf)
+
+    def load(self, key: str):
+        return self._of(key).load(key)
+
+
+class _StagedKVStore:
+    """Global-unit facade over per-stage ``TieredKVStore``s: unit-indexed
+    calls route to the owning stage's store (stage-local index), slot
+    operations fan out to every stage, and spill namespaces get a
+    per-stage suffix (``{ns}/s{stage}/...``, still under the engine's
+    ``{ns}/`` prefix cleanup)."""
+
+    _UNIT_METHODS = ("load", "load_nbytes", "slab_nbytes", "save_nbytes",
+                     "prefill_save_nbytes", "dequant_nbytes",
+                     "save_prefill", "save_prefill_batch", "save_decode",
+                     "leaf_meta")
+
+    def __init__(self, stores, bounds):
+        self.stores = list(stores)
+        self.bounds = [tuple(b) for b in bounds]
+        self.b_max = self.stores[0].b_max
+        self.max_len = self.stores[0].max_len
+        self.kv_mode = self.stores[0].kv_mode
+        for name in self._UNIT_METHODS:
+            setattr(self, name, self._unit_call(name))
+
+    def _unit_call(self, name):
+        def call(j, *args, **kwargs):
+            for (lo, hi), st in zip(self.bounds, self.stores):
+                if lo <= j < hi:
+                    return getattr(st, name)(j - lo, *args, **kwargs)
+            raise IndexError(f"unit {j} outside staged bounds {self.bounds}")
+        return call
+
+    def __len__(self):
+        return sum(len(st) for st in self.stores)
+
+    @property
+    def dequant_bytes_total(self) -> int:
+        return sum(st.dequant_bytes_total for st in self.stores)
+
+    def max_live_load_nbytes(self, live_b: int, live_len: int) -> int:
+        return max(st.max_live_load_nbytes(live_b, live_len)
+                   for st in self.stores)
+
+    def host_nbytes(self) -> int:
+        return sum(st.host_nbytes() for st in self.stores)
+
+    def truncate(self, slot: int, new_len: int) -> None:
+        for st in self.stores:
+            st.truncate(slot, new_len)
+
+    def spill(self, host, ns: str, slot: int) -> None:
+        for s, st in enumerate(self.stores):
+            st.spill(host, f"{ns}/s{s}", slot)
+
+    def restore(self, host, ns: str, slot: int) -> None:
+        for s, st in enumerate(self.stores):
+            st.restore(host, f"{ns}/s{s}", slot)
+
+
+class _MeshStagedScheduler(StagedScheduler):
+    """``StagedScheduler`` whose activation handoff moves the activation
+    onto the receiving stage's device (``launch.mesh.stage_devices``):
+    an asynchronous copy between cards, or nothing when the stages share
+    one."""
+
+    def __init__(self, *args, devices=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.devices = list(devices or [])
+
+    def handoff(self, stage: int, it: int, x):
+        if self.devices and isinstance(x, torch.Tensor):
+            return x.to(self.devices[stage % len(self.devices)],
+                        non_blocking=True)
+        return x
 
 
 class OffloadedServingEngine(SlotEngineBase):
@@ -102,12 +221,6 @@ class OffloadedServingEngine(SlotEngineBase):
             raise NotImplementedError(
                 "the port serves dense ATTN+DENSE stacks; MoE and the other "
                 "mixers come with later slices")
-        if plan.draft_arch is not None:
-            raise NotImplementedError(
-                "speculative decoding comes with a later slice of the port")
-        if plan.stages != 1:
-            raise NotImplementedError(
-                "pipeline-parallel stages come with a later slice of the port")
         self.dev = resolve_device(device)
         self.plan = plan
         self.preload_policy = preload_policy_for(plan, cfg)
@@ -118,13 +231,36 @@ class OffloadedServingEngine(SlotEngineBase):
                 "kv_mode='int4' streams the cache; cache_on='device' keeps "
                 "it resident")
         self.trace = Trace()
+        self.n_stages = max(1, int(plan.stages or 1))
+        self.stage_bounds = self._make_stage_bounds(cfg, plan)
+        self.stage_devs = stage_devices(self.n_stages, self.dev)
         n_units = self._n_units(cfg)
-        depth = PipelineScheduler.clamp_depth(plan.pipeline, n_units,
-                                              max(1, plan.depth))
-        max_depth = PipelineScheduler.clamp_depth(
-            plan.pipeline, n_units, self.preload_policy.max_depth())
-        pool = ThreadPool(PipelineScheduler.pool_size(max(depth, max_depth)),
-                          self.trace, device=self.dev)
+        if self.n_stages > 1:
+            # one transfer pool per stage, each sized to that stage's
+            # window (the StagePlan depths come from the resolver's
+            # per-stage budget split)
+            sd = ([p.depth for p in plan.stage_plan]
+                  if len(plan.stage_plan) == self.n_stages
+                  else [max(1, plan.depth)] * self.n_stages)
+            self._stage_depths = [
+                PipelineScheduler.clamp_depth(plan.pipeline, hi - lo, d)
+                for (lo, hi), d in zip(self.stage_bounds, sd)]
+            self._stage_pools = [
+                ThreadPool(PipelineScheduler.pool_size(d), self.trace,
+                           device=dev)
+                for d, dev in zip(self._stage_depths, self.stage_devs)]
+            depth = max(self._stage_depths)
+            pool = self._stage_pools[0]
+        else:
+            depth = PipelineScheduler.clamp_depth(plan.pipeline, n_units,
+                                                  max(1, plan.depth))
+            max_depth = PipelineScheduler.clamp_depth(
+                plan.pipeline, n_units, self.preload_policy.max_depth())
+            self._stage_depths = [depth]
+            self._stage_pools = []
+            pool = ThreadPool(
+                PipelineScheduler.pool_size(max(depth, max_depth)),
+                self.trace, device=self.dev)
         pin = self.dev.type == "cuda"
         super().__init__(cfg, b_max=plan.b_max, max_len=plan.max_len,
                          kv_pool=pool, spill_cap=plan.spill_cap,
@@ -135,13 +271,22 @@ class OffloadedServingEngine(SlotEngineBase):
         self.device = DeviceStore(self.dev)
         self.disk = (DiskStore(plan.disk_root) if plan.placement == "disk"
                      else None)
-        self.weights = TieredWeightStore(
-            placement=plan.placement, host=self.host, device=self.device,
+        store = lambda device: TieredWeightStore(
+            placement=plan.placement, host=self.host, device=device,
             disk=self.disk, quant=self.quant_policy.weight_mode,
             fused_int4=plan.fused_int4,
             block_bytes=plan.block_bytes or DEFAULT_BLOCK,
             n_io_threads=plan.n_io_threads, cold_reads=plan.cold_reads,
             sim_bw=plan.sim_bw)
+        if self.n_stages > 1:
+            # one tiered store per stage: each stage streams its slice
+            # over its own link onto its own device
+            self.weights = _StagedWeightStore(
+                [store(self.device if dev == self.dev else DeviceStore(dev))
+                 for dev in self.stage_devs],
+                lambda key: self._stage_of_unit(self._unit_of_key(key)))
+        else:
+            self.weights = store(self.device)
         self._phase = "prefill"           # until the first _decode_active
         # chunked-prefill admission: at most ONE prefill in flight,
         # advanced one chunk per engine step
@@ -170,18 +315,68 @@ class OffloadedServingEngine(SlotEngineBase):
             self.preload_policy.set_link_profile(
                 sum(self.weights.nbytes(u.key) for u in self.units)
                 // max(1, len(self.units)))
-        self.sched = PipelineScheduler(len(self.units), plan.pipeline,
-                                       pool=pool, trace=self.trace,
-                                       warm=self.warm, depth=depth,
-                                       device=self.dev)
+        if self.n_stages > 1:
+            self.sched = _MeshStagedScheduler(
+                self.stage_bounds, plan.pipeline, pools=self._stage_pools,
+                trace=self.trace, warm=self.warm, depths=self._stage_depths,
+                devices=self.stage_devs)
+        else:
+            self.sched = PipelineScheduler(len(self.units), plan.pipeline,
+                                           pool=pool, trace=self.trace,
+                                           warm=self.warm, depth=depth,
+                                           device=self.dev)
         self.trace.meta.update(
             arch=plan.arch, b_max=plan.b_max, max_len=plan.max_len,
             sim_bw=plan.sim_bw, quant=plan.quant,
             kv_mode=plan.kv_mode or "fp32")
+        # speculative decoding: a device-resident draft proposes spec_k
+        # tokens per step; the streamed target verifies them in one
+        # ragged k+1-position pass
+        self.draft = None
+        self._spec_k = 0
+        self._spec_s = 1                  # rows the current step writes
+        self._spec_emitted = None         # per-slot tokens of the last step
+        for key in ("spec_steps", "spec_proposed", "spec_accepted"):
+            self.stats[key] = 0
+        dp = draft_policy_for(plan)
+        if dp is not None:
+            self.attach_draft(dp.build(b_max=plan.b_max,
+                                       max_len=plan.max_len,
+                                       device=self.dev), dp.k)
 
     @staticmethod
     def _n_units(cfg: ModelConfig) -> int:
         return cfg.num_periods * len(cfg.pattern) + len(cfg.remainder)
+
+    # ---- pipeline-parallel staging ------------------------------------------
+    def _make_stage_bounds(self, cfg: ModelConfig, plan) -> List[tuple]:
+        """Contiguous per-stage unit ranges: the resolver's ``stage_plan``
+        when it tiles this config, else a balanced split."""
+        nu = self._n_units(cfg)
+        if self.n_stages <= 1:
+            return [(0, nu)]
+        sp = plan.stage_plan
+        if (len(sp) == self.n_stages and sp[0].layer_lo == 0
+                and sp[-1].layer_hi == nu):
+            return [(p.layer_lo, p.layer_hi) for p in sp]
+        return [(round(s * nu / self.n_stages),
+                 round((s + 1) * nu / self.n_stages))
+                for s in range(self.n_stages)]
+
+    def _unit_of_key(self, key: str) -> int:
+        """Global unit index of a tiered-store key (``u[p][q]`` or
+        ``rem[q]``)."""
+        nums = [int(x) for x in re.findall(r"\[(\d+)\]", key)]
+        if key.startswith("u["):
+            return nums[0] * len(self.cfg.pattern) + nums[1]
+        return self.cfg.num_periods * len(self.cfg.pattern) + nums[0]
+
+    def _stage_of_unit(self, j: int) -> int:
+        for s, (lo, hi) in enumerate(self.stage_bounds):
+            if lo <= j < hi:
+                return s
+        raise IndexError(f"unit {j} outside stage bounds "
+                         f"{self.stage_bounds}")
 
     # ---- weight tiering -----------------------------------------------------
     def _split_params(self, seed: int):
@@ -223,10 +418,19 @@ class OffloadedServingEngine(SlotEngineBase):
                            for n, (s, dt) in sds.items()})
             kk.append(dict(kinds[u.group][u.q]))
         self.kv_kinds: List[Dict[str, str]] = kk
-        self.kvstore = TieredKVStore(
-            shapes, kk, b_max=self.b_max, max_len=self.max_len,
-            kv_mode=self.quant_policy.kv_mode, link=self.weights.link,
-            device=self.dev, pin=self.dev.type == "cuda")
+        store = lambda shapes, kinds, link, device: TieredKVStore(
+            shapes, kinds, b_max=self.b_max, max_len=self.max_len,
+            kv_mode=self.quant_policy.kv_mode, link=link, device=device,
+            pin=self.dev.type == "cuda")
+        if self.n_stages > 1:
+            # one KV store per stage, on that stage's link and device
+            self.kvstore = _StagedKVStore(
+                [store(shapes[lo:hi], kk[lo:hi], self.weights.stores[s].link,
+                       self.stage_devs[s])
+                 for s, (lo, hi) in enumerate(self.stage_bounds)],
+                self.stage_bounds)
+        else:
+            self.kvstore = store(shapes, kk, self.weights.link, self.dev)
 
     # ---- per-unit compute (main thread) -------------------------------------
     def _embed(self, tokens: np.ndarray) -> torch.Tensor:
@@ -235,10 +439,17 @@ class OffloadedServingEngine(SlotEngineBase):
                                   self.dev))
 
     def _head(self, x) -> np.ndarray:
-        x = L.rms_norm(x, self.resident["final_norm"]["scale"],
+        x = L.rms_norm(x.to(self.dev), self.resident["final_norm"]["scale"],
                        self.cfg.norm_eps)
         tok = L.lm_head_argmax(self.resident["embed"], x[:, -1:], self.cfg)
         return tok.cpu().numpy()
+
+    def _spec_head(self, x) -> np.ndarray:
+        """Per-position greedy tokens of a verify pass, (b, k+1)."""
+        x = L.rms_norm(x.to(self.dev), self.resident["final_norm"]["scale"],
+                       self.cfg.norm_eps)
+        return L.lm_head_argmax_positions(self.resident["embed"], x,
+                                          self.cfg).cpu().numpy()
 
     # ---- PipelineScheduler callbacks ----------------------------------------
     def is_mha(self, j: int) -> bool:
@@ -327,28 +538,35 @@ class OffloadedServingEngine(SlotEngineBase):
             self.kvstore.save_decode(j, {n: l[:live_b] for n, l in
                                          payload.items()}, active, pos)
 
+    def _unit_dev(self, j: int) -> torch.device:
+        return (self.stage_devs[self._stage_of_unit(j)]
+                if self.n_stages > 1 else self.dev)
+
     def compute(self, i: int, j: int, x, weights, kv):
         """COMPUTE body (main thread): one unit's forward."""
         u = self.units[j]
-        adopt(self.dev, weights)
+        dev = self._unit_dev(j)
+        adopt(dev, weights)
         if isinstance(weights, torch.Tensor):
             weights = self.weights.split(u.key, weights)
         if self._phase == "prefill":
-            ctx = L.Ctx(cfg=self.cfg, mode="prefill", angles=self._angles)
+            ctx = L.Ctx(cfg=self.cfg, mode="prefill",
+                        angles=_on(self._angles, dev))
             x, rows = L.apply_layer(weights, x, ctx, None, u.spec)
             return x, ("prefill", rows, self._slot)
         if self._chunk_step is not None:
             return self._compute_mixed(j, u, x, weights, kv)
-        x, (rows, meta) = self._decode_unit(u, x, weights, kv)
+        x, (rows, meta) = self._decode_unit(u, x, weights, kv, dev)
         return x, ("decode", rows, meta)
 
-    def _decode_unit(self, u: _Unit, x, weights, kv):
+    def _decode_unit(self, u: _Unit, x, weights, kv, dev=None):
         """The decode batch through one unit: its output, the fresh
-        ``{name: (b, 1, *feat)}`` rows the save ships and the save's
-        ``(active, pos, live_b)``."""
-        adopt(self.dev, kv)
-        ctx = L.Ctx(cfg=self.cfg, mode="decode", angles=self._angles,
-                    pos=self._pos_dev)
+        ``{name: (b, s, *feat)}`` rows the save ships (s = 1, or k+1 in a
+        verify pass) and the save's ``(active, pos, live_b)``."""
+        dev = dev or self.dev
+        adopt(dev, kv)
+        ctx = L.Ctx(cfg=self.cfg, mode="decode", angles=_on(self._angles, dev),
+                    pos=_on(self._pos_dev, dev))
         x, rows = L.apply_layer(weights, x, ctx, kv, u.spec)
         return x, (rows, (self._active, self._pos_snap,
                           self._decode_view[1]))
@@ -385,6 +603,8 @@ class OffloadedServingEngine(SlotEngineBase):
             if x_dec is None:
                 return np.zeros(self.b_max, np.int32)
             x = x_dec
+        if self._phase == "decode" and x.shape[1] > 1:
+            return self._spec_head(x)       # verify pass: (b, k+1)
         return self._head(x)
 
     # ---- SlotEngineBase compute hooks ---------------------------------------
@@ -441,6 +661,8 @@ class OffloadedServingEngine(SlotEngineBase):
             self.sched.drop_kv_preloads()
         if final:
             self._chunk = None            # frees the device-held prefix
+            if self.draft is not None:
+                self.draft.prefill_slot(slot, req.prompt)
             self._finish_prefill(slot, req, self._chunk_tok)
         return toks[-1]
 
@@ -456,6 +678,9 @@ class OffloadedServingEngine(SlotEngineBase):
         x0 = self._embed(np.asarray(req.prompt)[None])
         toks = self.sched.generate(self, lambda i: x0, 1)
         self.sched.drop_kv_preloads()
+        if self.draft is not None:
+            # the draft is slaved to the same slot/pos state
+            self.draft.prefill_slot(slot, req.prompt)
         # skip the prefill's trace window for the bandwidth feedback: a
         # full-prompt forward costs far more per layer than a decode step
         self._trace_mark = len(self.trace.events())
@@ -514,19 +739,107 @@ class OffloadedServingEngine(SlotEngineBase):
         for k in [k for k in self._extent_memo if k < base]:
             del self._extent_memo[k]
 
+    def attach_draft(self, draft, k: int):
+        """Enable speculative decoding with ``draft``: anything with
+        ``prefill_slot(slot, prompt)`` and ``propose(tokens, pos, k) ->
+        (b_max, k)`` (``core.draft.ResidentDraft``, or a test fake).
+        Greedy accept/reject keeps the emitted stream equal to
+        non-speculative decode for any proposal stream, so a draft whose
+        cache went stale (a preempted request resumes without a draft
+        prefill) costs acceptance, never tokens.  Main thread, between
+        steps."""
+        cap = spec_decode_capability(self.cfg)
+        if cap is not None:
+            raise UnsupportedModelError(
+                cap, f"speculative decoding needs a global-attention "
+                     f"dense decoder target (failing capability: {cap})")
+        self.draft = draft
+        self._spec_k = max(1, int(k))
+        self.trace.meta.update(spec_k=self._spec_k)
+
+    def _emitted_tokens(self, active, nt):
+        if self._spec_emitted is not None:
+            return self._spec_emitted
+        return super()._emitted_tokens(active, nt)
+
     def _decode_active(self, active: List[int]) -> np.ndarray:
         """One batched decode step over every slot at its own position
         (main thread); with a chunked prefill in flight, the mixed step
         (the decode batch plus one prompt chunk under shared weight
-        loads)."""
+        loads; speculation resumes after it); with a draft attached, a
+        draft-then-verify step emitting up to ``spec_k + 1`` tokens per
+        slot (``_emitted_tokens``)."""
+        self._spec_emitted = None
+        self._spec_s = 1
         if self._chunk is not None:
             return self._mixed_step(active)
+        k = 0
+        if self.draft is not None:
+            # headroom: the verify writes rows pos..pos+k, and the last
+            # emitted token must still fit under the max_len-1 release
+            # bound the base class enforces per token
+            head = self.max_len - 1 - int(max(self.pos[s] for s in active))
+            k = max(0, min(self._spec_k, head))
+        if k >= 1:
+            return self._decode_spec(active, k)
         self._step_setup(active)
         self._pos_dev = torch.from_numpy(self.pos.copy()).to(self.dev)
         self._angles = T._angles(self.cfg, self._pos_dev[:, None])
         x0 = self._embed(self.tokens[:, None])
         toks = self.sched.generate(self, lambda i: x0, 1)
         return toks[-1]
+
+    def _decode_spec(self, active: List[int], k: int) -> np.ndarray:
+        """Draft-then-verify decode step (main thread): the draft proposes
+        ``k`` tokens while ``prime_weights`` streams the verify pass's
+        first weight loads over the otherwise idle link; the target scores
+        all ``k+1`` positions in one trip through the streamed stack, and
+        the greedy accept rule (``core.draft.accepted_tokens``) emits the
+        longest prefix that matches non-speculative decode plus the
+        target's bonus token."""
+        self._step_setup(active)
+        self._spec_s = k + 1
+        t0 = time.perf_counter()
+        primed = self.sched.prime_weights(self)
+        props = np.asarray(self.draft.propose(self.tokens, self.pos, k),
+                           np.int32)                       # (b_max, k)
+        draft_s = time.perf_counter() - t0
+        # verify input: [current token, d1..dk] at positions pos..pos+k
+        seq = np.concatenate(
+            [np.asarray(self.tokens, np.int32)[:, None], props], axis=1)
+        self._pos_dev = torch.from_numpy(self.pos.copy()).to(self.dev)
+        pos_mat = (self._pos_dev[:, None]
+                   + torch.arange(k + 1, device=self.dev)[None, :])
+        self._angles = T._angles(self.cfg, pos_mat)
+        x0 = self._embed(seq)
+        tgt = np.asarray(self.sched.generate(self, lambda i: x0, 1)[-1])
+        # saves in flight would re-write rejected rows after the truncate:
+        # drain first.  The KV preloads in flight are stale either way (a
+        # verify pass advances the extent by up to k+1, past the +1 the
+        # warm tail priced), and so are their memoized extents: a stale
+        # memo would under-ship rows the next step's mask admits
+        self.sched.drain_saves()
+        self.sched.drop_kv_preloads()
+        self._extent_memo.clear()
+        emitted: Dict[int, List[int]] = {}
+        accepts = []
+        for i in active:
+            acc = accepted_tokens(props[i], tgt[i])
+            emitted[i] = acc
+            accepts.append(len(acc) - 1)
+            # valid rows: inputs [cur, d1..da] at pos..pos+a
+            self.kvstore.truncate(i, int(self._pos_snap[i]) + len(acc))
+        self._spec_emitted = emitted
+        self.stats["spec_steps"] += 1
+        self.stats["spec_proposed"] += k * len(active)
+        self.stats["spec_accepted"] += int(sum(accepts))
+        self.trace.meta.setdefault("spec_steps", []).append(dict(
+            k=int(k), primed=int(primed), draft_s=float(draft_s),
+            accepts=[int(a) for a in accepts]))
+        nt = np.zeros(self.b_max, np.int32)
+        for i in active:
+            nt[i] = emitted[i][-1]
+        return nt
 
     # ---- slot spill/restore (host<->host; rows already offloaded) -----------
     def _offload_snapshot(self, slot: int):
@@ -553,7 +866,16 @@ class OffloadedServingEngine(SlotEngineBase):
         return self.trace.report()
 
     def shutdown(self):
-        """Drain slot spills and pipeline saves, stop the pool."""
+        """Drain slot spills and pipeline saves, stop the pool(s).  A
+        staged engine owns one pool per stage; pool 0 doubles as the slot
+        spill pool and stops last."""
         super().shutdown()
         self.sched.shutdown()
+        for p in self._stage_pools[1:]:
+            p.shutdown()
         self._kv_pool.shutdown()
+
+
+def _on(t, dev: torch.device):
+    """``t`` on ``dev`` (the unit's stage device); None stays None."""
+    return t if t is None or t.device == dev else t.to(dev)

@@ -17,11 +17,11 @@ flag<->field table ``launch.serve`` generates its argparse from.
 ``resolve(trace=...)`` replays the recorded trace (``core.replay``) to
 pick the depth, or on a staged recording the (stages, depth) pair, as
 the JAX package does.  ``sched="online"|"offline"`` builds the chunked-
-prefill offloaded engine (``OnlineSLO``/``OfflineThroughput``).  Plans
-that ask for speculation or pipeline stages resolve as in the JAX
-package; building their engines raises ``NotImplementedError`` naming
-the later slice of the port.  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+prefill offloaded engine (``OnlineSLO``/``OfflineThroughput``); a plan
+with ``draft_arch`` attaches the ``DraftPolicy``'s device-resident draft
+(speculative decoding) and one with ``stages > 1`` builds the staged
+offloaded engine.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -983,6 +983,48 @@ def preload_policy_for(plan: ResolvedPlan,
                              kv_mode=plan.kv_mode,
                              placement=plan.placement, budget=budget)
     return StaticDepth(max(1, plan.depth))
+
+
+# ---------------------------------------------------------------------------
+# DraftPolicy seam
+# ---------------------------------------------------------------------------
+
+
+class DraftPolicy:
+    """Speculative-decoding seam: WHO proposes and HOW MANY tokens per
+    verify pass, resolved from the plan (``draft_arch``/``spec_k``).
+    ``build()`` constructs the device-resident draft
+    (``core.draft.ResidentDraft``) sized to the engine's slots on the
+    engine's device.  Engines treat the draft as an opaque proposer
+    (``prefill_slot``/``prefill_batch``/``propose``), so tests can attach
+    a fake one."""
+
+    def __init__(self, arch: str, scaled: bool, k: int, *, seed: int = 0):
+        if k < 1:
+            raise SpecError(f"spec_k must be >= 1, got {k}")
+        self.arch = arch
+        self.scaled = scaled
+        self.k = int(k)
+        self.seed = int(seed)
+
+    def build(self, *, b_max: int, max_len: int, device="cuda"):
+        from repro_torch.core.draft import ResidentDraft
+        cfg = _registry_config(self.arch, self.scaled, None)
+        return ResidentDraft(cfg, b_max=b_max, max_len=max_len,
+                             seed=self.seed, device=device)
+
+    def __repr__(self):
+        return (f"DraftPolicy({self.arch!r}"
+                f"{'(scaled)' if self.scaled else ''}, k={self.k})")
+
+
+def draft_policy_for(plan: ResolvedPlan) -> Optional[DraftPolicy]:
+    """The plan's draft policy, or None when the plan does not
+    speculate."""
+    if plan.draft_arch is None:
+        return None
+    return DraftPolicy(plan.draft_arch, plan.scaled, plan.spec_k or 1,
+                       seed=plan.seed)
 
 
 # ---------------------------------------------------------------------------

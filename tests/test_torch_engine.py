@@ -162,9 +162,13 @@ def test_plan_json_roundtrip_and_gates(tmp_path):
     with pytest.raises(SpecError):
         build_lm(dataclasses.replace(pplan, kv_mode="int4",
                                      cache_on="device"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # speculation and staged plans build now; an unknown draft arch is
+    # a plan error, MoE still waits for its slice
+    with pytest.raises(SpecError):
         build_lm(dataclasses.replace(pplan, draft_arch="x", spec_k=2),
                  device="cpu")
+    assert build_lm(dataclasses.replace(pplan, stages=2),
+                    device="cpu").plan.stages == 2
     moe = dataclasses.replace(PCFG, pattern=(PB.LayerSpec(PB.ATTN, PB.MOE),),
                               moe=PB.MoEConfig(num_experts=2))
     with pytest.raises(NotImplementedError):

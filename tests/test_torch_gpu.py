@@ -454,3 +454,103 @@ def test_online_engine_matches_monolithic(dev, sched, chunk):
     assert (counts[sched]["flash_attention_q_offset"] > 0) == (
         sched == "online")
     assert counts["monolithic"]["flash_attention_q_offset"] == 0
+
+
+# the verify pass of run (m): Llama-3.1-8B, b 4, h 32, hkv 8, dh 128,
+# k = 4 (five query positions from ragged first positions)
+SPEC_POS = [114, 93, 81, 58]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_spec_decode_attention_on_card(dev, packed, cdt):
+    """``spec_decode_attention`` (f32 and bf16 caches) and its packed twin
+    through the kernels against the same functions on the plain versions
+    (``use_kernels(False)``), same inputs: atol 2e-5 at f32, 2e-2 over
+    bf16 (the plain version rounds probabilities to bf16); the rows each
+    writes are equal; one decode launch per query position."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(7)
+    b, S, s, h, hkv, dh = 4, 160, 5, 32, 8, 128
+    F = hkv * dh
+    q = _t(rng, dev, b, s, h, dh)
+    kn, vn = _t(rng, dev, b, s, hkv, dh), _t(rng, dev, b, s, hkv, dh)
+    pos = torch.tensor(SPEC_POS, dtype=torch.int32, device=dev)
+    live = (torch.arange(S, device=dev)[None, :] < pos[:, None].long())
+
+    def caches():
+        if packed:
+            out = []
+            for _ in range(2):
+                hist = _t(rng, dev, b, S, F) * live[..., None]
+                p, sc = quantize_kv_rows(hist, kv_group(F))
+                out.append(PackedRows(p, sc, kv_group(F), cdt, (hkv, dh)))
+            return out
+        return [(_t(rng, dev, b, S, hkv, dh)
+                 * live[..., None, None]).to(cdt) for _ in range(2)]
+
+    def run(kc, vc, kernels):
+        ops.use_kernels(kernels)
+        try:
+            if packed:
+                kc = PackedRows(kc.packed.clone(), kc.scale.clone(),
+                                *kc[2:])
+                vc = PackedRows(vc.packed.clone(), vc.scale.clone(),
+                                *vc[2:])
+                return A.spec_decode_attention_packed(q, kc, vc, kn, vn,
+                                                      pos), kc
+            out, kc, _ = A.spec_decode_attention(q, kc.clone(), vc.clone(),
+                                                 kn, vn, pos)
+            return out, kc
+        finally:
+            ops.use_kernels(True)
+
+    kc, vc = caches()
+    ops.reset_launches()
+    out, wk = run(kc, vc, True)
+    torch.cuda.synchronize()
+    name = "decode_attention_int4" if packed else "decode_attention"
+    assert ops.LAUNCHES[name] == s
+    ref, rk = run(kc, vc, False)
+    atol = 2e-5 if cdt == torch.float32 else 2e-2
+    torch.testing.assert_close(out, ref, rtol=0, atol=atol)
+    if packed:
+        assert torch.equal(wk.packed, rk.packed)
+        assert torch.equal(wk.scale, rk.scale)
+    else:
+        assert torch.equal(wk, rk)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_verify_rows_packed_on_card_equal_host_rows(dev, cdt):
+    """The rows a verify pass packs on the card are, byte for byte, what
+    the KV store's host save (``_quant_into``) writes for the same fresh
+    rows."""
+    from repro_torch.core.kvstore import (PackedRows, TieredKVStore,
+                                          kv_group)
+    from repro_torch.models import attention as A
+    rng = np.random.default_rng(3)
+    b, S, s, h, hkv, dh = 4, 160, 5, 32, 8, 128
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, s, h, dh)
+    kn, vn = _t(rng, dev, b, s, hkv, dh), _t(rng, dev, b, s, hkv, dh)
+    pos = np.array(SPEC_POS, np.int32)
+    rows = [PackedRows(torch.zeros((b, S, F // 2), dtype=torch.uint8,
+                                   device=dev),
+                       torch.zeros((b, S, F // g), device=dev), g, cdt,
+                       (hkv, dh)) for _ in range(2)]
+    A.spec_decode_attention_packed(q, *rows, kn, vn, torch.from_numpy(
+        pos).to(dev))
+    shape = ((b, S, hkv, dh), cdt)
+    store = TieredKVStore([{"k": shape, "v": shape}],
+                          [{"k": "kv", "v": "kv"}], b_max=b, max_len=S,
+                          kv_mode="int4", device="cpu")
+    store.save_decode(0, {"k": kn[:, :s - 1].cpu(), "v": vn[:, :s - 1].cpu()},
+                      range(b), pos)
+    for name, pr in zip(("k", "v"), rows):
+        leaf = store._units[0][name]
+        assert torch.equal(pr.packed.cpu(), leaf.packed)
+        assert torch.equal(pr.scale.cpu(), leaf.scale)

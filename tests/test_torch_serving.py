@@ -36,8 +36,8 @@ from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
 from repro_torch.serving.base import Request  # noqa: E402
 from repro_torch.serving.offload_engine import OffloadedServingEngine  # noqa: E402
-from repro_torch.serving.spec import (ResolvedPlan, UnsupportedModelError,  # noqa: E402
-                                      create_engine)
+from repro_torch.serving.spec import (ResolvedPlan, SpecError,  # noqa: E402
+                                      UnsupportedModelError, create_engine)
 
 JCFG = scaled_down(get_config("tinyllama-1.1b"))
 PCFG = PB.scaled_down(port_config("tinyllama-1.1b"))
@@ -168,14 +168,18 @@ def test_entry_points_default_to_cuda():
 
 
 def test_gates_name_later_slices():
-    """Stages, speculation, device-resident INT4 KV and MoE still raise;
-    chunked prefill (``sched="online"|"offline"``) now builds."""
+    """Device-resident INT4 KV and MoE still raise; chunked prefill
+    (``sched="online"|"offline"``), pipeline stages and speculation now
+    build (an unknown draft arch is a plan error)."""
     _, pplan = _plans("fp32", None, 1)
     rp = lambda **kw: dataclasses.replace(pplan, **kw)
-    for kw in (dict(stages=2), dict(draft_arch="x", spec_k=2),
-               dict(kv_mode="int4", cache_on="device")):
-        with pytest.raises(NotImplementedError):
-            create_engine(rp(**kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        create_engine(rp(kv_mode="int4", cache_on="device"), device="cpu")
+    with pytest.raises(SpecError):
+        create_engine(rp(draft_arch="x", spec_k=2), device="cpu")
+    eng = create_engine(rp(stages=2), device="cpu")
+    assert eng.n_stages == 2
+    eng.shutdown()
     for sched, cls in (("online", "OnlineSLO"),
                        ("offline", "OfflineThroughput")):
         eng = create_engine(rp(sched=sched, prefill_chunk=4), device="cpu")
