@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(l)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(p)
+    python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -24,7 +25,8 @@ before the result line:
    (c) int4 fused sequential, (d) int4 fused with ``kv_mode="int4"`` —
    ``REPEATS`` times each on one engine, every launch counter zeroed
    before and read after each run; medians, then one profiled run per
-   configuration for the card's busy share;
+   configuration for the card's busy share; (c) and (d) load (b)'s
+   packed weights (``core.convert.lm_weights``) instead of drawing them;
 5. hold the whole path with kernels against ``use_kernels(False)`` on
    run (b)'s weights: final hidden states of a prefill and one decode
    step, and greedy-token agreement over run (b);
@@ -89,13 +91,38 @@ before the result line:
    and ``stage_bubbles``.  Phase 3 also
    times the verify pass's attention at (m)'s shapes
    (``spec_decode_attention``, plain and packed);
-12. print the ``kernels`` JSON line, the card, then the result line.
+12. MoE: (o) ``create_engine(EngineSpec(arch="mixtral-8x7b",
+   quant="int4").resolve())`` (Mixtral-8x7B at full width and depth, 32
+   layers of 8 experts, top-2; the default budget's plan: offloaded,
+   disk, depth 1, with ``disk_root`` under the temporary directory, or
+   a host budget when that disk is short) serves (g)'s 4 prompts, 8 new
+   tokens each, routing each MoE layer's tokens and streaming only the
+   routed experts: per step the experts each layer loaded (its routed
+   union at a decode step), their bytes and the step's time; exact
+   launch counts (``int4_matmul`` = 3 x the experts loaded + 4 x 32 per
+   pass, ``flash_attention`` = 32 x prefills, ``decode_attention`` = 32
+   x decode steps); the expert WEIGHT_LOAD bytes = the loads x each
+   expert's bytes, below the bank's; the peak beside the budget, the
+   memory model and the resident bytes (embedding, head, routers); the
+   build's seconds and the process's peak RSS; then kernels against
+   ``use_kernels(False)`` on the first prompt with the plain decode's
+   probabilities kept f32 (every gate's top-k ids equal, prefill and
+   decode hidden states within 1e-4 x max), beside the plain versions
+   as they are (``moe_whole_path``); (p) ``build_lm`` on Mixtral at full width with its
+   depth cut to 2 layers (``PipelinedLM`` draws from one generator, as
+   the JAX engine does, so its build grows with depth), INT4 weights
+   and KV, host, b 4, prompt 128, gen 16, performance and then
+   sequential on the first engine's weights (``core.convert``): equal
+   tokens, exact launch counts.  Phase 3 also holds and times
+   ``int4_matmul`` at Mixtral's expert shapes (M 2, 19, 36 and 512);
+13. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -140,6 +167,19 @@ SERVE_REQS = 8                     # serving run (e): requests, all submitted
 TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
 TRAFFIC_REQS = 8                   # run (k): arrivals
 SPEC_K = 4                         # runs (m), (b'): proposals per verify
+MOE_NEW = 8                        # run (o): new tokens per request
+# run (o)'s check: the share of routed rows whose top-k may differ
+# between the kernel arm and the reference arm (readings at the
+# reference's expert scale: 4 of 3,776 rows on (g)'s first prompt, 1 of
+# 6,752 on its first two)
+MOE_FLIP_SHARE = 0.005
+MOE_LM_LAYERS, MOE_LM_GEN = 2, 16  # run (p): Mixtral's depth cut, gen
+# Mixtral-8x7B's expert projections (K, N) and the rows one expert gets:
+# the decode capacity int(1.25 * 4 * 2 / 8) + 1 = 2, the capacities of
+# (g)'s shortest and longest prompts (58 and 114 tokens: 19 and 36), and
+# run (p)'s prefill, where each expert runs on the batch (4 x 128)
+MIXTRAL_EXPERT = ((4096, 14336), (14336, 4096))
+MIXTRAL_M = (2, 19, 36, 512)
 
 
 def log(msg=""):
@@ -268,6 +308,8 @@ def check_int4(torch, rng, dev):
     cases += [(4, K, N, 128, f"llama3.2-1b M=4 {K}x{N}")
               for K, N in ((2048, 512), (2048, 8192), (8192, 2048))]
     cases += [(4, 4096, 128256, 128, None)]
+    cases += [(M, K, N, 128, f"mixtral expert M={M} {K}x{N}")
+              for M in MIXTRAL_M for K, N in MIXTRAL_EXPERT]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
               (16, 512, 384, 128, None), (512, 384, 200, 32, None),
               (3, 96, 10, 32, None), (16, 64, 6, 32, None),
@@ -706,15 +748,39 @@ def generate_once(torch, ops, lm, name, prompt, expect):
     return toks, stats, counts, lm.trace
 
 
-def run_main(torch, ops, name, plan, prompt, expect):
+def packed_weights(torch, weights, dev):
+    """``core.convert.lm_weights`` of an f32 engine, packed as an INT4
+    engine packs its draws (``PipelinedLM._unit_tensors``: every 2-D
+    tensor whose first dim is a multiple of 128, at group 128, on the
+    card, bit-identical to the CPU): the weights that engine would draw
+    from the same seed."""
+    from repro_torch.quant.int4 import quantize_int4
+    emb, units, routers = weights
+    out = {}
+    for key, tensors in units.items():
+        out[key] = {}
+        for name, a in tensors.items():
+            if a.ndim == 2 and a.shape[0] % 128 == 0:
+                packed, scale = quantize_int4(torch.from_numpy(a).to(dev))
+                out[key][name + "#q"] = packed.cpu().numpy()
+                out[key][name + "#s"] = scale.cpu().numpy()
+            else:
+                out[key][name] = a
+    return emb, out, routers
+
+
+def run_main(torch, ops, name, plan, prompt, expect, weights=None,
+             weights_from=None):
     """``REPEATS[name]`` runs on one engine (medians and every value of the
     end-to-end metrics), then one profiled ``PROFILE_GEN``-token run for
-    the card's busy share.  Returns the engine, run 1's tokens and
-    counts, the summary and the trace of the run of median total time
-    (run (l) replays it)."""
+    the card's busy share.  The engine draws its weights, or loads
+    ``weights`` (in ``core.convert.lm_weights``'s form, packed for an
+    INT4 plan) taken from the run ``weights_from`` names.  Returns the engine, run 1's tokens and counts,
+    the summary and the trace of the run of median total time (run (l)
+    replays it)."""
     from repro_torch.serving.spec import build_lm
     t0 = time.perf_counter()
-    lm = build_lm(plan)
+    lm = build_lm(plan, weights=weights)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     runs = [generate_once(torch, ops, lm, name, prompt, expect)
@@ -730,6 +796,7 @@ def run_main(torch, ops, name, plan, prompt, expect):
         "run": name, "plan": f"quant={plan.quant} kv_mode={plan.kv_mode} "
         f"pipeline={plan.pipeline} depth={plan.depth} placement="
         f"{plan.placement} cache_on={plan.cache_on}", "build_s": build_s,
+        "weights": "drawn" if weights is None else weights_from,
         "repeats": REPEATS[name],
         **{k: statistics.median(s[k] for s in stats) for k in keys},
         "all": {k: [s[k] for s in stats] for k in keys},
@@ -806,11 +873,13 @@ def serving_requests(n: int):
             for l, m in zip(lens, news)]
 
 
-def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
+def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
+               on_step=None):
     """Submit every request, then drive ``step`` until the engine is
     idle, timing each step; launch counts zeroed before and read after.
     With ``preempt_after``, the first occupied slot is preempted after
-    that many steps and resumes from its spilled rows."""
+    that many steps and resumes from its spilled rows; ``on_step()``
+    runs after each step, outside its time."""
     from repro_torch.serving.base import Request
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -825,6 +894,8 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None):
         ts = time.perf_counter()
         eng.step(done)
         steps.append(time.perf_counter() - ts)
+        if on_step is not None:
+            on_step()
         if preempt_after is not None and len(steps) == preempt_after:
             slot = next(i for i, r in enumerate(eng.slots) if r is not None)
             preempted = eng.slots[slot].rid - rid0
@@ -1246,7 +1317,6 @@ def run_cli(torch, ops):
     """Run (h): ``launch.serve.main`` in-process at full width; the depth
     the adaptive window chose at each decode step is recorded by wrapping
     ``PipelineScheduler.set_depth`` for the call."""
-    import contextlib
     import io
     from repro_torch.core.pipeline import PipelineScheduler
     from repro_torch.launch import serve
@@ -1748,6 +1818,343 @@ def run_staged_paper(torch, ops, np, g_summary, g_outs):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# MoE: (o) Mixtral-8x7B serving with routed-union streaming, (p) batch
+# generation on Mixtral cut to two layers
+# ---------------------------------------------------------------------------
+
+def int4_nbytes(K: int, N: int) -> int:
+    """Packed bytes of one INT4 (K, N) matrix at group 128: nibbles and
+    f32 scales."""
+    return K * N // 2 + 4 * (K // 128) * N
+
+
+def moe_store_bytes(cfg) -> int:
+    """Bytes of the INT4 weight store of an MoE stack: every layer's
+    experts and its attention projections (norms and routers aside)."""
+    d, f, m = cfg.d_model, cfg.moe.expert_d_ff, cfg.moe
+    expert = 2 * int4_nbytes(d, f) + int4_nbytes(f, d)
+    attn = (2 * int4_nbytes(d, cfg.num_heads * cfg.head_dim)
+            + 2 * int4_nbytes(d, cfg.num_kv_heads * cfg.head_dim))
+    return cfg.num_layers * (m.num_experts * expert + attn)
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set so far, in GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def run_moe_paper(torch, ops, np):
+    """Run (o): Mixtral-8x7B, INT4, through ``EngineSpec.resolve`` and
+    ``create_engine`` on the default budget, the disk tier under a fresh
+    temporary directory (a host budget instead when that disk cannot
+    hold the store); (g)'s prompts with ``MOE_NEW`` new tokens each;
+    per-step routed unions, exact launch counts, union-only expert
+    bytes, then the whole path against ``use_kernels(False)``."""
+    import shutil
+    import tempfile
+    from repro_torch.core.offload import MemoryBudget
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    root = tempfile.mkdtemp(prefix="pipo_moe_")
+    try:
+        spec = EngineSpec(arch="mixtral-8x7b", quant="int4", disk_root=root)
+        plan = spec.resolve()
+        cfg = plan.model_config()
+        need = moe_store_bytes(cfg)
+        free = shutil.disk_usage(root).free
+        log(f"(o) plan: {plan.summary()}")
+        log(f"(o) placement: {plan.provenance['placement']}")
+        log(f"(o) INT4 store {need / 1e9:.2f} GB; free under {root}: "
+            f"{free / 1e9:.1f} GB; host RAM (MemTotal) "
+            f"{host_mem_gb():.1f} GiB")
+        if plan.placement == "disk" and free < need + 4 * 2**30:
+            plan = spec.resolve(MemoryBudget(host=2 * need))
+            log(f"(o) disk short: host budget {2 * need / 2**30:.1f} GiB "
+                f"-> {plan.summary()}")
+        summary, r, eng = serve_moe(torch, ops, np, plan)
+        summary["whole_path"] = moe_whole_path(
+            torch, ops, np, eng, [(r["reqs"][0][0], 2)])
+        eng.shutdown()
+        return summary["launches"], summary
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_moe(torch, ops, np, plan):
+    """Build (o)'s engine, serve its requests once and check them.
+    Returns the summary, the served run and the engine (still up)."""
+    from repro_torch.serving.spec import create_engine
+    cfg = plan.model_config()
+    n, E = cfg.num_layers, cfg.moe.num_experts
+    reqs = [(p, MOE_NEW) for p, _ in paper_requests(np, cfg.vocab_size)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"(o) built in {build_s:.1f} s; peak RSS {peak_rss_gb():.1f} GiB")
+    moe_units = [u for u in eng.units if u.moe]
+    keys = [k for u in moe_units for k in u.expert_keys]
+    per = {eng.weights.nbytes(k) for k in keys}
+    if len(moe_units) != n or len(keys) != n * E or len(per) != 1:
+        raise RuntimeError(f"run o: {len(moe_units)} MoE units, "
+                           f"{len(keys)} experts, sizes {per}")
+    per_expert = per.pop()
+    steps, snap = [], [dict(eng.weights.load_counts), dict(eng.stats)]
+
+    def on_step():
+        now, st = dict(eng.weights.load_counts), dict(eng.stats)
+        prev, pst = snap
+        steps.append({
+            "prefills": st["prefills"] - pst["prefills"],
+            "decode": st["decode_steps"] - pst["decode_steps"],
+            "experts_per_layer": [
+                sum(now.get(k, 0) - prev.get(k, 0) for k in u.expert_keys)
+                for u in moe_units]})
+        snap[:] = [now, st]
+
+    n0 = len(eng.trace.events())
+    r = serve_once(torch, ops, eng, reqs, 0, on_step=on_step)
+    r["reqs"] = reqs
+    st = r["stats"]
+    passes = st["prefills"] + st["decode_steps"]
+    loads = sum(sum(s["experts_per_layer"]) for s in steps)
+    check_launches("o", r["counts"], {
+        "flash_attention": n * st["prefills"], "flash_attention_q_offset": 0,
+        "decode_attention": n * st["decode_steps"],
+        "decode_attention_int4": 0,
+        "int4_matmul": 3 * loads + 4 * n * passes}, exact=True)
+    evs = eng.trace.events()[n0:]
+    expert_bytes = sum(e.nbytes for e in evs
+                       if e.kind == "weight_load" and "/exp[" in e.name)
+    bank = passes * n * E * per_expert
+    if expert_bytes != loads * per_expert or not expert_bytes < bank:
+        raise RuntimeError(f"run o: expert bytes {expert_bytes}, loads "
+                           f"{loads} x {per_expert}, bank {bank}")
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != MOE_NEW or not all(0 <= t < cfg.vocab_size
+                                               for t in outs[i])
+            for i in range(len(reqs))):
+        raise RuntimeError(f"run o: bad tokens {outs}")
+    decode_steps = [(1e3 * t, s) for t, s in zip(r["steps"], steps)
+                    if s["decode"] and not s["prefills"]]
+    ms = sorted(t for t, _ in decode_steps)
+    unions = [u for _, s in decode_steps for u in s["experts_per_layer"]]
+    base_bytes = eng.weights.nbytes(moe_units[0].key)
+    report = eng.pipeline_report()
+    pk = report["per_kind"]
+    summary = {
+        "run": "o", "plan": plan.summary(), "build_s": build_s,
+        "peak_rss_gb": peak_rss_gb(), "host_mem_gb": host_mem_gb(),
+        "store_gb": moe_store_bytes(cfg) / 1e9,
+        "per_expert_bytes": per_expert, "unit_base_bytes": base_bytes,
+        "requests": len(reqs), "prompt_lens": [len(p) for p, _ in reqs],
+        "max_new": MOE_NEW, **st, "wall_s": r["wall"],
+        "tok_s": st["tokens_out"] / r["wall"],
+        "steps": [{"ms": 1e3 * t, **s} for t, s in zip(r["steps"], steps)],
+        "decode_step_ms_median": statistics.median(ms),
+        "decode_step_ms_p90": ms[int(0.9 * (len(ms) - 1))],
+        "decode_union_mean": statistics.mean(unions),
+        "decode_union_hist": {k: unions.count(k) for k in range(E + 1)
+                              if unions.count(k)},
+        "decode_step_link_gb": (statistics.mean(
+            sum(s["experts_per_layer"]) for _, s in decode_steps)
+            * per_expert + n * base_bytes) / 1e9,
+        "expert_loads": loads, "expert_bytes": expert_bytes,
+        "bank_bytes_if_whole": bank,
+        "moe_stack_bytes": eng.stats["moe_stack_bytes"],
+        "busy_s": {k: pk[k]["busy_s"] for k in pk},
+        "bytes": {k: pk[k]["bytes"] for k in pk},
+        "compute_busy": eng.trace.busy_fraction("compute"),
+        "device_max_allocated_gb": r["device_max_allocated_gb"],
+        "device_allocated_at_start_gb": r["device_allocated_at_start_gb"],
+        "device_budget_gb": plan.device_budget / 2**30,
+        "modeled_device_gb": modeled_device_bytes(plan) / 2**30,
+        "resident_gb": eng.resident_bytes / 2**30,
+        "launches": r["counts"]}
+    log(json.dumps({"moe_serving": summary}))
+    return summary, r, eng
+
+
+@contextlib.contextmanager
+def f32_probabilities():
+    """Within it, the plain decode attention reads the cached rows
+    upcast to f32, so its probabilities stay f32 where the plain version
+    rounds them to the cache dtype (``attn_partials``, as the
+    reference): over bf16 caches, the arithmetic the decode kernels do,
+    on the same cached values.  ``ops`` reaches the plain version through
+    its module on every call."""
+    from repro_torch.kernels import ref
+    orig = ref.decode_attention_ref
+    ref.decode_attention_ref = lambda q, kc, vc, pos: orig(
+        q, kc.float(), vc.float(), pos)
+    try:
+        yield
+    finally:
+        ref.decode_attention_ref = orig
+
+
+def moe_whole_path(torch, ops, np, eng, reqs):
+    """(o)'s kernels against use_kernels(False) on its weights: the
+    hidden states of the first prefill and of the first decode step.
+    The reference arm is the plain versions with the decode
+    probabilities kept f32 (``f32_probabilities``), on its own routing,
+    each gate's top-k ids recorded (``eng.route``).  The kernel arm
+    takes those ids (its router weights from its own logits at them) and
+    counts the rows where its own top-k chose other experts: routing is
+    discontinuous, so a rounding difference can flip a near-tied choice,
+    after which the arms compute different functions.  Check: flipped
+    rows at most ``MOE_FLIP_SHARE`` of the routed rows, the prefill
+    within 1e-4 x max, the decode step over the bf16 caches (each arm
+    fills its own) within 2e-2 x max.  A third arm, the plain versions
+    as they are (bf16-rounded probabilities) on the same held routing,
+    is a reading: on weights drawn at the reference's 1/sqrt(E) that
+    rounding alone moves the decode step by about 1.4e-2 x max (ROADMAP
+    Queue 3 item 7)."""
+    from repro_torch.models.moe import router_topk
+    seen, ref_ids, flips = [], [], []
+    orig = eng.finalize
+
+    def grab(i, x):
+        seen.append((eng._phase, x.detach().clone()))
+        return orig(i, x)
+
+    def record(key, logits, k):
+        w, ids = router_topk(logits, k)
+        ref_ids.append((key, ids))
+        return w, ids
+
+    def hold(key, logits, k):
+        ref_key, ids = ref_ids[len(flips)]
+        if ref_key != key:
+            raise RuntimeError(f"run o: gate {key} where the reference "
+                               f"arm ran {ref_key}")
+        _, own = router_topk(logits, k)
+        flips.append(int((torch.sort(own, -1)[0] != torch.sort(ids, -1)[0]
+                          ).any(-1).sum()))
+        return torch.softmax(logits.gather(-1, ids), -1), ids
+
+    def arm(kernels, f32p, route, rid0):
+        seen[:], flips[:] = [], []
+        ops.use_kernels(kernels)
+        eng.route = route
+        with f32_probabilities() if f32p else contextlib.nullcontext():
+            r = serve_once(torch, ops, eng, reqs, rid0)
+        if route is hold and len(flips) != len(ref_ids):
+            raise RuntimeError(f"run o: {len(flips)} gates, the reference "
+                               f"arm ran {len(ref_ids)}")
+        return r["outs"], {ph: next(x for p, x in seen if p == ph)
+                           for ph in ("prefill", "decode")}, list(flips)
+
+    default_route = eng.route
+    eng.finalize = grab
+    try:
+        w_outs, w_h, _ = arm(False, True, record, 200)
+        arms = {"kernels": arm(True, False, hold, 300),
+                "plain": arm(False, False, hold, 400)}
+    finally:
+        ops.use_kernels(True)
+        eng.finalize = orig
+        eng.route = default_route
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    rows = sum(int(ids.shape[0]) for _, ids in ref_ids)
+    res = {"reference": "plain versions, f32 decode probabilities, own "
+           "routing", "router_calls": len(ref_ids), "routed_rows": rows,
+           "flip_bound_rows": MOE_FLIP_SHARE * rows,
+           "tolerance_rel": {"prefill": HIDDEN_RTOL,
+                             "decode": BF16_HIDDEN_RTOL}}
+    for name, (outs, h, f) in arms.items():
+        if not all(torch.isfinite(x).all() for x in h.values()):
+            raise RuntimeError(f"run o {name}: non-finite hidden states")
+        pairs = [(x, y) for i in w_outs for x, y in
+                 zip(w_outs[i], outs.get(i, []))]
+        res[name] = {
+            "flipped_calls": sum(n > 0 for n in f), "flipped_rows": sum(f),
+            **{ph + "_rel_err": rel(h[ph], w_h[ph])
+               for ph in ("prefill", "decode")},
+            "tokens_compared": len(pairs),
+            "greedy_agreement": sum(x == y for x, y in pairs) / len(pairs)}
+    k_h, p_h = arms["kernels"][1], arms["plain"][1]
+    res["plain"]["decode_rel_err_vs_kernels"] = rel(k_h["decode"],
+                                                    p_h["decode"])
+    log(json.dumps({"moe_whole_path": res}))
+    k = res["kernels"]
+    if k["flipped_rows"] > MOE_FLIP_SHARE * rows \
+            or k["prefill_rel_err"] > HIDDEN_RTOL \
+            or k["decode_rel_err"] > BF16_HIDDEN_RTOL:
+        raise RuntimeError(f"run o: the kernels differ from the plain "
+                           f"versions: {res}")
+    return res
+
+
+def run_moe_lm(torch, ops, np):
+    """Run (p): ``build_lm`` on Mixtral-8x7B at full width, depth cut to
+    ``MOE_LM_LAYERS``: INT4 weights and KV, host, b 4, prompt 128,
+    ``MOE_LM_GEN`` tokens; performance, then sequential on the first
+    engine's weights (``core.convert.lm_weights``).  Equal tokens and
+    exact launch counts required."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import lm_weights
+    from repro_torch.serving.spec import EngineSpec, build_lm
+    L_ = MOE_LM_LAYERS
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=L_,
+                              num_periods=L_)
+    plan = EngineSpec(arch="mixtral-8x7b", cfg=cfg, offload=True,
+                      placement="host", b_max=B, max_len=MAX_LEN,
+                      quant="int4", kv_mode="int4").resolve()
+    log(f"(p) plan: {plan.summary()}")
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    out = {"run": "p", "plan": plan.summary(), "layers": L_}
+    toks, lm = None, None
+    for arm, pipeline in (("performance", "performance"),
+                          ("sequential", "sequential")):
+        p = dataclasses.replace(plan, pipeline=pipeline,
+                                warm=pipeline == "performance")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights = None if lm is None else lm_weights(lm)
+        lm = build_lm(p, weights=weights)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        keys = [k for k in lm.store_keys() if k.startswith("exp[")]
+        before = {k: lm.weights.load_counts.get(k, 0) for k in keys}
+        ops.reset_launches()
+        t_, stats = lm.generate(prompt, MOE_LM_GEN)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        loads = sum(lm.weights.load_counts.get(k, 0) - before[k]
+                    for k in keys)
+        check_launches(f"p {arm}", counts, {
+            "flash_attention": L_, "decode_attention": 0,
+            "decode_attention_int4": L_ * (MOE_LM_GEN - 1),
+            "int4_matmul": 4 * L_ * MOE_LM_GEN + 3 * loads}, exact=True)
+        pk = stats["pipeline"]["per_kind"]
+        out[arm] = {
+            "build_s": build_s, "weights": "drawn" if weights is None
+            else "core.convert.lm_weights of the performance engine",
+            **{k: stats[k] for k in ("ttft_s", "total_s", "decode_tok_s",
+                                     "throughput_tok_s", "compute_busy")},
+            "expert_loads": loads,
+            "busy_s": {k: pk[k]["busy_s"] for k in pk},
+            "bytes": {k: pk[k]["bytes"] for k in pk},
+            "launches": counts}
+        if toks is None:
+            toks = t_
+        elif not (t_ == toks).all():
+            raise RuntimeError(f"run p: sequential tokens differ from "
+                               f"performance: {float((t_ == toks).mean())}")
+    out["tokens_equal"] = True
+    del lm
+    log(json.dumps({"moe_lm": out}))
+    return out["performance"]["launches"], out
+
+
 def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                   traces):
     """Runs (a)-(f) and (j) on tinyllama-1.1b: generation, offloaded
@@ -1760,26 +2167,36 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                    "decode_attention": n_layers * (GEN - 1),
                    "decode_attention_int4": 0}
     int4_expect = {**attn_expect, "int4_matmul": 7 * n_layers * GEN}
+    from repro_torch.core.convert import lm_weights
     lm, _, counts["a"], summaries["a"], _ = run_main(
         torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
+    # (b), (c) and (d) take (a)'s draws instead of drawing them again (a
+    # tinyllama draw from one generator takes 24-27 s): (b) packs them
+    # as its own build would, (c) and (d) load (b)'s packed weights
+    weights_a = packed_weights(torch, lm_weights(lm), lm.dev)
     release(lm)
     lm, toks_b, counts["b"], summaries["b"], traces["b"] = run_main(
         torch, ops, "b", make_plan("int4", "performance"), prompt,
-        int4_expect)
+        int4_expect, weights_a, "run (a)'s, packed on the card")
+    del weights_a
 
     # 5. the whole path against the plain versions, same weights
     whole_path_check(torch, ops, lm, prompt, toks_b)
     # 5b. (b') speculative decoding on (b)'s engine and tokens
     summaries["b_spec"] = run_spec_lm(torch, ops, "b", lm, prompt, toks_b)
     counts["b_spec"] = summaries["b_spec"]["random"]["launches"]
+    weights_b = lm_weights(lm)
     release(lm)
     lm, _, counts["c"], summaries["c"], traces["c"] = run_main(
-        torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect)
+        torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect,
+        weights_b, "run (b)'s")
     release(lm)
     lm, toks_d, counts["d"], summaries["d"], _ = run_main(
         torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
         {**int4_expect, "decode_attention": 0,
-         "decode_attention_int4": n_layers * (GEN - 1)})
+         "decode_attention_int4": n_layers * (GEN - 1)}, weights_b,
+        "run (b)'s")
+    del weights_b
     # (b') on (d)'s engine: the verify pass over packed INT4 KV rows
     summaries["d_spec"] = run_spec_lm(torch, ops, "d", lm, prompt, toks_d)
     counts["d_spec"] = summaries["d_spec"]["random"]["launches"]
@@ -1822,9 +2239,11 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "plan"), default=None,
+    ap.add_argument("--only", choices=("kernels", "plan", "moe"),
+                    default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(i) only (plan)")
+                         "them and runs (g)-(p) only (plan), or (o) and "
+                         "(p) only (moe)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -1900,6 +2319,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     traces = {}
+    if args.only == "moe":
+        run_moe(torch, ops, np, counts, summaries, release, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces)
@@ -1960,9 +2382,24 @@ def main(argv=None) -> int:
                                         for k, t in traces.items()},
                                 summaries["g"]["plan_depth"])
     stamp("l")
+    run_moe(torch, ops, np, counts, summaries, release, stamp)
+    return finish(torch, card, checks, counts, t_start, phase_s)
 
-    # 12. the kernels line: each kernel's launches in the run its timed
-    # shape comes from, and per run
+
+def run_moe(torch, ops, np, counts, summaries, release, stamp):
+    """12. MoE: (o) Mixtral-8x7B serving, then (p) batch generation on
+    Mixtral cut to two layers."""
+    counts["o"], summaries["o"] = run_moe_paper(torch, ops, np)
+    release(None)
+    stamp("o")
+    counts["p"], summaries["p"] = run_moe_lm(torch, ops, np)
+    release(None)
+    stamp("p")
+
+
+def finish(torch, card, checks, counts, t_start, phase_s) -> int:
+    """13. The kernels line (each kernel's launches in the run its timed
+    shape comes from, and per run), the card and the result line."""
     home = {"flash_attention": "b", "decode_attention": "b",
             "int4_matmul": "b", "decode_attention_int4": "e"}
     kernels = []

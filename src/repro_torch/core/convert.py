@@ -11,43 +11,101 @@ placement tier; the JAX
 Taken out as numpy arrays (per unit key, name -> array, with
 ``name#q``/``name#s`` pairs for INT4 units), they re-merge here into
 byte-identical buffers, so both engines compute on the same weights.
+
+MoE layers: the offloaded engines keep each layer's router on the device
+and each routed expert as a store buffer of its own (``exp[l][e]`` in
+``PipelinedLM``, ``u[p][q]/exp[e]`` in serving), so the reference's
+expert buffers re-merge under the same keys and its routers replace the
+port's (``routers``); the resident tree carries the stacked ``(E, d,
+f)``/``(E, f, d)`` experts, router and shared expert as table leaves.
+``quant_roundtrip_params`` is the reference of the INT4 offloaded
+engines: a resident tree whose streamed leaves went through the INT4
+codec.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.core.transfer import int4_group
+from repro_torch.quant.int4 import dequantize_int4, quantize_int4
 
-def from_reference(emb: np.ndarray, units: Dict[str, Dict[str, np.ndarray]],
-                   lm) -> None:
-    """Replace ``lm``'s embedding and every unit's weights with the given
-    arrays.  ``units`` must name exactly ``lm``'s unit keys."""
-    keys = [u.key for u in lm.units]
+
+def _check_keys(units, keys):
     if sorted(units) != sorted(keys):
         raise ValueError(f"unit keys differ: got {sorted(units)}, the "
                          f"engine has {sorted(keys)}")
-    if emb.shape != lm.device.get("emb").shape:
+
+
+def lm_weights(lm):
+    """A port ``PipelinedLM``'s weights as numpy arrays, in the form
+    ``from_reference`` takes: (embedding, {store key: {name: array}},
+    {layer: router})."""
+    from repro_torch.core.transfer import split_views
+    units = {}
+    for key in lm.store_keys():
+        if lm.placement == "host":
+            buf = lm.host.get(key)
+        elif lm.placement == "disk":
+            buf = torch.from_numpy(lm.disk.get(key).reshape(-1))
+        else:
+            buf = lm.device.get(key)
+        units[key] = {n: a.cpu().numpy().copy() for n, a in
+                      split_views(buf, lm.weights.manifests[key]).items()}
+    routers = {u.layer: lm.device.get(f"wg[{u.layer}]").cpu().numpy()
+               for u in lm.units if u.kind == "moe"}
+    return lm.device.get("emb").cpu().numpy(), units, routers
+
+
+def from_reference(emb: np.ndarray, units: Dict[str, Dict[str, np.ndarray]],
+                   lm, routers: Optional[Dict[int, np.ndarray]] = None
+                   ) -> None:
+    """Replace ``lm``'s embedding, routers and every store buffer's
+    weights with the given arrays.  ``units`` must name exactly ``lm``'s
+    store keys (its units' and, for MoE layers, its experts'), and
+    ``routers`` every MoE layer's router."""
+    _check_keys(units, lm.store_keys())
+    cfg = lm.cfg
+    if emb.shape != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embedding shape {emb.shape} != "
-                         f"{tuple(lm.device.get('emb').shape)}")
+                         f"{(cfg.vocab_size, cfg.d_model)}")
+    moe_layers = sorted(u.layer for u in lm.units if u.kind == "moe")
+    if sorted(routers or {}) != moe_layers:
+        raise ValueError(f"routers for layers {sorted(routers or {})}, "
+                         f"the engine has MoE layers {moe_layers}")
     lm.device.put("emb", np.asarray(emb, np.float32))
-    for key in keys:
+    for layer in moe_layers:
+        lm.device.put(f"wg[{layer}]", np.asarray(routers[layer], np.float32))
+    for key in lm.store_keys():
         lm.weights.put(key, {name: np.asarray(a)
                              for name, a in units[key].items()})
 
 
 def from_reference_serving(resident: Dict[str, Dict[str, np.ndarray]],
                            units: Dict[str, Dict[str, np.ndarray]],
-                           eng) -> None:
+                           eng, routers: Optional[Dict[str, np.ndarray]]
+                           = None) -> None:
     """Replace a port ``OffloadedServingEngine``'s resident tensors
-    (``{"embed": {...}, "final_norm": {...}}``) and every unit's weights
-    with the given arrays.  ``units`` must name exactly ``eng``'s unit
+    (``{"embed": {...}, "final_norm": {...}}``), its MoE units' routers
+    (``{unit key: (d, E)}``) and every store buffer's weights with the
+    given arrays.  ``units`` must name exactly ``eng``'s unit and expert
     keys, and every resident tensor must keep its shape."""
-    keys = [u.key for u in eng.units]
-    if sorted(units) != sorted(keys):
-        raise ValueError(f"unit keys differ: got {sorted(units)}, the "
-                         f"engine has {sorted(keys)}")
+    moe_units = [u for u in eng.units if u.moe]
+    keys = [u.key for u in eng.units] + [k for u in moe_units
+                                         for k in u.expert_keys]
+    _check_keys(units, keys)
+    if sorted(routers or {}) != sorted(u.key for u in moe_units):
+        raise ValueError(f"routers for {sorted(routers or {})}, the engine "
+                         f"has MoE units {[u.key for u in moe_units]}")
+    for u in moe_units:
+        arr = np.asarray(routers[u.key], np.float32)
+        if arr.shape != tuple(u.router.shape):
+            raise ValueError(f"{u.key} router: shape {arr.shape} != "
+                             f"{tuple(u.router.shape)}")
+        u.router = eng.device.put(f"{u.key}/wg", arr)
     for part, tab in eng.resident.items():
         if sorted(resident[part]) != sorted(tab):
             raise ValueError(f"{part}: got {sorted(resident[part])}, the "
@@ -80,8 +138,53 @@ def from_reference_resident(params, eng) -> None:
             raise ValueError(f"{key}: got {sorted(ref)}, the engine has "
                              f"{sorted(tab)}")
         for name, old in tab.items():
-            arr = np.array(ref[name], np.float32)
+            arr = np.array(ref[name])
             if arr.shape != tuple(old.shape):
                 raise ValueError(f"{key}/{name}: shape {arr.shape} != "
                                  f"{tuple(old.shape)}")
-            old.copy_(torch.from_numpy(arr))
+            old.copy_(torch.from_numpy(arr).to(old.dtype))
+
+
+def _int4_roundtrip(arr: np.ndarray) -> np.ndarray:
+    """One tensor through the INT4 codec the offloaded engines stream
+    (``transfer.int4_group``); ineligible tensors come back unchanged."""
+    g = int4_group(arr)
+    if g is None:
+        return arr
+    packed, scale = quantize_int4(torch.from_numpy(
+        np.asarray(arr, np.float32)), g)
+    return dequantize_int4(packed, scale, torch.float32, g).numpy()
+
+
+def quant_roundtrip_params(cfg: ModelConfig, params):
+    """INT4 quantize->dequantize exactly the leaves the offloaded serving
+    engine streams as INT4 — each layer's 2-D projections and each
+    expert's slices — leaving the embedding, final norm and routers
+    (device-resident, never streamed) as they are.  A resident engine on
+    the result is the reference the INT4 offloaded engine must match
+    token for token (numpy trees in and out)."""
+    def do_tab(tab, spec, stacked):
+        out = {}
+        for name, leaf in tab.items():
+            arr = np.asarray(leaf)
+            moe_stack = spec.ffn == MOE and name in ("w_gate", "w_up",
+                                                     "w_down")
+            if spec.ffn == MOE and name == "wg":
+                out[name] = arr
+            elif moe_stack or stacked:
+                lead = arr.shape[:1 + (moe_stack and stacked)]
+                flat = arr.reshape((-1,) + arr.shape[len(lead):])
+                out[name] = np.stack([_int4_roundtrip(a) for a in flat]
+                                     ).reshape(arr.shape)
+            else:
+                out[name] = _int4_roundtrip(arr)
+        return out
+
+    return {
+        "embed": params["embed"],
+        "final_norm": params["final_norm"],
+        "pat": tuple(do_tab(params["pat"][q], cfg.pattern[q], True)
+                     for q in range(len(cfg.pattern))),
+        "rem": tuple(do_tab(params["rem"][q], cfg.remainder[q], False)
+                     for q in range(len(cfg.remainder))),
+    }

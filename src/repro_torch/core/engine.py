@@ -18,13 +18,21 @@ store ships (the step's own row attended unquantized), and, with
 ``quant="int4"`` and ``fused_int4``, ``int4_matmul`` for every packed
 projection, whose ``#q``/``#s`` pairs stay packed on the device.
 
+MoE stacks (paper Appendix C.4): the unit list is [mha_0, moe_0, ...];
+each layer's router stays on the device and each expert is a store
+buffer of its own (``exp[l][e]``).  The gate runs on the unit's input
+and its ids cross to the host (the sync point); then only the routed
+experts load, through the pool, while the shared expert (``shx[l]``, the
+unit's own buffer) computes, and each routed expert runs on the full
+batch weighted by its router weight (``_compute_moe``).
+
 Speculative decoding (a plan with ``draft_arch``, or ``attach_draft``):
 a device-resident draft proposes ``k`` tokens per step and the streamed
 target scores all ``k+1`` positions in one trip through the stack
 (``_decode_spec``); the batch advances by the shortest accepted run over
 its rows, so the tokens equal non-speculative greedy decode.  Dense
-stacks only (MoE comes with a later slice).  A plan's ``stages`` is not
-read here: batch generation runs one stage, as the JAX engine does.
+stacks only.  A plan's ``stages`` is not read here: batch generation
+runs one stage, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -38,13 +46,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.core import convert
 from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
                                       TieredKVStore)
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
 from repro_torch.core.pipeline import PipelineScheduler, adopt
-from repro_torch.core.tasks import Trace
+from repro_torch.core.tasks import Task, TaskType, Trace
 from repro_torch.core.transfer import DEFAULT_BLOCK, Manifest, TieredWeightStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import flash_attention_op
@@ -54,6 +63,7 @@ from repro_torch.models.attention import (decode_attention,
                                          spec_decode_attention_packed)
 from repro_torch.models.common import rms_norm, silu
 from repro_torch.models.layers import _mm as _proj
+from repro_torch.models.moe import router_topk
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.quant.int4 import quantize_int4
 from repro_torch.serving.spec import ResolvedPlan, draft_policy_for
@@ -115,6 +125,20 @@ def _mlp_unit(x, w, *, cfg: ModelConfig):
     return x + _proj(hdn, w, "w_down")
 
 
+def _gate_unit(x, wg, *, top_k: int):
+    """Router: (weights (b*s, k), ids (b*s, k)) for the flat batch."""
+    b, s, d = x.shape
+    return router_topk(x.reshape(b * s, d) @ wg, top_k)
+
+
+def _expert_unit(x, w, *, cfg: ModelConfig):
+    """One expert's FFN on the full batch (its own norm; combined with
+    the router weights outside)."""
+    xn = rms_norm(x, w["norm"], cfg.norm_eps)
+    hdn = silu(_proj(xn, w, "w_gate")) * _proj(xn, w, "w_up")
+    return _proj(hdn, w, "w_down")
+
+
 def _embed_unit(tokens, emb):
     return emb[tokens.long()]
 
@@ -139,9 +163,9 @@ def _spec_head_unit(x, emb):
 
 @dataclass
 class UnitSpec:
-    kind: str           # "mha" | "mlp"
+    kind: str           # "mha" | "mlp" | "moe"
     layer: int
-    key: str            # store key
+    key: str            # store key (a "moe" unit's: its shared expert)
 
 
 class PipelinedLM(PhasedKVExtents):
@@ -151,19 +175,19 @@ class PipelinedLM(PhasedKVExtents):
     live.  cache_on: "host" | "device".  pipeline: "performance" |
     "memory" | "sequential".  quant: None | "int4".  depth: performance-
     pipeline preload window.  ``device``: where compute runs (CUDA unless
-    the caller passes "cpu")."""
+    the caller passes "cpu").  ``weights``: another engine's weights
+    (``core.convert.lm_weights``) to load instead of drawing them from
+    ``plan.seed``."""
 
-    def __init__(self, plan: ResolvedPlan, device="cuda"):
+    def __init__(self, plan: ResolvedPlan, device="cuda", weights=None):
         if not isinstance(plan, ResolvedPlan):
             raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
         cfg = plan.model_config()
-        if cfg.moe is not None or any(
-                (s.mixer, s.ffn) != (ATTN, DENSE)
-                for s in (*cfg.pattern, *cfg.remainder)):
+        if any(s.mixer != ATTN for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port runs dense ATTN+DENSE stacks; MoE and the other "
-                "model families come with later slices")
+                "the port runs ATTN stacks; the other model families come "
+                "with later slices")
         self.dev = resolve_device(device)
         self.plan = plan
         self.cfg = cfg
@@ -188,7 +212,13 @@ class PipelinedLM(PhasedKVExtents):
             n_io_threads=plan.n_io_threads, cold_reads=plan.cold_reads,
             sim_bw=plan.sim_bw)
         self.units: list[UnitSpec] = []
-        self._build(plan.seed)
+        self._layout()
+        if weights is None:
+            self._build(plan.seed)
+        else:
+            emb, units, routers = weights
+            convert.from_reference(emb, units, self, routers)
+        self._pool = None                # the scheduler's, set by generate
         self._kv_init()
         # speculative decoding: the draft proposes, the streamed target
         # verifies k+1 positions per trip
@@ -211,6 +241,11 @@ class PipelinedLM(PhasedKVExtents):
         shortest accepted run over its rows; rows that accepted more
         re-derive their surplus next step.  Main thread, before
         ``generate``."""
+        if self.cfg.moe is not None:
+            raise ValueError(
+                "speculative decoding needs a dense stack: routing k+1 "
+                "tokens jointly would change MoE capacity assignment "
+                "versus sequential decode, breaking token parity")
         self.draft = draft
         self._spec_k = max(1, int(k))
 
@@ -250,17 +285,53 @@ class PipelinedLM(PhasedKVExtents):
     def manifests(self) -> Dict[str, Manifest]:
         return self.weights.manifests
 
+    def _layout(self):
+        """The unit list: [mha_0, mlp_0 | moe_0, mha_1, ...]."""
+        for l in range(self.cfg.num_layers):
+            self.units.append(UnitSpec("mha", l, f"mha[{l}]"))
+            self.units.append(UnitSpec("mlp", l, f"mlp[{l}]")
+                              if self.cfg.moe is None
+                              else UnitSpec("moe", l, f"shx[{l}]"))
+
+    def store_keys(self):
+        """Every store buffer's key, in build order: the units', and for
+        an MoE layer its experts' then its shared expert's (when it has
+        one)."""
+        moe = self.cfg.moe
+        keys = []
+        for u in self.units:
+            if u.kind == "moe":
+                keys += [f"exp[{u.layer}][{e}]"
+                         for e in range(moe.num_experts)]
+                if not moe.num_shared:
+                    continue
+            keys.append(u.key)
+        return keys
+
     def _build(self, seed: int):
+        """The JAX engine's draws, in its order, from one generator: the
+        embedding, then per layer the attention unit and, for an MoE
+        layer, its router, experts 0..E-1 and shared expert."""
         cfg = self.cfg
+        moe = cfg.moe
         rng = np.random.default_rng(seed)
         emb = (rng.standard_normal((cfg.vocab_size, cfg.d_model))
                * (1.0 / math.sqrt(cfg.d_model))).astype(np.float32)
         self.device.put("emb", emb)      # embeddings stay on device (small)
         for l in range(cfg.num_layers):
-            for kind in ("mha", "mlp"):
-                key = f"{kind}[{l}]"
-                self.weights.put(key, self._unit_tensors(kind, rng))
-                self.units.append(UnitSpec(kind, l, key))
+            self.weights.put(f"mha[{l}]", self._unit_tensors("mha", rng))
+            if moe is None:
+                self.weights.put(f"mlp[{l}]", self._unit_tensors("mlp", rng))
+                continue
+            d = cfg.d_model
+            self.device.put(f"wg[{l}]",
+                            (rng.standard_normal((d, moe.num_experts))
+                             / math.sqrt(d)).astype(np.float32))
+            for e in range(moe.num_experts):
+                self.weights.put(f"exp[{l}][{e}]",
+                                 self._unit_tensors("mlp", rng))
+            if moe.num_shared:
+                self.weights.put(f"shx[{l}]", self._unit_tensors("mlp", rng))
 
     # -- KV cache --------------------------------------------------------------
     def _kv_init(self):
@@ -290,14 +361,29 @@ class PipelinedLM(PhasedKVExtents):
         compute thread splits it (``compute``), so the worker makes one
         PyTorch call.  Unfused INT4 dequantizes here, on the transfer
         thread, as the JAX engine does."""
-        key = self.units[j].key
+        u = self.units[j]
+        if u.kind == "moe" and not self.cfg.moe.num_shared:
+            return {}
+        return self._load_key(u.key)
+
+    def _load_key(self, key: str):
         if self.quant == "int4" and not self.weights.fused_int4:
             return self.weights.load(key)
         return self.weights.fetch(key)
 
+    def _loaded(self, key: str, handle):
+        """A load's result as named tensors (main thread)."""
+        adopt(self.dev, handle)
+        if isinstance(handle, torch.Tensor):
+            return self.weights.split(key, handle)
+        return handle
+
     def weight_nbytes(self, j: int) -> int:
         """Bytes unit j's WEIGHT_LOAD moves (trace byte accounting)."""
-        return self.weights.nbytes(self.units[j].key)
+        u = self.units[j]
+        if u.kind == "moe" and not self.cfg.moe.num_shared:
+            return 0
+        return self.weights.nbytes(u.key)
 
     def release_weights(self, j: int, handle):
         del handle  # device tensors freed when the last reference goes
@@ -351,11 +437,12 @@ class PipelinedLM(PhasedKVExtents):
                                      pos=np.full(self.batch, pos, np.int32))
 
     def compute(self, i: int, j: int, x, weights, kv):
-        adopt(self.dev, weights)
-        if isinstance(weights, torch.Tensor):
-            weights = self.weights.split(self.units[j].key, weights)
-        if self.units[j].kind == "mlp":
+        u = self.units[j]
+        weights = self._loaded(u.key, weights)
+        if u.kind == "mlp":
             return _mlp_unit(x, weights, cfg=self.cfg), None
+        if u.kind == "moe":
+            return self._compute_moe(u, x, weights), None
         if self._phase == "prefill":
             x, k, v = _attn_prefill_unit(x, weights, cfg=self.cfg)
             return x, ("prefill", k, v, 0, x.shape[1])
@@ -364,6 +451,34 @@ class PipelinedLM(PhasedKVExtents):
         x, k, v, kc, vc = _attn_decode_unit(x, weights, kv["k"], kv["v"],
                                             pos, cfg=self.cfg)
         return x, ("decode", k, v, pos, x.shape[1])
+
+    def _compute_moe(self, u: UnitSpec, x, shared_w):
+        """Paper Appendix C.4: the gate forces a sync (the experts are
+        unknown until it runs); then the union of routed experts loads
+        through the pool while the shared expert (and earlier-arrived
+        experts) compute — one expert's compute overlaps the next one's
+        weight load.  Each expert runs on the full batch."""
+        moe = self.cfg.moe
+        b, s, d = x.shape
+        wts, ids = _gate_unit(x, self.device.get(f"wg[{u.layer}]"),
+                              top_k=moe.top_k)
+        union = sorted(set(ids.cpu().numpy().reshape(-1).tolist()))
+        tasks = []
+        for e in union:
+            key = f"exp[{u.layer}][{e}]"
+            t = Task(TaskType.WEIGHT_LOAD, key,
+                     lambda key=key: self._load_key(key))
+            t.nbytes = self.weights.nbytes(key)
+            self._pool.submit(t)
+            tasks.append((e, key, t))
+        out = torch.zeros_like(x)
+        if moe.num_shared and shared_w:
+            out = out + _expert_unit(x, shared_w, cfg=self.cfg)
+        for e, key, t in tasks:
+            ye = _expert_unit(x, self._loaded(key, t.wait()), cfg=self.cfg)
+            w_e = torch.where(ids == e, wts, 0.0).sum(-1).reshape(b, s, 1)
+            out = out + ye * w_e.to(ye.dtype)
+        return x + out
 
     def finalize(self, i: int, x):
         if self._phase == "decode" and x.shape[1] > 1:
@@ -393,6 +508,7 @@ class PipelinedLM(PhasedKVExtents):
                                   pool=pool, trace=self.trace,
                                   warm=self.pipeline_mode == "performance",
                                   depth=self.depth, device=self.dev)
+        self._pool = sched.pool
         self.trace.meta.update(
             arch=cfg.name, b_max=self.batch, max_len=self.max_len,
             sim_bw=self.plan.sim_bw, quant=self.quant,

@@ -167,6 +167,9 @@ class TieredWeightStore:
         self.cold_reads = cold_reads
         self.link = SimLink(sim_bw)
         self.manifests: Dict[str, Manifest] = {}
+        # fetches per key (each a link crossing): the MoE routed-union
+        # invariant (union bytes < the whole bank's) is read from these
+        self.load_counts: Dict[str, int] = {}
 
     def put(self, key: str, tensors: Dict[str, object]):
         """Merge + place a unit's tensors on the placement tier (main
@@ -194,6 +197,7 @@ class TieredWeightStore:
         copy, on the calling thread's current stream (a transfer
         worker's, whose pool waits for it before the task completes)."""
         t0 = time.perf_counter()
+        self.load_counts[key] = self.load_counts.get(key, 0) + 1
         dev = self.device.device
         if self.placement == "device":
             buf = self.device.get(key)

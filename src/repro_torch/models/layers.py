@@ -1,11 +1,14 @@
-"""Layer parameter tables and apply functions for the dense stack.
+"""Layer parameter tables and apply functions for ``ATTN`` layers with
+a ``DENSE`` or ``MOE`` feed-forward.
 
-The single-device ``ATTN`` + ``DENSE`` subset of the JAX package's
-``models/layers.py``: the tables (``name -> ParamDef(shape, axes,
-scale)``) that drive ``models.transformer.init_params``, and the layer
-math the serving engines run (the offloaded one per unit, the resident
-one over the whole stack).  Sharding (``Dist``), the other
-mixers and MoE come with later slices.
+The single-device subset of the JAX package's ``models/layers.py``: the
+tables (``name -> ParamDef(shape, axes, scale)``) that drive
+``models.transformer.init_params``, and the layer math the serving
+engines run (the offloaded one per unit, the resident one over the whole
+stack).  Sharding (``Dist``) and the other mixers come with later
+slices.  An MoE layer's routed experts run in ``models.moe``; with
+``moe_quant="int4"`` their stacks arrive packed (``w_gate#q``/``#s``)
+and go to ``int4_matmul`` expert by expert.
 
 On the card every attention goes through the port's kernels: prefill
 through ``flash_attention``, decode through ``decode_attention`` over the
@@ -22,9 +25,11 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, DENSE, MOE, LayerSpec,
+                                      ModelConfig)
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (chunk_prefill_attention,
                                           decode_attention,
                                           decode_attention_packed,
@@ -41,13 +46,13 @@ class ParamDef(NamedTuple):
 
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
-    if (spec.mixer, spec.ffn) != (ATTN, DENSE) or cfg.qk_norm \
+    if spec.mixer != ATTN or spec.ffn not in (DENSE, MOE) or cfg.qk_norm \
             or cfg.quant_weights:
         raise NotImplementedError(
-            f"the port's serving slice runs ATTN+DENSE layers without "
-            f"qk_norm or resident INT4 tables, got {spec} ({cfg.name}); "
-            f"the other mixers, MoE and quant_weights come with later "
-            f"slices")
+            f"the port runs ATTN layers with a DENSE or MOE feed-forward, "
+            f"without qk_norm or resident INT4 tables, got {spec} "
+            f"({cfg.name}); the other mixers and quant_weights come with "
+            f"later slices")
 
 
 # ===========================================================================
@@ -68,13 +73,37 @@ def attn_table(cfg: ModelConfig) -> dict:
 def ffn_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
     _dense_only(cfg, spec)
     d = cfg.d_model
-    if cfg.d_ff == 0:
-        return {}
-    return {
-        "w_gate": ParamDef((d, cfg.d_ff), ("embed", "ff")),
-        "w_up": ParamDef((d, cfg.d_ff), ("embed", "ff")),
-        "w_down": ParamDef((cfg.d_ff, d), ("ff", "embed")),
+    if spec.ffn == DENSE:
+        if cfg.d_ff == 0:
+            return {}
+        return {
+            "w_gate": ParamDef((d, cfg.d_ff), ("embed", "ff")),
+            "w_up": ParamDef((d, cfg.d_ff), ("embed", "ff")),
+            "w_down": ParamDef((cfg.d_ff, d), ("ff", "embed")),
+        }
+    m = cfg.moe
+    t = {
+        "wg": ParamDef((d, m.num_experts), ("embed", None)),
+        "w_gate": ParamDef((m.num_experts, d, m.expert_d_ff),
+                           ("experts", "embed", "expert_ff")),
+        "w_up": ParamDef((m.num_experts, d, m.expert_d_ff),
+                         ("experts", "embed", "expert_ff")),
+        "w_down": ParamDef((m.num_experts, m.expert_d_ff, d),
+                           ("experts", "expert_ff", "embed")),
     }
+    if m.num_shared:
+        sf = m.shared_d_ff * m.num_shared
+        t.update({
+            "ws_gate": ParamDef((d, sf), ("embed", "ff")),
+            "ws_up": ParamDef((d, sf), ("embed", "ff")),
+            "ws_down": ParamDef((sf, d), ("ff", "embed")),
+        })
+    return t
+
+
+def is_expert_stack(pd: ParamDef) -> bool:
+    """Whether a table entry is a routed-expert stack ``(E, ...)``."""
+    return pd.axes[:1] == ("experts",)
 
 
 def layer_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -226,10 +255,33 @@ def apply_dense_ffn(p, x, ctx: Ctx):
     return x + _mm(h, p, "w_down")
 
 
+def shared_expert(p, xn):
+    """The MoE layer's always-on shared expert on the normed ``xn``."""
+    h = silu(_mm(xn, p, "ws_gate")) * _mm(xn, p, "ws_up")
+    return _mm(h, p, "ws_down")
+
+
+def apply_moe_ffn(p, x, ctx: Ctx):
+    """The MoE feed-forward over the whole bank (single device): route
+    and combine the routed experts, then add the shared expert.  Returns
+    (x', the load-balance loss)."""
+    cfg = ctx.cfg
+    b, s, d = x.shape
+    xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    out, aux = moe_mod.moe_ffn(xn.reshape(b * s, d), p, cfg.moe)
+    x = x + out.reshape(b, s, d)
+    if cfg.moe.num_shared:
+        x = x + shared_expert(p, xn)
+    return x, aux
+
+
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
-    """One ATTN+DENSE layer -> (x', new_cache)."""
+    """One ATTN layer with its DENSE or MOE feed-forward -> (x',
+    new_cache)."""
     _dense_only(ctx.cfg, spec)
     x, new_cache = apply_attention(p, x, ctx, cache, spec)
+    if spec.ffn == MOE:
+        return apply_moe_ffn(p, x, ctx)[0], new_cache
     return apply_dense_ffn(p, x, ctx), new_cache
 
 

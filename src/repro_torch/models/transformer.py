@@ -1,16 +1,22 @@
-"""Model assembly for the dense stack: parameter tables, an own parameter
-init, cache shapes and rope angles, and the whole-model forward passes
-(``init_cache``, ``_run_stack``, ``prefill``, ``decode_step``) — the
-``ATTN`` + ``DENSE`` subset of the JAX package's ``models/transformer.py``.
+"""Model assembly for ``ATTN`` stacks with dense or MoE feed-forwards:
+parameter tables, an own parameter init, cache shapes and rope angles,
+and the whole-model forward passes (``init_cache``, ``_run_stack``,
+``prefill``, ``decode_step``) — a subset of the JAX package's
+``models/transformer.py``.
 
 ``init_params`` draws every table's shapes at the reference's scales (a
 matrix at 1/sqrt(fan-in), a zero-scale vector as zeros, the embedding at
-1/sqrt(d_model)).  Each table of each layer draws from its own numpy
-generator, seeded by ``(seed, part, position, period, entry)``
-(``table_params``), so an engine can draw one unit at a time — the
-offloaded engine packs and frees each unit as it goes, on several
-threads (``draw_tables``) — and still hold the numbers the whole-tree
-``init_params`` gives the resident engine.  The reference draws with
+1/sqrt(d_model)).  As in the reference, the scale of a matrix whose
+``scale`` is unset comes from its table shape's leading dim: for a
+routed-expert stack ``(E, d, f)`` that is the expert count, so every
+expert is drawn at 1/sqrt(E).  Each entry of each layer draws from its own numpy
+generator, seeded by ``(seed, part, position, period, entry)``, and each
+expert of a routed-expert stack from its own, seeded by ``(...,
+expert)`` (``table_params``, ``expert_params``), so an engine can draw
+one unit — or one expert — at a time: the offloaded engine packs and
+frees each as it goes, on several threads (``draw_tables``), and still
+holds the numbers the whole-tree ``init_params`` gives the resident
+engine.  The reference draws with
 ``jax.random``, whose numbers the port cannot reproduce; the tests carry
 the reference's weights across instead (``core.convert``).
 
@@ -50,25 +56,57 @@ def model_tables(cfg: ModelConfig):
     }
 
 
-def _init_entry(rng: np.random.Generator, pd: L.ParamDef) -> np.ndarray:
+def _init_entry(rng: np.random.Generator, pd: L.ParamDef,
+                shape=None) -> np.ndarray:
+    """``pd`` drawn at its scale, at ``shape`` (default ``pd.shape``; an
+    expert's slice of a stack keeps the stack's scale)."""
+    shape = pd.shape if shape is None else shape
     if pd.scale == 0.0:
-        return np.zeros(pd.shape, np.float32)
+        return np.zeros(shape, np.float32)
     scale = pd.scale if pd.scale > 0 else 1.0 / math.sqrt(max(1, pd.shape[0]))
-    out = rng.standard_normal(pd.shape, dtype=np.float32)
+    out = rng.standard_normal(shape, dtype=np.float32)
     out *= np.float32(scale)
     return out
 
 
+def _table(cfg: ModelConfig, part: str, q: int, tables=None):
+    tabs = tables or model_tables(cfg)
+    return tabs[part][q] if part in ("pat", "rem") else tabs[part]
+
+
 def table_params(cfg: ModelConfig, seed: int, part: str, q: int = 0,
-                 p: int = 0, tables=None) -> Dict[str, np.ndarray]:
+                 p: int = 0, tables=None,
+                 experts: bool = True) -> Dict[str, np.ndarray]:
     """One table's f32 tensors: ``embed`` or ``final_norm``, or the layer
     at pattern position ``q`` of period ``p`` (``pat``) / remainder
-    position ``q`` (``rem``).  Every entry has its own generator."""
-    tabs = tables or model_tables(cfg)
-    tab = tabs[part][q] if part in ("pat", "rem") else tabs[part]
+    position ``q`` (``rem``).  Every entry has its own generator; a
+    routed-expert stack is ``expert_params`` stacked over the experts
+    (left out with ``experts=False``)."""
+    tab = _table(cfg, part, q, tables)
     k = PARTS.index(part)
-    return {name: _init_entry(np.random.default_rng([seed, k, q, p, i]), pd)
-            for i, (name, pd) in enumerate(sorted(tab.items()))}
+    out = {}
+    for i, (name, pd) in enumerate(sorted(tab.items())):
+        if not L.is_expert_stack(pd):
+            out[name] = _init_entry(np.random.default_rng([seed, k, q, p, i]),
+                                    pd)
+        elif experts:
+            out[name] = np.stack([
+                expert_params(cfg, seed, part, q, p, e, tables)[name]
+                for e in range(pd.shape[0])])
+    return out
+
+
+def expert_params(cfg: ModelConfig, seed: int, part: str, q: int, p: int,
+                  e: int, tables=None) -> Dict[str, np.ndarray]:
+    """Expert ``e``'s slices of the layer's routed-expert stacks
+    (``w_gate``/``w_up`` (d, f), ``w_down`` (f, d)), each from its own
+    generator."""
+    tab = _table(cfg, part, q, tables)
+    k = PARTS.index(part)
+    return {name: _init_entry(np.random.default_rng([seed, k, q, p, i, e]),
+                              pd, pd.shape[1:])
+            for i, (name, pd) in enumerate(sorted(tab.items()))
+            if L.is_expert_stack(pd)}
 
 
 def table_keys(cfg: ModelConfig):
@@ -79,25 +117,36 @@ def table_keys(cfg: ModelConfig):
             + [("rem", q, 0) for q in range(len(cfg.remainder))])
 
 
+def _draw(cfg: ModelConfig, seed: int, key: Tuple, tables):
+    """``key`` is ``(part, q, p)`` (the whole table), ``(part, q, p,
+    None)`` (the table without its expert stacks) or ``(part, q, p, e)``
+    (expert ``e``)."""
+    if len(key) == 3:
+        return table_params(cfg, seed, *key, tables=tables)
+    part, q, p, e = key
+    if e is None:
+        return table_params(cfg, seed, part, q, p, tables, experts=False)
+    return expert_params(cfg, seed, part, q, p, e, tables)
+
+
 def draw_tables(cfg: ModelConfig, seed: int, keys: Iterable[Tuple],
                 workers: int = 0) -> Iterator[Tuple[Tuple, Dict]]:
-    """Yield ``(key, table_params(cfg, seed, *key))`` in the order of
-    ``keys``, drawing up to ``workers`` tables ahead on threads (numpy's
-    generators release the interpreter lock while they fill).  0: the
-    host's core count, at most 8."""
+    """Yield ``(key, tensors)`` in the order of ``keys`` (``_draw``),
+    drawing up to ``workers`` keys ahead on threads (numpy's generators
+    release the interpreter lock while they fill).  0: the host's core
+    count, at most 8."""
     workers = workers or min(8, os.cpu_count() or 1)
     tabs = model_tables(cfg)
     it = iter(keys)
     with ThreadPoolExecutor(workers) as ex:
         ahead = collections.deque(
-            (k, ex.submit(table_params, cfg, seed, *k, tables=tabs))
+            (k, ex.submit(_draw, cfg, seed, k, tabs))
             for k in itertools.islice(it, workers))
         while ahead:
             key, fut = ahead.popleft()
             nxt = next(it, None)
             if nxt is not None:
-                ahead.append((nxt, ex.submit(table_params, cfg, seed, *nxt,
-                                             tables=tabs)))
+                ahead.append((nxt, ex.submit(_draw, cfg, seed, nxt, tabs)))
             yield key, fut.result()
 
 

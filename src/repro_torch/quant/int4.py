@@ -28,7 +28,11 @@ def quantize_int4(w: torch.Tensor, group: int = GROUP):
         raise ValueError(f"quantize_int4 needs K % group == 0 and an even "
                          f"N, got K={K} N={N} group={group}")
     wg = w.to(torch.float32).reshape(K // group, group, N)
-    scale = wg.abs().amax(dim=1) / 7.0                    # (K//group, N)
+    # divide by a tensor on w's device: PyTorch's CUDA division by a
+    # Python number multiplies by its f32 reciprocal, which rounds
+    # otherwise than the CPU's (and the reference's) true division
+    seven = torch.tensor(7.0, dtype=torch.float32, device=w.device)
+    scale = wg.abs().amax(dim=1) / seven                  # (K//group, N)
     scale = torch.clamp_min(scale, 1e-8)
     q = torch.round(wg / scale[:, None, :]).to(torch.int32)
     q = torch.clamp(q, -8, 7).reshape(K, N)
@@ -63,3 +67,38 @@ def stack_group(K: int) -> int:
     """Group size for a stacked matrix with contraction dim ``K``:
     ``gcd(K, 128)`` always divides K."""
     return math.gcd(int(K), GROUP)
+
+
+def stack_eligible(shape) -> bool:
+    """Whether a stacked weight (..., K, N) packs as INT4: at least one
+    stack axis, an even N (nibble pairs), and a group of >= 16 along K
+    (smaller groups spend more scale bytes than they save)."""
+    return (len(shape) >= 3 and shape[-1] % 2 == 0
+            and stack_group(shape[-2]) >= 16)
+
+
+def quantize_int4_stack(w: torch.Tensor, group: int = 0):
+    """w (..., K, N) -> (packed (..., K, N//2) uint8, scale (..., K//g, N)
+    f32): ``quantize_int4`` on every (K, N) slice of the stack axes, so
+    each slice carries exactly the 2-D layout and ``int4_matmul`` takes
+    it as it is.  ``group`` defaults to ``stack_group(K)``."""
+    g = group or stack_group(w.shape[-2])
+    lead = tuple(w.shape[:-2])
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    pairs = [quantize_int4(s, g) for s in flat]
+    packed = torch.stack([p for p, _ in pairs])
+    scale = torch.stack([s for _, s in pairs])
+    return (packed.reshape(lead + tuple(packed.shape[1:])),
+            scale.reshape(lead + tuple(scale.shape[1:])))
+
+
+def dequantize_int4_stack(packed: torch.Tensor, scale: torch.Tensor,
+                          dtype=torch.float32, group: int = 0):
+    """Inverse of ``quantize_int4_stack`` -> (..., K, N) ``dtype``; the
+    group is inferable from the shapes (``K // scale.shape[-2]``)."""
+    g = group or packed.shape[-2] // scale.shape[-2]
+    lead = tuple(packed.shape[:-2])
+    fp = packed.reshape((-1,) + tuple(packed.shape[-2:]))
+    fs = scale.reshape((-1,) + tuple(scale.shape[-2:]))
+    w = torch.stack([dequantize_int4(p, s, dtype, g) for p, s in zip(fp, fs)])
+    return w.reshape(lead + tuple(w.shape[1:]))

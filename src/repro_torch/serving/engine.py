@@ -1,5 +1,7 @@
 """Resident-weight continuous-batching serving engine (the JAX package's
-``serving/engine.py``, for dense ``ATTN`` + ``DENSE`` stacks).
+``serving/engine.py``, for ``ATTN`` stacks with dense or MoE
+feed-forwards; ``moe_quant="int4"`` keeps the routed expert stacks
+packed).
 
 All parameters stay in device memory at f32; each engine step decodes
 ALL slots with *ragged* per-slot positions in one whole-model decode
@@ -51,10 +53,6 @@ class ServingEngine(SlotEngineBase):
         if not isinstance(plan, ResolvedPlan):
             raise TypeError(f"ServingEngine takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
-        if plan.moe_quant:
-            raise NotImplementedError(
-                "moe_quant (INT4-resident expert stacks) comes with the MoE "
-                "slice of the port")
         cfg = plan.model_config()
         self.plan = plan
         self.dev = resolve_device(device)
@@ -63,6 +61,13 @@ class ServingEngine(SlotEngineBase):
                          host=HostStore(pin=self.dev.type == "cuda"))
         self.model = build_model(cfg)
         self.params = T.to_device(self.model.init(plan.seed), self.dev)
+        if plan.moe_quant:
+            # INT4-resident MoE: the routed expert stacks packed once, on
+            # the card; each step's experts run through int4_matmul
+            from repro_torch.serving.spec import quant_policy_for
+            self.params = quant_policy_for(
+                plan.quant, plan.kv_mode,
+                plan.moe_quant).prepare_moe_params(self.params)
         self.caches = self.model.init_cache(self.b_max, self.max_len,
                                             self.dev)
 

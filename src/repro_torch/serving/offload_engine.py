@@ -37,8 +37,17 @@ with its own weight and KV stores (its own link), transfer pool and
 window (``plan.stage_plan``), and activations hand stage to stage
 (``_MeshStagedScheduler``; on one card every stage shares it).
 
-The dense subset of the JAX package's ``serving/offload_engine.py``:
-MoE layers raise ``NotImplementedError`` naming a later slice.
+MoE layers stream only the union of the experts the batch routed to
+(paper Appendix C.4): the router stays on the device, each expert is a
+store buffer of its own (``u[p][q]/exp[e]``), and after the gate runs
+(the sync point: the routed ids cross to the host) only the routed
+experts are submitted as WEIGHT_LOAD tasks, while the shared expert
+computes.  The combine is compact (``models.moe.moe_ffn_union`` over the
+union, ids remapped in order); packed experts go to ``int4_matmul``.
+
+The ``ATTN``-mixer subset of the JAX package's
+``serving/offload_engine.py``: the other mixers raise
+``NotImplementedError`` naming a later slice.
 ``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
@@ -55,23 +64,24 @@ from __future__ import annotations
 
 import re
 import time
-from dataclasses import dataclass
-from typing import Dict, List
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, MOE, LayerSpec, ModelConfig
 from repro_torch.core.draft import accepted_tokens
 from repro_torch.core.kvstore import TieredKVStore
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
 from repro_torch.core.pipeline import (PipelineScheduler, StagedScheduler,
                                        ThreadPool, adopt)
-from repro_torch.core.tasks import Trace, _merged_busy
+from repro_torch.core.tasks import Task, TaskType, Trace, _merged_busy
 from repro_torch.core.transfer import DEFAULT_BLOCK, TieredWeightStore
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import stage_devices
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.serving.base import Request, SlotEngineBase
 from repro_torch.serving.spec import (AdaptiveDepth, Pressure, ResolvedPlan,
@@ -87,12 +97,25 @@ __all__ = ["Request", "OffloadedServingEngine"]
 @dataclass
 class _Unit:
     """One schedulable layer: period ``p`` of pattern position ``q``
-    ('pat'), or remainder layer q ('rem')."""
+    ('pat'), or remainder layer q ('rem').  MoE layers also carry a
+    device-resident router and one store key per expert."""
     group: str          # "pat" | "rem"
     p: int              # period index (0 for rem)
     q: int              # pattern / remainder position
     spec: LayerSpec
-    key: str            # TieredWeightStore key
+    key: str            # TieredWeightStore key (mixer + norms + shared)
+    moe: bool = False
+    router: Any = None                     # device (d, E) gate weights
+    expert_keys: List[str] = field(default_factory=list)
+
+    def apply(self, weights, x, ctx: L.Ctx, cache):
+        """The unit's own buffer on ``x`` -> (x', new_cache): the whole
+        layer for a dense unit; the attention only for an MoE unit, whose
+        buffer holds no routed experts (its feed-forward runs in
+        ``_compute_moe``)."""
+        if self.moe:
+            return L.apply_attention(weights, x, ctx, cache, self.spec)
+        return L.apply_layer(weights, x, ctx, cache, self.spec)
 
 
 class _StagedWeightStore:
@@ -215,12 +238,10 @@ class OffloadedServingEngine(SlotEngineBase):
                 f"offloaded serving supports token-frontend rope decoder "
                 f"stacks only (failing capability: {cap or plan.engine}; "
                 f"arch {plan.arch})")
-        if cfg.moe is not None or any(
-                (s.mixer, s.ffn) != (ATTN, DENSE)
-                for s in (*cfg.pattern, *cfg.remainder)):
+        if any(s.mixer != ATTN for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port serves dense ATTN+DENSE stacks; MoE and the other "
-                "mixers come with later slices")
+                "the port serves ATTN stacks; the other mixers come with "
+                "later slices")
         self.dev = resolve_device(device)
         self.plan = plan
         self.preload_policy = preload_policy_for(plan, cfg)
@@ -295,13 +316,22 @@ class OffloadedServingEngine(SlotEngineBase):
         self._chunk_tok = 0               # first token, set at final chunk
         self.stats["preload_depth"] = depth
         self.stats["depth_resizes"] = 0
+        # bytes of the expert tensors the compact MoE combines took:
+        # loaded experts x per-expert bytes (packed under fused INT4),
+        # never a bank
+        self.stats["moe_stack_bytes"] = 0
+        # every MoE gate's top-k: (unit key, logits (T, E) f32, k) ->
+        # (weights, ids); a check swaps in one that records or holds
+        # the routing
+        self.route = lambda key, logits, k: moe_mod.router_topk(logits, k)
         self.units: List[_Unit] = []
         self._split_params(plan.seed)
         # the bytes that never stream (embedding, untied head, final
-        # norm), to report beside the plan's device budget
+        # norm, MoE routers), to report beside the plan's device budget
+        resident = [t for tab in self.resident.values() for t in tab.values()]
+        resident += [u.router for u in self.units if u.moe]
         self.resident_bytes = sum(t.numel() * t.element_size()
-                                  for tab in self.resident.values()
-                                  for t in tab.values())
+                                  for t in resident)
         self._kv_init()
         # live decode view, (scheduler iteration base, live_batch,
         # live_len): ONE tuple so transfer-thread reads are atomic under
@@ -382,17 +412,33 @@ class OffloadedServingEngine(SlotEngineBase):
     def _split_params(self, seed: int):
         """The embedding, LM head and final norm go to the device; each
         layer's tensors (INT4-packed under ``quant="int4"``) merge into
-        one tiered buffer.  Tables are drawn on threads a few units
-        ahead, so at most that many units' f32 copies exist at once.
-        Main thread, build time only."""
+        one tiered buffer.  An MoE layer splits further: its router goes
+        to the device, and each expert is drawn and becomes a buffer of
+        its own, so decode can load just the routed union.  Tables (and
+        experts) are drawn on threads a few ahead, so at most that many
+        f32 copies exist at once.  Main thread, build time only."""
         cfg = self.cfg
-        keys = [("embed", 0, 0), ("final_norm", 0, 0)] + T.table_keys(cfg)
+        keys = [("embed", 0, 0), ("final_norm", 0, 0)]
+        for part, q, p in T.table_keys(cfg):
+            spec = (cfg.pattern if part == "pat" else cfg.remainder)[q]
+            if spec.ffn == MOE:
+                keys += [(part, q, p, e)
+                         for e in (None, *range(cfg.moe.num_experts))]
+            else:
+                keys.append((part, q, p))
         self.resident = {}
-        for (part, q, p), tensors in T.draw_tables(cfg, seed, keys):
+        for key, tensors in T.draw_tables(cfg, seed, keys):
+            part, q, p = key[:3]
             if part in ("embed", "final_norm"):
                 self.resident[part] = {
                     name: self.device.put(f"{part}/{name}", arr)
                     for name, arr in tensors.items()}
+            elif len(key) == 4 and key[3] is not None:
+                u = self.units[-1]            # expert key[3] of this unit
+                ek = f"{u.key}/exp[{key[3]}]"
+                self.weights.put(ek, self.quant_policy.prepare_unit(
+                    tensors, self.dev))
+                u.expert_keys.append(ek)
             elif part == "pat":
                 self._put_unit("pat", p, q, cfg.pattern[q], f"u[{p}][{q}]",
                                tensors)
@@ -401,9 +447,13 @@ class OffloadedServingEngine(SlotEngineBase):
                                tensors)
 
     def _put_unit(self, group, p, q, spec, key, tensors):
+        u = _Unit(group, p, q, spec, key)
+        if spec.ffn == MOE:
+            u.moe = True
+            u.router = self.device.put(f"{key}/wg", tensors.pop("wg"))
         self.weights.put(key, self.quant_policy.prepare_unit(tensors,
                                                              self.dev))
-        self.units.append(_Unit(group, p, q, spec, key))
+        self.units.append(u)
 
     # ---- tiered KV ----------------------------------------------------------
     def _kv_init(self):
@@ -461,10 +511,19 @@ class OffloadedServingEngine(SlotEngineBase):
         the compute thread splits it (``compute``).  Unfused INT4
         dequantizes here, on the transfer thread, as the reference
         does."""
-        key = self.units[j].key
+        return self._load_key(self.units[j].key)
+
+    def _load_key(self, key: str):
         if self.quant == "int4" and not self.weights.fused_int4:
             return self.weights.load(key)
         return self.weights.fetch(key)
+
+    def _loaded(self, key: str, handle, dev: torch.device):
+        """A load's result as the unit's named tensors (main thread)."""
+        adopt(dev, handle)
+        if isinstance(handle, torch.Tensor):
+            return self.weights.split(key, handle)
+        return handle
 
     def weight_nbytes(self, j: int) -> int:
         return self.weights.nbytes(self.units[j].key)
@@ -546,18 +605,59 @@ class OffloadedServingEngine(SlotEngineBase):
         """COMPUTE body (main thread): one unit's forward."""
         u = self.units[j]
         dev = self._unit_dev(j)
-        adopt(dev, weights)
-        if isinstance(weights, torch.Tensor):
-            weights = self.weights.split(u.key, weights)
+        weights = self._loaded(u.key, weights, dev)
         if self._phase == "prefill":
             ctx = L.Ctx(cfg=self.cfg, mode="prefill",
                         angles=_on(self._angles, dev))
-            x, rows = L.apply_layer(weights, x, ctx, None, u.spec)
-            return x, ("prefill", rows, self._slot)
-        if self._chunk_step is not None:
+            x, rows = u.apply(weights, x, ctx, None)
+            payload = ("prefill", rows, self._slot)
+        elif self._chunk_step is not None:
             return self._compute_mixed(j, u, x, weights, kv)
-        x, (rows, meta) = self._decode_unit(u, x, weights, kv, dev)
-        return x, ("decode", rows, meta)
+        else:
+            x, (rows, meta) = self._decode_unit(u, x, weights, kv, dev)
+            payload = ("decode", rows, meta)
+        if u.moe:
+            x = self._compute_moe(u, x, weights, dev)
+        return x, payload
+
+    def _compute_moe(self, u: _Unit, x, weights, dev):
+        """Routed-union MoE (paper Appendix C.4): the gate runs and its
+        ids cross to the host (the sync point: the experts are unknown
+        until then); then ONLY the union of routed experts streams
+        through the pool as WEIGHT_LOAD tasks while the shared expert
+        computes, and the compact combine runs over the loaded experts
+        with the ids remapped in order onto the sorted union, at the full
+        bank's capacity (``moe_ffn``'s formula), so its slots and drops
+        are the resident path's.  Main thread (loads on the workers)."""
+        m = self.cfg.moe
+        b, s, d = x.shape
+        xn = L.rms_norm(x, weights["norm_ffn"], self.cfg.norm_eps)
+        logits = (xn.reshape(b * s, d) @ u.router).to(torch.float32)
+        gate_w, ids = self.route(u.key, logits, m.top_k)
+        ids = ids.cpu().numpy()
+        union = np.unique(ids)                 # sorted routed experts
+        tasks = []
+        for e in union:
+            key = u.expert_keys[int(e)]
+            t = Task(TaskType.WEIGHT_LOAD, f"w[{key}]",
+                     lambda key=key: self._load_key(key))
+            t.nbytes = self.weights.nbytes(key)
+            self.sched.pool.submit(t)
+            tasks.append((key, t))
+        shared = L.shared_expert(weights, xn) if m.num_shared else None
+        ids_u = torch.from_numpy(np.searchsorted(union, ids)).to(dev)
+        experts = [self._loaded(key, t.wait(), dev) for key, t in tasks]
+        self.stats["moe_stack_bytes"] += sum(
+            a.numel() * a.element_size() for we in experts
+            for a in we.values())
+        capacity = int(m.capacity_factor * b * s * m.top_k
+                       / m.num_experts) + 1
+        out = moe_mod.moe_ffn_union(
+            xn.reshape(b * s, d), gate_w, ids_u,
+            {name: [we[name] for we in experts] for name in experts[0]},
+            capacity)
+        x = x + out.reshape(b, s, d)
+        return x if shared is None else x + shared
 
     def _decode_unit(self, u: _Unit, x, weights, kv, dev=None):
         """The decode batch through one unit: its output, the fresh
@@ -567,7 +667,7 @@ class OffloadedServingEngine(SlotEngineBase):
         adopt(dev, kv)
         ctx = L.Ctx(cfg=self.cfg, mode="decode", angles=_on(self._angles, dev),
                     pos=_on(self._pos_dev, dev))
-        x, rows = L.apply_layer(weights, x, ctx, kv, u.spec)
+        x, rows = u.apply(weights, x, ctx, kv)
         return x, (rows, (self._active, self._pos_snap,
                           self._decode_view[1]))
 

@@ -1035,19 +1035,55 @@ def draft_policy_for(plan: ResolvedPlan) -> Optional[DraftPolicy]:
 class QuantPolicy:
     """What lives or crosses the link quantized: ``weight_mode`` feeds
     ``TieredWeightStore``, ``prepare_unit`` packs a unit's tensors at
-    build time, ``kv_mode`` feeds ``TieredKVStore``."""
+    build time, ``kv_mode`` feeds ``TieredKVStore``, and ``moe_quant``
+    packs the resident engine's routed expert stacks
+    (``prepare_moe_params``)."""
 
     name = "none"
     weight_mode: Optional[str] = None
 
-    def __init__(self, kv_mode: Optional[str] = "fp32"):
+    def __init__(self, kv_mode: Optional[str] = "fp32",
+                 moe_quant: Optional[str] = None):
         self.kv_mode = kv_mode or "fp32"
         if self.kv_mode not in ("fp32", "int4"):
             raise SpecError(f"kv_mode {kv_mode!r} not in {KV_MODES}")
+        self.moe_quant = moe_quant
+        if self.moe_quant not in QUANT_MODES:
+            raise SpecError(f"moe_quant {moe_quant!r} not in {QUANT_MODES}")
 
     def prepare_unit(self, tensors: Dict[str, Any], device="cpu"
                      ) -> Dict[str, Any]:
         return tensors
+
+    def prepare_moe_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Pack the resident model's routed expert stacks as INT4
+        (``moe_quant='int4'``; identity otherwise), on the tensors'
+        device: every MoE layer table (marked by its router ``wg``) gets
+        its eligible ``w_gate``/``w_up``/``w_down`` stacks replaced by
+        ``#q``/``#s`` leaves — all three or none.  The router and the
+        shared expert stay f32."""
+        if self.moe_quant != "int4":
+            return params
+        from repro_torch.quant.int4 import quantize_int4_stack, stack_eligible
+        stacks = ("w_gate", "w_up", "w_down")
+
+        def pack(table):
+            if "wg" not in table or not all(
+                    name in table and stack_eligible(table[name].shape)
+                    for name in stacks):
+                return table
+            out = dict(table)
+            for name in stacks:
+                out[name + "#q"], out[name + "#s"] = quantize_int4_stack(
+                    out.pop(name))
+            return out
+
+        out = dict(params)
+        for part in ("pat", "rem"):
+            if part in out:
+                out[part] = tuple(pack(t) if isinstance(t, dict) else t
+                                  for t in out[part])
+        return out
 
 
 class WeightsInt4(QuantPolicy):
@@ -1065,11 +1101,12 @@ class WeightsInt4(QuantPolicy):
 
 
 def quant_policy_for(quant: Optional[str],
-                     kv_mode: Optional[str] = "fp32") -> QuantPolicy:
+                     kv_mode: Optional[str] = "fp32",
+                     moe_quant: Optional[str] = None) -> QuantPolicy:
     if quant == "int4":
-        return WeightsInt4(kv_mode)
+        return WeightsInt4(kv_mode, moe_quant)
     if quant is None:
-        return QuantPolicy(kv_mode)
+        return QuantPolicy(kv_mode, moe_quant)
     raise SpecError(f"quant {quant!r} not in {QUANT_MODES}")
 
 
@@ -1169,9 +1206,12 @@ def create_engine(plan: "ResolvedPlan | EngineSpec", device="cuda"):
     return ServingEngine(plan, device=device)
 
 
-def build_lm(plan: "ResolvedPlan | EngineSpec", device="cuda"):
+def build_lm(plan: "ResolvedPlan | EngineSpec", device="cuda",
+             weights=None):
     """Batch-generation twin of ``create_engine``: a ``PipelinedLM``
-    configured from the plan (``b_max`` is its batch) on ``device``.
+    configured from the plan (``b_max`` is its batch) on ``device``,
+    drawing its weights from ``plan.seed`` or loading ``weights``
+    (``core.convert.lm_weights`` of another engine).
     ``kv_mode='int4'`` with ``cache_on='device'`` is contradictory (a
     device-resident cache never crosses the link) and is rejected."""
     if isinstance(plan, EngineSpec):
@@ -1182,7 +1222,7 @@ def build_lm(plan: "ResolvedPlan | EngineSpec", device="cuda"):
             "cache_on='device' nothing crosses — drop kv_mode or use "
             "cache_on='host'")
     from repro_torch.core.engine import PipelinedLM
-    return PipelinedLM(plan, device=device)
+    return PipelinedLM(plan, device=device, weights=weights)
 
 
 # ---------------------------------------------------------------------------

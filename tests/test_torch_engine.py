@@ -162,8 +162,8 @@ def test_plan_json_roundtrip_and_gates(tmp_path):
     with pytest.raises(SpecError):
         build_lm(dataclasses.replace(pplan, kv_mode="int4",
                                      cache_on="device"), device="cpu")
-    # speculation and staged plans build now; an unknown draft arch is
-    # a plan error, MoE still waits for its slice
+    # speculation, staged plans and MoE stacks build now; an unknown
+    # draft arch is a plan error
     with pytest.raises(SpecError):
         build_lm(dataclasses.replace(pplan, draft_arch="x", spec_k=2),
                  device="cpu")
@@ -171,8 +171,9 @@ def test_plan_json_roundtrip_and_gates(tmp_path):
                     device="cpu").plan.stages == 2
     moe = dataclasses.replace(PCFG, pattern=(PB.LayerSpec(PB.ATTN, PB.MOE),),
                               moe=PB.MoEConfig(num_experts=2))
-    with pytest.raises(NotImplementedError):
-        build_lm(dataclasses.replace(pplan, cfg=moe), device="cpu")
+    lm = build_lm(dataclasses.replace(pplan, cfg=moe), device="cpu")
+    assert [u.kind for u in lm.units[:2]] == ["mha", "moe"]
+    assert "exp[0][1]" in lm.store_keys()
 
 
 def test_entry_points_default_to_cuda(tmp_path):

@@ -4,6 +4,8 @@ inside itself) and run on the machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -554,3 +556,114 @@ def test_verify_rows_packed_on_card_equal_host_rows(dev, cdt):
         leaf = store._units[0][name]
         assert torch.equal(pr.packed.cpu(), leaf.packed)
         assert torch.equal(pr.scale.cpu(), leaf.scale)
+
+
+# ---------------------------------------------------------------------------
+# MoE: Mixtral-8x7B's expert shapes and layer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+@pytest.mark.parametrize("M", [2, 36, 512])
+def test_int4_matmul_expert_shapes(dev, M, K, N):
+    """``int4_matmul`` at Mixtral-8x7B's expert projections (w_gate/w_up
+    K 4096 -> N 14336, w_down K 14336 -> N 4096) at the rows an expert
+    gets: the decode capacity (2), a 114-token prefill's (36) and a batch
+    prefill's b*s (512); rtol 1e-5, atol 1e-5 * max|ref|."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(M + K)
+    x = _t(rng, dev, M, K)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), 128)
+    out = int4_matmul(x, packed, scale)
+    ref = plain(x, packed, scale, 128)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+
+
+def _mixtral_layer(dev, E=8, f=14336, d=4096):
+    """One Mixtral-width MoE table (router and 8 expert stacks, f32) on
+    the card, drawn on the card from a seeded generator at the
+    reference's init scales (an expert stack at 1/sqrt(E), its leading
+    dim)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    return {"wg": rn(d, E) / d ** 0.5,
+            "w_gate": rn(E, d, f) / E ** 0.5, "w_up": rn(E, d, f) / E ** 0.5,
+            "w_down": rn(E, f, d) / E ** 0.5,
+            "norm_ffn": torch.zeros(d, device=dev)}
+
+
+@pytest.mark.parametrize("T", [4, 114])
+def test_moe_layer_mixtral_width(dev, T):
+    """One Mixtral-width MoE feed-forward (8 experts, top-2, capacity
+    1.25) with packed experts: through ``int4_matmul`` (one launch per
+    routed expert's projection: 3 x 8 here, every expert gets its
+    capacity rows) against ``use_kernels(False)`` on the same tensors,
+    within 1e-4 x max."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.quant.int4 import quantize_int4_stack
+    cfg = get_config("mixtral-8x7b")
+    p = _mixtral_layer(dev)
+    for n in ("w_gate", "w_up", "w_down"):
+        p[n + "#q"], p[n + "#s"] = quantize_int4_stack(p.pop(n))
+    x = torch.randn((1, T, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    ctx = L.Ctx(cfg=cfg, mode="prefill")
+    ops.reset_launches()
+    out, _ = L.apply_moe_ffn(p, x, ctx)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["int4_matmul"] == 3 * cfg.moe.num_experts
+    ops.use_kernels(False)
+    try:
+        ref, _ = L.apply_moe_ffn(p, x, ctx)
+    finally:
+        ops.use_kernels(True)
+    assert torch.isfinite(out).all()
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 1e-4, err
+
+
+def test_moe_quant_resident_stacks_through_kernel(dev):
+    """``moe_quant="int4"``: ``prepare_moe_params`` packs the resident
+    stacks on the card, bit-equal to packing them on the CPU, and the
+    layer runs them through ``int4_matmul``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.serving.spec import quant_policy_for
+    cfg = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, expert_d_ff=1024))
+    p = _mixtral_layer(dev, E=8, f=1024)
+    pol = quant_policy_for(None, "fp32", "int4")
+    tree = {"pat": (p,)}
+    on_card = pol.prepare_moe_params(tree)["pat"][0]
+    on_cpu = pol.prepare_moe_params(
+        {"pat": ({k: v.cpu() for k, v in p.items()},)})["pat"][0]
+    for n in ("w_gate#q", "w_gate#s", "w_down#q", "w_down#s"):
+        assert torch.equal(on_card[n].cpu(), on_cpu[n]), n
+    x = torch.randn((2, 3, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    ops.reset_launches()
+    out, _ = L.apply_moe_ffn(on_card, x, L.Ctx(cfg=cfg, mode="decode"))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["int4_matmul"] == 3 * cfg.moe.num_experts
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("K,N,group", [(4096, 14336, 128), (14336, 4096, 128),
+                                       (96, 10, 32)])
+def test_quantize_int4_on_card_bit_equal_to_cpu(dev, K, N, group):
+    """The engines pack their weights on the card (``quantize_unit(...,
+    device=)``, ``prepare_moe_params``): the packed bytes and scales
+    equal the CPU's, which equal the JAX package's."""
+    from repro_torch.quant.int4 import quantize_int4
+    w = _t(np.random.default_rng(K), dev, K, N, scale=0.05)
+    qc, sc = quantize_int4(w, group)
+    qh, sh = quantize_int4(w.cpu(), group)
+    assert torch.equal(sc.cpu(), sh)
+    assert torch.equal(qc.cpu(), qh)

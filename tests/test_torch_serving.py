@@ -168,9 +168,9 @@ def test_entry_points_default_to_cuda():
 
 
 def test_gates_name_later_slices():
-    """Device-resident INT4 KV and MoE still raise; chunked prefill
-    (``sched="online"|"offline"``), pipeline stages and speculation now
-    build (an unknown draft arch is a plan error)."""
+    """Device-resident INT4 KV still raises; chunked prefill
+    (``sched="online"|"offline"``), pipeline stages, speculation and MoE
+    stacks now build (an unknown draft arch is a plan error)."""
     _, pplan = _plans("fp32", None, 1)
     rp = lambda **kw: dataclasses.replace(pplan, **kw)
     with pytest.raises(NotImplementedError):
@@ -187,9 +187,11 @@ def test_gates_name_later_slices():
         assert eng.sched_policy.chunk_cap() == 4
         eng.shutdown()
     moe = dataclasses.replace(PCFG, pattern=(PB.LayerSpec(PB.ATTN, PB.MOE),),
-                              moe=PB.MoEConfig(num_experts=2))
-    with pytest.raises(NotImplementedError):
-        create_engine(rp(cfg=moe), device="cpu")
+                              moe=PB.MoEConfig(num_experts=2,
+                                               expert_d_ff=64))
+    eng = create_engine(rp(cfg=moe), device="cpu")
+    assert all(u.moe and len(u.expert_keys) == 2 for u in eng.units)
+    eng.shutdown()
     with pytest.raises(UnsupportedModelError):
         create_engine(rp(cfg=dataclasses.replace(PCFG, rope_theta=0.0)),
                       device="cpu")
