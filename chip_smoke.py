@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(p)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(s)
     python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
+    python3 chip_smoke.py --only families # kernel checks, then runs (q)-(s)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -30,8 +31,8 @@ before the result line:
 5. hold the whole path with kernels against ``use_kernels(False)`` on
    run (b)'s weights: final hidden states of a prefill and one decode
    step, and greedy-token agreement over run (b);
-6. serve through ``create_engine(plan)``: (e) int4 weights and KV, 8
-   requests of ragged lengths on 4 slots, then the same requests again
+6. serve through ``create_engine(plan)``: (e) int4 weights and KV,
+   ``SERVE_REQS`` (6) requests of ragged lengths on 4 slots, then the same requests again
    with a slot preempted mid-run (same tokens required), then kernels
    against ``use_kernels(False)`` on its weights; (f) bf16 caches
    (``kv_mode="fp32"``), 4 requests; (j) on tinyllama: (e)'s requests
@@ -51,7 +52,8 @@ before the result line:
    beside the plan's budget, the memory model's estimate and the
    engine's resident bytes (embedding and head), the host's RAM and the
    seconds spent drawing and packing the weights; then (k) a Poisson
-   arrival trace of 8 requests (prompts of 32-160 tokens, 16 new each,
+   arrival trace of ``TRAFFIC_REQS`` (4) requests (prompts of 32-160
+   tokens, 16 new each,
    at half of (g)'s completion rate) through (g)'s engine with
    ``run_trace`` (TTFT and TBT p50/p99, tok/s); then (j): the same plan
    with ``sched="online"`` (chunks of 32) on the same seed serves (g)'s
@@ -95,7 +97,7 @@ before the result line:
    quant="int4").resolve())`` (Mixtral-8x7B at full width and depth, 32
    layers of 8 experts, top-2; the default budget's plan: offloaded,
    disk, depth 1, with ``disk_root`` under the temporary directory, or
-   a host budget when that disk is short) serves (g)'s 4 prompts, 8 new
+   a host budget when that disk is short) serves (g)'s 4 prompts, 3 new
    tokens each, routing each MoE layer's tokens and streaming only the
    routed experts: per step the experts each layer loaded (its routed
    union at a decode step), their bytes and the step's time; exact
@@ -109,13 +111,40 @@ before the result line:
    probabilities kept f32 (every gate's top-k ids equal, prefill and
    decode hidden states within 1e-4 x max), beside the plain versions
    as they are (``moe_whole_path``); (p) ``build_lm`` on Mixtral at full width with its
-   depth cut to 2 layers (``PipelinedLM`` draws from one generator, as
+   depth cut to 1 layer (``PipelinedLM`` draws from one generator, as
    the JAX engine does, so its build grows with depth), INT4 weights
    and KV, host, b 4, prompt 128, gen 16, performance and then
    sequential on the first engine's weights (``core.convert``): equal
    tokens, exact launch counts.  Phase 3 also holds and times
    ``int4_matmul`` at Mixtral's expert shapes (M 2, 19, 36 and 512);
-13. print the ``kernels`` JSON line, the card, then the result line.
+13. the other families, each built only through the plan entry point at
+   full width and depth from seed 0: (q) ``create_engine(EngineSpec(
+   arch="gemma3-4b", quant="int4", kv_mode="int4",
+   max_len=2048).resolve())`` (Gemma3-4B: 28 sliding-window layers of
+   1024 and 6 global, head_dim 256; offloaded, host, depth 1) serves
+   prompts of 1500, 1016, 300 and 114 tokens, 16 new each (the window
+   binds in the first prefill, the second wraps its rolling buffer in
+   decode): exact launches (the local layers' decode over their rolling
+   buffers through ``decode_attention``, the global layers' through
+   ``decode_attention_int4``), the busy share, the peak beside the
+   budget, the KV bytes per step (the rolling buffers move whole), then
+   kernels against ``use_kernels(False)``; (r) ``create_engine(
+   EngineSpec(arch="qwen3-8b", quant="int4").resolve())`` (Qwen3-8B,
+   ``qk_norm``; offloaded, host, depth 8, bf16 caches) serves (g)'s
+   requests, is held against ``use_kernels(False)``, then an oracle
+   from its own streams on the same engine must give its tokens (the
+   verify pass runs ``qk_norm`` on the card), with the verify step held
+   at 2e-2 x max; (s) the resident engine on Gemma3-4B
+   (``resolve(MemoryBudget(device=40 GiB, host=64 GiB))``) with its tree
+   carried to the INT4 weights (``core.convert.quant_roundtrip_params``)
+   serves (q)'s requests, its tokens compared with an fp-KV offloaded
+   run on the same weights.  Phase 3 also holds and times the kernels
+   at these shapes: ``flash_attention`` at head_dim 256 (the window of
+   1024 over 1500 rows), ``decode_attention`` over the rolling buffers
+   at the clamped positions against the reference's unclamped mask,
+   ``decode_attention_int4`` at F = 1024, ``int4_matmul`` at M = 4 on
+   both models' projections;
+14. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -147,7 +176,9 @@ HIDDEN_RTOL = 1e-4       # whole path: max|kernels - plain| / max|plain|
 BF16_HIDDEN_RTOL = 2e-2  # the same over bf16 caches: the plain version
                          # rounds probabilities to bf16 as the reference
                          # does, the kernels keep them f32
-REPEATS = {"a": 3, "b": 5, "c": 3, "d": 5}   # generate calls per run
+# the depths below are cut to hold the 1200 s limit with runs (q)-(s)
+# (PERF.md §4); generate calls per run
+REPEATS = {"a": 1, "b": 2, "c": 1, "d": 2}
 PROFILE_GEN = 8          # tokens in the profiled run (busy share only)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
@@ -163,23 +194,35 @@ CLI_ARGV = ["--arch", "llama3.2-1b", "--offload", "--quant", "int4",
             "--kv-mode", "int4", "--depth-policy", "adaptive",
             "--requests", "8"]     # run (h)
 SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
-SERVE_REQS = 8                     # serving run (e): requests, all submitted
+SERVE_REQS = 6                     # serving run (e): requests, all submitted
 TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
-TRAFFIC_REQS = 8                   # run (k): arrivals
+TRAFFIC_REQS = 4                   # run (k): arrivals
 SPEC_K = 4                         # runs (m), (b'): proposals per verify
-MOE_NEW = 8                        # run (o): new tokens per request
+MOE_NEW = 3                        # run (o): new tokens per request (a
+                                   # decode step takes ~10 s)
 # run (o)'s check: the share of routed rows whose top-k may differ
 # between the kernel arm and the reference arm (readings at the
 # reference's expert scale: 4 of 3,776 rows on (g)'s first prompt, 1 of
 # 6,752 on its first two)
 MOE_FLIP_SHARE = 0.005
-MOE_LM_LAYERS, MOE_LM_GEN = 2, 16  # run (p): Mixtral's depth cut, gen
+MOE_LM_LAYERS, MOE_LM_GEN = 1, 16  # run (p): Mixtral's depth cut, gen
 # Mixtral-8x7B's expert projections (K, N) and the rows one expert gets:
 # the decode capacity int(1.25 * 4 * 2 / 8) + 1 = 2, the capacities of
 # (g)'s shortest and longest prompts (58 and 114 tokens: 19 and 36), and
 # run (p)'s prefill, where each expert runs on the batch (4 x 128)
 MIXTRAL_EXPERT = ((4096, 14336), (14336, 4096))
 MIXTRAL_M = (2, 19, 36, 512)
+# runs (q)-(s): Gemma 3's and Qwen3's projections (K, N) at decode, M = 4
+GEMMA3_PROJ = ((2560, 2048), (2560, 1024), (2560, 10240), (2048, 2560),
+               (10240, 2560))
+QWEN3_PROJ = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+# runs (q), (s): Gemma 3's prompts (the window of 1024 binds in the first
+# prefill; the second wraps its buffer in decode), new tokens each
+FAMILY_PROMPTS, FAMILY_NEW, FAMILY_MAX_LEN = (1500, 1016, 300, 114), 16, 2048
+GEMMA3_WINDOW = 1024
+# the rolling buffers' positions in the phase-3 check: (q)'s requests a
+# few steps into decode, the first past the window, the second at its end
+ROLL_POS = [1499, 1023, 299, 113]
 
 
 def log(msg=""):
@@ -285,7 +328,9 @@ def check_int4(torch, rng, dev):
     M = 18 (the 8B) and 13 (tinyllama), checked as well at M = 16 and 17
     on either side of the GEMV/tensor-core switch at the 8B's shapes; and
     at the speculative verify pass of runs (m) and (b'), M = b x (k+1) =
-    20, on the 8B's and tinyllama's projections."""
+    20, on the 8B's and tinyllama's projections; at Mixtral's expert
+    shapes (run o, p); and at M = 4 on Gemma 3's and Qwen3's projections
+    (runs q-s)."""
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     verify_m = B * (SPEC_K + 1)
@@ -310,6 +355,10 @@ def check_int4(torch, rng, dev):
     cases += [(4, 4096, 128256, 128, None)]
     cases += [(M, K, N, 128, f"mixtral expert M={M} {K}x{N}")
               for M in MIXTRAL_M for K, N in MIXTRAL_EXPERT]
+    # runs (q)-(s): Gemma 3's and Qwen3's projections at decode
+    cases += [(4, K, N, 128, f"gemma3-4b M=4 {K}x{N}")
+              for K, N in GEMMA3_PROJ]
+    cases += [(4, K, N, 128, f"qwen3-8b M=4 {K}x{N}") for K, N in QWEN3_PROJ]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
               (16, 512, 384, 128, None), (512, 384, 200, 32, None),
               (3, 96, 10, 32, None), (16, 64, 6, 32, None),
@@ -369,9 +418,11 @@ def check_flash(torch, rng, dev):
     line's head), at serving prefill of one slot (b = 1, sq = 37 and
     141, run (e)'s shortest-but-one and longest prompts) and at the
     llama3.2-1b draft's prefills in run (m) (sq 114 and 58, its longest
-    and shortest prompts), each beside SDPA.  The bound counts three
-    TF32 products per multiply-add on the tensor cores (495 TFLOP/s),
-    ``bound_fp32_ms`` the same work at fp32."""
+    and shortest prompts) and at Gemma 3's (head_dim 256, the window of
+    1024 over 1500 and 1016 rows, and 114 rows without one), each beside
+    SDPA with the same mask.  The bound counts three TF32 products per
+    multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
+    mask attends, ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, plain
     # (b, sq, sk, h, hkv, dh, causal, window, q_offset, timed as)
@@ -400,7 +451,18 @@ def check_flash(torch, rng, dev):
              (1, 32, 96, 32, 8, 128, True, 0, 64,
               "llama3.1-8b chunk sq=32 q_offset=64"),
              (1, 18, 114, 32, 8, 128, True, 0, 96,
-              "llama3.1-8b final chunk sq=18 q_offset=96")]
+              "llama3.1-8b final chunk sq=18 q_offset=96"),
+             # runs (q) and (s): Gemma 3's one-slot prefills at head_dim
+             # 256, 8/4 heads; the local layers' window of 1024 binds at
+             # 1500 rows; an edge at 33 rows
+             (1, 1500, 1500, 8, 4, 256, True, GEMMA3_WINDOW, 0,
+              "gemma3-4b sq=1500 window=1024"),
+             (1, 1016, 1016, 8, 4, 256, True, GEMMA3_WINDOW, 0,
+              "gemma3-4b sq=1016 window=1024"),
+             (1, 114, 114, 8, 4, 256, True, 0, 0, "gemma3-4b sq=114"),
+             (1, 1500, 1500, 8, 4, 256, True, 0, 0, None),
+             (2, 33, 33, 8, 4, 256, True, GEMMA3_WINDOW, 0, None),
+             (2, 33, 33, 16, 4, 256, True, 0, 0, None)]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -420,10 +482,12 @@ def check_flash(torch, rng, dev):
         if timed:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             # SDPA's is_causal aligns the top left; a chunk's rows sit at
-            # q_offset, so it takes the mask
-            mask = (torch.arange(sk, device=dev)[None, :]
-                    <= q_offset + torch.arange(sq, device=dev)[:, None])
-            sdpa = (dict(attn_mask=mask) if q_offset else
+            # q_offset, and a window cuts below the diagonal, so those
+            # take the mask
+            qp = q_offset + torch.arange(sq, device=dev)[:, None]
+            kp = torch.arange(sk, device=dev)[None, :]
+            mask = (kp <= qp) & ((qp - kp < window) if window else True)
+            sdpa = (dict(attn_mask=mask) if q_offset or window else
                     dict(is_causal=True))
             row.update(timings(
                 torch, lambda: flash_attention(q, k, v, **kw),
@@ -462,7 +526,9 @@ def check_decode(torch, rng, dev):
     an int ``pos`` and a strided ``q`` where the case has them; timed at
     the generation shape (f32), the serving shape (bf16, ragged pos) and
     the llama3.2-1b draft's proposal steps in run (m) (its bf16 caches
-    over the whole ``max_len`` slab, dh 64, group 4) beside SDPA."""
+    over the whole ``max_len`` slab, dh 64, group 4), Gemma 3's global
+    slab (head_dim 256) and its rolling buffers (``check_rolling_decode``)
+    beside SDPA."""
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
@@ -493,7 +559,12 @@ def check_decode(torch, rng, dev):
              (B, MAX_LEN, 32, 8, 64, [118, 97, 85, 62], torch.bfloat16,
               "llama3.2-1b draft S=256"),
              (B, MAX_LEN, 32, 8, 64, [129, 108, 96, 73], torch.bfloat16,
-              None)]
+              None),
+             # run (q): Gemma 3's global layers over the bucketed slab
+             # (head_dim 256, group 2), the longest prompt 16 steps in
+             (B, 1536, 8, 4, 256, [1515, 1031, 315, 129], torch.bfloat16,
+              "gemma3-4b global bf16"),
+             (B, 2048, 8, 4, 256, [2047, 0, 700, 1024], torch.float32, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -526,14 +597,69 @@ def check_decode(torch, rng, dev):
             row["bound_ms"], row["bound_by"] = bound_ms(
                 nbytes, 4.0 * h * dh * live)
         rows.append(row)
+    rows.append(check_rolling_decode(torch, rng, dev))
     return rows
+
+
+def check_rolling_decode(torch, rng, dev):
+    """Run (q)'s rolling-buffer decode step: Gemma 3's local layers
+    (b 4, W = 1024, 8/4 heads, head_dim 256, bf16 buffers) at ragged
+    positions past, at and below the window (``ROLL_POS``), through
+    ``decode_attention`` at the positions clamped to W - 1 (what
+    ``local_decode_attention`` launches), held against the reference's
+    rolling-buffer attention over the unclamped slots (slot j attended
+    when ``pos - ((pos - j) mod W) >= 0``; atol 2e-2 over bf16), and
+    timed beside SDPA with that mask.  The bound reads the attended
+    slots once."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import attn_partials
+    from repro_torch.models.common import finalize_partials
+    b, W, h, hkv, dh = B, GEMMA3_WINDOW, 8, 4, 256
+    mk = lambda *s: torch.tensor(rng.standard_normal(s),
+                                 dtype=torch.float32, device=dev)
+    q = mk(b, h, dh)
+    kc, vc = (mk(b, W, hkv, dh).to(torch.bfloat16) for _ in range(2))
+    pos_t = torch.tensor(ROLL_POS, dtype=torch.int32, device=dev)
+    clamped = torch.clamp(pos_t, max=W - 1)
+    j = torch.arange(W, device=dev)
+    p = pos_t.long()[:, None]
+    valid = (p - (p - j[None]) % W) >= 0                     # (b, W)
+
+    def plain():
+        m, l, o = attn_partials(q[:, None], kc, vc, valid[:, None, :])
+        return finalize_partials(m, l, o)[:, :, 0]
+
+    out = decode_attention(q, kc, vc, clamped)
+    ref = plain()
+    same = torch.equal(out, decode_attention(q, kc, vc, clamped))
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    row = dict(shape=f"rolling b={b} W={W} h={h} hkv={hkv} dh={dh} "
+               f"pos={ROLL_POS} clamped={clamped.tolist()} cache=bfloat16",
+               max_abs_err=err, tol=BF16_ATOL, deterministic=bool(same),
+               ok=err <= BF16_ATOL and bool(same),
+               main="gemma3-4b rolling W=1024")
+    import torch.nn.functional as F
+    qt, kt, vt = q[:, :, None], kc.float().transpose(1, 2), \
+        vc.float().transpose(1, 2)
+    mask = valid[:, None, None, :]
+    row.update(timings(
+        torch, lambda: decode_attention(q, kc, vc, clamped), plain,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True), 50))
+    live = int(valid.sum())
+    nbytes = 4 * 2 * q.numel() + 2 * live * hkv * dh * 2 + 4 * b
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * h * dh * live)
+    return row
 
 
 def check_decode_int4(torch, rng, dev):
     """``decode_attention_int4`` against its plain version (atol 2e-5 at
     f32, 2e-2 with bf16 rounding) and, without a fresh row at f32,
     against ``decode_attention`` over the dequantized cache (atol 1e-6,
-    tests/test_kernels.py:101)."""
+    tests/test_kernels.py:101); timed at the serving and generation
+    shapes, llama3.2-1b's and Gemma 3's global layers (F = 1024 at head_dim
+    256, S = 2048)."""
     from repro_torch.core.kvstore import KV_LEN_BUCKET, PackedRows, kv_group
     from repro_torch.core.kvstore import quantize_kv_rows
     from repro_torch.kernels.decode_attention import decode_attention
@@ -577,7 +703,13 @@ def check_decode_int4(torch, rng, dev):
                None),
               # head_dim 128, group 4 (Llama-3.1-8B with kv_mode="int4")
               (B, S, 32, 8, 128, SERVE_POS, True, torch.bfloat16, None),
-              (B, S, 32, 8, 128, SERVE_POS, False, torch.float32, None)]
+              (B, S, 32, 8, 128, SERVE_POS, False, torch.float32, None),
+              # run (q): Gemma 3's global layers, F = 4 x 256, group 2,
+              # over the whole slab of the plan's max_len
+              (B, 2048, 8, 4, 256, [1515, 1031, 315, 129], True,
+               torch.bfloat16, "gemma3-4b S=2048"),
+              (B, 2048, 8, 4, 256, [2047, 0, 700, 1024], False,
+               torch.float32, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, fresh, cdt, timed in cases:
         F, mk = hkv * dh, (lambda *s: torch.tensor(
@@ -925,9 +1057,10 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     bad tokens or launch counts other than flash = layers x prefill
     passes (whole prompts, or chunks under a chunked ``sched``, those
     after a prompt's first with q_offset > 0) and ``decode_kernel`` =
-    layers x decode steps (the other decode kernel 0), and, with packed
-    weights, int4_matmul = 7 projections x layers x (prefill passes +
-    decode steps).  Returns the engine, the counts, the summary and the
+    global-attention layers x decode steps (sliding-window layers always
+    ``decode_attention`` over their rolling buffers; the other decode
+    kernel 0), and, with packed weights, int4_matmul = 7 projections x
+    layers x (prefill passes + decode steps).  Returns the engine, the counts, the summary and the
     served run (tokens, per-request latency, and a copy of its trace:
     run (l) replays it)."""
     from repro_torch.core.tasks import Trace
@@ -944,18 +1077,20 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     r = serve_once(torch, ops, eng, reqs, 0)
     r["trace"] = Trace.from_json(json.dumps(eng.trace.to_json()))
     report = eng.pipeline_report()
-    other = ({"decode_attention", "decode_attention_int4"}
-             - {decode_kernel}).pop()
     n = plan.model_config().num_layers
+    n_local = local_layers(plan.model_config())
     vocab = plan.model_config().vocab_size
     st = r["stats"]
     chunked = plan.sched != "monolithic"
     passes = st["prefill_chunks"] if chunked else st["prefills"]
+    decode = {"decode_attention": n_local * st["decode_steps"],
+              "decode_attention_int4": 0}
+    decode[decode_kernel] += (n - n_local) * st["decode_steps"]
     check_launches(name, r["counts"], {
         "flash_attention": n * passes,
         "flash_attention_q_offset": (
             n * (st["prefill_chunks"] - st["prefills"]) if chunked else 0),
-        decode_kernel: n * st["decode_steps"], other: 0,
+        **decode,
         "int4_matmul": (7 * n * (passes + st["decode_steps"])
                         if plan.quant == "int4" else 0)}, exact=True)
     outs = r["outs"]
@@ -998,6 +1133,13 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
                                f"{summary['preempt']}")
     log(json.dumps({"serving": summary}))
     return eng, r["counts"], summary, r
+
+
+def local_layers(cfg) -> int:
+    """The sliding-window (``ATTN_LOCAL``) layers of ``cfg``."""
+    from repro_torch.configs.base import ATTN_LOCAL
+    return sum(s.mixer == ATTN_LOCAL for s in (
+        *cfg.pattern * cfg.num_periods, *cfg.remainder))
 
 
 def serving_whole_path(torch, ops, eng, reqs):
@@ -1820,7 +1962,7 @@ def run_staged_paper(torch, ops, np, g_summary, g_outs):
 
 # ---------------------------------------------------------------------------
 # MoE: (o) Mixtral-8x7B serving with routed-union streaming, (p) batch
-# generation on Mixtral cut to two layers
+# generation on Mixtral cut to one layer
 # ---------------------------------------------------------------------------
 
 def int4_nbytes(K: int, N: int) -> int:
@@ -2239,11 +2381,12 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("kernels", "plan", "moe"),
+    ap.add_argument("--only", choices=("kernels", "plan", "moe",
+                                       "families"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(p) only (plan), or (o) and "
-                         "(p) only (moe)")
+                         "them and runs (g)-(s) only (plan), or (o) and "
+                         "(p) only (moe), or (q)-(s) only (families)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2322,6 +2465,9 @@ def main(argv=None) -> int:
     if args.only == "moe":
         run_moe(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "families":
+        run_families(torch, ops, np, counts, summaries, release, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces)
@@ -2383,12 +2529,245 @@ def main(argv=None) -> int:
                                 summaries["g"]["plan_depth"])
     stamp("l")
     run_moe(torch, ops, np, counts, summaries, release, stamp)
+    run_families(torch, ops, np, counts, summaries, release, stamp)
     return finish(torch, card, checks, counts, t_start, phase_s)
+
+
+# ---------------------------------------------------------------------------
+# runs (q)-(s): Gemma 3 (sliding window, head_dim 256) and Qwen3 (qk_norm)
+# ---------------------------------------------------------------------------
+
+def family_requests(np, vocab: int):
+    """Runs (q) and (s): prompts of ``FAMILY_PROMPTS`` random tokens
+    (``default_rng(0)``), ``FAMILY_NEW`` new tokens each."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), FAMILY_NEW)
+            for n in FAMILY_PROMPTS]
+
+
+def memory_report(plan, eng, summary) -> dict:
+    """Peak device memory of the serve beside the plan's budget, the
+    memory model's estimate and the engine's resident bytes."""
+    return {"device_max_allocated_gb": summary["device_max_allocated_gb"],
+            "device_budget_gb": plan.device_budget / 2**30,
+            "modeled_device_gb": modeled_device_bytes(plan) / 2**30,
+            "resident_gb": eng.resident_bytes / 2**30}
+
+
+def kv_step_bytes(eng, summary) -> dict:
+    """KV bytes per decode step of the serve: the trace's KV_LOAD bytes
+    (loads run only in decode) and its KV_SAVE bytes less the prefills'
+    saves, over the decode steps; beside the rolling buffers' share of
+    each way at the full batch."""
+    ks = eng.kvstore
+    units = range(len(ks))
+    rolling = [j for j in units if ks.leaf_meta(j)["k"].kind == "rep"]
+    prefill_save = summary["prefills"] * sum(ks.prefill_save_nbytes(j)
+                                             for j in units)
+    steps = max(1, summary["decode_steps"])
+    return {"kv_load_bytes_per_step": summary["bytes"]["kv_load"] / steps,
+            "kv_save_bytes_per_step":
+            (summary["bytes"]["kv_save"] - prefill_save) / steps,
+            "weight_load_bytes_per_step":
+            sum(eng.weights.nbytes(u.key) for u in eng.units),
+            "rolling_layers": len(rolling),
+            "rolling_bytes_each_way_at_b_max":
+            sum(ks.save_nbytes(j, eng.b_max) for j in rolling)}
+
+
+def run_gemma3_offloaded(torch, ops, np):
+    """Run (q): Gemma3-4B (34 layers, 28 sliding-window layers of 1024
+    and 6 global, head_dim 256, tied 262144-row table), INT4 weights and
+    KV, through ``EngineSpec.resolve`` and ``create_engine`` on the
+    default budget; (q)'s four requests (prompts 1500, 1016, 300, 114:
+    the window binds in the first prefill, the second wraps its buffer
+    in decode), exact launches (the local layers' decode over their
+    rolling buffers through ``decode_attention``, the global layers'
+    through ``decode_attention_int4``), a profiled short serve for the
+    card's busy share, the peak beside the budget, the KV bytes per
+    step, then kernels against ``use_kernels(False)`` (prefill 1e-4,
+    decode 2e-2 x max).  Returns its counts and summary."""
+    from repro_torch.serving.spec import EngineSpec
+    plan = EngineSpec(arch="gemma3-4b", quant="int4", kv_mode="int4",
+                      max_len=FAMILY_MAX_LEN).resolve()
+    cfg = plan.model_config()
+    log(f"(q) plan: {plan.summary()}")
+    log(f"(q) engine: {plan.provenance['engine']}; depth: "
+        f"{plan.provenance['depth']}")
+    if plan.engine != "offloaded" or cfg.window != GEMMA3_WINDOW:
+        raise RuntimeError(f"run q: unexpected plan {plan.summary()}")
+    reqs = family_requests(np, cfg.vocab_size)
+    eng, counts, summary, _ = run_serving(
+        torch, ops, "q", plan, reqs, "decode_attention_int4")
+    short = [(p, 4) for p, _ in reqs]
+    summary["profiled"] = {"requests": len(reqs), "max_new": 4, **busy_share(
+        device_events(torch, lambda: serve_once(torch, ops, eng, short,
+                                                400)))}
+    summary.update(memory=memory_report(plan, eng, summary),
+                   kv_bytes=kv_step_bytes(eng, summary),
+                   params=cfg.param_count(), depth=eng.sched.depth,
+                   local_layers=local_layers(cfg))
+    log(json.dumps({"gemma3_offloaded": summary}))
+    summary["whole_path"] = serving_whole_path(torch, ops, eng,
+                                               [(p, 2) for p, _ in reqs])
+    eng.shutdown()
+    return counts, summary
+
+
+def run_qwen3_offloaded(torch, ops, np):
+    """Run (r): Qwen3-8B (36 layers, ``qk_norm``), INT4 weights, through
+    ``EngineSpec.resolve`` and ``create_engine`` on the default budget
+    (offloaded, host, depth 8, bf16 caches); (g)'s requests, exact
+    launches, kernels against ``use_kernels(False)``; then on the same
+    engine an oracle proposer from (r)'s own streams, ``SPEC_K`` a step:
+    tokens equal to (r)'s (the verify pass runs ``qk_norm`` on the
+    card), full acceptance, exact launches, and the verify step against
+    ``use_kernels(False)`` (2e-2 x max over bf16 caches); the peak
+    beside the budget.  Returns its counts and summary."""
+    from repro_torch.serving.spec import EngineSpec
+    plan = EngineSpec(arch="qwen3-8b", quant="int4").resolve()
+    cfg = plan.model_config()
+    log(f"(r) plan: {plan.summary()}; depth: {plan.provenance['depth']}")
+    if plan.engine != "offloaded" or not cfg.qk_norm:
+        raise RuntimeError(f"run r: unexpected plan {plan.summary()}")
+    reqs = paper_requests(np, cfg.vocab_size)
+    eng, counts, summary, served = run_serving(torch, ops, "r", plan, reqs,
+                                               "decode_attention")
+    summary.update(memory=memory_report(plan, eng, summary),
+                   params=cfg.param_count(), depth=eng.sched.depth)
+    log(json.dumps({"qwen3_offloaded": summary}))
+    summary["whole_path"] = serving_whole_path(torch, ops, eng,
+                                               [(p, 2) for p, _ in reqs])
+    outs, n = served["outs"], cfg.num_layers
+    eng.attach_draft(OracleProposer(
+        [(p, outs[i]) for i, (p, _) in enumerate(reqs)]), SPEC_K)
+    before = dict(eng.stats)
+    mark = len(eng.trace.meta.get("spec_steps", []))
+    r = serve_once(torch, ops, eng, reqs, 500)
+    steps = eng.trace.meta["spec_steps"][mark:]
+    st = {k: eng.stats[k] - before.get(k, 0) for k in (
+        "spec_steps", "spec_proposed", "spec_accepted")}
+    verify_rows = sum(s["k"] + 1 for s in steps)
+    plain_steps = r["stats"]["decode_steps"] - len(steps)
+    passes = r["stats"]["prefills"] + r["stats"]["decode_steps"]
+    steps_ms = sorted(1e3 * x for x in r["steps"])
+    summary["oracle"] = spec_summary(st, steps, r["wall"], {
+        "tokens_equal": r["outs"] == outs,
+        "tok_s": r["stats"]["tokens_out"] / r["wall"],
+        "step_ms_median": statistics.median(steps_ms),
+        "verify_rows": verify_rows, "plain_steps": plain_steps,
+        "launches": r["counts"],
+        "device_max_allocated_gb": r["device_max_allocated_gb"]})
+    if r["outs"] != outs or st["spec_accepted"] != st["spec_proposed"]:
+        raise RuntimeError(f"run r oracle: tokens or acceptance differ: "
+                           f"{summary['oracle']}")
+    check_launches("r oracle", r["counts"], {
+        "flash_attention": n * r["stats"]["prefills"],
+        "decode_attention": n * (verify_rows + plain_steps),
+        "decode_attention_int4": 0, "int4_matmul": 7 * n * passes},
+        exact=True)
+    summary["verify_whole_path"] = verify_whole_path(
+        torch, ops, "r", eng, lambda: [
+            o[0] for _, o in sorted(serve_once(
+                torch, ops, eng, [(p, SPEC_K + 1) for p, _ in reqs],
+                600)["outs"].items())],
+        BF16_HIDDEN_RTOL)
+    log(json.dumps({"qwen3_oracle": summary["oracle"]}))
+    eng.shutdown()
+    return counts, summary
+
+
+def run_gemma3_resident(torch, ops, np):
+    """Run (s): Gemma3-4B resident: ``EngineSpec(arch="gemma3-4b",
+    max_len=2048).resolve(MemoryBudget(device=40 GiB, host=64 GiB))``
+    (the memory model: "W+M=30.0GiB fits device"), its f32 tree carried
+    to the offloaded plan's INT4 weights on the card
+    (``core.convert.quant_roundtrip_params``: what (q)'s engine streams,
+    dequantized); (q)'s requests, exact launches (every layer through
+    ``flash_attention`` and ``decode_attention``: the rolling buffers
+    and the 2048-row slabs), then its tokens against an fp-KV offloaded
+    run on the same weights (``quant="int4"``, bf16 caches, seed 0):
+    the agreement, and at a first divergence the resident model's logit
+    margin.  Returns its counts and summary."""
+    from repro_torch.core.convert import quant_roundtrip_params
+    from repro_torch.core.offload import MemoryBudget
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch="gemma3-4b", max_len=FAMILY_MAX_LEN).resolve(
+        MemoryBudget(device=40 * 2**30, host=64 * 2**30))
+    log(f"(s) plan: {plan.summary()}; engine: {plan.provenance['engine']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    if type(eng) is not ServingEngine:
+        raise RuntimeError(f"run s: built {type(eng).__name__}")
+    eng.params = quant_roundtrip_params(eng.cfg, eng.params)
+    gc.collect()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = family_requests(np, eng.cfg.vocab_size)
+    r = serve_once(torch, ops, eng, reqs, 0)
+    n, st = eng.cfg.num_layers, r["stats"]
+    check_launches("s", r["counts"], {
+        "flash_attention": n * st["prefills"],
+        "decode_attention": n * st["decode_steps"],
+        "decode_attention_int4": 0, "int4_matmul": 0}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != m for i, (_, m) in enumerate(reqs)):
+        raise RuntimeError(f"run s: bad tokens {outs}")
+    steps_ms = sorted(1e3 * x for x in r["steps"])
+    summary = {"run": "s", "plan": plan.summary(), "build_s": build_s,
+               "build_device_peak_gb":
+               torch.cuda.max_memory_allocated() / 2**30,
+               **st, "wall_s": r["wall"], "tok_s": st["tokens_out"] / r["wall"],
+               "step_ms_median": statistics.median(steps_ms),
+               "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+               "device_max_allocated_gb": r["device_max_allocated_gb"],
+               "launches": r["counts"]}
+    oplan = EngineSpec(arch="gemma3-4b", quant="int4",
+                       max_len=FAMILY_MAX_LEN).resolve()
+    oeng = create_engine(oplan)
+    ro = serve_once(torch, ops, oeng, reqs, 0)
+    oeng.shutdown()
+    del oeng
+    pairs = [(x, y) for i in outs for x, y in zip(outs[i], ro["outs"][i])]
+    agree = {"offloaded_plan": oplan.summary(),
+             "tokens_compared": len(pairs),
+             "tokens_equal": sum(x == y for x, y in pairs),
+             "requests_equal": sum(outs[i] == ro["outs"][i] for i in outs)}
+    first = next(((i, k) for i in sorted(outs) for k, (x, y) in
+                  enumerate(zip(outs[i], ro["outs"][i])) if x != y), None)
+    if first is not None:
+        i, k = first
+        prefix = list(reqs[i][0]) + outs[i][:k]
+        agree["first_divergence"] = {
+            "request": i, "step": k, "resident": outs[i][k],
+            "offloaded": ro["outs"][i][k],
+            "resident_logit_margin": logit_margin(torch, eng, prefix)}
+    summary["vs_offloaded"] = agree
+    log(json.dumps({"gemma3_resident": summary}))
+    eng.shutdown()
+    return r["counts"], summary
+
+
+def run_families(torch, ops, np, counts, summaries, release, stamp):
+    """Runs (q), (r) and (s), each engine released before the next."""
+    counts["q"], summaries["q"] = run_gemma3_offloaded(torch, ops, np)
+    release(None)
+    stamp("q")
+    counts["r"], summaries["r"] = run_qwen3_offloaded(torch, ops, np)
+    release(None)
+    stamp("r")
+    counts["s"], summaries["s"] = run_gemma3_resident(torch, ops, np)
+    release(None)
+    stamp("s")
 
 
 def run_moe(torch, ops, np, counts, summaries, release, stamp):
     """12. MoE: (o) Mixtral-8x7B serving, then (p) batch generation on
-    Mixtral cut to two layers."""
+    Mixtral cut to one layer."""
     counts["o"], summaries["o"] = run_moe_paper(torch, ops, np)
     release(None)
     stamp("o")
@@ -2398,7 +2777,7 @@ def run_moe(torch, ops, np, counts, summaries, release, stamp):
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:
-    """13. The kernels line (each kernel's launches in the run its timed
+    """14. The kernels line (each kernel's launches in the run its timed
     shape comes from, and per run), the card and the result line."""
     home = {"flash_attention": "b", "decode_attention": "b",
             "int4_matmul": "b", "decode_attention_int4": "e"}

@@ -145,12 +145,17 @@ def from_reference_resident(params, eng) -> None:
             old.copy_(torch.from_numpy(arr).to(old.dtype))
 
 
-def _int4_roundtrip(arr: np.ndarray) -> np.ndarray:
+def _int4_roundtrip(arr):
     """One tensor through the INT4 codec the offloaded engines stream
-    (``transfer.int4_group``); ineligible tensors come back unchanged."""
+    (``transfer.int4_group``); ineligible tensors come back unchanged.
+    A numpy array comes back as one; a tensor as a tensor on its device
+    (the codec is bit-identical on the card and the CPU)."""
     g = int4_group(arr)
     if g is None:
         return arr
+    if isinstance(arr, torch.Tensor):
+        packed, scale = quantize_int4(arr.to(torch.float32), g)
+        return dequantize_int4(packed, scale, torch.float32, g)
     packed, scale = quantize_int4(torch.from_numpy(
         np.asarray(arr, np.float32)), g)
     return dequantize_int4(packed, scale, torch.float32, g).numpy()
@@ -162,20 +167,23 @@ def quant_roundtrip_params(cfg: ModelConfig, params):
     expert's slices — leaving the embedding, final norm and routers
     (device-resident, never streamed) as they are.  A resident engine on
     the result is the reference the INT4 offloaded engine must match
-    token for token (numpy trees in and out)."""
+    token for token (numpy trees, or trees of tensors roundtripped on
+    their device, in and out)."""
     def do_tab(tab, spec, stacked):
         out = {}
         for name, leaf in tab.items():
-            arr = np.asarray(leaf)
+            arr = leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
             moe_stack = spec.ffn == MOE and name in ("w_gate", "w_up",
                                                      "w_down")
             if spec.ffn == MOE and name == "wg":
                 out[name] = arr
             elif moe_stack or stacked:
                 lead = arr.shape[:1 + (moe_stack and stacked)]
-                flat = arr.reshape((-1,) + arr.shape[len(lead):])
-                out[name] = np.stack([_int4_roundtrip(a) for a in flat]
-                                     ).reshape(arr.shape)
+                flat = arr.reshape((-1,) + tuple(arr.shape[len(lead):]))
+                stack = (torch.stack if isinstance(arr, torch.Tensor)
+                         else np.stack)
+                out[name] = stack([_int4_roundtrip(a) for a in flat]
+                                  ).reshape(arr.shape)
             else:
                 out[name] = _int4_roundtrip(arr)
         return out

@@ -33,6 +33,11 @@ target scores all ``k+1`` positions in one trip through the stack
 its rows, so the tokens equal non-speculative greedy decode.  Dense
 stacks only.  A plan's ``stages`` is not read here: batch generation
 runs one stage, as the JAX engine does.
+
+Like the JAX engine, the units read neither ``window`` nor ``qk_norm``:
+a Gemma 3 stack runs every layer as global attention over the
+``max_len`` cache, and a Qwen3 stack draws no ``q_norm``/``k_norm``
+(reference behaviour, ROADMAP Queue 3 item 9).
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
 from repro_torch.core import convert
 from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
@@ -184,10 +189,11 @@ class PipelinedLM(PhasedKVExtents):
             raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
         cfg = plan.model_config()
-        if any(s.mixer != ATTN for s in (*cfg.pattern, *cfg.remainder)):
+        if any(s.mixer not in (ATTN, ATTN_LOCAL)
+               for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port runs ATTN stacks; the other model families come "
-                "with later slices")
+                "the port runs ATTN and ATTN_LOCAL stacks; the MLA, SSM, "
+                "CROSS and ENC mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan
         self.cfg = cfg

@@ -63,7 +63,7 @@ __device__ __forceinline__ void load_vec(float (&x)[8], const uint16_t* p, int v
 }
 
 // grid (hkv, b, C), cluster (1, 1, C)
-template <int HPW, typename T>
+template <int HPW, int DPL, typename T>
 __global__ void __launch_bounds__(da::THREADS)
 decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ pos,
@@ -92,12 +92,12 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
         if (j < vec) dst[j] = x[j];
     }
   };
-  da::decode_block<HPW>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
+  da::decode_block<HPW, DPL>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
                         out + ((size_t)bi * h + (size_t)kh * g) * dh,
                         max(0, min(p + 1, S)), g, dh, scale, cpr, stage);
 }
 
-template <typename T>
+template <int DPL, typename T>
 cudaError_t launch(const float* q, const void* k, const void* v, const int* pos, float* out,
                    int b, int S, int h, int hkv, int dh, float scale, int n_ranks, int cpr,
                    int vec, int q_rs, int pos0, cudaStream_t s) {
@@ -107,12 +107,24 @@ cudaError_t launch(const float* q, const void* k, const void* v, const int* pos,
   const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
   const T* kc = static_cast<const T*>(k);
   const T* vc = static_cast<const T*>(v);
-#define DA_LAUNCH(H)                                                                      \
-  da::launch_cluster(decode_attention_kernel<H, T>, grid, smem, s, q, kc, vc, pos, out, S, h, \
-                     hkv, dh, scale, cpr, vec, q_rs, pos0)
+#define DA_LAUNCH(H)                                                                   \
+  da::launch_cluster(decode_attention_kernel<H, DPL, T>, grid, smem, s, q, kc, vc, pos, out, \
+                     S, h, hkv, dh, scale, cpr, vec, q_rs, pos0)
   return hpw <= 1 ? DA_LAUNCH(1) : hpw <= 2 ? DA_LAUNCH(2) : hpw <= 4 ? DA_LAUNCH(4)
                                                                       : DA_LAUNCH(8);
 #undef DA_LAUNCH
+}
+
+template <typename T>
+cudaError_t launch_dh(const float* q, const void* k, const void* v, const int* pos,
+                      float* out, int b, int S, int h, int hkv, int dh, float scale,
+                      int n_ranks, int cpr, int vec, int q_rs, int pos0, cudaStream_t s) {
+  if (dh > da::MAX_DH) return cudaErrorInvalidValue;
+  return da::dpl_for(dh) == 4
+             ? launch<4, T>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                            q_rs, pos0, s)
+             : launch<8, T>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                            q_rs, pos0, s);
 }
 
 }  // namespace
@@ -122,17 +134,17 @@ extern "C" {
 // n_ranks blocks per (row, kv head), each walking cpr chunks of 32
 // positions; vec = cache elements per load (f32: 4, 2, 1; bf16: 8, 4, 2,
 // 1); cache_bf16: 0 for f32 caches, 1 for bf16 caches (passed as raw 16
-// bits).
+// bits); dh at most 256.
 int decode_attention_launch(const float* q, const void* k, const void* v, const int* pos,
                             float* out, int b, int S, int h, int hkv, int dh, int cache_bf16,
                             float scale, int n_ranks, int cpr, int vec, int q_rs, int pos0,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cache_bf16)
-    return (int)launch<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
-                                 q_rs, pos0, st);
-  return (int)launch<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec, q_rs,
-                            pos0, st);
+    return (int)launch_dh<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr,
+                                    vec, q_rs, pos0, st);
+  return (int)launch_dh<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                               q_rs, pos0, st);
 }
 
 const char* kernel_error_string(int e) {

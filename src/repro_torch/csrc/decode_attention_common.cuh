@@ -11,7 +11,10 @@
 // probabilities kept in registers and broadcast by shuffle into the P.V
 // sums, where a lane owns output features.  Chunks past a row's last
 // position are never staged: such a rank keeps the empty partial (m =
-// -1e30, l = 0).  The ranks' partials (m, l, o) meet in distributed shared
+// -1e30, l = 0).  A lane owns DPL = dh / 32 output features (rounded up to
+// 4 or 8: dh <= 128 or dh <= 256, Gemma 3's head), a template parameter of
+// the kernels, so the accumulators stay in registers at either width.  The
+// ranks' partials (m, l, o) meet in distributed shared
 // memory and are combined in rank order with models/common.py's
 // merge_partials / finalize_partials arithmetic, inside the same launch:
 // deterministic, no scratch in device memory, no second kernel.
@@ -27,7 +30,10 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
 constexpr int CH = 32;                   // positions per chunk (one per lane)
-constexpr int DPL = 4;                   // output features per lane: dh <= 128
+constexpr int MAX_DH = 256;              // 8 output features per lane
+
+// output features per lane for head_dim dh (the kernels' DPL): 4 or 8
+inline int dpl_for(int dh) { return dh <= 128 ? 4 : 8; }
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -61,8 +67,8 @@ inline size_t smem_bytes(int g, int dh) {
 // positions (each staged by stage(sm, t0, nt), which writes K row t of the
 // chunk to sm.ks + t * (dh + 1) and V row t to sm.vs + t * dh for t < nt),
 // then the cluster's combine into ob (g x dh).  Warp w serves query heads
-// w, w + 4, ... (HPW of them).
-template <int HPW, typename Stage>
+// w, w + 4, ... (HPW of them); a lane owns features lane + 32 dd, dd < DPL.
+template <int HPW, int DPL, typename Stage>
 __device__ __forceinline__ void decode_block(float* smem, const float* qb, float* ob,
                                              int n_total, int g, int dh, float scale, int cpr,
                                              Stage&& stage) {

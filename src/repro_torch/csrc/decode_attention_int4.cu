@@ -66,7 +66,7 @@ __device__ __forceinline__ void load_seg(uint32_t (&wd)[4], const uint8_t* p, in
 }
 
 // grid (hkv, b, C), cluster (1, 1, C)
-template <int HPW>
+template <int HPW, int DPL>
 __global__ void __launch_bounds__(da::THREADS)
 decode_attention_int4_kernel(const float* __restrict__ q,
                              const uint8_t* __restrict__ kq,
@@ -123,7 +123,7 @@ decode_attention_int4_kernel(const float* __restrict__ q,
       }
     }
   };
-  da::decode_block<HPW>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
+  da::decode_block<HPW, DPL>(smem, q + (size_t)bi * q_rs + (size_t)kh * g * dh,
                         out + ((size_t)bi * h + (size_t)kh * g) * dh,
                         n_hist + (has_new ? 1 : 0), g, dh, scale, cpr, stage);
 }
@@ -133,7 +133,8 @@ decode_attention_int4_kernel(const float* __restrict__ q,
 extern "C" {
 
 // n_ranks blocks per (row, kv head), each walking cpr chunks of 32
-// positions; seg = packed bytes per load (16, 8, 4, 2 or 1).
+// positions; seg = packed bytes per load (16, 8, 4, 2 or 1); dh at most
+// 256.
 int decode_attention_int4_launch(const float* q, const uint8_t* kq,
                                  const float* ks, const uint8_t* vq,
                                  const float* vs, const int* pos,
@@ -148,12 +149,18 @@ int decode_attention_int4_launch(const float* q, const uint8_t* kq,
   const size_t smem = da::smem_bytes(g, dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
-#define DA4_LAUNCH(H)                                                                      \
-  da::launch_cluster(decode_attention_int4_kernel<H>, grid, smem, s, q, kq, ks, vq, vs, pos, \
-                     k_new, v_new, out, S, h, hkv, dh, lg_group, has_new, bf16, scale, cpr,  \
+  if (dh > da::MAX_DH) return (int)cudaErrorInvalidValue;
+#define DA4_LAUNCH(H, D)                                                                      \
+  da::launch_cluster(decode_attention_int4_kernel<H, D>, grid, smem, s, q, kq, ks, vq, vs, pos, \
+                     k_new, v_new, out, S, h, hkv, dh, lg_group, has_new, bf16, scale, cpr,     \
                      seg, q_rs, kn_rs, vn_rs, pos0)
-  cudaError_t e = hpw <= 1 ? DA4_LAUNCH(1) : hpw <= 2 ? DA4_LAUNCH(2)
-                  : hpw <= 4 ? DA4_LAUNCH(4) : DA4_LAUNCH(8);
+  cudaError_t e;
+  if (da::dpl_for(dh) == 4)
+    e = hpw <= 1 ? DA4_LAUNCH(1, 4) : hpw <= 2 ? DA4_LAUNCH(2, 4)
+        : hpw <= 4 ? DA4_LAUNCH(4, 4) : DA4_LAUNCH(8, 4);
+  else
+    e = hpw <= 1 ? DA4_LAUNCH(1, 8) : hpw <= 2 ? DA4_LAUNCH(2, 8)
+        : hpw <= 4 ? DA4_LAUNCH(4, 8) : DA4_LAUNCH(8, 8);
 #undef DA4_LAUNCH
   return (int)e;
 }

@@ -30,7 +30,11 @@
 // are padded (K by 8 floats, V by 4) so that the fragment loads hit 32
 // distinct banks.  Q's hi/lo fragments stay
 // in registers for the whole key loop (dh <= 64; at dh = 128 Q stays f32 and
-// splits at use).  The online softmax runs in registers: each thread holds
+// splits at use).  At dh = 256 (Gemma 3) the O accumulator alone takes 128
+// registers a thread, so Q moves to shared memory (each warp its own 16
+// rows, padded like K, read as float2 and split at use) and the ring drops
+// to 2 stages: 2 x 32 x (2 x 256 + 12) x 4 B = 134 KB plus 16.9 KB of Q per
+// warp, one block per SM.  The online softmax runs in registers: each thread holds
 // two rows' (m, l), row maxima come from quad shuffles, l is summed across
 // the quad once at the end.  P needs no trip through shared memory: the
 // k index of an m16n8k8 step is a free permutation of the 8 keys it sums
@@ -46,7 +50,7 @@ namespace {
 
 constexpr int ROWS = 16;                 // query rows per warp (the mma's M)
 constexpr int BK = 32;                   // keys per tile
-constexpr int STAGES = 3;                // cp.async ring depth
+constexpr int STAGES = 3;                // cp.async ring depth (2 at DH = 256)
 constexpr int MAX_WARPS = 4;
 constexpr float NEG_INF = -1e30f;
 
@@ -94,7 +98,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// DH: dh rounded up to 16, 32, 64 or 128 (features past dh read as 0).
+// the ring's depth and whether Q lives in shared memory, by DH
+template <int DH>
+__host__ __device__ constexpr int stages() { return DH > 128 ? 2 : STAGES; }
+template <int DH>
+__host__ __device__ constexpr bool q_in_smem() { return DH > 128; }
+
+// shared memory of one block of `warps` warps, in bytes
+template <int DH>
+constexpr size_t smem_bytes(int warps) {
+  return sizeof(float) * ((size_t)stages<DH>() * BK * (2 * DH + 12) +
+                          (q_in_smem<DH>() ? (size_t)warps * ROWS * (DH + 8) : 0));
+}
+
+// DH: dh rounded up to 16, 32, 64, 128 or 256 (features past dh read as 0).
 // grid (n_groups * ceil(sq / 16), hkv, b), blockDim 32 * W, W * n_groups = g.
 template <int DH>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
@@ -108,6 +125,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NKS = DH / 8;            // k-steps of Q.K; n-tiles of P.V
   constexpr int NT = BK / 8;             // n-tiles of Q.K; k-steps of P.V
   constexpr bool PRESPLIT = DH <= 64;    // Q's lo terms kept in registers
+  constexpr int NST = stages<DH>();
+  constexpr bool QSM = q_in_smem<DH>();  // Q in shared memory, split at use
+  constexpr int QS = DH + 8;             // its row stride (as K's)
   const int W = blockDim.x >> 5;
   const int g = h / hkv;
   const int n_qt = (sq + ROWS - 1) / ROWS;
@@ -151,15 +171,26 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // the first tiles' copies fly while Q loads
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
+  for (int st = 0; st < NST - 1; ++st) {
     if (st < n_tiles) load_tile(st, st);
     cp_async_commit();
   }
   // Q fragments of rows gid and gid + 8, features 8 ks + 2 tig and + 1:
   // a0 (gid, d), a1 (gid + 8, d), a2 (gid, d + 1), a3 (gid + 8, d + 1)
-  uint32_t qa[NKS][4];                   // hi terms (or f32 values at DH = 128)
+  uint32_t qa[QSM ? 1 : NKS][4];         // hi terms (or f32 values at DH = 128)
   uint32_t qb[PRESPLIT ? NKS : 1][4];    // lo terms
-  {
+  float* qsm = smem + NST * STAGE + warp * ROWS * QS;   // this warp's Q (QSM)
+  if constexpr (QSM) {
+    // rows past nrows and features past dh as zeros; read by this warp only
+    const float* qp = q + ((size_t)bi * sq + row0) * q_row + (size_t)head * dh;
+    for (int i = lane; i < ROWS * (DH / 4); i += 32) {
+      const int r = i / (DH / 4), c = (i - r * (DH / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nrows && c < dh) x = *reinterpret_cast<const float4*>(qp + r * q_row + c);
+      *reinterpret_cast<float4*>(qsm + r * QS + c) = x;
+    }
+    __syncwarp();
+  } else {
     const float* qp = q + ((size_t)bi * sq + row0) * q_row + (size_t)head * dh;
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
@@ -183,11 +214,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<NST - 2>();
     __syncthreads();                     // tile t landed; tile t - 1's buffer free
-    if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    if (t + NST - 1 < n_tiles) load_tile(t + NST - 1, (t + NST - 1) % NST);
     cp_async_commit();
-    const float* ks_ = smem + (t % STAGES) * STAGE;
+    const float* ks_ = smem + (t % NST) * STAGE;
     const float* vs_ = ks_ + BK * KS;
     const int t0 = (t_first + t) * BK;
 
@@ -198,13 +229,23 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
       uint32_t ah[4], al[4];
+      if constexpr (QSM) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qsm + gid * QS + ks * 8 + 2 * tig);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(qsm + (gid + 8) * QS + ks * 8 + 2 * tig);
+        split(x0.x, ah[0], al[0]);
+        split(x1.x, ah[1], al[1]);
+        split(x0.y, ah[2], al[2]);
+        split(x1.y, ah[3], al[3]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (PRESPLIT) {
-          ah[j] = qa[ks][j];
-          al[j] = qb[ks][j];
-        } else {
-          split(__uint_as_float(qa[ks][j]), ah[j], al[j]);
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (PRESPLIT) {
+            ah[j] = qa[ks][j];
+            al[j] = qb[ks][j];
+          } else {
+            split(__uint_as_float(qa[ks][j]), ah[j], al[j]);
+          }
         }
       }
 #pragma unroll
@@ -295,7 +336,7 @@ template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out, int b, int sq,
                    int sk, int h, int hkv, int dh, int causal, int window, int q_offset,
                    float scale, int warps, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * STAGES * BK * (2 * DH + 12);
+  const size_t smem = smem_bytes<DH>(warps);
   auto kernel = flash_attention_kernel<DH>;
   if (smem > 48 * 1024) {
     cudaError_t e =
@@ -314,11 +355,11 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, i
 extern "C" {
 
 // warps: heads of one kv group per block (1, 2 or 4, dividing h / hkv);
-// dh a multiple of 4, at most 128; 16-byte aligned q, k, v and out.
+// dh a multiple of 4, at most 256; 16-byte aligned q, k, v and out.
 int flash_attention_launch(const float* q, const float* k, const float* v, float* out, int b,
                            int sq, int sk, int h, int hkv, int dh, int causal, int window,
                            int q_offset, float scale, int warps, void* stream) {
-  if (dh % 4 || dh > 128 || warps < 1 || warps > MAX_WARPS || (h / hkv) % warps)
+  if (dh % 4 || dh > 256 || warps < 1 || warps > MAX_WARPS || (h / hkv) % warps)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(D) \
@@ -326,7 +367,8 @@ int flash_attention_launch(const float* q, const float* k, const float* v, float
   const cudaError_t e = dh <= 16   ? FA_LAUNCH(16)
                         : dh <= 32 ? FA_LAUNCH(32)
                         : dh <= 64 ? FA_LAUNCH(64)
-                                   : FA_LAUNCH(128);
+                        : dh <= 128 ? FA_LAUNCH(128)
+                                    : FA_LAUNCH(256);
 #undef FA_LAUNCH
   return (int)e;
 }

@@ -28,6 +28,7 @@ from repro_torch.kernels.ref import decode_attention_ref
 NAME = "decode_attention"
 CHUNK = 32                       # positions per chunk (the kernels' CH)
 MAX_CLUSTER = 8                  # blocks per (row, kv head)
+MAX_DH = 256                     # 8 output features per lane (the kernels')
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
          + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -87,9 +88,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)} {tuple(v_cache.shape)}")
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, pos)
-    if h // hkv > 32 or dh > 128:
+    if h // hkv > 32 or dh > MAX_DH:
         raise ValueError(f"decode_attention: needs h // hkv <= 32 and dh <= "
-                         f"128, got {h // hkv}, {dh}")
+                         f"{MAX_DH}, got {h // hkv}, {dh}")
     pos_t, pos0 = pos_args(pos, b, q.device)
     _build.require_cuda(NAME, k_cache, v_cache,
                         *(() if pos_t is None else (pos_t,)))

@@ -22,8 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (chunk_plan, pos_args,
-                                                  row_stride)
+from repro_torch.kernels.decode_attention import (MAX_DH, chunk_plan,
+                                                  pos_args, row_stride)
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
@@ -72,10 +72,10 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         return plain(q, k_packed, k_scale, v_packed, v_scale, pos, hkv=hkv,
                      group=group, k_new=k_new, v_new=v_new,
                      cache_dtype=cache_dtype)
-    if h // hkv > 32 or dh > 128 or group & (group - 1):
+    if h // hkv > 32 or dh > MAX_DH or group & (group - 1):
         raise ValueError(f"decode_attention_int4: needs h // hkv <= 32, dh "
-                         f"<= 128 and a power-of-two group, got {h // hkv}, "
-                         f"{dh}, {group}")
+                         f"<= {MAX_DH} and a power-of-two group, got "
+                         f"{h // hkv}, {dh}, {group}")
     pos_t, pos0 = pos_args(pos, b, q.device)
     has_new = k_new is not None
     if has_new:

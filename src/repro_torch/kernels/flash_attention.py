@@ -19,6 +19,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 NAME = "flash_attention"
 ROWS = 16                        # query rows per warp (the kernel's ROWS)
+MAX_DH = 256                     # the widest head the kernel takes (Gemma 3)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -50,9 +51,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      q_offset=q_offset)
-    if dh > 128 or dh % 4:
-        raise ValueError(f"flash_attention: needs head_dim <= 128 and a "
-                         f"multiple of 4, got {dh}")
+    if dh > MAX_DH or dh % 4:
+        raise ValueError(f"flash_attention: needs head_dim <= {MAX_DH} and "
+                         f"a multiple of 4, got {dh}")
     _build.require_cuda(NAME, q, k, v)
     if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
         raise ValueError("flash_attention: needs f32 q, k, v")

@@ -13,7 +13,9 @@ reference, which writes it into its dequantized cache.
 packed rows) is the speculative verify pass: ``s`` fresh rows per
 sequence, each query attended as its own ragged decode step.
 ``chunk_prefill_attention`` is a prefill chunk's attention over the
-engine-held prefix (``flash_attention`` with ``q_offset``).  Layout
+engine-held prefix (``flash_attention`` with ``q_offset``).
+``local_decode_attention`` is a sliding-window layer's decode step over
+its rolling buffer, through the same ``decode_attention`` kernel.  Layout
 BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
 """
 from __future__ import annotations
@@ -26,7 +28,8 @@ from repro_torch.kernels.ref import attn_partials, ref_attention
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
            "decode_attention_packed", "spec_decode_attention",
-           "spec_decode_attention_packed", "chunk_prefill_attention"]
+           "spec_decode_attention_packed", "chunk_prefill_attention",
+           "local_decode_attention"]
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
@@ -129,3 +132,38 @@ def chunk_prefill_attention(q, k, v, *, q_offset: int):
     exactly the columns a monolithic prefill leaves unmasked for it.
     q (b, sq, h, dh), k/v (b, sk, hkv, dh) -> (b, sq, h, dh)."""
     return ops.flash_attention_op(q, k, v, causal=True, q_offset=q_offset)
+
+
+def local_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, window):
+    """Rolling-buffer decode for a sliding-window layer (the JAX
+    package's ``local_decode_attention``): caches (b, W, hkv, dh), slot j
+    holding position ``p_j = pos - ((pos - j) mod W)``; ``pos`` an int or
+    a ragged (b,) tensor.  The step's row is written at slot ``pos % W``
+    (in place), then each row attends the slots with ``p_j >= 0``.
+    Returns (out (b, 1, h, dh), k_cache, v_cache).  ``window`` is W, the
+    buffer's length (as in the reference, the buffer's shape decides).
+
+    The valid slots are exactly ``j <= min(pos, W - 1)``: for ``pos >= W
+    - 1`` every slot holds one of the last W positions, and for ``pos <
+    W`` slot j > pos would hold ``pos - j + W > pos``, a position not yet
+    written.  So ``decode_attention`` over the buffer, each row's
+    position clamped to W - 1, computes the same function: the same
+    scores over the same masked slots.  On the card that is one launch
+    of the ``decode_attention`` kernel; only the order of the sums
+    differs from the reference's (its plain version is the reference's
+    arithmetic)."""
+    del window
+    b, W = k_cache.shape[:2]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        p = pos.to(device=k_cache.device)
+        rows = torch.arange(b, device=k_cache.device)
+        slot = (p % W).long()
+        k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+        clamped = torch.clamp(p, max=W - 1)
+    else:
+        k_cache[:, int(pos) % W] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, int(pos) % W] = v_new[:, 0].to(v_cache.dtype)
+        clamped = min(int(pos), W - 1)
+    out = ops.decode_attention_op(q[:, 0], k_cache, v_cache, clamped)
+    return out[:, None], k_cache, v_cache

@@ -1,12 +1,16 @@
-"""Layer parameter tables and apply functions for ``ATTN`` layers with
-a ``DENSE`` or ``MOE`` feed-forward.
+"""Layer parameter tables and apply functions for ``ATTN`` and
+``ATTN_LOCAL`` layers with a ``DENSE`` or ``MOE`` feed-forward.
 
 The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
 ``models.transformer.init_params``, and the layer math the serving
 engines run (the offloaded one per unit, the resident one over the whole
 stack).  Sharding (``Dist``) and the other mixers come with later
-slices.  An MoE layer's routed experts run in ``models.moe``; with
+slices.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
+rope; an ``ATTN_LOCAL`` layer (Gemma 3) attends a sliding window of
+``cfg.window`` positions and keeps a rolling ``(b, W, hkv, dh)`` buffer
+as its decode cache.  An MoE layer's routed experts run in
+``models.moe``; with
 ``moe_quant="int4"`` their stacks arrive packed (``w_gate#q``/``#s``)
 and go to ``int4_matmul`` expert by expert.
 
@@ -25,14 +29,15 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, DENSE, MOE, LayerSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MOE,
+                                      LayerSpec, ModelConfig)
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (chunk_prefill_attention,
                                           decode_attention,
                                           decode_attention_packed,
+                                          local_decode_attention,
                                           spec_decode_attention,
                                           spec_decode_attention_packed)
 from repro_torch.models.common import NEG_INF, rms_norm, silu
@@ -46,13 +51,13 @@ class ParamDef(NamedTuple):
 
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
-    if spec.mixer != ATTN or spec.ffn not in (DENSE, MOE) or cfg.qk_norm \
+    if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn not in (DENSE, MOE) \
             or cfg.quant_weights:
         raise NotImplementedError(
-            f"the port runs ATTN layers with a DENSE or MOE feed-forward, "
-            f"without qk_norm or resident INT4 tables, got {spec} "
-            f"({cfg.name}); the other mixers and quant_weights come with "
-            f"later slices")
+            f"the port runs ATTN and ATTN_LOCAL layers with a DENSE or MOE "
+            f"feed-forward, got {spec} ({cfg.name}, quant_weights="
+            f"{cfg.quant_weights}); the MLA, SSM, CROSS and ENC mixers and "
+            f"resident INT4 tables (quant_weights) come with later slices")
 
 
 # ===========================================================================
@@ -62,12 +67,16 @@ def _dense_only(cfg: ModelConfig, spec: LayerSpec):
 
 def attn_table(cfg: ModelConfig) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    t = {
         "wq": ParamDef((d, h * dh), ("embed", "heads_ff")),
         "wk": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
         "wv": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
         "wo": ParamDef((h * dh, d), ("heads_ff", "embed")),
     }
+    if cfg.qk_norm:
+        t["q_norm"] = ParamDef((dh,), (None,), 0.0)
+        t["k_norm"] = ParamDef((dh,), (None,), 0.0)
+    return t
 
 
 def ffn_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -161,11 +170,20 @@ def _mm(x: torch.Tensor, p, name: str) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-def _qkv(p, xn, cfg: ModelConfig):
+def _qkv(p, xn, ctx: Ctx):
+    """The projections, per-head RMSNorm of q and k under ``qk_norm``,
+    then rope (the reference's order)."""
+    cfg = ctx.cfg
     b, s, _ = xn.shape
     q = _mm(xn, p, "wq").reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = _mm(xn, p, "wk").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = _mm(xn, p, "wv").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if ctx.angles is not None:
+        q = apply_rope(q, ctx.angles)
+        k = apply_rope(k, ctx.angles)
     return q, k, v
 
 
@@ -173,25 +191,27 @@ def apply_attention(p, x, ctx: Ctx, cache, spec: LayerSpec):
     """Returns (x', new_cache).  Prefill: ``new_cache`` is the prompt's
     rows (``_build_cache``).  Decode: ``new_cache`` is the step's fresh
     rows at the cache's compute dtype, the rows the reference gathers
-    back out of its updated cache for the save."""
+    back out of its updated cache for the save; for an ``ATTN_LOCAL``
+    layer the whole updated rolling buffer, which the reference saves
+    whole."""
     cfg = ctx.cfg
     b, s, d = x.shape
+    window = cfg.window if spec.mixer == ATTN_LOCAL else 0
     xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
-    q, k, v = _qkv(p, xn, cfg)
-    if ctx.angles is not None:
-        q = apply_rope(q, ctx.angles)
-        k = apply_rope(k, ctx.angles)
+    q, k, v = _qkv(p, xn, ctx)
     if ctx.mode == "decode":
-        out, new_cache = _decode_attn(q, k, v, ctx, cache)
+        out, new_cache = _decode_attn(q, k, v, ctx, cache, window)
     else:
-        out = flash_attention_op(q, k, v, causal=True)
-        new_cache = _build_cache(k, v, ctx) if ctx.mode == "prefill" else None
+        out = flash_attention_op(q, k, v, causal=True, window=window)
+        new_cache = (_build_cache(k, v, ctx, window)
+                     if ctx.mode == "prefill" else None)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + _mm(out, p, "wo"), new_cache
 
 
 def apply_layer_chunk(p, x, ctx: Ctx, prefix_k, prefix_v, q_offset: int):
-    """One ATTN+DENSE layer applied to a prefill CHUNK.
+    """One ATTN+DENSE layer applied to a prefill CHUNK (``qk_norm`` as in
+    ``apply_attention``).
 
     ``x`` holds the chunk's rows (global positions ``q_offset ..``);
     ``prefix_k``/``prefix_v`` are the engine-held K/V of the earlier
@@ -204,10 +224,7 @@ def apply_layer_chunk(p, x, ctx: Ctx, prefix_k, prefix_v, q_offset: int):
     _dense_only(cfg, LayerSpec(ATTN, DENSE))
     b, s, d = x.shape
     xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
-    q, k, v = _qkv(p, xn, cfg)
-    if ctx.angles is not None:
-        q = apply_rope(q, ctx.angles)
-        k = apply_rope(k, ctx.angles)
+    q, k, v = _qkv(p, xn, ctx)
     kk = k if prefix_k is None else torch.cat([prefix_k, k], dim=1)
     vv = v if prefix_v is None else torch.cat([prefix_v, v], dim=1)
     out = chunk_prefill_attention(q, kk, vv, q_offset=q_offset)
@@ -216,21 +233,41 @@ def apply_layer_chunk(p, x, ctx: Ctx, prefix_k, prefix_v, q_offset: int):
     return apply_dense_ffn(p, x, ctx), k, v
 
 
-def _build_cache(k, v, ctx: Ctx):
+def _build_cache(k, v, ctx: Ctx, window: int = 0):
     """Prefill: the prompt's fresh K/V rows (b, s, hkv, dh) at compute
     precision.  The reference lays them into a zeroed ``max_len`` slab;
     the port ships only the prompt's rows and the KV store zero-fills the
-    rest of the slot on the host (``TieredKVStore.save_prefill``)."""
-    return {"k": k, "v": v}
+    rest of the slot on the host (``TieredKVStore.save_prefill``).
+
+    With a ``window`` W the rows become the rolling buffer (b, W, hkv,
+    dh), as the reference builds it: a prompt shorter than W is
+    zero-padded to W rows; a longer one keeps, in slot j, the latest
+    position p < s with p % W == j, i.e. ``p_j = s - W + ((j - s % W) %
+    W)``."""
+    if not window:
+        return {"k": k, "v": v}
+    s, W = k.shape[1], window
+    if s < W:
+        pad = (0, 0, 0, 0, 0, W - s)
+        return {"k": torch.nn.functional.pad(k, pad),
+                "v": torch.nn.functional.pad(v, pad)}
+    p_idx = s - W + (torch.arange(W, device=k.device) - s % W) % W
+    return {"k": k[:, p_idx], "v": v[:, p_idx]}
 
 
-def _decode_attn(q, k_new, v_new, ctx: Ctx, cache):
+def _decode_attn(q, k_new, v_new, ctx: Ctx, cache, window: int = 0):
     """One decode step at ``ctx.pos`` (int or ragged (b,)) over the
     loaded cache: a plain slab (the step's row written in at the slab's
     dtype) or packed rows (the row attended beside them).  ``s > 1``
     rows per sequence are a speculative verify pass from ``ctx.pos``.
-    Returns (out, the fresh rows at the cache's compute dtype)."""
+    With a ``window`` the cache is the layer's rolling buffer
+    (``local_decode_attention``), returned whole.  Returns (out, the
+    fresh rows at the cache's compute dtype)."""
     kc, vc = cache["k"], cache["v"]
+    if window:
+        out, kc, vc = local_decode_attention(q, kc, vc, k_new, v_new,
+                                             ctx.pos, window)
+        return out, {"k": kc, "v": vc}
     spec = q.shape[1] > 1
     if isinstance(kc, PackedRows):
         fn = spec_decode_attention_packed if spec else decode_attention_packed

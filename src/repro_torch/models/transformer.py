@@ -1,4 +1,5 @@
-"""Model assembly for ``ATTN`` stacks with dense or MoE feed-forwards:
+"""Model assembly for ``ATTN``/``ATTN_LOCAL`` stacks with dense or MoE
+feed-forwards:
 parameter tables, an own parameter init, cache shapes and rope angles,
 and the whole-model forward passes (``init_cache``, ``_run_stack``,
 ``prefill``, ``decode_step``) — a subset of the JAX package's
@@ -23,7 +24,9 @@ the reference's weights across instead (``core.convert``).
 The forward passes keep the JAX package's layout (``pat`` tables and
 caches stacked over periods, ``rem`` unstacked) and loop over layers in
 Python where the JAX package scans.  Decode updates the caches in place
-(the JAX package returns new ones).
+(the JAX package returns new ones).  A sliding-window layer's cache is
+its rolling ``(b, W, hkv, dh)`` buffer (kind ``"rep"``), beside the
+global layers' ``max_len`` slabs (kind ``"kv"``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, LayerSpec, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.rope import rope_angles
 
@@ -186,14 +189,21 @@ def to_device(tree, device):
 
 
 def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
-    """dict name -> (shape, dtype, kind) for one layer's decode cache."""
-    if spec.mixer != ATTN:
-        raise NotImplementedError(f"the {spec.mixer} cache comes with a "
-                                  f"later slice of the port")
+    """dict name -> (shape, dtype, kind) for one layer's decode cache:
+    a ``max_len`` slab (kind ``"kv"``) for global attention, the rolling
+    buffer of ``cfg.window`` rows (kind ``"rep"``) for a sliding-window
+    layer."""
     dh, hkv = cfg.head_dim, cfg.num_kv_heads
     bf = torch.bfloat16
-    return {"k": ((b, L_, hkv, dh), bf, "kv"),
-            "v": ((b, L_, hkv, dh), bf, "kv")}
+    if spec.mixer == ATTN:
+        return {"k": ((b, L_, hkv, dh), bf, "kv"),
+                "v": ((b, L_, hkv, dh), bf, "kv")}
+    if spec.mixer == ATTN_LOCAL:
+        W = cfg.window
+        return {"k": ((b, W, hkv, dh), bf, "rep"),
+                "v": ((b, W, hkv, dh), bf, "rep")}
+    raise NotImplementedError(f"the {spec.mixer} cache comes with a later "
+                              f"slice of the port (MLA, SSM, CROSS)")
 
 
 def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
@@ -263,24 +273,29 @@ def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Process the prompt ``batch["tokens"]`` (b, s); returns
-    (next_token (b,), caches): every layer's rows laid into a zeroed
-    ``cache_len`` slab at compute precision."""
+    (next_token (b,), caches): every global layer's rows laid into a
+    zeroed ``cache_len`` slab, every sliding-window layer's rolling
+    buffer as it is, at compute precision."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     ctx = L.Ctx(cfg=cfg, mode="prefill",
                 angles=_angles(cfg, torch.arange(s, device=tokens.device)))
     x = L.embed_tokens(params["embed"], tokens)
     x, rows = _run_stack(params, x, ctx, None, cfg)
+    _, kinds = cache_struct(cfg, b, cache_len)
 
-    def slab(r):                     # (..., b, s, hkv, dh) -> cache_len
+    def slab(r, kind):               # (..., b, s, hkv, dh) -> cache_len
+        if kind != "kv":
+            return r
         out = r.new_zeros(r.shape[:-3] + (cache_len,) + r.shape[-2:])
         out[..., :s, :, :] = r
         return out
     caches = {
-        "pat": tuple({n: slab(torch.stack([c[n] for c in per]))
-                      for n in per[0]} for per in rows["pat"]),
-        "rem": tuple({n: slab(r) for n, r in t.items()}
-                     for t in rows["rem"])}
+        "pat": tuple({n: slab(torch.stack([c[n] for c in per]), kd[n])
+                      for n in per[0]}
+                     for per, kd in zip(rows["pat"], kinds["pat"])),
+        "rem": tuple({n: slab(r, kd[n]) for n, r in t.items()}
+                     for t, kd in zip(rows["rem"], kinds["rem"]))}
     return _head(params, x, cfg), caches
 
 

@@ -45,9 +45,13 @@ experts are submitted as WEIGHT_LOAD tasks, while the shared expert
 computes.  The combine is compact (``models.moe.moe_ffn_union`` over the
 union, ids remapped in order); packed experts go to ``int4_matmul``.
 
-The ``ATTN``-mixer subset of the JAX package's
-``serving/offload_engine.py``: the other mixers raise
-``NotImplementedError`` naming a later slice.
+Sliding-window layers (Gemma 3's ``ATTN_LOCAL``) keep a rolling buffer of
+``window`` rows per slot (cache kind ``"rep"``): each decode step loads
+the live slots' whole buffers and saves them whole, as the reference's
+``decode_fn`` does, and under ``kv_mode="int4"`` only the global layers'
+rows are packed.  The ``ATTN``/``ATTN_LOCAL`` subset of the JAX
+package's ``serving/offload_engine.py``: the MLA, SSM and CROSS mixers
+raise ``NotImplementedError`` naming a later slice.
 ``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
@@ -70,7 +74,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MOE, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MOE, LayerSpec,
+                                      ModelConfig)
 from repro_torch.core.draft import accepted_tokens
 from repro_torch.core.kvstore import TieredKVStore
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
@@ -238,10 +243,11 @@ class OffloadedServingEngine(SlotEngineBase):
                 f"offloaded serving supports token-frontend rope decoder "
                 f"stacks only (failing capability: {cap or plan.engine}; "
                 f"arch {plan.arch})")
-        if any(s.mixer != ATTN for s in (*cfg.pattern, *cfg.remainder)):
+        if any(s.mixer not in (ATTN, ATTN_LOCAL)
+               for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port serves ATTN stacks; the other mixers come with "
-                "later slices")
+                "the port serves ATTN and ATTN_LOCAL stacks; the MLA, SSM "
+                "and CROSS mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan
         self.preload_policy = preload_policy_for(plan, cfg)

@@ -667,3 +667,138 @@ def test_quantize_int4_on_card_bit_equal_to_cpu(dev, K, N, group):
     qh, sh = quantize_int4(w.cpu(), group)
     assert torch.equal(sc.cpu(), sh)
     assert torch.equal(qc.cpu(), qh)
+
+
+# ---------------------------------------------------------------------------
+# Gemma 3 (head_dim 256, sliding window) and Qwen3 shapes on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,sq,h,hkv,window,q_offset", [
+    (1, 1500, 8, 4, 1024, 0), (1, 1016, 8, 4, 1024, 0),
+    (1, 114, 8, 4, 0, 0), (2, 33, 8, 4, 0, 0), (2, 33, 16, 4, 1024, 0),
+    (1, 40, 8, 4, 1024, 1100), (1, 70, 8, 4, 64, 0)])
+def test_flash_attention_dh256(dev, b, sq, h, hkv, window, q_offset):
+    """head_dim 256 (Q in shared memory, a 2-stage ring): Gemma 3's
+    prefills (8/4 heads, window 1024 binding at 1500 rows), a group of 4
+    (four warps a block, the largest shared memory), a chunk past the
+    window with ``q_offset``; against the plain version (atol 2e-5), two
+    calls bit-equal."""
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    rng = np.random.default_rng(sq + h + window)
+    sk = q_offset + sq
+    q = _t(rng, dev, b, sq, h, 256)
+    k, v = _t(rng, dev, b, sk, hkv, 256), _t(rng, dev, b, sk, hkv, 256)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    torch.testing.assert_close(out, plain(q, k, v, **kw), rtol=0, atol=2e-5)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("S,pos,cdt", [
+    (1024, [1023, 1023, 299, 113], torch.bfloat16),
+    (2048, [1499, 1023, 299, 113], torch.bfloat16),
+    (2048, [2047, 0, 700, 1024], torch.float32)])
+def test_decode_attention_dh256(dev, S, pos, cdt):
+    """head_dim 256 (8 features a lane), group 2: Gemma 3's rolling
+    buffer (S = 1024, clamped positions) and global slab; atol 2e-5 at
+    f32, 2e-2 over bf16 caches."""
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    rng = np.random.default_rng(S + sum(pos))
+    q = _t(rng, dev, 4, 8, 256)
+    kc, vc = (_t(rng, dev, 4, S, 4, 256).to(cdt) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = decode_attention(q, kc, vc, p)
+    torch.testing.assert_close(out, plain(q, kc, vc, p), rtol=0,
+                               atol=2e-5 if cdt == torch.float32 else 2e-2)
+    assert torch.equal(out, decode_attention(q, kc, vc, p))
+
+
+def _rolling_plain(q, kc, vc, pos, W):
+    """The reference's rolling-buffer attention, unclamped: slot j holds
+    position ``pos - ((pos - j) mod W)`` and is attended when that is
+    >= 0 (the JAX package's ``local_decode_attention`` mask)."""
+    from repro_torch.kernels.ref import attn_partials
+    from repro_torch.models.common import finalize_partials
+    j = torch.arange(W, device=q.device)
+    p = pos.long()[:, None]
+    valid = ((p - (p - j[None]) % W) >= 0)[:, None, :]
+    m, l, o = attn_partials(q, kc, vc, valid)
+    return finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
+
+
+def test_local_decode_attention_on_card(dev):
+    """Gemma 3's rolling-buffer decode step (b 4, W 1024, dh 256, bf16)
+    at positions past, at and below the window: one ``decode_attention``
+    launch at the clamped positions, against the reference's mask over
+    the unclamped slots (atol 2e-2 over bf16)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import local_decode_attention
+    rng = np.random.default_rng(0)
+    W, pos = 1024, [1499, 1023, 299, 113]
+    q = _t(rng, dev, 4, 1, 8, 256)
+    kc, vc = (_t(rng, dev, 4, W, 4, 256).to(torch.bfloat16)
+              for _ in range(2))
+    kn, vn = _t(rng, dev, 4, 1, 4, 256), _t(rng, dev, 4, 1, 4, 256)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    ops.reset_launches()
+    out, k2, v2 = local_decode_attention(q, kc.clone(), vc.clone(), kn, vn,
+                                         p, W)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == 1
+    want = _rolling_plain(q, k2, v2, p, W)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-2)
+    rows = torch.arange(4, device=dev)
+    assert torch.equal(k2[rows, p.long() % W], kn[:, 0].bfloat16())
+
+
+@pytest.mark.parametrize("S,pos,fresh,cdt", [
+    (2048, [1499, 1015, 299, 113], True, torch.bfloat16),
+    (2048, [2047, 0, 700, 1024], False, torch.float32),
+    (2048, [1499, 1015, 299, 113], True, torch.float32)])
+def test_decode_attention_int4_dh256(dev, S, pos, fresh, cdt):
+    """Packed INT4 rows at F = 4 x 256 (Gemma 3's global layers with
+    ``kv_mode="int4"``), group 32: against the plain version (atol 2e-5
+    at f32, 2e-2 with bf16 rounding) and, without a fresh row, bit-equal
+    to ``decode_attention`` over the dequantized cache."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    rng = np.random.default_rng(S + sum(pos))
+    b, h, hkv, dh = 4, 8, 4, 256
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, h, dh)
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    kn, vn = ((_t(rng, dev, b, hkv, dh), _t(rng, dev, b, hkv, dh)) if fresh
+              else (None, None))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
+    out = decode_attention_int4(q, kq, ks, vq, vs, p, **kw)
+    torch.testing.assert_close(out, plain(q, kq, ks, vq, vs, p, **kw),
+                               rtol=0,
+                               atol=2e-5 if cdt == torch.float32 else 2e-2)
+    if not fresh:
+        kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
+        vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
+        assert torch.equal(out, decode_attention(q, kd, vd, p))
+
+
+@pytest.mark.parametrize("K,N", [(2560, 2048), (2560, 1024), (2560, 10240),
+                                 (2048, 2560), (10240, 2560), (4096, 4096),
+                                 (4096, 1024), (4096, 12288),
+                                 (12288, 4096)])
+def test_int4_matmul_family_shapes(dev, K, N):
+    """``int4_matmul`` at M = 4 on Gemma 3's and Qwen3's projections;
+    rtol 1e-5, atol 1e-5 * max|ref|."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(K + N)
+    x = _t(rng, dev, 4, K)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), 128)
+    out = int4_matmul(x, packed, scale)
+    ref = plain(x, packed, scale, 128)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
