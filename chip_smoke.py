@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(s)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(t)
     python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
     python3 chip_smoke.py --only families # kernel checks, then runs (q)-(s)
+    python3 chip_smoke.py --only mla      # kernel checks, then run (t)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -94,17 +95,18 @@ before the result line:
    times the verify pass's attention at (m)'s shapes
    (``spec_decode_attention``, plain and packed);
 12. MoE: (o) ``create_engine(EngineSpec(arch="mixtral-8x7b",
-   quant="int4").resolve())`` (Mixtral-8x7B at full width and depth, 32
-   layers of 8 experts, top-2; the default budget's plan: offloaded,
-   disk, depth 1, with ``disk_root`` under the temporary directory, or
-   a host budget when that disk is short) serves (g)'s 4 prompts, 3 new
+   cfg=<depth cut to MOE_LAYERS = 4>, quant="int4",
+   placement="disk").resolve())`` (Mixtral-8x7B at full width, 8
+   experts, top-2; the whole model's plan: offloaded, disk, depth 1,
+   with ``disk_root`` under the temporary directory, or a host budget
+   when that disk is short) serves (g)'s 4 prompts, 3 new
    tokens each, routing each MoE layer's tokens and streaming only the
    routed experts: per step the experts each layer loaded (its routed
    union at a decode step), their bytes and the step's time; exact
-   launch counts (``int4_matmul`` = 3 x the experts loaded + 4 x 32 per
-   pass, ``flash_attention`` = 32 x prefills, ``decode_attention`` = 32
-   x decode steps); the expert WEIGHT_LOAD bytes = the loads x each
-   expert's bytes, below the bank's; the peak beside the budget, the
+   launch counts (``int4_matmul`` = 3 x the experts loaded + 4 x layers
+   per pass, ``flash_attention`` = layers x prefills,
+   ``decode_attention`` = layers x decode steps); the expert
+   WEIGHT_LOAD bytes = the loads x each expert's bytes, below the bank's; the peak beside the budget, the
    memory model and the resident bytes (embedding, head, routers); the
    build's seconds and the process's peak RSS; then kernels against
    ``use_kernels(False)`` on the first prompt with the plain decode's
@@ -144,7 +146,25 @@ before the result line:
    at the clamped positions against the reference's unclamped mask,
    ``decode_attention_int4`` at F = 1024, ``int4_matmul`` at M = 4 on
    both models' projections;
-14. print the ``kernels`` JSON line, the card, then the result line.
+14. DeepSeek-V3's multi-head latent attention: (t) ``create_engine(
+   EngineSpec(cfg=<deepseek-v3-671b cut to MLA_LAYERS = 2 layers, two
+   periods>, arch="deepseek-v3-671b", quant="int4").resolve())`` (full
+   width: d 7168, 128 heads, q_lora 1536, kv_lora 512, nope 128, rope
+   64, v 128, 256 experts of d_ff 2048, top-8, one shared expert, vocab
+   129280; the default budget's plan: offloaded, host, depth 1, bf16
+   caches) serves (g)'s 4 prompts, ``MLA_NEW`` (8) new tokens each: per
+   decode step its ms, the weight bytes (MLA, shared expert, routed
+   union), the unions and the latent KV bytes in and out; exact launch
+   counts (``flash_attention`` = layers x prefills at head_dim 192,
+   ``int4_matmul`` = 3 x the experts loaded + 7 x layers per pass, no
+   decode kernel: the MLA decode is plain PyTorch, as the reference's
+   jnp); the peak beside the budget, the memory model and the resident
+   bytes; then the whole path as (o)'s, with ``flash_attention`` plain
+   as the third reading (``int4_matmul`` alone).  Phase 3 also holds
+   and times ``flash_attention`` at (t)'s prefill (128 heads of group
+   1, dh 192 with V padded from 128), ``int4_matmul`` at its MLA and
+   expert shapes, and times the plain MLA decode step beside SDPA;
+15. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -198,6 +218,8 @@ SERVE_REQS = 6                     # serving run (e): requests, all submitted
 TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
 TRAFFIC_REQS = 4                   # run (k): arrivals
 SPEC_K = 4                         # runs (m), (b'): proposals per verify
+MOE_LAYERS = 4                     # run (o): Mixtral's depth cut (disk
+                                   # forced: the cut store fits the host)
 MOE_NEW = 3                        # run (o): new tokens per request (a
                                    # decode step takes ~10 s)
 # run (o)'s check: the share of routed rows whose top-k may differ
@@ -223,6 +245,21 @@ GEMMA3_WINDOW = 1024
 # the rolling buffers' positions in the phase-3 check: (q)'s requests a
 # few steps into decode, the first past the window, the second at its end
 ROLL_POS = [1499, 1023, 299, 113]
+# run (t): DeepSeek-V3 at full width, depth cut to two layers (two
+# periods), (g)'s prompts with MLA_NEW new tokens each
+MLA_LAYERS, MLA_NEW = 2, 8
+# DeepSeek-V3's packed projections (K, N): the MLA's wq_a, wq_b, wkv_a
+# and wo, then the routed and shared experts' (d, f) and (f, d); all at
+# decode (M = b_max = 4), the routed experts also at their capacities:
+# int(1.25 * 4 * 8 / 256) + 1 = 1 at decode, 5 at (g)'s 114-token prompt
+DEEPSEEK_MLA_PROJ = ((7168, 1536), (1536, 24576), (7168, 576),
+                     (16384, 7168))
+DEEPSEEK_EXPERT = ((7168, 2048), (2048, 7168))
+DEEPSEEK_EXPERT_M = (1, 5)
+# the MLA prefill's attention (run t's longest prompt) and the plain MLA
+# decode step timed in phase 3 (run t's b_max and max_len): 128 heads
+# over the latent (kv_lora 512, rope 64; nope 128, v 128)
+MLA_SQ, MLA_B, MLA_S = 114, 4, 256
 
 
 def log(msg=""):
@@ -329,8 +366,9 @@ def check_int4(torch, rng, dev):
     on either side of the GEMV/tensor-core switch at the 8B's shapes; and
     at the speculative verify pass of runs (m) and (b'), M = b x (k+1) =
     20, on the 8B's and tinyllama's projections; at Mixtral's expert
-    shapes (run o, p); and at M = 4 on Gemma 3's and Qwen3's projections
-    (runs q-s)."""
+    shapes (run o, p); at M = 4 on Gemma 3's and Qwen3's projections
+    (runs q-s); and at DeepSeek-V3's MLA and expert projections (run t:
+    M = 4, the experts also at their capacities M = 1 and 5)."""
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     verify_m = B * (SPEC_K + 1)
@@ -359,6 +397,11 @@ def check_int4(torch, rng, dev):
     cases += [(4, K, N, 128, f"gemma3-4b M=4 {K}x{N}")
               for K, N in GEMMA3_PROJ]
     cases += [(4, K, N, 128, f"qwen3-8b M=4 {K}x{N}") for K, N in QWEN3_PROJ]
+    # run (t): DeepSeek-V3's MLA and expert projections
+    cases += [(4, K, N, 128, f"deepseek-v3 M=4 {K}x{N}")
+              for K, N in DEEPSEEK_MLA_PROJ + DEEPSEEK_EXPERT]
+    cases += [(M, K, N, 128, f"deepseek-v3 expert M={M} {K}x{N}")
+              for M in DEEPSEEK_EXPERT_M for K, N in DEEPSEEK_EXPERT]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
               (16, 512, 384, 128, None), (512, 384, 200, 32, None),
               (3, 96, 10, 32, None), (16, 64, 6, 32, None),
@@ -836,6 +879,113 @@ def check_verify(torch, rng, dev):
 # ---------------------------------------------------------------------------
 # phase 4/5: the main path
 # ---------------------------------------------------------------------------
+
+def check_mla_flash(torch, rng, dev):
+    """``flash_attention`` as run (t)'s MLA prefill runs it: b 1, sq
+    ``MLA_SQ``, 128 heads each its own kv head (group 1: one warp a
+    block), head_dim dn + dr = 192 (the kernel's DH 256 instance), V
+    zero-padded from 128 to 192 (``models.attention.
+    mla_prefill_attention``), causal; against the plain version on the
+    same padded tensors (atol 2e-5), and at 37 rows; timed beside the
+    plain version and SDPA, which takes V at its own width of 128.
+    The bound is the function's, not the padded call's: q and k read at
+    dn + dr, V read and the output written at dv, and over the pairs the
+    mask attends, QK^T at dn + dr plus PV at dv, as three TF32 terms."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    h, dq, dv = 128, 192, 128
+    rows = []
+    for sq, main in ((MLA_SQ, f"deepseek-v3 MLA prefill sq={MLA_SQ} "
+                      f"h=128/128 dh=192 (v 128 padded)"), (37, None)):
+        mk = lambda *s: torch.tensor(rng.standard_normal(s),
+                                     dtype=torch.float32, device=dev)
+        q, k, v = mk(1, sq, h, dq), mk(1, sq, h, dq), mk(1, sq, h, dv)
+        vp = F.pad(v, (0, dq - dv))
+        out = flash_attention(q, k, vp)
+        ref = plain(q, k, vp)
+        again = flash_attention(q, k, vp)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
+        pad_zero = bool((out[..., dv:] == 0).all())
+        row = dict(shape=f"b=1 sq={sq} sk={sq} h={h} hkv={h} dh={dq} "
+                   f"v={dv} padded causal", max_abs_err=err,
+                   deterministic=same, padded_columns_zero=pad_zero,
+                   ok=err <= ATTN_ATOL and same and pad_zero, main=main)
+        if main:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            row.update(timings(
+                torch, lambda: flash_attention(q, k, vp),
+                lambda: plain(q, k, vp),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True), 20))
+            nbytes = 4 * (q.numel() + k.numel() + 2 * v.numel())
+            pairs = _attn_flops(torch, sq, sq, h, 1, 1, True, 0, 0) / 4
+            flops = 2.0 * pairs * (dq + dv)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                        TF32_FLOPS)
+            row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
+            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
+        rows.append(row)
+    return rows
+
+
+def time_mla_decode(torch, rng, dev):
+    """The plain MLA decode step (``models.attention.
+    mla_decode_attention``, no kernel: the reference computes it in jnp)
+    at run (t)'s decode shape: b ``MLA_B``, bf16 latent caches of
+    ``MLA_S`` rows, 128 heads, r 512, dr 64, ragged positions: its device
+    time (profiler), its host time a call (enqueue only), its bound (the
+    cache bytes over 3.35 TB/s, or the f32 operations as three TF32
+    terms at 495 TFLOP/s if larger, as the fp32 attention rows count
+    them; the byte bound printed beside it), and SDPA on the same
+    function as MQA (q (b, 128, 1, 576), k
+    (b, 1, S, 576), v (b, 1, S, 512), scale 1/sqrt(192), the positions'
+    mask) over f32 copies of the caches; the largest difference between
+    the two printed."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import mla_decode_attention
+    b, S, h, r, dr = MLA_B, MLA_S, 128, 512, 64
+    scale = 1.0 / math.sqrt(192)
+    mk = lambda *s: torch.tensor(rng.standard_normal(s),
+                                 dtype=torch.float32, device=dev)
+    q_eff, q_rope = mk(b, 1, h, r), mk(b, 1, h, dr)
+    c, kr = mk(b, S, r).bfloat16(), mk(b, S, dr).bfloat16()
+    c_new, kr_new = mk(b, 1, r), mk(b, 1, dr)
+    pos = torch.tensor([S - 1, 114, 93, 58], device=dev, dtype=torch.int32)
+    fn = lambda: mla_decode_attention(q_eff, q_rope, c, kr, c_new, kr_new,
+                                      pos, scale=scale)[0]
+    out = fn()
+    qt = torch.cat([q_eff, q_rope], -1).transpose(1, 2)     # (b, h, 1, 576)
+    kt = torch.cat([c, kr], -1).float()[:, None]            # (b, 1, S, 576)
+    vt = c.float()[:, None]                                 # (b, 1, S, 512)
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None]
+    lib = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    diff = (lib().transpose(1, 2) - out).abs().max().item()
+    iters = 50
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    nbytes = 2 * (c.numel() + kr.numel())
+    flops = 2.0 * b * h * S * (r + dr) + 2.0 * b * h * S * r
+    row = dict(shape=f"b={b} S={S} h={h} r={r} dr={dr} bf16 caches, ragged",
+               ms=device_ms(torch, fn, iters), host_ms=host_ms,
+               call_ms=call_ms(torch, fn, iters),
+               library_ms=device_ms(torch, lib, iters),
+               bytes_bound_ms=nbytes / HBM_BPS * 1e3,
+               max_abs_diff_vs_library=diff)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                TF32_FLOPS)
+    row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
+    log(json.dumps({"mla_decode_plain": row}))
+    return row
+
 
 def make_plan(quant, pipeline, kv_mode="fp32"):
     """A tinyllama-1.1b plan for runs (a)-(f), written out field by
@@ -1988,19 +2138,27 @@ def peak_rss_gb() -> float:
 
 
 def run_moe_paper(torch, ops, np):
-    """Run (o): Mixtral-8x7B, INT4, through ``EngineSpec.resolve`` and
-    ``create_engine`` on the default budget, the disk tier under a fresh
-    temporary directory (a host budget instead when that disk cannot
-    hold the store); (g)'s prompts with ``MOE_NEW`` new tokens each;
+    """Run (o): Mixtral-8x7B at full width with its depth cut to
+    ``MOE_LAYERS`` layers, INT4, through ``EngineSpec.resolve`` and
+    ``create_engine`` on the default budget with ``placement="disk"``
+    (the whole model's plan; the cut store would fit the host), the disk
+    tier under a fresh temporary directory (a host budget instead when
+    that disk cannot hold the store); (g)'s prompts with ``MOE_NEW`` new
+    tokens each;
     per-step routed unions, exact launch counts, union-only expert
     bytes, then the whole path against ``use_kernels(False)``."""
     import shutil
     import tempfile
+    from repro_torch.configs import get_config
     from repro_torch.core.offload import MemoryBudget
-    from repro_torch.serving.spec import EngineSpec, create_engine
+    from repro_torch.serving.spec import EngineSpec
     root = tempfile.mkdtemp(prefix="pipo_moe_")
     try:
-        spec = EngineSpec(arch="mixtral-8x7b", quant="int4", disk_root=root)
+        cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                                  num_layers=MOE_LAYERS,
+                                  num_periods=MOE_LAYERS)
+        spec = EngineSpec(arch="mixtral-8x7b", cfg=cfg, quant="int4",
+                          placement="disk", disk_root=root)
         plan = spec.resolve()
         cfg = plan.model_config()
         need = moe_store_bytes(cfg)
@@ -2138,7 +2296,7 @@ def f32_probabilities():
         ref.decode_attention_ref = orig
 
 
-def moe_whole_path(torch, ops, np, eng, reqs):
+def moe_whole_path(torch, ops, np, eng, reqs, run="o", third=None):
     """(o)'s kernels against use_kernels(False) on its weights: the
     hidden states of the first prefill and of the first decode step.
     The reference arm is the plain versions with the decode
@@ -2154,7 +2312,11 @@ def moe_whole_path(torch, ops, np, eng, reqs):
     as they are (bf16-rounded probabilities) on the same held routing,
     is a reading: on weights drawn at the reference's 1/sqrt(E) that
     rounding alone moves the decode step by about 1.4e-2 x max (ROADMAP
-    Queue 3 item 7)."""
+    Queue 3 item 7).  ``third``: another ``(name, kernels, context)``
+    reading in its place (run t's: the kernels with ``flash_attention``
+    plain, which shows what ``int4_matmul`` alone moves).  ``run`` names
+    the run in messages and its printed line (``mla_whole_path`` for
+    run t's DeepSeek-V3, else ``moe_whole_path``)."""
     from repro_torch.models.moe import router_topk
     seen, ref_ids, flips = [], [], []
     orig = eng.finalize
@@ -2171,31 +2333,33 @@ def moe_whole_path(torch, ops, np, eng, reqs):
     def hold(key, logits, k):
         ref_key, ids = ref_ids[len(flips)]
         if ref_key != key:
-            raise RuntimeError(f"run o: gate {key} where the reference "
-                               f"arm ran {ref_key}")
+            raise RuntimeError(f"run {run}: gate {key} where the "
+                               f"reference arm ran {ref_key}")
         _, own = router_topk(logits, k)
         flips.append(int((torch.sort(own, -1)[0] != torch.sort(ids, -1)[0]
                           ).any(-1).sum()))
         return torch.softmax(logits.gather(-1, ids), -1), ids
 
-    def arm(kernels, f32p, route, rid0):
+    def arm(kernels, ctx, route, rid0):
         seen[:], flips[:] = [], []
         ops.use_kernels(kernels)
         eng.route = route
-        with f32_probabilities() if f32p else contextlib.nullcontext():
+        with ctx:
             r = serve_once(torch, ops, eng, reqs, rid0)
         if route is hold and len(flips) != len(ref_ids):
-            raise RuntimeError(f"run o: {len(flips)} gates, the reference "
-                               f"arm ran {len(ref_ids)}")
+            raise RuntimeError(f"run {run}: {len(flips)} gates, the "
+                               f"reference arm ran {len(ref_ids)}")
         return r["outs"], {ph: next(x for p, x in seen if p == ph)
                            for ph in ("prefill", "decode")}, list(flips)
 
+    name3, kernels3, ctx3 = third or ("plain", False,
+                                      contextlib.nullcontext())
     default_route = eng.route
     eng.finalize = grab
     try:
-        w_outs, w_h, _ = arm(False, True, record, 200)
-        arms = {"kernels": arm(True, False, hold, 300),
-                "plain": arm(False, False, hold, 400)}
+        w_outs, w_h, _ = arm(False, f32_probabilities(), record, 200)
+        arms = {"kernels": arm(True, contextlib.nullcontext(), hold, 300),
+                name3: arm(kernels3, ctx3, hold, 400)}
     finally:
         ops.use_kernels(True)
         eng.finalize = orig
@@ -2212,7 +2376,8 @@ def moe_whole_path(torch, ops, np, eng, reqs):
                              "decode": BF16_HIDDEN_RTOL}}
     for name, (outs, h, f) in arms.items():
         if not all(torch.isfinite(x).all() for x in h.values()):
-            raise RuntimeError(f"run o {name}: non-finite hidden states")
+            raise RuntimeError(f"run {run} {name}: non-finite hidden "
+                               f"states")
         pairs = [(x, y) for i in w_outs for x, y in
                  zip(w_outs[i], outs.get(i, []))]
         res[name] = {
@@ -2221,15 +2386,16 @@ def moe_whole_path(torch, ops, np, eng, reqs):
                for ph in ("prefill", "decode")},
             "tokens_compared": len(pairs),
             "greedy_agreement": sum(x == y for x, y in pairs) / len(pairs)}
-    k_h, p_h = arms["kernels"][1], arms["plain"][1]
-    res["plain"]["decode_rel_err_vs_kernels"] = rel(k_h["decode"],
-                                                    p_h["decode"])
-    log(json.dumps({"moe_whole_path": res}))
+    k_h, p_h = arms["kernels"][1], arms[name3][1]
+    res[name3]["decode_rel_err_vs_kernels"] = rel(k_h["decode"],
+                                                  p_h["decode"])
+    log(json.dumps({"mla_whole_path" if run == "t" else "moe_whole_path":
+                    res}))
     k = res["kernels"]
     if k["flipped_rows"] > MOE_FLIP_SHARE * rows \
             or k["prefill_rel_err"] > HIDDEN_RTOL \
             or k["decode_rel_err"] > BF16_HIDDEN_RTOL:
-        raise RuntimeError(f"run o: the kernels differ from the plain "
+        raise RuntimeError(f"run {run}: the kernels differ from the plain "
                            f"versions: {res}")
     return res
 
@@ -2295,6 +2461,159 @@ def run_moe_lm(torch, ops, np):
     del lm
     log(json.dumps({"moe_lm": out}))
     return out["performance"]["launches"], out
+
+
+# ---------------------------------------------------------------------------
+# (t) DeepSeek-V3: multi-head latent attention with a 256-expert bank
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_flash(ops):
+    """Within it, ``flash_attention_op`` runs the plain version while the
+    other kernels stay on (``ops`` calls the wrapper through its module
+    on every call)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    orig = ops.flash_attention
+    ops.flash_attention = flash_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+
+
+def run_mla_paper(torch, ops, np):
+    """Run (t): DeepSeek-V3 at full width with its depth cut to
+    ``MLA_LAYERS`` layers (two periods), INT4, through ``EngineSpec.
+    resolve`` and ``create_engine`` on the default budget; (g)'s prompts
+    with ``MLA_NEW`` new tokens each; per decode step the weight bytes
+    (MLA, shared expert, routed union), the unions, the latent KV bytes;
+    exact launch counts; then the whole path against
+    ``use_kernels(False)`` on the first prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.spec import EngineSpec
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              num_layers=MLA_LAYERS, num_periods=MLA_LAYERS)
+    plan = EngineSpec(cfg=cfg, arch="deepseek-v3-671b",
+                      quant="int4").resolve()
+    log(f"(t) plan: {plan.summary()}")
+    log(f"(t) provenance: {json.dumps(plan.provenance)}")
+    if plan.engine != "offloaded":
+        raise RuntimeError(f"run t: resolved to {plan.engine}")
+    summary, r, eng = serve_mla(torch, ops, np, plan)
+    summary["whole_path"] = moe_whole_path(
+        torch, ops, np, eng, [(r["reqs"][0][0], 2)], run="t",
+        third=("int4_matmul_only", True, plain_flash(ops)))
+    eng.shutdown()
+    return summary["launches"], summary
+
+
+def serve_mla(torch, ops, np, plan):
+    """Build (t)'s engine, serve its requests once and check them.
+    Returns the summary, the served run and the engine (still up)."""
+    from repro_torch.configs.base import MLA
+    from repro_torch.serving.spec import create_engine
+    cfg = plan.model_config()
+    n, E = cfg.num_layers, cfg.moe.num_experts
+    reqs = [(p, MLA_NEW) for p, _ in paper_requests(np, cfg.vocab_size)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"(t) built in {build_s:.1f} s; peak RSS {peak_rss_gb():.1f} GiB")
+    units = eng.units
+    keys = [k for u in units for k in u.expert_keys]
+    per = {eng.weights.nbytes(k) for k in keys}
+    if (len(units) != n or not all(u.moe and u.spec.mixer == MLA
+                                   for u in units)
+            or len(keys) != n * E or len(per) != 1):
+        raise RuntimeError(f"run t: {len(units)} units, {len(keys)} "
+                           f"experts, sizes {per}")
+    per_expert = per.pop()
+
+    def entry_bytes(key, shared):
+        return sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                   for name, (_, shape, dt)
+                   in eng.weights.manifests[key].entries.items()
+                   if name.startswith("ws_") == shared)
+    mla_bytes = sum(entry_bytes(u.key, False) for u in units)
+    shared_bytes = sum(entry_bytes(u.key, True) for u in units)
+    if mla_bytes + shared_bytes != sum(eng.weights.nbytes(u.key)
+                                       for u in units):
+        raise RuntimeError("run t: the unit buffers' entries do not add up")
+    steps, snap = [], [dict(eng.weights.load_counts), dict(eng.stats),
+                       len(eng.trace.events())]
+
+    def on_step():
+        now, st = dict(eng.weights.load_counts), dict(eng.stats)
+        prev, pst, i0 = snap
+        evs = eng.trace.events()
+        union = [sum(now.get(k, 0) - prev.get(k, 0) for k in u.expert_keys)
+                 for u in units]
+        steps.append({
+            "prefills": st["prefills"] - pst["prefills"],
+            "decode": st["decode_steps"] - pst["decode_steps"],
+            "experts_per_layer": union,
+            "weight_bytes": {"mla": mla_bytes, "shared_expert": shared_bytes,
+                             "routed_union": sum(union) * per_expert},
+            "kv_load_bytes": sum(e.nbytes for e in evs[i0:]
+                                 if e.kind == "kv_load"),
+            "kv_save_bytes": sum(e.nbytes for e in evs[i0:]
+                                 if e.kind == "kv_save")})
+        snap[:] = [now, st, len(evs)]
+
+    r = serve_once(torch, ops, eng, reqs, 0, on_step=on_step)
+    r["reqs"] = reqs
+    st = r["stats"]
+    passes = st["prefills"] + st["decode_steps"]
+    loads = sum(sum(s["experts_per_layer"]) for s in steps)
+    # per pass and layer: wq_a, wq_b, wkv_a, wo and the shared expert's
+    # three projections are packed (w_uk/w_uv are 3-D and stay f32)
+    check_launches("t", r["counts"], {
+        "flash_attention": n * st["prefills"], "flash_attention_q_offset": 0,
+        "decode_attention": 0, "decode_attention_int4": 0,
+        "int4_matmul": 3 * loads + 7 * n * passes}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != MLA_NEW or not all(0 <= t < cfg.vocab_size
+                                               for t in outs[i])
+            for i in range(len(reqs))):
+        raise RuntimeError(f"run t: bad tokens {outs}")
+    decode = [dict(ms=1e3 * t, **s) for t, s in zip(r["steps"], steps)
+              if s["decode"] and not s["prefills"]]
+    for d in decode:
+        log(json.dumps({"t_decode_step": d}))
+    ms = sorted(d["ms"] for d in decode)
+    row = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    report = eng.pipeline_report()
+    pk = report["per_kind"]
+    summary = {
+        "run": "t", "plan": plan.summary(), "build_s": build_s,
+        "peak_rss_gb": peak_rss_gb(), "host_mem_gb": host_mem_gb(),
+        "store_gb": (sum(eng.weights.nbytes(u.key) for u in units)
+                     + len(keys) * per_expert) / 1e9,
+        "per_expert_bytes": per_expert, "mla_bytes": mla_bytes,
+        "shared_expert_bytes": shared_bytes,
+        "latent_row_bytes": 2 * row, "requests": len(reqs),
+        "prompt_lens": [len(p) for p, _ in reqs], "max_new": MLA_NEW,
+        **st, "wall_s": r["wall"], "tok_s": st["tokens_out"] / r["wall"],
+        "prefill_steps": [dict(ms=1e3 * t, **s)
+                          for t, s in zip(r["steps"], steps)
+                          if s["prefills"]],
+        "decode_step_ms_median": statistics.median(ms),
+        "decode_step_ms_p90": ms[int(0.9 * (len(ms) - 1))],
+        "decode_union_mean": statistics.mean(
+            u for d in decode for u in d["experts_per_layer"]),
+        "expert_loads": loads,
+        # the plain MLA decode (no kernel) runs once a layer a decode step
+        "mla_decode_calls": n * st["decode_steps"],
+        "busy_s": {k: pk[k]["busy_s"] for k in pk},
+        "bytes": {k: pk[k]["bytes"] for k in pk},
+        "compute_busy": eng.trace.busy_fraction("compute"),
+        **memory_report(plan, eng, r),
+        "launches": r["counts"]}
+    log(json.dumps({"mla_serving": summary}))
+    return summary, r, eng
 
 
 def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
@@ -2382,11 +2701,12 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
-                                       "families"),
+                                       "families", "mla"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(s) only (plan), or (o) and "
-                         "(p) only (moe), or (q)-(s) only (families)")
+                         "them and runs (g)-(t) only (plan), or (o) and "
+                         "(p) only (moe), or (q)-(s) only (families), or "
+                         "(t) only (mla)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2433,7 +2753,8 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions
     rng = np.random.default_rng(0)
     checks = {"int4_matmul": check_int4(torch, rng, dev),
-              "flash_attention": check_flash(torch, rng, dev),
+              "flash_attention": (check_flash(torch, rng, dev)
+                                  + check_mla_flash(torch, rng, dev)),
               "decode_attention": check_decode(torch, rng, dev),
               "decode_attention_int4": check_decode_int4(torch, rng, dev)}
     verify, verify_int4 = check_verify(torch, rng, dev)
@@ -2449,6 +2770,7 @@ def main(argv=None) -> int:
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
+    time_mla_decode(torch, rng, dev)
     stamp("card, build, kernel checks")
     if args.only == "kernels":
         return 0
@@ -2467,6 +2789,9 @@ def main(argv=None) -> int:
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only == "families":
         run_families(torch, ops, np, counts, summaries, release, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "mla":
+        run_deepseek(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
@@ -2530,6 +2855,7 @@ def main(argv=None) -> int:
     stamp("l")
     run_moe(torch, ops, np, counts, summaries, release, stamp)
     run_families(torch, ops, np, counts, summaries, release, stamp)
+    run_deepseek(torch, ops, np, counts, summaries, release, stamp)
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -2774,6 +3100,13 @@ def run_moe(torch, ops, np, counts, summaries, release, stamp):
     counts["p"], summaries["p"] = run_moe_lm(torch, ops, np)
     release(None)
     stamp("p")
+
+
+def run_deepseek(torch, ops, np, counts, summaries, release, stamp):
+    """Run (t): DeepSeek-V3's MLA through the offloaded engine."""
+    counts["t"], summaries["t"] = run_mla_paper(torch, ops, np)
+    release(None)
+    stamp("t")
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

@@ -37,7 +37,10 @@ runs one stage, as the JAX engine does.
 Like the JAX engine, the units read neither ``window`` nor ``qk_norm``:
 a Gemma 3 stack runs every layer as global attention over the
 ``max_len`` cache, and a Qwen3 stack draws no ``q_norm``/``k_norm``
-(reference behaviour, ROADMAP Queue 3 item 9).
+(reference behaviour, ROADMAP Queue 3 item 9).  Nor do they read
+``cfg.mla``: a DeepSeek stack runs as ``num_heads``-head MHA at
+``head_dim`` (rope over the whole head) with MoE units, its shared expert
+at ``d_ff`` (reference behaviour, ROADMAP Queue 3 item 11).
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, MLA, ModelConfig
 from repro_torch.core import convert
 from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
@@ -189,10 +192,10 @@ class PipelinedLM(PhasedKVExtents):
             raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
         cfg = plan.model_config()
-        if any(s.mixer not in (ATTN, ATTN_LOCAL)
+        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA)
                for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port runs ATTN and ATTN_LOCAL stacks; the MLA, SSM, "
+                "the port runs ATTN, ATTN_LOCAL and MLA stacks; the SSM, "
                 "CROSS and ENC mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan

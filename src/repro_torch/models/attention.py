@@ -17,19 +17,30 @@ engine-held prefix (``flash_attention`` with ``q_offset``).
 ``local_decode_attention`` is a sliding-window layer's decode step over
 its rolling buffer, through the same ``decode_attention`` kernel.  Layout
 BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
+
+MLA (DeepSeek) keeps a latent cache, ``c`` (b, S, r) and ``kr`` (b, S,
+dr), shared by every head.  ``mla_decode_attention`` is the reference's
+absorbed decode step over it, in plain PyTorch on every device (the
+reference computes it in jnp, not in a Pallas kernel).
+``mla_prefill_attention`` is ``mla_ring_attention`` on one device: the
+latent expands to per-head K/V and the causal attention runs through
+``flash_attention``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.kvstore import quantize_kv_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import attn_partials, ref_attention
+from repro_torch.models.common import NEG_INF
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
            "decode_attention_packed", "spec_decode_attention",
            "spec_decode_attention_packed", "chunk_prefill_attention",
-           "local_decode_attention"]
+           "local_decode_attention", "mla_decode_attention",
+           "mla_prefill_attention"]
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
@@ -167,3 +178,78 @@ def local_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, window):
         clamped = min(int(pos), W - 1)
     out = ops.decode_attention_op(q[:, 0], k_cache, v_cache, clamped)
     return out[:, None], k_cache, v_cache
+
+
+def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, c_new, kr_new,
+                         pos, *, scale: float):
+    """The JAX package's ``mla_decode_attention`` on one device
+    (``axes=()``).  q_eff (b, 1, h, r): ``q_nope`` absorbed through
+    ``w_uk``; q_rope (b, 1, h, dr); latent caches c_cache (b, S, r),
+    kr_cache (b, S, dr); the step's rows c_new (b, 1, r), kr_new (b, 1,
+    dr); ``pos`` an int or a ragged (b,) tensor.  The rows are written at
+    ``pos`` IN PLACE, at the caches' dtype (a position outside the slab
+    writes nothing, the reference's ownership rule on one shard); row i
+    attends positions ``<= pos[i]`` with f32 scores ``(q_eff . c +
+    q_rope . kr) * scale``.
+    A row with nothing to attend (the reference's dead rows) gets zero
+    probabilities.  The probabilities are rounded to the cache dtype
+    before ``p . c``, and that product to the cache dtype, as the
+    reference's ``einsum(p.astype(c.dtype), c)`` does; ``ctx = o /
+    max(l, 1e-30)``.  Returns (ctx (b, 1, h, r) f32, c_cache,
+    kr_cache)."""
+    b, S, _ = c_cache.shape
+    dev = c_cache.device
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        p_ = pos.to(device=dev, dtype=torch.long)
+        rows, loc = torch.arange(b, device=dev), p_ % S
+        own = ((p_ >= 0) & (p_ < S))[:, None]
+        for cache, new in ((c_cache, c_new), (kr_cache, kr_new)):
+            cache[rows, loc] = torch.where(own, new[:, 0].to(cache.dtype),
+                                           cache[rows, loc])
+        valid = (torch.arange(S, device=dev)[None, :]
+                 <= p_[:, None])[:, None, None]            # (b, 1, 1, S)
+    else:
+        if 0 <= int(pos) < S:
+            c_cache[:, int(pos)] = c_new[:, 0].to(c_cache.dtype)
+            kr_cache[:, int(pos)] = kr_new[:, 0].to(kr_cache.dtype)
+        valid = torch.arange(S, device=dev) <= int(pos)    # (S,)
+    f32 = torch.float32
+    s = (torch.einsum("bqhr,bsr->bhqs", q_eff.to(f32), c_cache.to(f32))
+         + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32),
+                        kr_cache.to(f32))) * scale
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=dev))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    dead = m <= NEG_INF / 2
+    p = torch.where(dead[..., None], torch.zeros((), device=dev), p)
+    l = p.sum(dim=-1)
+    dt = c_cache.dtype
+    o = torch.einsum("bhqs,bsr->bhqr", p.to(dt).to(f32),
+                     c_cache.to(f32)).to(dt).to(f32)
+    ctx = o / torch.clamp_min(l, 1e-30)[..., None]         # (b, h, 1, r)
+    return ctx.transpose(1, 2), c_cache, kr_cache
+
+
+def mla_prefill_attention(q, c, kr, w_uk, w_uv):
+    """Causal MLA attention over the prompt's own latent rows: the JAX
+    package's ``mla_ring_attention`` with ``axis=None``.  q (b, s, h, dn
+    + dr) (nope then rope); c (b, s, r); kr (b, s, dr); w_uk (r, h, dn);
+    w_uv (r, h, dv).  The latent expands to ``k = [c . w_uk | kr]`` (b,
+    s, h, dn + dr), ``kr`` broadcast over the heads, and ``v = c . w_uv``
+    (b, s, h, dv); then one ``flash_attention`` at head_dim ``dn + dr``
+    with V zero-padded from ``dv`` to ``dn + dr``.  That is exact: the
+    kernel's scale ``1/sqrt(dn + dr)`` is the reference's, and zero
+    columns of V add nothing to the columns kept.  Returns (b, s, h,
+    dv)."""
+    b, s, h, dq = q.shape
+    dr = kr.shape[-1]
+    dv = w_uv.shape[-1]
+    if dv > dq:
+        raise ValueError(f"mla_prefill_attention: v_head_dim {dv} wider "
+                         f"than the query's {dq}")
+    k_nope = torch.einsum("bsr,rhn->bshn", c, w_uk)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    v = F.pad(torch.einsum("bsr,rhv->bshv", c, w_uv), (0, dq - dv))
+    out = ops.flash_attention_op(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    return out[..., :dv]

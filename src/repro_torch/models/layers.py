@@ -1,5 +1,6 @@
-"""Layer parameter tables and apply functions for ``ATTN`` and
-``ATTN_LOCAL`` layers with a ``DENSE`` or ``MOE`` feed-forward.
+"""Layer parameter tables and apply functions for ``ATTN``,
+``ATTN_LOCAL`` and ``MLA`` layers with a ``DENSE`` or ``MOE``
+feed-forward.
 
 The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
@@ -9,7 +10,13 @@ stack).  Sharding (``Dist``) and the other mixers come with later
 slices.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
 rope; an ``ATTN_LOCAL`` layer (Gemma 3) attends a sliding window of
 ``cfg.window`` positions and keeps a rolling ``(b, W, hkv, dh)`` buffer
-as its decode cache.  An MoE layer's routed experts run in
+as its decode cache.  An ``MLA`` layer (DeepSeek) projects through low-rank
+``wq_a``/``wq_b`` and ``wkv_a`` and caches a latent per token (``c``,
+``kv_lora_rank`` wide, and the single-head rope key ``kr``); its prefill
+expands the latent through ``w_uk``/``w_uv`` and runs ``flash_attention``,
+its decode absorbs ``w_uk`` into the query and attends the latent cache
+(``mla_decode_attention``, plain PyTorch as the reference's jnp).  An MoE
+layer's routed experts run in
 ``models.moe``; with
 ``moe_quant="int4"`` their stacks arrive packed (``w_gate#q``/``#s``)
 and go to ``int4_matmul`` expert by expert.
@@ -29,7 +36,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MOE,
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MLA, MOE,
                                       LayerSpec, ModelConfig)
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
@@ -38,6 +45,8 @@ from repro_torch.models.attention import (chunk_prefill_attention,
                                           decode_attention,
                                           decode_attention_packed,
                                           local_decode_attention,
+                                          mla_decode_attention,
+                                          mla_prefill_attention,
                                           spec_decode_attention,
                                           spec_decode_attention_packed)
 from repro_torch.models.common import NEG_INF, rms_norm, silu
@@ -51,12 +60,12 @@ class ParamDef(NamedTuple):
 
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
-    if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn not in (DENSE, MOE) \
-            or cfg.quant_weights:
+    if spec.mixer not in (ATTN, ATTN_LOCAL, MLA) \
+            or spec.ffn not in (DENSE, MOE) or cfg.quant_weights:
         raise NotImplementedError(
-            f"the port runs ATTN and ATTN_LOCAL layers with a DENSE or MOE "
-            f"feed-forward, got {spec} ({cfg.name}, quant_weights="
-            f"{cfg.quant_weights}); the MLA, SSM, CROSS and ENC mixers and "
+            f"the port runs ATTN, ATTN_LOCAL and MLA layers with a DENSE or "
+            f"MOE feed-forward, got {spec} ({cfg.name}, quant_weights="
+            f"{cfg.quant_weights}); the SSM, CROSS and ENC mixers and "
             f"resident INT4 tables (quant_weights) come with later slices")
 
 
@@ -77,6 +86,34 @@ def attn_table(cfg: ModelConfig) -> dict:
         t["q_norm"] = ParamDef((dh,), (None,), 0.0)
         t["k_norm"] = ParamDef((dh,), (None,), 0.0)
     return t
+
+
+def mla_table(cfg: ModelConfig) -> dict:
+    """The reference's MLA table: ``w_uk``/``w_uv`` are (r, h, n), drawn
+    at the fan-in of their leading dim (the latent rank)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank), ("embed", "lora")),
+        "q_a_norm": ParamDef((m.q_lora_rank,), (None,), 0.0),
+        "wq_b": ParamDef((m.q_lora_rank, h * dq), ("lora", "heads_ff")),
+        "wkv_a": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("embed", "lora")),
+        "kv_a_norm": ParamDef((m.kv_lora_rank,), (None,), 0.0),
+        "w_uk": ParamDef((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                         ("lora", "heads", None)),
+        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim),
+                         ("lora", "heads", None)),
+        "wo": ParamDef((h * m.v_head_dim, d), ("heads_ff", "embed")),
+    }
+
+
+def mixer_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    _dense_only(cfg, spec)
+    if spec.mixer == MLA:
+        return mla_table(cfg)
+    return attn_table(cfg)
 
 
 def ffn_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -118,7 +155,7 @@ def is_expert_stack(pd: ParamDef) -> bool:
 def layer_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
     _dense_only(cfg, spec)
     t = {"norm_mixer": ParamDef((cfg.d_model,), (None,), 0.0)}
-    t.update(attn_table(cfg))
+    t.update(mixer_table(cfg, spec))
     ft = ffn_table(cfg, spec)
     if ft:
         t["norm_ffn"] = ParamDef((cfg.d_model,), (None,), 0.0)
@@ -279,6 +316,65 @@ def _decode_attn(q, k_new, v_new, ctx: Ctx, cache, window: int = 0):
 
 
 # ===========================================================================
+# MLA (DeepSeek)
+# ===========================================================================
+
+
+def apply_mla(p, x, ctx: Ctx, cache, spec: LayerSpec):
+    """The JAX package's ``apply_mla`` on one device -> (x', new_cache).
+    Decode runs the absorbed path over the latent cache (``cache["c"]``,
+    ``cache["kr"]``: slabs, or ``PackedRows`` that dequantize to the
+    rows' compute dtype first) and returns the step's fresh rows at the
+    cache's dtype; prefill runs the expanded path and returns the
+    prompt's latent rows (b, s, r) and (b, s, dr) at compute precision.
+    The projections go through ``_mm`` (packed ones to ``int4_matmul``);
+    ``w_uk``/``w_uv`` (3-D, never packed) stay f32 einsums."""
+    del spec
+    cfg = ctx.cfg
+    m = cfg.mla
+    b, s, d = x.shape
+    h = cfg.num_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
+    qa = rms_norm(_mm(xn, p, "wq_a"), p["q_a_norm"], cfg.norm_eps)
+    qb = _mm(qa, p, "wq_b").reshape(b, s, h, dn + dr)
+    q_nope, q_rope = qb[..., :dn], qb[..., dn:]
+    kv_a = _mm(xn, p, "wkv_a")                            # (b, s, r + dr)
+    c = rms_norm(kv_a[..., :r], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., r:]
+    if ctx.angles is not None:
+        q_rope = apply_rope(q_rope, ctx.angles)
+        k_rope = apply_rope(k_rope[:, :, None, :], ctx.angles)[:, :, 0]
+    if ctx.mode == "decode":
+        if s != 1:
+            raise ValueError(f"apply_mla: decode takes one row per "
+                             f"sequence, got {s}")
+        cc, krc = cache["c"], cache["kr"]
+        if isinstance(cc, PackedRows):
+            cc, krc = cc.dequantize(), krc.dequantize()
+        q_eff = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
+        ctxl, _, _ = mla_decode_attention(
+            q_eff, q_rope, cc, krc, c, k_rope, ctx.pos,
+            scale=1.0 / math.sqrt(dn + dr))
+        out = torch.einsum("bshr,rhv->bshv", ctxl.to(x.dtype), p["w_uv"])
+        new_cache = {"c": c.to(cc.dtype), "kr": k_rope.to(krc.dtype)}
+    else:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = mla_prefill_attention(q, c, k_rope, p["w_uk"], p["w_uv"])
+        new_cache = ({"c": c, "kr": k_rope} if ctx.mode == "prefill"
+                     else None)
+    return x + _mm(out.reshape(b, s, h * dv), p, "wo"), new_cache
+
+
+def apply_mixer(p, x, ctx: Ctx, cache, spec: LayerSpec):
+    """The layer's mixer half -> (x', new_cache)."""
+    if spec.mixer == MLA:
+        return apply_mla(p, x, ctx, cache, spec)
+    return apply_attention(p, x, ctx, cache, spec)
+
+
+# ===========================================================================
 # FFN, whole layer, embedding, head
 # ===========================================================================
 
@@ -313,10 +409,10 @@ def apply_moe_ffn(p, x, ctx: Ctx):
 
 
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
-    """One ATTN layer with its DENSE or MOE feed-forward -> (x',
-    new_cache)."""
+    """One ATTN, ATTN_LOCAL or MLA layer with its DENSE or MOE
+    feed-forward -> (x', new_cache)."""
     _dense_only(ctx.cfg, spec)
-    x, new_cache = apply_attention(p, x, ctx, cache, spec)
+    x, new_cache = apply_mixer(p, x, ctx, cache, spec)
     if spec.ffn == MOE:
         return apply_moe_ffn(p, x, ctx)[0], new_cache
     return apply_dense_ffn(p, x, ctx), new_cache

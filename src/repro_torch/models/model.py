@@ -26,7 +26,7 @@ class Model:
         return T.decode_step(params, batch, caches, self.cfg)
 
     # ---- caches ------------------------------------------------------------
-    def init_cache(self, b: int, cache_len: int, device="cpu"):
+    def init_cache(self, b: int, cache_len: int, device="cuda"):
         return T.init_cache(self.cfg, b, cache_len, device)
 
     def cache_struct(self, b: int, cache_len: int):

@@ -1,5 +1,5 @@
-"""Model assembly for ``ATTN``/``ATTN_LOCAL`` stacks with dense or MoE
-feed-forwards:
+"""Model assembly for ``ATTN``/``ATTN_LOCAL``/``MLA`` stacks with dense
+or MoE feed-forwards:
 parameter tables, an own parameter init, cache shapes and rope angles,
 and the whole-model forward passes (``init_cache``, ``_run_stack``,
 ``prefill``, ``decode_step``) — a subset of the JAX package's
@@ -26,7 +26,9 @@ caches stacked over periods, ``rem`` unstacked) and loop over layers in
 Python where the JAX package scans.  Decode updates the caches in place
 (the JAX package returns new ones).  A sliding-window layer's cache is
 its rolling ``(b, W, hkv, dh)`` buffer (kind ``"rep"``), beside the
-global layers' ``max_len`` slabs (kind ``"kv"``).
+global layers' ``max_len`` slabs (kind ``"kv"``); an MLA layer's is its
+latent ``c`` (b, L, kv_lora_rank) and ``kr`` (b, L, qk_rope_head_dim)
+slabs (kind ``"kv"``), and its rope turns ``qk_rope_head_dim`` features.
 """
 from __future__ import annotations
 
@@ -40,7 +42,9 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, LayerSpec,
+                                      ModelConfig)
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.rope import rope_angles
 
@@ -192,7 +196,7 @@ def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
     """dict name -> (shape, dtype, kind) for one layer's decode cache:
     a ``max_len`` slab (kind ``"kv"``) for global attention, the rolling
     buffer of ``cfg.window`` rows (kind ``"rep"``) for a sliding-window
-    layer."""
+    layer, the latent ``c``/``kr`` slabs (kind ``"kv"``) for MLA."""
     dh, hkv = cfg.head_dim, cfg.num_kv_heads
     bf = torch.bfloat16
     if spec.mixer == ATTN:
@@ -202,8 +206,12 @@ def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
         W = cfg.window
         return {"k": ((b, W, hkv, dh), bf, "rep"),
                 "v": ((b, W, hkv, dh), bf, "rep")}
+    if spec.mixer == MLA:
+        m = cfg.mla
+        return {"c": ((b, L_, m.kv_lora_rank), bf, "kv"),
+                "kr": ((b, L_, m.qk_rope_head_dim), bf, "kv")}
     raise NotImplementedError(f"the {spec.mixer} cache comes with a later "
-                              f"slice of the port (MLA, SSM, CROSS)")
+                              f"slice of the port (SSM, CROSS)")
 
 
 def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
@@ -220,9 +228,10 @@ def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
             {"pat": tuple(k for _, k in pat), "rem": tuple(k for _, k in rem)})
 
 
-def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cpu"):
+def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda"):
     """The zeroed decode cache (bf16 rows, as the reference's) on
-    ``device``."""
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     struct, _ = cache_struct(cfg, b, cache_len)
     return {grp: tuple({n: torch.zeros(s, dtype=dt, device=device)
                         for n, (s, dt) in t.items()} for t in struct[grp])
@@ -235,14 +244,17 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cpu"):
 
 
 def _angles(cfg: ModelConfig, positions: torch.Tensor):
-    """Rope angles (..., s, head_dim // 2) for integer ``positions``
-    (..., s); None for a rope-free model."""
+    """Rope angles (..., s, rope_dim // 2) for integer ``positions``
+    (..., s): ``rope_dim`` is ``head_dim``, or MLA's
+    ``qk_rope_head_dim``; None for a rope-free model."""
     if cfg.rope_theta == 0:
         return None
-    if cfg.mrope_sections or cfg.mla is not None:
-        raise NotImplementedError("M-RoPE and MLA rope come with later "
-                                  "slices of the port")
-    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.mrope_sections:
+        raise NotImplementedError("M-RoPE comes with a later slice of the "
+                                  "port (qwen2-vl)")
+    rope_dim = (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+                else cfg.head_dim)
+    return rope_angles(positions, rope_dim, cfg.rope_theta)
 
 
 def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig):
@@ -273,8 +285,8 @@ def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Process the prompt ``batch["tokens"]`` (b, s); returns
-    (next_token (b,), caches): every global layer's rows laid into a
-    zeroed ``cache_len`` slab, every sliding-window layer's rolling
+    (next_token (b,), caches): every global or MLA layer's rows laid into
+    a zeroed ``cache_len`` slab, every sliding-window layer's rolling
     buffer as it is, at compute precision."""
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -282,20 +294,23 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
                 angles=_angles(cfg, torch.arange(s, device=tokens.device)))
     x = L.embed_tokens(params["embed"], tokens)
     x, rows = _run_stack(params, x, ctx, None, cfg)
-    _, kinds = cache_struct(cfg, b, cache_len)
+    struct, kinds = cache_struct(cfg, b, cache_len)
 
-    def slab(r, kind):               # (..., b, s, hkv, dh) -> cache_len
+    def slab(r, shape_dtype, kind, seq):  # s rows -> cache_len rows
         if kind != "kv":
             return r
-        out = r.new_zeros(r.shape[:-3] + (cache_len,) + r.shape[-2:])
-        out[..., :s, :, :] = r
+        out = r.new_zeros(shape_dtype[0])
+        out.narrow(seq, 0, s).copy_(r)
         return out
     caches = {
-        "pat": tuple({n: slab(torch.stack([c[n] for c in per]), kd[n])
+        "pat": tuple({n: slab(torch.stack([c[n] for c in per]), st[n], kd[n],
+                              2)
                       for n in per[0]}
-                     for per, kd in zip(rows["pat"], kinds["pat"])),
-        "rem": tuple({n: slab(r, kd[n]) for n, r in t.items()}
-                     for t, kd in zip(rows["rem"], kinds["rem"]))}
+                     for per, st, kd in zip(rows["pat"], struct["pat"],
+                                            kinds["pat"])),
+        "rem": tuple({n: slab(r, st[n], kd[n], 1) for n, r in t.items()}
+                     for t, st, kd in zip(rows["rem"], struct["rem"],
+                                          kinds["rem"]))}
     return _head(params, x, cfg), caches
 
 

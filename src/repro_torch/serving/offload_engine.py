@@ -74,8 +74,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MOE, LayerSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, MOE,
+                                      LayerSpec, ModelConfig)
 from repro_torch.core.draft import accepted_tokens
 from repro_torch.core.kvstore import TieredKVStore
 from repro_torch.core.offload import DeviceStore, DiskStore, HostStore
@@ -115,11 +115,11 @@ class _Unit:
 
     def apply(self, weights, x, ctx: L.Ctx, cache):
         """The unit's own buffer on ``x`` -> (x', new_cache): the whole
-        layer for a dense unit; the attention only for an MoE unit, whose
+        layer for a dense unit; the mixer only for an MoE unit, whose
         buffer holds no routed experts (its feed-forward runs in
         ``_compute_moe``)."""
         if self.moe:
-            return L.apply_attention(weights, x, ctx, cache, self.spec)
+            return L.apply_mixer(weights, x, ctx, cache, self.spec)
         return L.apply_layer(weights, x, ctx, cache, self.spec)
 
 
@@ -243,10 +243,10 @@ class OffloadedServingEngine(SlotEngineBase):
                 f"offloaded serving supports token-frontend rope decoder "
                 f"stacks only (failing capability: {cap or plan.engine}; "
                 f"arch {plan.arch})")
-        if any(s.mixer not in (ATTN, ATTN_LOCAL)
+        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA)
                for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port serves ATTN and ATTN_LOCAL stacks; the MLA, SSM "
+                "the port serves ATTN, ATTN_LOCAL and MLA stacks; the SSM "
                 "and CROSS mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan
@@ -509,7 +509,8 @@ class OffloadedServingEngine(SlotEngineBase):
 
     # ---- PipelineScheduler callbacks ----------------------------------------
     def is_mha(self, j: int) -> bool:
-        """'Has streamed KV state' in scheduler terms (every ATTN unit)."""
+        """'Has streamed KV state' in scheduler terms (every unit with a
+        cache: ATTN, ATTN_LOCAL and MLA)."""
         return bool(self.kv_kinds[j])
 
     def load_weights(self, j: int):

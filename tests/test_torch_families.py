@@ -89,10 +89,10 @@ def test_tables_match_reference():
 
 
 def test_dense_only_names_what_is_still_unported():
-    for arch in ("deepseek-v3-671b", "mamba2-1.3b", "whisper-base"):
+    for arch in ("mamba2-1.3b", "whisper-base"):
         cfg = PB.scaled_down(port_config(arch))
         spec = next(s for s in cfg.pattern + cfg.remainder
-                    if s.mixer not in (PB.ATTN, PB.ATTN_LOCAL))
+                    if s.mixer not in (PB.ATTN, PB.ATTN_LOCAL, PB.MLA))
         with pytest.raises(NotImplementedError, match="later slices") as e:
             PL.layer_table(cfg, spec)
         assert "qk_norm" not in str(e.value)
@@ -302,7 +302,7 @@ def test_cache_struct_matches_reference(arch):
         assert pkinds["pat"][0] == {"k": "rep", "v": "rep"}
         assert pstruct["pat"][0]["k"][0] == (jc.num_periods, 3, W, 2, 16)
         assert pstruct["pat"][-1]["k"][0] == (jc.num_periods, 3, 96, 2, 16)
-    caches = PT.init_cache(pc, 3, 96)
+    caches = PT.init_cache(pc, 3, 96, device="cpu")
     for grp in ("pat", "rem"):
         for ct, st in zip(caches[grp], pstruct[grp]):
             assert ct["k"].shape == st["k"][0]

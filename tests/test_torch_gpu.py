@@ -786,19 +786,86 @@ def test_decode_attention_int4_dh256(dev, S, pos, fresh, cdt):
         assert torch.equal(out, decode_attention(q, kd, vd, p))
 
 
-@pytest.mark.parametrize("K,N", [(2560, 2048), (2560, 1024), (2560, 10240),
-                                 (2048, 2560), (10240, 2560), (4096, 4096),
-                                 (4096, 1024), (4096, 12288),
-                                 (12288, 4096)])
-def test_int4_matmul_family_shapes(dev, K, N):
-    """``int4_matmul`` at M = 4 on Gemma 3's and Qwen3's projections;
+@pytest.mark.parametrize("M,K,N", [
+    (4, 2560, 2048), (4, 2560, 1024), (4, 2560, 10240), (4, 2048, 2560),
+    (4, 10240, 2560), (4, 4096, 4096), (4, 4096, 1024), (4, 4096, 12288),
+    (4, 12288, 4096),
+    # DeepSeek-V3's MLA projections and its experts' capacities
+    (4, 7168, 1536), (4, 1536, 24576), (4, 7168, 576), (4, 16384, 7168),
+    (1, 7168, 2048), (5, 2048, 7168), (114, 7168, 576)])
+def test_int4_matmul_family_shapes(dev, M, K, N):
+    """``int4_matmul`` on Gemma 3's and Qwen3's projections at M = 4, and
+    on DeepSeek-V3's MLA projections (K 16384 takes the small-M path's
+    deepest slice; N / 2 = 288 at ``wkv_a``) and its experts' capacities;
     rtol 1e-5, atol 1e-5 * max|ref|."""
     from repro_torch.kernels.int4_matmul import int4_matmul, plain
     from repro_torch.quant.int4 import quantize_int4
     rng = np.random.default_rng(K + N)
-    x = _t(rng, dev, 4, K)
+    x = _t(rng, dev, M, K)
     packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), 128)
     out = int4_matmul(x, packed, scale)
     ref = plain(x, packed, scale, 128)
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-5 * ref.abs().max().item())
+
+
+# DeepSeek-V3's MLA (run t of chip_smoke.py): 128 heads over the latent
+# (kv_lora 512, nope 128, rope 64, v 128)
+
+
+@pytest.mark.parametrize("s", [9, 114])
+def test_mla_prefill_through_flash_dh192(dev, s):
+    """``mla_prefill_attention`` at full width: the expanded latent
+    through one ``flash_attention`` launch at head_dim 192 (V padded from
+    128), against ``use_kernels(False)`` on the same tensors, atol 2e-5
+    (the fp32 attention tolerance)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import mla_prefill_attention
+    rng = np.random.default_rng(s)
+    h, r, dn, dr, dv = 128, 512, 128, 64, 128
+    q, c, kr = (_t(rng, dev, 1, s, h, dn + dr), _t(rng, dev, 1, s, r),
+                _t(rng, dev, 1, s, dr))
+    w_uk = _t(rng, dev, r, h, dn, scale=r ** -0.5)
+    w_uv = _t(rng, dev, r, h, dv, scale=r ** -0.5)
+    ops.reset_launches()
+    out = mla_prefill_attention(q, c, kr, w_uk, w_uv)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    ops.use_kernels(False)
+    try:
+        ref = mla_prefill_attention(q, c, kr, w_uk, w_uv)
+    finally:
+        ops.use_kernels(True)
+    assert out.shape == (1, s, h, dv)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+
+
+def test_mla_offloaded_engine_on_card_matches_cpu(dev):
+    """The scaled DeepSeek-V3 offloaded engine (INT4 weights and KV) on
+    the card gives the tokens of the same engine on the CPU, from the
+    same seed: the prefill through ``flash_attention``, the packed
+    projections and experts through ``int4_matmul``, the decode over
+    packed latent rows dequantized on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.base import Request
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch="deepseek-v3-671b", scaled=True, offload=True,
+                      placement="host", b_max=2, max_len=48, quant="int4",
+                      kv_mode="int4", depth=1).resolve()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (9, 20, 13)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = create_engine(plan, device=device)
+        ops.reset_launches()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new=5))
+        outs[device] = {r.rid: list(r.out) for r in eng.run()}
+        eng.shutdown()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["flash_attention"] == 2 * 3
+            assert ops.LAUNCHES["int4_matmul"] > 0
+            assert ops.LAUNCHES["decode_attention_int4"] == 0
+    assert outs["cuda"] == outs["cpu"]
