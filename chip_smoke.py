@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
     python3 chip_smoke.py --only families # kernel checks, then runs (q)-(s)
     python3 chip_smoke.py --only mla      # kernel checks, then run (t)
+    python3 chip_smoke.py --only ssm      # kernel checks, then runs (u), (v)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -147,8 +148,8 @@ before the result line:
    ``decode_attention_int4`` at F = 1024, ``int4_matmul`` at M = 4 on
    both models' projections;
 14. DeepSeek-V3's multi-head latent attention: (t) ``create_engine(
-   EngineSpec(cfg=<deepseek-v3-671b cut to MLA_LAYERS = 2 layers, two
-   periods>, arch="deepseek-v3-671b", quant="int4").resolve())`` (full
+   EngineSpec(cfg=<deepseek-v3-671b cut to MLA_LAYERS = 1 layer, one
+   period>, arch="deepseek-v3-671b", quant="int4").resolve())`` (full
    width: d 7168, 128 heads, q_lora 1536, kv_lora 512, nope 128, rope
    64, v 128, 256 experts of d_ff 2048, top-8, one shared expert, vocab
    129280; the default budget's plan: offloaded, host, depth 1, bf16
@@ -164,7 +165,38 @@ before the result line:
    and times ``flash_attention`` at (t)'s prefill (128 heads of group
    1, dh 192 with V padded from 128), ``int4_matmul`` at its MLA and
    expert shapes, and times the plain MLA decode step beside SDPA;
-15. print the ``kernels`` JSON line, the card, then the result line.
+15. the SSM: (u) ``create_engine(EngineSpec(arch="mamba2-1.3b",
+   quant="int4", max_len=512, offload=True).resolve())`` (mamba2-1.3b
+   at full width and depth, 48 layers; the default budget's plan without
+   ``offload`` is resident, its provenance printed; offloaded, host,
+   depth 8, ``fused_int4``) serves prompts of 400, 114, 93 and 58
+   tokens, 16 new each, then again with a slot preempted (the same
+   tokens); exact launches (``int4_matmul`` on the five SSM projections
+   of every layer and pass, no attention kernel); the decode step's ms,
+   weight bytes and state/halo bytes each way, busy time by kind, the
+   peak beside the budget and the memory model; a prime 397-token
+   prompt (chunk 1: one chunk a token) and the 400-token one prefilled
+   alone; the whole path against ``use_kernels(False)`` (1e-4 x max at
+   prefill; the decode over each arm's own bf16 halos at 2e-2 x max, and
+   one decode step from the same halos and states at 1e-4 x max); then
+   the resident engine on the same draws
+   carried to the INT4 weights against the offloaded engine, both plain
+   (the first two tokens equal; the agreement after them printed); (v)
+   ``create_engine(EngineSpec(arch="jamba-1.5-large-398b", cfg=<its
+   first 5 layers>, quant="int4", placement="host").resolve())`` (jamba
+   at full width: SSM+dense, SSM+MoE twice, attention+dense; the default
+   budget's plan, disk, printed first) serves (g)'s prompts with 4 new
+   tokens: exact launches (``flash_attention`` and ``decode_attention``
+   at group 8, dh 128; ``int4_matmul`` with K up to 24576), per decode
+   step its ms, weight and expert bytes and the routed union, the state
+   bytes, the build's seconds and peak RSS, the peak beside the memory
+   model's estimate and its parts, then the whole path as (o)'s.  Phase
+   3 also holds and times ``int4_matmul`` at mamba2's projections (N
+   down to 64) and jamba's (K 24576), flash and decode at group 8, dh
+   128, and times the plain SSM functions (``ssd_decode_step``,
+   ``ssd_chunked`` at chunk 200 and chunk 1, the causal conv) beside
+   their bounds;
+16. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -196,9 +228,9 @@ HIDDEN_RTOL = 1e-4       # whole path: max|kernels - plain| / max|plain|
 BF16_HIDDEN_RTOL = 2e-2  # the same over bf16 caches: the plain version
                          # rounds probabilities to bf16 as the reference
                          # does, the kernels keep them f32
-# the depths below are cut to hold the 1200 s limit with runs (q)-(s)
+# the depths below are cut to hold the 1200 s limit with runs (q)-(v)
 # (PERF.md §4); generate calls per run
-REPEATS = {"a": 1, "b": 2, "c": 1, "d": 2}
+REPEATS = {"a": 1, "b": 1, "c": 1, "d": 1}
 PROFILE_GEN = 8          # tokens in the profiled run (busy share only)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
@@ -245,9 +277,10 @@ GEMMA3_WINDOW = 1024
 # the rolling buffers' positions in the phase-3 check: (q)'s requests a
 # few steps into decode, the first past the window, the second at its end
 ROLL_POS = [1499, 1023, 299, 113]
-# run (t): DeepSeek-V3 at full width, depth cut to two layers (two
-# periods), (g)'s prompts with MLA_NEW new tokens each
-MLA_LAYERS, MLA_NEW = 2, 8
+# run (t): DeepSeek-V3 at full width, depth cut to one layer (one
+# period; two until runs u and v needed the time), (g)'s prompts with
+# MLA_NEW new tokens each
+MLA_LAYERS, MLA_NEW = 1, 8
 # DeepSeek-V3's packed projections (K, N): the MLA's wq_a, wq_b, wkv_a
 # and wo, then the routed and shared experts' (d, f) and (f, d); all at
 # decode (M = b_max = 4), the routed experts also at their capacities:
@@ -260,6 +293,29 @@ DEEPSEEK_EXPERT_M = (1, 5)
 # decode step timed in phase 3 (run t's b_max and max_len): 128 heads
 # over the latent (kv_lora 512, rope 64; nope 128, v 128)
 MLA_SQ, MLA_B, MLA_S = 114, 4, 256
+# run (u): mamba2-1.3b at full width and depth, INT4: 4 prompts
+# (default_rng(0)) on 4 slots, SSM_NEW new tokens each; the 400-token
+# prompt takes chunk 200 (two chunks: the inter-chunk recurrence runs),
+# the others one chunk each; SSM_PRIME, a prime above the chunk of 256,
+# takes chunk 1 (one chunk a token) and is timed alone
+SSM_PROMPTS, SSM_NEW, SSM_MAX_LEN, SSM_PRIME = (400, 114, 93, 58), 16, 512, 397
+# mamba2's packed projections (K, N): z_proj and x_proj, bc_proj,
+# dt_proj (N/2 = 32 packed bytes), out_proj; at decode (M = 4) and at the
+# longest prefill (M = 400)
+MAMBA2_PROJ = ((2048, 4096), (2048, 256), (2048, 64), (4096, 2048))
+MAMBA2_M = (4, 400)
+# run (v): jamba-1.5-large at full width, its first JAMBA_LAYERS layers
+# (SSM+dense, SSM+MoE, SSM+dense, SSM+MoE, attention+dense), (g)'s
+# prompts with JAMBA_NEW new tokens; its projections (K, N): the SSM's
+# z/x_proj, bc_proj, dt_proj, out_proj, the attention's wq/wo and wk/wv,
+# the dense FFN and experts' w_gate/w_up and w_down (K = 24576); M = 4
+# at decode, the experts at their capacities: int(1.25 * 4 * 2 / 16) + 1
+# = 1 at decode, 18 and 10 at (g)'s 114- and 58-token prefills; the
+# dense w_down at a whole prompt (114)
+JAMBA_LAYERS, JAMBA_NEW = 5, 4
+JAMBA_PROJ = ((8192, 16384), (8192, 256), (8192, 128), (16384, 8192),
+              (8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192))
+JAMBA_DOWN_M = (1, 10, 18, 114)
 
 
 def log(msg=""):
@@ -368,7 +424,10 @@ def check_int4(torch, rng, dev):
     20, on the 8B's and tinyllama's projections; at Mixtral's expert
     shapes (run o, p); at M = 4 on Gemma 3's and Qwen3's projections
     (runs q-s); and at DeepSeek-V3's MLA and expert projections (run t:
-    M = 4, the experts also at their capacities M = 1 and 5)."""
+    M = 4, the experts also at their capacities M = 1 and 5); at
+    mamba2's SSM projections (runs u: N 4096, 256 and 64, at M = 4 and
+    the 400-token prefill) and jamba's (run v: M = 4, and ``w_down``'s
+    K = 24576 at M = 1, 10, 18 and 114)."""
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     verify_m = B * (SPEC_K + 1)
@@ -402,6 +461,16 @@ def check_int4(torch, rng, dev):
               for K, N in DEEPSEEK_MLA_PROJ + DEEPSEEK_EXPERT]
     cases += [(M, K, N, 128, f"deepseek-v3 expert M={M} {K}x{N}")
               for M in DEEPSEEK_EXPERT_M for K, N in DEEPSEEK_EXPERT]
+    # runs (u) and (v): mamba2's SSM projections (N down to 64) at decode
+    # and at the 400-token prefill; jamba's at decode, and its w_down
+    # (K = 24576) at the experts' capacities and a whole prompt
+    cases += [(M, K, N, 128, f"mamba2 M={M} {K}x{N}")
+              for M in MAMBA2_M for K, N in MAMBA2_PROJ]
+    cases += [(4, K, N, 128, f"jamba M=4 {K}x{N}") for K, N in JAMBA_PROJ]
+    cases += [(M, 24576, 8192, 128, f"jamba w_down M={M} 24576x8192")
+              for M in JAMBA_DOWN_M]
+    cases += [(17, 2048, 64, 128, None), (16, 8192, 128, 128, None),
+              (3, 24576, 256, 128, None), (33, 24576, 64, 128, None)]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
               (16, 512, 384, 128, None), (512, 384, 200, 32, None),
               (3, 96, 10, 32, None), (16, 64, 6, 32, None),
@@ -463,7 +532,8 @@ def check_flash(torch, rng, dev):
     llama3.2-1b draft's prefills in run (m) (sq 114 and 58, its longest
     and shortest prompts) and at Gemma 3's (head_dim 256, the window of
     1024 over 1500 and 1016 rows, and 114 rows without one), each beside
-    SDPA with the same mask.  The bound counts three TF32 products per
+    SDPA with the same mask, and at jamba's (run v: group 8, dh 128).
+    The bound counts three TF32 products per
     multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
     mask attends, ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
@@ -505,7 +575,13 @@ def check_flash(torch, rng, dev):
              (1, 114, 114, 8, 4, 256, True, 0, 0, "gemma3-4b sq=114"),
              (1, 1500, 1500, 8, 4, 256, True, 0, 0, None),
              (2, 33, 33, 8, 4, 256, True, GEMMA3_WINDOW, 0, None),
-             (2, 33, 33, 16, 4, 256, True, 0, 0, None)]
+             (2, 33, 33, 16, 4, 256, True, 0, 0, None),
+             # run (v): jamba's attention layer, 64/8 heads (group 8) at
+             # dh 128, one slot's prefill of (g)'s longest and shortest
+             # prompts
+             (1, 114, 114, 64, 8, 128, True, 0, 0, "jamba sq=114 group 8"),
+             (1, 58, 58, 64, 8, 128, True, 0, 0, None),
+             (2, 45, 45, 64, 8, 128, True, 0, 0, None)]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -570,8 +646,9 @@ def check_decode(torch, rng, dev):
     the generation shape (f32), the serving shape (bf16, ragged pos) and
     the llama3.2-1b draft's proposal steps in run (m) (its bf16 caches
     over the whole ``max_len`` slab, dh 64, group 4), Gemma 3's global
-    slab (head_dim 256) and its rolling buffers (``check_rolling_decode``)
-    beside SDPA."""
+    slab (head_dim 256), jamba's attention layer (group 8, dh 128, run
+    v) and Gemma 3's rolling buffers (``check_rolling_decode``) beside
+    SDPA."""
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
@@ -607,7 +684,12 @@ def check_decode(torch, rng, dev):
              # (head_dim 256, group 2), the longest prompt 16 steps in
              (B, 1536, 8, 4, 256, [1515, 1031, 315, 129], torch.bfloat16,
               "gemma3-4b global bf16"),
-             (B, 2048, 8, 4, 256, [2047, 0, 700, 1024], torch.float32, None)]
+             (B, 2048, 8, 4, 256, [2047, 0, 700, 1024], torch.float32, None),
+             # run (v): jamba's attention layer (64/8 heads, group 8, dh
+             # 128) over bf16 caches, (g)'s prompts a few steps in
+             (B, 128, 64, 8, 128, [116, 95, 83, 60], torch.bfloat16,
+              "jamba group 8 bf16"),
+             (B, 256, 64, 8, 128, [255, 0, 130, 64], torch.float32, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -1200,7 +1282,7 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
 
 
 def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
-                on_build=None):
+                on_build=None, launches=None):
     """Build the engine with ``create_engine`` (``on_build(eng)`` runs
     then), serve ``reqs`` once (and, with ``preempt``, once more with a
     slot preempted mid-run, which must give the same tokens); fails on
@@ -1210,7 +1292,9 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     global-attention layers x decode steps (sliding-window layers always
     ``decode_attention`` over their rolling buffers; the other decode
     kernel 0), and, with packed weights, int4_matmul = 7 projections x
-    layers x (prefill passes + decode steps).  Returns the engine, the counts, the summary and the
+    layers x (prefill passes + decode steps); ``launches(stats)``, where
+    given, names the exact counts instead (an SSM stack's).  Returns the
+    engine, the counts, the summary and the
     served run (tokens, per-request latency, and a copy of its trace:
     run (l) replays it)."""
     from repro_torch.core.tasks import Trace
@@ -1233,16 +1317,20 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     st = r["stats"]
     chunked = plan.sched != "monolithic"
     passes = st["prefill_chunks"] if chunked else st["prefills"]
-    decode = {"decode_attention": n_local * st["decode_steps"],
-              "decode_attention_int4": 0}
-    decode[decode_kernel] += (n - n_local) * st["decode_steps"]
-    check_launches(name, r["counts"], {
-        "flash_attention": n * passes,
-        "flash_attention_q_offset": (
-            n * (st["prefill_chunks"] - st["prefills"]) if chunked else 0),
-        **decode,
-        "int4_matmul": (7 * n * (passes + st["decode_steps"])
-                        if plan.quant == "int4" else 0)}, exact=True)
+    if launches is not None:
+        check_launches(name, r["counts"], launches(st), exact=True)
+    else:
+        decode = {"decode_attention": n_local * st["decode_steps"],
+                  "decode_attention_int4": 0}
+        decode[decode_kernel] += (n - n_local) * st["decode_steps"]
+        check_launches(name, r["counts"], {
+            "flash_attention": n * passes,
+            "flash_attention_q_offset": (
+                n * (st["prefill_chunks"] - st["prefills"]) if chunked
+                else 0),
+            **decode,
+            "int4_matmul": (7 * n * (passes + st["decode_steps"])
+                            if plan.quant == "int4" else 0)}, exact=True)
     outs = r["outs"]
     if sorted(outs) != list(range(len(reqs))) or any(
             len(outs[i]) != m or not all(0 <= t < vocab for t in outs[i])
@@ -1292,10 +1380,11 @@ def local_layers(cfg) -> int:
         *cfg.pattern * cfg.num_periods, *cfg.remainder))
 
 
-def serving_whole_path(torch, ops, eng, reqs):
+def serving_whole_path(torch, ops, eng, reqs, name="serving"):
     """Kernels vs use_kernels(False) on the serving engine's weights:
     hidden states of the first prefill and the first decode step, and
-    greedy-token agreement over the run."""
+    greedy-token agreement over the run; ``name`` heads the printed
+    line."""
     seen = []
     orig = eng.finalize
 
@@ -1329,11 +1418,11 @@ def serving_whole_path(torch, ops, eng, reqs):
     res["first_tokens_equal"] = all(rk["outs"][i][0] == rp["outs"][i][0]
                                     for i in rk["outs"])
     res["tolerance_rel"] = {"prefill": HIDDEN_RTOL, "decode": BF16_HIDDEN_RTOL}
-    log(json.dumps({"serving_whole_path": res}))
+    log(json.dumps({f"{name}_whole_path": res}))
     if res["prefill_rel_err"] > HIDDEN_RTOL:
-        raise RuntimeError(f"serving prefill hidden states differ: {res}")
+        raise RuntimeError(f"{name} prefill hidden states differ: {res}")
     if res["first_tokens_equal"] and res["decode_rel_err"] > BF16_HIDDEN_RTOL:
-        raise RuntimeError(f"serving decode hidden states differ: {res}")
+        raise RuntimeError(f"{name} decode hidden states differ: {res}")
     return res
 
 
@@ -2316,7 +2405,8 @@ def moe_whole_path(torch, ops, np, eng, reqs, run="o", third=None):
     reading in its place (run t's: the kernels with ``flash_attention``
     plain, which shows what ``int4_matmul`` alone moves).  ``run`` names
     the run in messages and its printed line (``mla_whole_path`` for
-    run t's DeepSeek-V3, else ``moe_whole_path``)."""
+    run t's DeepSeek-V3, ``jamba_whole_path`` for run v's jamba, else
+    ``moe_whole_path``)."""
     from repro_torch.models.moe import router_topk
     seen, ref_ids, flips = [], [], []
     orig = eng.finalize
@@ -2389,8 +2479,8 @@ def moe_whole_path(torch, ops, np, eng, reqs, run="o", third=None):
     k_h, p_h = arms["kernels"][1], arms[name3][1]
     res[name3]["decode_rel_err_vs_kernels"] = rel(k_h["decode"],
                                                   p_h["decode"])
-    log(json.dumps({"mla_whole_path" if run == "t" else "moe_whole_path":
-                    res}))
+    log(json.dumps({{"t": "mla_whole_path", "v": "jamba_whole_path"}.get(
+        run, "moe_whole_path"): res}))
     k = res["kernels"]
     if k["flipped_rows"] > MOE_FLIP_SHARE * rows \
             or k["prefill_rel_err"] > HIDDEN_RTOL \
@@ -2483,7 +2573,7 @@ def plain_flash(ops):
 
 def run_mla_paper(torch, ops, np):
     """Run (t): DeepSeek-V3 at full width with its depth cut to
-    ``MLA_LAYERS`` layers (two periods), INT4, through ``EngineSpec.
+    ``MLA_LAYERS`` layers (one a period), INT4, through ``EngineSpec.
     resolve`` and ``create_engine`` on the default budget; (g)'s prompts
     with ``MLA_NEW`` new tokens each; per decode step the weight bytes
     (MLA, shared expert, routed union), the unions, the latent KV bytes;
@@ -2701,12 +2791,12 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
-                                       "families", "mla"),
+                                       "families", "mla", "ssm"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(t) only (plan), or (o) and "
+                         "them and runs (g)-(v) only (plan), or (o) and "
                          "(p) only (moe), or (q)-(s) only (families), or "
-                         "(t) only (mla)")
+                         "(t) only (mla), or (u) and (v) only (ssm)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2771,6 +2861,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
     time_mla_decode(torch, rng, dev)
+    time_ssm_plain(torch, rng, dev)
     stamp("card, build, kernel checks")
     if args.only == "kernels":
         return 0
@@ -2792,6 +2883,9 @@ def main(argv=None) -> int:
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only == "mla":
         run_deepseek(torch, ops, np, counts, summaries, release, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "ssm":
+        run_ssm(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
@@ -2856,6 +2950,7 @@ def main(argv=None) -> int:
     run_moe(torch, ops, np, counts, summaries, release, stamp)
     run_families(torch, ops, np, counts, summaries, release, stamp)
     run_deepseek(torch, ops, np, counts, summaries, release, stamp)
+    run_ssm(torch, ops, np, counts, summaries, release, stamp)
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -3107,6 +3202,465 @@ def run_deepseek(torch, ops, np, counts, summaries, release, stamp):
     counts["t"], summaries["t"] = run_mla_paper(torch, ops, np)
     release(None)
     stamp("t")
+
+
+# ---------------------------------------------------------------------------
+# runs (u)-(v): the SSM (Mamba2's SSD mixer, jamba's hybrid stack)
+# ---------------------------------------------------------------------------
+
+def ssd_flops(b, l, H, hd, G, N, cs) -> float:
+    """The f32 operations ``models.ssm.ssd_chunked`` does at chunk
+    ``cs``: C.B, the masked products and (C.B * L) @ (dt x) within the
+    chunks; the chunk states B x dt x x x decay; the recurrence over the
+    chunks; the states applied through C and the decay."""
+    nc = l // cs
+    intra = b * nc * (2 * G * cs * cs * N + 2 * H * cs * cs
+                      + 2 * H * cs * cs * hd)
+    states = 4 * b * l * H * hd * N
+    scan = 2 * b * nc * H * hd * N
+    out = 4 * b * l * H * hd * N
+    return float(intra + states + scan + out)
+
+
+def time_ssm_plain(torch, rng, dev):
+    """The SSM functions, plain PyTorch on the card (the reference
+    computes them in jnp; no TPU kernel): ``ssd_decode_step`` at run
+    (u)'s and (v)'s decode (b 4; mamba2 64 heads of 64, jamba 128 of 128,
+    d_state 128: the f32 state read and written whole), the causal conv
+    at decode (a bf16 halo) and over a 400-token prefill, and
+    ``ssd_chunked`` at run (u)'s 400-token prompt (chunk 200: two chunks)
+    and at the prime ``SSM_PRIME`` (chunk 1: one chunk a token).  Each:
+    device time (profiler), host time a call (enqueue only), CUDA-event
+    time a call, calls a step, the bound (bytes over 3.35 TB/s or f32
+    operations at 67 TFLOP/s) and the largest difference from the same
+    call on the CPU over the largest value.  Returns the rows."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    mk = lambda *s: torch.tensor(rng.standard_normal(s) * 0.3,
+                                 dtype=torch.float32, device=dev)
+    softplus = torch.nn.functional.softplus
+    first = lambda out: out[0] if isinstance(out, tuple) else out
+    rows = []
+
+    def row(name, fn, args, nbytes, flops, calls, iters):
+        call = lambda: fn(**args)
+        out = first(call()).cpu()
+        cpu = first(fn(**{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in args.items()}))
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        host_ms = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        r = dict(shape=name, ms=device_ms(torch, call, iters),
+                 host_ms=host_ms, call_ms=call_ms(torch, call, iters),
+                 calls=calls, rel_diff_vs_cpu=(
+                     (out - cpu).abs().max() / cpu.abs().max()).item())
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
+        rows.append(r)
+        log(json.dumps({"ssm_plain": r}))
+
+    for arch, H, hd, calls in (("mamba2", 64, 64, "48 a decode step (u)"),
+                               ("jamba", 128, 128, "4 a decode step (v)")):
+        b, N = 4, 128
+        args = dict(xh=mk(b, H, hd), dt=softplus(mk(b, H)),
+                    A=-torch.exp(mk(H)),
+                    B=mk(b, 1, N), C=mk(b, 1, N), h=mk(b, H, hd, N))
+        row(f"ssd_decode_step {arch} b={b} H={H} hd={hd} N={N}",
+            S.ssd_decode_step, args, 2 * 4 * b * H * hd * N
+            + 4 * (2 * b * H * hd + 2 * b * N), 6.0 * b * H * hd * N,
+            calls, 50)
+    ch = 2 * 2048 + 2 * 128
+    w, cb = mk(4, ch), mk(ch)
+    row(f"causal_conv decode mamba2 b=4 ch={ch} bf16 halo", L._causal_conv,
+        dict(x=mk(4, 1, ch), w=w, b=cb, halo=mk(4, 3, ch).bfloat16()),
+        4 * (2 * 4 * ch + 5 * ch) + 2 * 4 * 3 * ch, 8.0 * 4 * ch,
+        "48 a decode step (u)", 50)
+    row(f"causal_conv prefill mamba2 l=400 ch={ch}", L._causal_conv,
+        dict(x=mk(1, 400, ch), w=w, b=cb), 4 * (2 * 400 * ch + 5 * ch),
+        8.0 * 400 * ch, "48 a prefill (u)", 20)
+    H, hd, N = 64, 64, 128
+    for l in (400, SSM_PRIME):
+        cs = L._pick_chunk(l, 256)
+        args = dict(xh=mk(1, l, H, hd), dt=softplus(mk(1, l, H)),
+                    A=-torch.exp(mk(H)), B=mk(1, l, 1, N), C=mk(1, l, 1, N),
+                    chunk=cs)
+        row(f"ssd_chunked mamba2 l={l} chunk={cs} H={H} hd={hd} N={N}",
+            S.ssd_chunked, args,
+            4 * (2 * l * H * hd + l * H + 2 * l * N + H * hd * N),
+            ssd_flops(1, l, H, hd, 1, N, cs), "48 a prefill (u)",
+            10 if cs > 1 else 3)
+    return rows
+
+
+def ssm_requests(np, vocab: int):
+    """Run (u)'s requests: prompts of ``SSM_PROMPTS`` random tokens
+    (``default_rng(0)``), ``SSM_NEW`` new tokens each."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, (n,)).astype(np.int32), SSM_NEW)
+            for n in SSM_PROMPTS]
+
+
+def ssm_step_bytes(np, eng, summary) -> dict:
+    """Per decode step of the serve: the units' weight bytes (experts
+    apart), the trace's KV_LOAD bytes and its KV_SAVE bytes less the
+    prefills' saves, each over the decode steps; and each way's SSM state
+    and halo bytes at the full batch (every leaf moves whole)."""
+    ks = eng.kvstore
+    units = range(len(ks))
+    prefill_save = summary["prefills"] * sum(ks.prefill_save_nbytes(j)
+                                             for j in units)
+    steps = max(1, summary["decode_steps"])
+    leaf = lambda name: sum(
+        eng.b_max * int(np.prod(m.feat)) * m.itemsize for j in units
+        for n, m in ks.leaf_meta(j).items() if n == name)
+    return {"weight_load_bytes_per_step":
+            sum(eng.weights.nbytes(u.key) for u in eng.units),
+            "kv_load_bytes_per_step": summary["bytes"]["kv_load"] / steps,
+            "kv_save_bytes_per_step":
+            (summary["bytes"]["kv_save"] - prefill_save) / steps,
+            "state_bytes_each_way_at_b_max": leaf("state"),
+            "halo_bytes_each_way_at_b_max": leaf("conv")}
+
+
+def memory_parts(np, plan, eng, peak_gb: float) -> dict:
+    """The memory model's device estimate and its parts (GiB) beside the
+    measured peak and what the engine holds (ROADMAP Queue 3 item 16):
+    the model prices the mixer as MHA wherever ``num_heads`` is set, a
+    whole expert bank per window layer, and a KV term of every layer's
+    K/V rows with no SSM state."""
+    from repro_torch.core.memory_model import (estimate, quant_kv_ratio,
+                                               quant_weight_ratio)
+    cfg = plan.model_config()
+    est = estimate(cfg, batch=plan.b_max, seq=plan.max_len, p=4, preload=0)
+    qw = quant_weight_ratio(4, plan.quant)
+    qk = quant_kv_ratio(4, plan.kv_mode)
+    gib = lambda x: x / 2**30
+    ks = eng.kvstore
+    cache = {}
+    for j in range(len(ks)):
+        for m in ks.leaf_meta(j).values():
+            rows = plan.max_len if m.kind == "kv" else 1
+            cache[m.kind] = cache.get(m.kind, 0) + gib(
+                eng.b_max * rows * int(np.prod(m.feat)) * m.itemsize)
+    units = [eng.weights.nbytes(u.key) for u in eng.units]
+    experts = [eng.weights.nbytes(k) for u in eng.units
+               for k in u.expert_keys]
+    n_moe = sum(u.moe for u in eng.units)
+    return {"modeled": {
+        "estimate_gb": gib(modeled_device_bytes(plan)),
+        "vocab_gb": gib(est.w_embed), "mixer_gb": gib(est.w_mha * qw),
+        "bank_gb": gib(est.w_mlp * qw),
+        "cache_per_layer_gb": gib(est.kv_cache // cfg.num_layers * qk),
+        "cache_total_gb": gib(est.kv_cache),
+        "peak_prefill_gb": gib(est.peak_prefill),
+        "peak_decode_gb": gib(est.peak_decode), "depth": plan.depth},
+        "measured": {
+            "peak_gb": peak_gb, "resident_gb": gib(eng.resident_bytes),
+            "largest_unit_gb": gib(max(units)),
+            "expert_gb": gib(max(experts)) if experts else 0.0,
+            "bank_gb": gib(sum(experts) / n_moe) if n_moe else 0.0,
+            "cache_by_kind_gb": cache},
+        "device_budget_gb": gib(plan.device_budget)}
+
+
+def ssm_decode_step_check(torch, ops, eng):
+    """One decode step through every unit of an SSM stack (no MoE),
+    kernels against ``use_kernels(False)``, both arms from the same
+    loaded halos and states (the store's rows of the last serve, every
+    slot) and the same tokens: the final hidden states within 1e-4 x
+    max, the f32 paths' tolerance.  The whole-path reading
+    (``serving_whole_path``) runs each arm from its own prefill, so its
+    decode step reads halos that each arm rounded to bf16 on its own:
+    values a rounding apart may land on two bf16 neighbours, as over any
+    bf16 cache, and it is held at 2e-2 x max like every bf16-cache
+    decode."""
+    from repro_torch.models import layers as L
+    x0 = eng._embed(eng.tokens[:, None].copy())
+    out = {}
+    for kernels in (True, False):
+        ops.use_kernels(kernels)
+        try:
+            x = x0
+            for j, u in enumerate(eng.units):
+                w = eng._loaded(u.key, eng.load_weights(j), eng.dev)
+                kv = eng.kvstore.load(j, eng.b_max, 1)
+                x, _ = u.apply(w, x, L.Ctx(cfg=eng.cfg, mode="decode"), kv)
+            out[kernels] = x.detach().clone()
+        finally:
+            ops.use_kernels(True)
+    a, b = out[True], out[False]
+    if not torch.isfinite(a).all():
+        raise RuntimeError("ssm decode step: non-finite hidden states")
+    res = {"rel_err": ((a - b).abs().max() / b.abs().max()).item(),
+           "tolerance_rel": HIDDEN_RTOL, "units": len(eng.units)}
+    log(json.dumps({"ssm_decode_step_check": res}))
+    if res["rel_err"] > HIDDEN_RTOL:
+        raise RuntimeError(f"ssm decode step: kernels differ from the "
+                           f"plain versions: {res}")
+    return res
+
+
+def run_mamba2(torch, ops, np):
+    """Run (u): mamba2-1.3b at full width and depth (48 SSM layers, d
+    2048, 64 heads of 64, d_state 128, vocab 50280, tied), INT4, through
+    ``EngineSpec.resolve`` and ``create_engine``: the default budget
+    resolves it resident (provenance printed); ``offload=True`` on the
+    same seed gives the offloaded engine (host, depth 8, ``fused_int4``:
+    the five SSM projections through ``int4_matmul``).  Its 4 requests
+    on 4 slots, then again with a slot preempted after step 6 (the same
+    tokens); exact launches (``int4_matmul`` = 5 x layers per pass, the
+    SSM projections: mamba2 has no FFN; no attention kernel); the decode step's ms, its weight and state/halo
+    bytes, the per-kind busy time, the peak beside the budget and the
+    memory model; the prime ``SSM_PRIME`` prompt (chunk 1) and the
+    400-token one (chunk 200) each prefilled alone; the whole path
+    against ``use_kernels(False)`` (the prefill within 1e-4 x max, the
+    decode step over each arm's own bf16 halos within 2e-2 x max) and
+    one decode step from the same halos and states (within 1e-4 x max,
+    ``ssm_decode_step_check``); then the resident engine on the same
+    draws carried to the INT4
+    weights (``core.convert.quant_roundtrip_params``) against the
+    offloaded engine, both plain: the first two tokens of every request
+    equal (the prefill and the first decode step read the same bf16
+    halos), the agreement after them printed (the resident engine's halo
+    turns f32 at its first decode step, as the reference's: ROADMAP
+    Queue 3 item 18)."""
+    from repro_torch.core.convert import quant_roundtrip_params
+    from repro_torch.models.layers import _pick_chunk
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    spec = dict(arch="mamba2-1.3b", quant="int4", max_len=SSM_MAX_LEN)
+    rplan = EngineSpec(**spec).resolve()
+    log(f"(u) default plan: {rplan.summary()}")
+    log(f"(u) provenance: {json.dumps(rplan.provenance)}")
+    plan = EngineSpec(**spec, offload=True).resolve()
+    log(f"(u) plan: {plan.summary()}; engine: {plan.provenance['engine']}; "
+        f"depth: {plan.provenance['depth']}")
+    if rplan.engine != "resident" or (
+            plan.engine, plan.placement, plan.depth, plan.fused_int4) != (
+            "offloaded", "host", 8, True):
+        raise RuntimeError(f"run u: unexpected plans {rplan.summary()} / "
+                           f"{plan.summary()}")
+    cfg = plan.model_config()
+    n = cfg.num_layers
+    per_layer = 5 + 3 * bool(cfg.d_ff)     # the SSM's five, a dense FFN's
+    reqs = ssm_requests(np, cfg.vocab_size)
+    eng, counts, summary, r = run_serving(
+        torch, ops, "u", plan, reqs, None, preempt=True,
+        launches=lambda st: {
+            "flash_attention": 0, "flash_attention_q_offset": 0,
+            "decode_attention": 0, "decode_attention_int4": 0,
+            "int4_matmul": per_layer * n * (st["prefills"]
+                                            + st["decode_steps"])})
+    ms = sorted(1e3 * t for t in r["steps"][1:])
+    summary.update(
+        decode_step_ms_median=statistics.median(ms),
+        decode_step_ms_p90=ms[int(0.9 * (len(ms) - 1))],
+        first_step_ms=1e3 * r["steps"][0],
+        chunks={len(p): _pick_chunk(len(p), cfg.ssm.chunk_size)
+                for p, _ in reqs},
+        memory=memory_report(plan, eng, summary),
+        memory_parts=memory_parts(np, plan, eng,
+                                  summary["device_max_allocated_gb"]),
+        kv_bytes=ssm_step_bytes(np, eng, summary),
+        params=cfg.param_count())
+    alone = {}
+    prime = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SSM_PRIME,)).astype(np.int32)
+    from repro_torch.serving.base import Request
+    for rid, (name, p) in enumerate((("prime", prime),
+                                     ("longest", reqs[0][0]))):
+        # the admission alone: one b=1 prefill through the pipeline
+        eng.submit(Request(rid=500 + rid, prompt=p.copy(), max_new=1))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        alone[name] = {"prompt_len": len(p),
+                       "chunk": _pick_chunk(len(p), cfg.ssm.chunk_size),
+                       "prefill_ms": 1e3 * (time.perf_counter() - t0),
+                       "int4_matmul": ops.LAUNCHES["int4_matmul"]}
+        eng.run()
+    summary["prefill_alone"] = alone
+    log(json.dumps({"mamba2_serving": summary}))
+    summary["whole_path"] = serving_whole_path(
+        torch, ops, eng, [(p, 2) for p, _ in reqs], name="mamba2")
+    summary["decode_step_check"] = ssm_decode_step_check(torch, ops, eng)
+    # the resident engine against the offloaded one, both plain
+    ops.use_kernels(False)
+    try:
+        ro = serve_once(torch, ops, eng, reqs, 600)
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        reng = create_engine(rplan)
+        if type(reng) is not ServingEngine:
+            raise RuntimeError(f"run u: built {type(reng).__name__}")
+        reng.params = quant_roundtrip_params(reng.cfg, reng.params)
+        gc.collect()
+        rr = serve_once(torch, ops, reng, reqs, 600)
+    finally:
+        ops.use_kernels(True)
+    outs, oouts = rr["outs"], ro["outs"]
+    pairs = [(x, y) for i in outs for x, y in zip(outs[i], oouts[i])]
+    agree = {"tokens_compared": len(pairs),
+             "tokens_equal": sum(x == y for x, y in pairs),
+             "requests_equal": sum(outs[i] == oouts[i] for i in outs),
+             "first_two_equal": all(outs[i][:2] == oouts[i][:2]
+                                    for i in outs),
+             "resident_conv_dtype": str(reng.caches["pat"][0]["conv"].dtype)}
+    first = next(((i, k) for i in sorted(outs) for k, (x, y) in
+                  enumerate(zip(outs[i], oouts[i])) if x != y), None)
+    if first is not None:
+        i, k = first
+        prefix = list(reqs[i][0]) + outs[i][:k]
+        agree["first_divergence"] = {
+            "request": i, "step": k, "resident": outs[i][k],
+            "offloaded": oouts[i][k],
+            "resident_logit_margin": logit_margin(torch, reng, prefix)}
+    summary["resident_vs_offloaded"] = agree
+    log(json.dumps({"mamba2_resident_vs_offloaded": agree}))
+    reng.shutdown()
+    if not agree["first_two_equal"]:
+        raise RuntimeError(f"run u: resident and offloaded differ before "
+                           f"their halos do: {agree}")
+    return counts, summary
+
+
+def run_jamba(torch, ops, np):
+    """Run (v): jamba-1.5-large at full width (d 8192, 64/8 heads of
+    128; SSM d_inner 16384, 128 heads of 128, d_state 128; 16 experts of
+    d_ff 24576, top-2; vocab 65536, untied), its depth cut to its first
+    ``JAMBA_LAYERS`` layers (SSM+dense, SSM+MoE, SSM+dense, SSM+MoE,
+    attention+dense), INT4.  The default budget's plan (disk) is printed;
+    the run forces ``placement="host"`` (run o covers the disk tier):
+    offloaded, depth 1, bf16 caches, ``b_max`` 4, ``max_len`` 256.  (g)'s
+    prompts with ``JAMBA_NEW`` new tokens: exact launches
+    (``int4_matmul`` = 33 a pass (5 x 4 SSM, 3 x 3 dense FFN, 4
+    attention) + 3 x the experts loaded; ``flash_attention`` = the
+    prefills; ``decode_attention`` = the decode steps, group 8, dh 128);
+    per decode step its ms, the weight bytes (units, routed union) and
+    the state/halo and KV bytes; the build's seconds and peak RSS; the
+    peak beside the memory model's estimate and its parts; then the whole
+    path as run (o)'s (held routing, flips at most 0.5 %)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    base = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(base, num_layers=JAMBA_LAYERS, num_periods=0,
+                              remainder=tuple(base.pattern[:JAMBA_LAYERS]))
+    spec = dict(arch="jamba-1.5-large-398b", cfg=cfg, quant="int4")
+    dplan = EngineSpec(**spec).resolve()
+    log(f"(v) default plan: {dplan.summary()}")
+    log(f"(v) provenance: {json.dumps(dplan.provenance)}")
+    plan = EngineSpec(**spec, placement="host").resolve()
+    log(f"(v) plan: {plan.summary()}")
+    if plan.engine != "offloaded" or plan.placement != "host":
+        raise RuntimeError(f"run v: unexpected plan {plan.summary()}")
+    cfg = plan.model_config()
+    E = cfg.moe.num_experts
+    reqs = [(p, JAMBA_NEW) for p, _ in paper_requests(np, cfg.vocab_size)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"(v) built in {build_s:.1f} s; peak RSS {peak_rss_gb():.1f} GiB")
+    moe_units = [u for u in eng.units if u.moe]
+    keys = [k for u in moe_units for k in u.expert_keys]
+    per = {eng.weights.nbytes(k) for k in keys}
+    kinds = [(u.spec.mixer, u.spec.ffn) for u in eng.units]
+    if (len(eng.units) != JAMBA_LAYERS or len(moe_units) != 2
+            or len(keys) != 2 * E or len(per) != 1):
+        raise RuntimeError(f"run v: units {kinds}, {len(keys)} experts, "
+                           f"sizes {per}")
+    per_expert = per.pop()
+    steps, snap = [], [dict(eng.weights.load_counts), dict(eng.stats),
+                       len(eng.trace.events())]
+
+    def on_step():
+        now, st = dict(eng.weights.load_counts), dict(eng.stats)
+        prev, pst, i0 = snap
+        evs = eng.trace.events()
+        steps.append({
+            "prefills": st["prefills"] - pst["prefills"],
+            "decode": st["decode_steps"] - pst["decode_steps"],
+            "experts_per_layer": [
+                sum(now.get(k, 0) - prev.get(k, 0) for k in u.expert_keys)
+                for u in moe_units],
+            "kv_load_bytes": sum(e.nbytes for e in evs[i0:]
+                                 if e.kind == "kv_load"),
+            "kv_save_bytes": sum(e.nbytes for e in evs[i0:]
+                                 if e.kind == "kv_save")})
+        snap[:] = [now, st, len(evs)]
+
+    r = serve_once(torch, ops, eng, reqs, 0, on_step=on_step)
+    st = r["stats"]
+    passes = st["prefills"] + st["decode_steps"]
+    loads = sum(sum(s["experts_per_layer"]) for s in steps)
+    check_launches("v", r["counts"], {
+        "flash_attention": st["prefills"], "flash_attention_q_offset": 0,
+        "decode_attention": st["decode_steps"], "decode_attention_int4": 0,
+        "int4_matmul": 3 * loads + 33 * passes}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != JAMBA_NEW or not all(0 <= t < cfg.vocab_size
+                                                 for t in outs[i])
+            for i in range(len(reqs))):
+        raise RuntimeError(f"run v: bad tokens {outs}")
+    unit_bytes = sum(eng.weights.nbytes(u.key) for u in eng.units)
+    decode = [dict(ms=1e3 * t, weight_bytes=unit_bytes + sum(
+        s["experts_per_layer"]) * per_expert, **s)
+        for t, s in zip(r["steps"], steps) if s["decode"] and not s["prefills"]]
+    for d in decode:
+        log(json.dumps({"v_decode_step": d}))
+    ms = sorted(d["ms"] for d in decode)
+    pk = eng.pipeline_report()["per_kind"]
+    summary = {
+        "run": "v", "plan": plan.summary(), "default_plan": dplan.summary(),
+        "units": [f"{m}+{f}" for m, f in kinds], "build_s": build_s,
+        "peak_rss_gb": peak_rss_gb(), "host_mem_gb": host_mem_gb(),
+        "params": cfg.param_count(),
+        "store_gb": (unit_bytes + len(keys) * per_expert) / 1e9,
+        "unit_bytes": {u.key: eng.weights.nbytes(u.key) for u in eng.units},
+        "per_expert_bytes": per_expert, "requests": len(reqs),
+        "prompt_lens": [len(p) for p, _ in reqs], "max_new": JAMBA_NEW,
+        **st, "wall_s": r["wall"], "tok_s": st["tokens_out"] / r["wall"],
+        "prefill_steps": [dict(ms=1e3 * t, **s)
+                          for t, s in zip(r["steps"], steps)
+                          if s["prefills"]],
+        "decode_step_ms_median": statistics.median(ms),
+        "decode_union_mean": statistics.mean(
+            u for d in decode for u in d["experts_per_layer"]),
+        "expert_loads": loads,
+        "busy_s": {k: pk[k]["busy_s"] for k in pk},
+        "bytes": {k: pk[k]["bytes"] for k in pk},
+        "compute_busy": eng.trace.busy_fraction("compute"),
+        "device_max_allocated_gb": r["device_max_allocated_gb"],
+        "launches": r["counts"]}
+    summary.update(
+        memory=memory_report(plan, eng, summary),
+        memory_parts=memory_parts(np, plan, eng,
+                                  r["device_max_allocated_gb"]),
+        kv_bytes=ssm_step_bytes(np, eng, summary))
+    log(json.dumps({"jamba_serving": summary}))
+    summary["whole_path"] = moe_whole_path(
+        torch, ops, np, eng, [(reqs[0][0], 2)], run="v")
+    eng.shutdown()
+    return summary["launches"], summary
+
+
+def run_ssm(torch, ops, np, counts, summaries, release, stamp):
+    """Runs (u) and (v), each engine released before the next."""
+    counts["u"], summaries["u"] = run_mamba2(torch, ops, np)
+    release(None)
+    stamp("u")
+    counts["v"], summaries["v"] = run_jamba(torch, ops, np)
+    release(None)
+    stamp("v")
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

@@ -40,7 +40,12 @@ a Gemma 3 stack runs every layer as global attention over the
 (reference behaviour, ROADMAP Queue 3 item 9).  Nor do they read
 ``cfg.mla``: a DeepSeek stack runs as ``num_heads``-head MHA at
 ``head_dim`` (rope over the whole head) with MoE units, its shared expert
-at ``d_ff`` (reference behaviour, ROADMAP Queue 3 item 11).
+at ``d_ff`` (reference behaviour, ROADMAP Queue 3 item 11).  Nor
+``cfg.ssm``: a Mamba2 or jamba stack runs as ``mha`` units at
+``num_heads`` x ``head_dim`` with MLP or MoE units at ``d_ff``; at
+mamba2-1.3b's full width (``num_heads`` 0, ``d_ff`` 0) the first MLP
+unit's draw divides by ``d_ff`` and raises ``ZeroDivisionError``, as in
+the JAX engine (reference behaviour, ROADMAP Queue 3 item 15).
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, MLA, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, SSM,
+                                      ModelConfig)
 from repro_torch.core import convert
 from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
@@ -192,10 +198,10 @@ class PipelinedLM(PhasedKVExtents):
             raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
         cfg = plan.model_config()
-        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA)
+        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM)
                for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port runs ATTN, ATTN_LOCAL and MLA stacks; the SSM, "
+                "the port runs ATTN, ATTN_LOCAL, MLA and SSM stacks; the "
                 "CROSS and ENC mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan

@@ -52,7 +52,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["TieredKVStore", "PhasedKVExtents", "PackedRows", "KV_GROUP",
            "KV_LEN_BUCKET", "kv_group", "kv_eligible", "quantize_kv_rows",
-           "dequantize_kv_rows", "kv_roundtrip_rows"]
+           "dequantize_kv_rows", "kv_roundtrip_rows", "assign_rows"]
 
 KV_GROUP = 32
 KV_LEN_BUCKET = 32
@@ -131,6 +131,24 @@ def kv_roundtrip_rows(x, group: Optional[int] = None):
     g = group or kv_group(x.shape[-1])
     packed, scale = quantize_kv_rows(x, g)
     return dequantize_kv_rows(packed, scale, g, x.dtype)
+
+
+def assign_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[...] = src`` (cast to ``dst``'s dtype) under numpy's
+    assignment rule, which the reference's stores follow: ``src``
+    broadcasts to ``dst``'s shape or the assignment raises
+    ``ValueError``.  So an SSM prefill of one token, whose halo has one
+    row for the cache's ``d_conv - 1``, fills every halo row with it, and
+    one of two tokens raises (ROADMAP Queue 3 item 17)."""
+    try:
+        fits = torch.broadcast_shapes(tuple(src.shape),
+                                      tuple(dst.shape)) == dst.shape
+    except RuntimeError:
+        fits = False
+    if not fits:
+        raise ValueError(f"could not broadcast input array from shape "
+                         f"{tuple(src.shape)} into shape {tuple(dst.shape)}")
+    dst.copy_(src)
 
 
 class PackedRows(NamedTuple):
@@ -387,7 +405,7 @@ class TieredKVStore:
                 leaf.packed[slot], leaf.scale[slot] = self._quant_into(
                     leaf, m, row)
             else:
-                leaf[slot] = row.to(m.dtype)
+                assign_rows(leaf[slot], row)
 
     def save_prefill_batch(self, j: int, rows: Dict[str, torch.Tensor],
                            length: Optional[int] = None) -> None:

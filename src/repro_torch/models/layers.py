@@ -1,13 +1,13 @@
 """Layer parameter tables and apply functions for ``ATTN``,
-``ATTN_LOCAL`` and ``MLA`` layers with a ``DENSE`` or ``MOE``
+``ATTN_LOCAL``, ``MLA`` and ``SSM`` layers with a ``DENSE`` or ``MOE``
 feed-forward.
 
 The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
 ``models.transformer.init_params``, and the layer math the serving
 engines run (the offloaded one per unit, the resident one over the whole
-stack).  Sharding (``Dist``) and the other mixers come with later
-slices.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
+stack).  Sharding (``Dist``) and the CROSS and ENC mixers come with
+later slices.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
 rope; an ``ATTN_LOCAL`` layer (Gemma 3) attends a sliding window of
 ``cfg.window`` positions and keeps a rolling ``(b, W, hkv, dh)`` buffer
 as its decode cache.  An ``MLA`` layer (DeepSeek) projects through low-rank
@@ -15,8 +15,11 @@ as its decode cache.  An ``MLA`` layer (DeepSeek) projects through low-rank
 ``kv_lora_rank`` wide, and the single-head rope key ``kr``); its prefill
 expands the latent through ``w_uk``/``w_uv`` and runs ``flash_attention``,
 its decode absorbs ``w_uk`` into the query and attends the latent cache
-(``mla_decode_attention``, plain PyTorch as the reference's jnp).  An MoE
-layer's routed experts run in
+(``mla_decode_attention``, plain PyTorch as the reference's jnp).  An
+``SSM`` layer (Mamba2) projects through ``_mm``, runs a depthwise causal
+conv and the SSD scan (``models.ssm``, plain PyTorch as the reference's
+jnp) and keeps a conv halo and an f32 state per sequence as its decode
+cache.  An MoE layer's routed experts run in
 ``models.moe``; with
 ``moe_quant="int4"`` their stacks arrive packed (``w_gate#q``/``#s``)
 and go to ``int4_matmul`` expert by expert.
@@ -37,10 +40,11 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MLA, MOE,
-                                      LayerSpec, ModelConfig)
+                                      SSM, LayerSpec, ModelConfig)
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (chunk_prefill_attention,
                                           decode_attention,
                                           decode_attention_packed,
@@ -60,13 +64,14 @@ class ParamDef(NamedTuple):
 
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
-    if spec.mixer not in (ATTN, ATTN_LOCAL, MLA) \
+    if spec.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM) \
             or spec.ffn not in (DENSE, MOE) or cfg.quant_weights:
         raise NotImplementedError(
-            f"the port runs ATTN, ATTN_LOCAL and MLA layers with a DENSE or "
-            f"MOE feed-forward, got {spec} ({cfg.name}, quant_weights="
-            f"{cfg.quant_weights}); the SSM, CROSS and ENC mixers and "
-            f"resident INT4 tables (quant_weights) come with later slices")
+            f"the port runs ATTN, ATTN_LOCAL, MLA and SSM layers with a "
+            f"DENSE or MOE feed-forward, got {spec} ({cfg.name}, "
+            f"quant_weights={cfg.quant_weights}); the CROSS and ENC mixers "
+            f"and resident INT4 tables (quant_weights) come with later "
+            f"slices")
 
 
 # ===========================================================================
@@ -109,10 +114,38 @@ def mla_table(cfg: ModelConfig) -> dict:
     }
 
 
+def ssm_table(cfg: ModelConfig) -> dict:
+    """The reference's Mamba2 table: five projections at their fan-in,
+    the depthwise ``conv_w`` (d_conv, conv_ch), ``conv_b`` and
+    ``ssm_norm`` at 0, and ``A_log``, ``D`` and ``dt_bias`` (H,) drawn at
+    scale 1."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    H = d_in // s.head_dim
+    gn = s.n_groups * s.d_state
+    conv_ch = d_in + 2 * gn
+    return {
+        "z_proj": ParamDef((d, d_in), ("embed", "ff")),
+        "x_proj": ParamDef((d, d_in), ("embed", "ff")),
+        "bc_proj": ParamDef((d, 2 * gn), ("embed", None)),
+        "dt_proj": ParamDef((d, H), ("embed", "heads")),
+        "conv_w": ParamDef((s.d_conv, conv_ch), (None, "ff")),
+        "conv_b": ParamDef((conv_ch,), ("ff",), 0.0),
+        "A_log": ParamDef((H,), ("heads",), 1.0),
+        "D": ParamDef((H,), ("heads",), 1.0),
+        "dt_bias": ParamDef((H,), ("heads",), 1.0),
+        "ssm_norm": ParamDef((d_in,), ("ff",), 0.0),
+        "out_proj": ParamDef((d_in, d), ("ff", "embed")),
+    }
+
+
 def mixer_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
     _dense_only(cfg, spec)
     if spec.mixer == MLA:
         return mla_table(cfg)
+    if spec.mixer == SSM:
+        return ssm_table(cfg)
     return attn_table(cfg)
 
 
@@ -367,10 +400,103 @@ def apply_mla(p, x, ctx: Ctx, cache, spec: LayerSpec):
     return x + _mm(out.reshape(b, s, h * dv), p, "wo"), new_cache
 
 
+# ===========================================================================
+# SSM (Mamba2)
+# ===========================================================================
+
+
+def _pick_chunk(length: int, target: int) -> int:
+    """Largest divisor of ``length`` that is <= ``target`` (a prime
+    length above ``target`` takes 1: one chunk a token)."""
+    for c in range(min(target, length), 0, -1):
+        if length % c == 0:
+            return c
+    return 1
+
+
+def _causal_conv(x, w, b, halo=None):
+    """Depthwise causal conv by shifted adds, in the reference's order.
+    x (b, l, ch); w (width, ch); halo (b, width-1, ch), the previous
+    context, or None (zeros).  A halo of another dtype is cast to
+    ``x``'s first (the reference's concatenate promotes it)."""
+    width = w.shape[0]
+    if halo is None:
+        halo = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([halo.to(x.dtype), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + x.shape[1]] * w[i]
+    return out + b
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) in its own arithmetic:
+    max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def apply_ssm(p, x, ctx: Ctx, cache, spec: LayerSpec):
+    """The JAX package's ``apply_ssm`` on one device -> (x', new_cache).
+
+    Prefill returns ``{"conv": conv_in[:, -(d_conv-1):], "state": h}``
+    at compute precision (a prompt shorter than ``d_conv - 1`` gives
+    fewer halo rows, as in the reference).  Decode rolls the halo,
+    ``cat([halo, conv_in])[:, 1:]`` (the halo cast to ``conv_in``'s
+    dtype first), runs one recurrent step over ``cache["state"]`` and
+    returns both new leaves whole.  The five projections go through
+    ``_mm`` (packed ones to ``int4_matmul``); the conv, the scan, ``D``
+    and the gated RMSNorm are plain PyTorch."""
+    del spec
+    cfg = ctx.cfg
+    s_cfg = cfg.ssm
+    b, l, d = x.shape
+    d_in = s_cfg.expand * d
+    hd = s_cfg.head_dim
+    H = d_in // hd
+    G, N = s_cfg.n_groups, s_cfg.d_state
+    gn = G * N
+    xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
+    z = _mm(xn, p, "z_proj")                              # (b, l, d_in)
+    xin = _mm(xn, p, "x_proj")
+    bc = _mm(xn, p, "bc_proj")                            # (b, l, 2 gn)
+    dt_raw = _mm(xn, p, "dt_proj")                        # (b, l, H)
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    D = p["D"].to(torch.float32)[:, None]
+    conv_in = torch.cat([xin, bc], dim=-1)                # (b, l, conv_ch)
+    if ctx.mode == "decode":
+        halo = cache["conv"]
+        conv = silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"], halo))
+        new_halo = torch.cat([halo.to(conv_in.dtype), conv_in], dim=1)[:, 1:]
+        xc = conv[..., :d_in].reshape(b, H, hd)
+        Bc = conv[..., d_in:d_in + gn].reshape(b, G, N)
+        Cc = conv[..., d_in + gn:].reshape(b, G, N)
+        dt = softplus(dt_raw[:, 0] + p["dt_bias"])        # (b, H)
+        y, h_new = ssm_mod.ssd_decode_step(xc, dt, A, Bc, Cc, cache["state"])
+        y = (y + xc.to(torch.float32) * D).reshape(b, 1, d_in)
+        new_cache = {"conv": new_halo, "state": h_new.to(torch.float32)}
+    else:
+        dt = softplus(dt_raw + p["dt_bias"])
+        conv = silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
+        xc = conv[..., :d_in].reshape(b, l, H, hd)
+        Bc = conv[..., d_in:d_in + gn].reshape(b, l, G, N)
+        Cc = conv[..., d_in + gn:].reshape(b, l, G, N)
+        y, h_fin, _ = ssm_mod.ssd_chunked(xc, dt, A, Bc, Cc,
+                                          _pick_chunk(l, s_cfg.chunk_size))
+        y = (y + xc.to(torch.float32) * D).reshape(b, l, d_in)
+        new_cache = ({"conv": conv_in[:, -(s_cfg.d_conv - 1):],
+                      "state": h_fin.to(torch.float32)}
+                     if ctx.mode == "prefill" else None)
+    # gated RMSNorm, then the out projection
+    y = rms_norm(y.to(x.dtype) * silu(z), p["ssm_norm"], cfg.norm_eps)
+    return x + _mm(y, p, "out_proj"), new_cache
+
+
 def apply_mixer(p, x, ctx: Ctx, cache, spec: LayerSpec):
     """The layer's mixer half -> (x', new_cache)."""
     if spec.mixer == MLA:
         return apply_mla(p, x, ctx, cache, spec)
+    if spec.mixer == SSM:
+        return apply_ssm(p, x, ctx, cache, spec)
     return apply_attention(p, x, ctx, cache, spec)
 
 
@@ -409,7 +535,7 @@ def apply_moe_ffn(p, x, ctx: Ctx):
 
 
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
-    """One ATTN, ATTN_LOCAL or MLA layer with its DENSE or MOE
+    """One ATTN, ATTN_LOCAL, MLA or SSM layer with its DENSE or MOE
     feed-forward -> (x', new_cache)."""
     _dense_only(ctx.cfg, spec)
     x, new_cache = apply_mixer(p, x, ctx, cache, spec)

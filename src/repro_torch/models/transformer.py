@@ -1,5 +1,5 @@
-"""Model assembly for ``ATTN``/``ATTN_LOCAL``/``MLA`` stacks with dense
-or MoE feed-forwards:
+"""Model assembly for ``ATTN``/``ATTN_LOCAL``/``MLA``/``SSM`` stacks with
+dense or MoE feed-forwards:
 parameter tables, an own parameter init, cache shapes and rope angles,
 and the whole-model forward passes (``init_cache``, ``_run_stack``,
 ``prefill``, ``decode_step``) — a subset of the JAX package's
@@ -29,6 +29,12 @@ its rolling ``(b, W, hkv, dh)`` buffer (kind ``"rep"``), beside the
 global layers' ``max_len`` slabs (kind ``"kv"``); an MLA layer's is its
 latent ``c`` (b, L, kv_lora_rank) and ``kr`` (b, L, qk_rope_head_dim)
 slabs (kind ``"kv"``), and its rope turns ``qk_rope_head_dim`` features.
+An SSM layer's is its conv halo ``(b, d_conv - 1, conv_ch)`` (bf16, kind
+``"rep"``) and its f32 state ``(b, H, head_dim, d_state)`` (kind
+``"state"``); decode replaces both leaves with the step's whole new ones,
+as the reference's functional decode does, so the halo leaf holds f32
+after the first decode step there too.  Every parameter is f32, the
+reference's SSM scalars (``A_log``, ``D``, ``dt_bias``) among them.
 """
 from __future__ import annotations
 
@@ -42,8 +48,8 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, LayerSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, SSM,
+                                      LayerSpec, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.rope import rope_angles
@@ -196,7 +202,9 @@ def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
     """dict name -> (shape, dtype, kind) for one layer's decode cache:
     a ``max_len`` slab (kind ``"kv"``) for global attention, the rolling
     buffer of ``cfg.window`` rows (kind ``"rep"``) for a sliding-window
-    layer, the latent ``c``/``kr`` slabs (kind ``"kv"``) for MLA."""
+    layer, the latent ``c``/``kr`` slabs (kind ``"kv"``) for MLA, the
+    conv halo (kind ``"rep"``) and f32 state (kind ``"state"``) for
+    SSM."""
     dh, hkv = cfg.head_dim, cfg.num_kv_heads
     bf = torch.bfloat16
     if spec.mixer == ATTN:
@@ -210,8 +218,16 @@ def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
         m = cfg.mla
         return {"c": ((b, L_, m.kv_lora_rank), bf, "kv"),
                 "kr": ((b, L_, m.qk_rope_head_dim), bf, "kv")}
+    if spec.mixer == SSM:
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        H = d_in // s.head_dim
+        conv_ch = d_in + 2 * s.n_groups * s.d_state
+        return {"conv": ((b, s.d_conv - 1, conv_ch), bf, "rep"),
+                "state": ((b, H, s.head_dim, s.d_state), torch.float32,
+                          "state")}
     raise NotImplementedError(f"the {spec.mixer} cache comes with a later "
-                              f"slice of the port (SSM, CROSS)")
+                              f"slice of the port (CROSS)")
 
 
 def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
@@ -229,8 +245,9 @@ def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
 
 
 def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda"):
-    """The zeroed decode cache (bf16 rows, as the reference's) on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+    """The zeroed decode cache (bf16 rows and f32 SSM states, as the
+    reference's) on ``device`` (CUDA unless the caller asks for the
+    CPU)."""
     device = resolve_device(device)
     struct, _ = cache_struct(cfg, b, cache_len)
     return {grp: tuple({n: torch.zeros(s, dtype=dt, device=device)
@@ -317,7 +334,9 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
 def decode_step(params, batch, caches, cfg: ModelConfig):
     """One decode step.  batch: {"token": (b, 1), "pos": int or (b,)
     ragged positions}.  Writes each row's K/V at its position into
-    ``caches`` in place and returns (next_token (b,), caches)."""
+    ``caches`` in place, replaces each SSM layer's halo and state with
+    the step's new ones (every row's, as the reference's), and returns
+    (next_token (b,), caches)."""
     pos = batch["pos"]
     tok = batch["token"]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
@@ -327,5 +346,13 @@ def decode_step(params, batch, caches, cfg: ModelConfig):
     ctx = L.Ctx(cfg=cfg, mode="decode", angles=_angles(cfg, positions),
                 pos=pos)
     x = L.embed_tokens(params["embed"], tok)
-    x, _ = _run_stack(params, x, ctx, caches, cfg)
+    x, rows = _run_stack(params, x, ctx, caches, cfg)
+    for q, spec in enumerate(cfg.pattern):
+        if spec.mixer == SSM and cfg.num_periods:
+            caches["pat"][q].update({n: torch.stack([r[n] for r in
+                                                     rows["pat"][q]])
+                                     for n in rows["pat"][q][0]})
+    for q, spec in enumerate(cfg.remainder):
+        if spec.mixer == SSM:
+            caches["rem"][q].update(rows["rem"][q])
     return _head(params, x, cfg), caches

@@ -1,7 +1,7 @@
 """Resident-weight continuous-batching serving engine (the JAX package's
-``serving/engine.py``, for ``ATTN`` stacks with dense or MoE
-feed-forwards; ``moe_quant="int4"`` keeps the routed expert stacks
-packed).
+``serving/engine.py``, for ``ATTN``, ``ATTN_LOCAL``, ``MLA`` and ``SSM``
+stacks with dense or MoE feed-forwards; ``moe_quant="int4"`` keeps the
+routed expert stacks packed).
 
 All parameters stay in device memory at f32; each engine step decodes
 ALL slots with *ragged* per-slot positions in one whole-model decode
@@ -32,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.kvstore import assign_rows
 from repro_torch.core.offload import HostStore
 from repro_torch.core.pipeline import ThreadPool
 from repro_torch.device import resolve_device
@@ -77,10 +78,11 @@ class ServingEngine(SlotEngineBase):
         nt, cache1 = self.model.prefill(self.params,
                                         {"tokens": tokens.to(self.dev)},
                                         self.max_len)
-        # scatter the b=1 cache slab into the slot (KV "admission")
+        # scatter the b=1 cache slab into the slot (KV "admission"),
+        # broadcasting as the reference's scatter does
         for big, one in zip(self._slot_views(self.caches, slot),
                             self._slot_views(cache1, 0)):
-            big.copy_(one)
+            assign_rows(big, one)
         return int(nt[0])
 
     def _decode_active(self, active: List[int]) -> np.ndarray:

@@ -49,9 +49,14 @@ Sliding-window layers (Gemma 3's ``ATTN_LOCAL``) keep a rolling buffer of
 ``window`` rows per slot (cache kind ``"rep"``): each decode step loads
 the live slots' whole buffers and saves them whole, as the reference's
 ``decode_fn`` does, and under ``kv_mode="int4"`` only the global layers'
-rows are packed.  The ``ATTN``/``ATTN_LOCAL`` subset of the JAX
-package's ``serving/offload_engine.py``: the MLA, SSM and CROSS mixers
-raise ``NotImplementedError`` naming a later slice.
+rows are packed.  SSM layers (Mamba2, and jamba's SSM layers beside its
+attention layer) keep a conv halo (kind ``"rep"``) and an f32 state (kind
+``"state"``) per slot: each decode step loads the live slots' whole
+leaves and ships the whole new ones back, as the reference's
+``decode_fn`` does for every kind other than ``"kv"``, and neither is
+ever packed.  The single-device subset of the JAX package's
+``serving/offload_engine.py``: the CROSS mixer raises
+``NotImplementedError`` naming a later slice.
 ``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
@@ -74,7 +79,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, MOE,
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, MOE, SSM,
                                       LayerSpec, ModelConfig)
 from repro_torch.core.draft import accepted_tokens
 from repro_torch.core.kvstore import TieredKVStore
@@ -243,11 +248,11 @@ class OffloadedServingEngine(SlotEngineBase):
                 f"offloaded serving supports token-frontend rope decoder "
                 f"stacks only (failing capability: {cap or plan.engine}; "
                 f"arch {plan.arch})")
-        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA)
+        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM)
                for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port serves ATTN, ATTN_LOCAL and MLA stacks; the SSM "
-                "and CROSS mixers come with later slices")
+                "the port serves ATTN, ATTN_LOCAL, MLA and SSM stacks; the "
+                "CROSS mixer comes with a later slice")
         self.dev = resolve_device(device)
         self.plan = plan
         self.preload_policy = preload_policy_for(plan, cfg)
@@ -510,7 +515,7 @@ class OffloadedServingEngine(SlotEngineBase):
     # ---- PipelineScheduler callbacks ----------------------------------------
     def is_mha(self, j: int) -> bool:
         """'Has streamed KV state' in scheduler terms (every unit with a
-        cache: ATTN, ATTN_LOCAL and MLA)."""
+        cache: ATTN, ATTN_LOCAL, MLA and SSM)."""
         return bool(self.kv_kinds[j])
 
     def load_weights(self, j: int):

@@ -869,3 +869,127 @@ def test_mla_offloaded_engine_on_card_matches_cpu(dev):
             assert ops.LAUNCHES["int4_matmul"] > 0
             assert ops.LAUNCHES["decode_attention_int4"] == 0
     assert outs["cuda"] == outs["cpu"]
+
+
+# Mamba2's SSD mixer and jamba (runs u and v of chip_smoke.py): the SSM
+# functions are plain PyTorch on every device (the reference's jnp);
+# their projections go through int4_matmul
+
+
+@pytest.mark.parametrize("M,K,N", [
+    # mamba2: z/x_proj, bc_proj, dt_proj (N = 64: 32 packed bytes a row),
+    # out_proj, at decode and at a 400-token prefill
+    (4, 2048, 4096), (4, 2048, 256), (4, 2048, 64), (4, 4096, 2048),
+    (400, 2048, 256), (400, 2048, 64), (17, 2048, 64),
+    # jamba: dt_proj (N = 128), w_down (K = 24576) at the experts'
+    # capacities, the dense FFN's decode and a whole prompt
+    (4, 8192, 128), (1, 24576, 8192), (4, 24576, 8192), (18, 24576, 8192),
+    (114, 24576, 8192)])
+def test_int4_matmul_ssm_shapes(dev, M, K, N):
+    """``int4_matmul`` at the SSM stacks' shapes: N down to 64 on both
+    paths, K 24576 on both; rtol 1e-5, atol 1e-5 * max|ref|."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(M + K + N)
+    x = _t(rng, dev, M, K)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), 128)
+    out = int4_matmul(x, packed, scale)
+    ref = plain(x, packed, scale, 128)
+    torch.testing.assert_close(out, ref, rtol=1e-5,
+                               atol=1e-5 * ref.abs().max().item())
+    assert torch.equal(out, int4_matmul(x, packed, scale))
+
+
+def _ssd_args(rng, dev, b, l, H, hd, N):
+    return dict(xh=_t(rng, dev, b, l, H, hd, scale=0.5),
+                dt=torch.nn.functional.softplus(_t(rng, dev, b, l, H)),
+                A=-torch.exp(_t(rng, dev, H, scale=0.3)),
+                B=_t(rng, dev, b, l, 1, N, scale=0.3),
+                C=_t(rng, dev, b, l, 1, N, scale=0.3))
+
+
+def _cpu(args):
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in args.items()}
+
+
+def _rel_close(a, b, rel=2e-5):
+    b = b.cpu()
+    torch.testing.assert_close(a.cpu(), b, rtol=0,
+                               atol=rel * b.abs().max().item())
+
+
+@pytest.mark.parametrize("l,chunk", [(400, 200), (37, 1), (64, 64)])
+def test_ssd_chunked_on_card_matches_cpu(dev, l, chunk):
+    """``ssd_chunked`` at mamba2's full head width (64 heads of 64,
+    d_state 128) on the card against the same call on the CPU: y, the
+    final state and ``state_factor`` within 2e-5 x max (f32 sums in
+    other orders)."""
+    from repro_torch.models import ssm as S
+    rng = np.random.default_rng(l)
+    args = _ssd_args(rng, dev, 1, l, 64, 64, 128)
+    h0 = _t(rng, dev, 1, 64, 64, 128, scale=0.3)
+    got = S.ssd_chunked(**args, chunk=chunk, h_init=h0)
+    want = S.ssd_chunked(**_cpu(args), chunk=chunk, h_init=h0.cpu())
+    for g, w in ((got[0], want[0]), (got[1], want[1]),
+                 (got[2][0], want[2][0])):
+        _rel_close(g, w)
+
+
+@pytest.mark.parametrize("H,hd", [(64, 64), (128, 128)])
+def test_ssd_decode_step_and_conv_on_card_match_cpu(dev, H, hd):
+    """One decode step at mamba2's and jamba's widths (b 4, d_state 128)
+    and the causal conv over a bf16 halo, card against CPU, within 2e-5
+    x max."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    rng = np.random.default_rng(H)
+    a = _ssd_args(rng, dev, 4, 1, H, hd, 128)
+    args = dict(xh=a["xh"][:, 0], dt=a["dt"][:, 0], A=a["A"],
+                B=a["B"][:, 0], C=a["C"][:, 0],
+                h=_t(rng, dev, 4, H, hd, 128, scale=0.3))
+    got, want = S.ssd_decode_step(**args), S.ssd_decode_step(**_cpu(args))
+    _rel_close(got[0], want[0])
+    _rel_close(got[1], want[1])
+    ch = H * hd + 256
+    conv = dict(x=_t(rng, dev, 4, 1, ch), w=_t(rng, dev, 4, ch),
+                b=_t(rng, dev, ch), halo=_t(rng, dev, 4, 3, ch).bfloat16())
+    _rel_close(L._causal_conv(**conv), L._causal_conv(**_cpu(conv)))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_ssm_offloaded_engine_on_card_matches_cpu(dev, arch):
+    """The scaled mamba2 and jamba (its first 5 layers) offloaded
+    engines (INT4 weights and KV) on the card give the tokens of the
+    same engines on the CPU, from the same seed: the SSM projections
+    through ``int4_matmul``, the halo and state moving whole, jamba's
+    attention layer through ``flash_attention`` and
+    ``decode_attention_int4``."""
+    from repro_torch.configs import base as PB
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.base import Request
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    cfg = PB.scaled_down(get_config(arch))
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, num_layers=5, num_periods=0,
+                                  remainder=tuple(cfg.pattern[:5]))
+    plan = EngineSpec(arch=arch, cfg=cfg, offload=True, placement="host",
+                      b_max=2, max_len=48, quant="int4", kv_mode="int4",
+                      depth=1).resolve()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32)
+               for n in (9, 37, 20)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = create_engine(plan, device=device)
+        ops.reset_launches()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new=5))
+        outs[device] = {r.rid: list(r.out) for r in eng.run()}
+        eng.shutdown()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["int4_matmul"] > 0
+            assert ops.LAUNCHES["flash_attention"] == (3 if cfg.moe else 0)
+    assert outs["cuda"] == outs["cpu"]

@@ -286,7 +286,7 @@ def test_create_engine_takes_a_spec_and_dispatches():
     eng = create_engine(EngineSpec(**_spec("tinyllama-1.1b")), device="cpu")
     assert type(eng) is ServingEngine and eng.plan.engine == "resident"
     with pytest.raises(NotImplementedError, match="later slice"):
-        create_engine(EngineSpec(**_spec("mamba2-1.3b")), device="cpu")
+        create_engine(EngineSpec(**_spec("whisper-base")), device="cpu")
     moe = create_engine(EngineSpec(**_spec("mixtral-8x7b",
                                            moe_quant="int4")), device="cpu")
     assert type(moe) is ServingEngine and "w_gate#q" in moe.params["pat"][0]
