@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(t)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(x)
     python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
     python3 chip_smoke.py --only families # kernel checks, then runs (q)-(s)
     python3 chip_smoke.py --only mla      # kernel checks, then run (t)
     python3 chip_smoke.py --only ssm      # kernel checks, then runs (u), (v)
+    python3 chip_smoke.py --only frontends # kernel checks, then runs (w), (x)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -196,7 +197,27 @@ before the result line:
    128, and times the plain SSM functions (``ssd_decode_step``,
    ``ssd_chunked`` at chunk 200 and chunk 1, the causal conv) beside
    their bounds;
-16. print the ``kernels`` JSON line, the card, then the result line.
+16. the two resident-engine frontends: (w) ``create_engine(EngineSpec(
+   arch="whisper-base", max_len=448).resolve())`` (whisper-base at full
+   width and depth: 6 encoder and 6 decoder layers, d 512, 8 heads of
+   64, 1500 frames; resident by ``offload_capability``) serves six
+   prompts of 4-48 tokens, 32 new each, the first with the zero-frame
+   stub and five with seeded frames: exact launches (per prefill 6
+   encoder, 6 self and 6 cross ``flash_attention``; per decode step 6
+   self and 6 cross ``decode_attention``), then a rerun with a slot
+   preempted (the same tokens), then the whole path against
+   ``use_kernels(False)`` (the encoder's output and every prefill within
+   1e-4 x max, the first decode step within 2e-2 x max, each request's
+   first token equal); (x) qwen2-vl-72b at full width cut to 2 layers
+   (resident: the embeds frontend) serves (g)'s prompts with 8 new
+   tokens: the M-RoPE angles on the card bit-equal to 1-D rope, exact
+   launches, the peak device memory beside the plan's budget and the
+   memory model, then the whole path as (w)'s.  Phase 3 also holds and
+   times ``flash_attention`` at ``causal=False`` over the encoder's
+   1500 rows and the cross attention's 48 x 1500, and
+   ``decode_attention`` at group 1 over 1500 encoder rows and the
+   448-row slab;
+17. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -316,6 +337,18 @@ JAMBA_LAYERS, JAMBA_NEW = 5, 4
 JAMBA_PROJ = ((8192, 16384), (8192, 256), (8192, 128), (16384, 8192),
               (8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192))
 JAMBA_DOWN_M = (1, 10, 18, 114)
+# run (w): whisper-base at full width and depth (6 encoder and 6 decoder
+# layers, d 512, 8 heads of 64, 1500 frames) on the resident engine, at
+# the decoder context of the published config (openai/whisper-base
+# max_target_positions = 448); six prompts (default_rng(0)), the first
+# with the zero-frame stub, the others with seeded frames; a slot is
+# preempted after WHISPER_PREEMPT steps in the rerun
+WHISPER_FRAMES, WHISPER_MAX_LEN = 1500, 448
+WHISPER_PROMPTS, WHISPER_NEW, WHISPER_PREEMPT = (4, 8, 16, 24, 32, 48), 32, 6
+# run (x): qwen2-vl-72b at full width, cut in depth only to QWEN2VL_LAYERS
+# layers (the 80 layers at f32 are about 286 GB, more than the card
+# holds), (g)'s prompts at its vocabulary with QWEN2VL_NEW new tokens
+QWEN2VL_LAYERS, QWEN2VL_NEW, QWEN2VL_MAX_LEN = 2, 8, 256
 
 
 def log(msg=""):
@@ -532,7 +565,9 @@ def check_flash(torch, rng, dev):
     llama3.2-1b draft's prefills in run (m) (sq 114 and 58, its longest
     and shortest prompts) and at Gemma 3's (head_dim 256, the window of
     1024 over 1500 and 1016 rows, and 114 rows without one), each beside
-    SDPA with the same mask, and at jamba's (run v: group 8, dh 128).
+    SDPA with the same mask, at jamba's (run v: group 8, dh 128) and at
+    whisper's (run w: group 1, dh 64; the encoder and the cross
+    attention's prefill at ``causal=False``).
     The bound counts three TF32 products per
     multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
     mask attends, ``bound_fp32_ms`` the same work at fp32."""
@@ -581,7 +616,18 @@ def check_flash(torch, rng, dev):
              # prompts
              (1, 114, 114, 64, 8, 128, True, 0, 0, "jamba sq=114 group 8"),
              (1, 58, 58, 64, 8, 128, True, 0, 0, None),
-             (2, 45, 45, 64, 8, 128, True, 0, 0, None)]
+             (2, 45, 45, 64, 8, 128, True, 0, 0, None),
+             # run (w): whisper-base's encoder over its 1500 frames
+             # (bidirectional), the cross attention's prefill of the
+             # longest prompt over them, and the decoder's causal
+             # prefill: 8/8 heads (group 1) at dh 64
+             (1, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, False, 0, 0,
+              "whisper encoder sq=sk=1500"),
+             (1, 48, WHISPER_FRAMES, 8, 8, 64, False, 0, 0,
+              "whisper cross prefill sq=48 sk=1500"),
+             (1, 48, 48, 8, 8, 64, True, 0, 0, "whisper decoder sq=48"),
+             (2, 37, 1500, 8, 8, 64, False, 0, 0, None),
+             (1, 5, 24, 8, 8, 64, False, 0, 0, None)]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -607,7 +653,7 @@ def check_flash(torch, rng, dev):
             kp = torch.arange(sk, device=dev)[None, :]
             mask = (kp <= qp) & ((qp - kp < window) if window else True)
             sdpa = (dict(attn_mask=mask) if q_offset or window else
-                    dict(is_causal=True))
+                    dict(is_causal=causal))
             row.update(timings(
                 torch, lambda: flash_attention(q, k, v, **kw),
                 lambda: plain(q, k, v, **kw),
@@ -647,8 +693,9 @@ def check_decode(torch, rng, dev):
     the llama3.2-1b draft's proposal steps in run (m) (its bf16 caches
     over the whole ``max_len`` slab, dh 64, group 4), Gemma 3's global
     slab (head_dim 256), jamba's attention layer (group 8, dh 128, run
-    v) and Gemma 3's rolling buffers (``check_rolling_decode``) beside
-    SDPA."""
+    v), whisper's cross attention over its 1500 encoder rows and its
+    448-row self-attention slab (group 1, run w) and Gemma 3's rolling
+    buffers (``check_rolling_decode``) beside SDPA."""
     from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     last = PROMPT + GEN - 2            # the last decode step's position
@@ -689,7 +736,17 @@ def check_decode(torch, rng, dev):
              # 128) over bf16 caches, (g)'s prompts a few steps in
              (B, 128, 64, 8, 128, [116, 95, 83, 60], torch.bfloat16,
               "jamba group 8 bf16"),
-             (B, 256, 64, 8, 128, [255, 0, 130, 64], torch.float32, None)]
+             (B, 256, 64, 8, 128, [255, 0, 130, 64], torch.float32, None),
+             # run (w): whisper's cross attention over every one of its
+             # 1500 encoder rows (an int pos of 1499) and its decoder's
+             # self-attention over the 448-row slab, ragged (the first
+             # four requests 16 steps in): group 1, dh 64, bf16 caches
+             (B, WHISPER_FRAMES, 8, 8, 64, [WHISPER_FRAMES - 1] * B,
+              torch.bfloat16, "whisper cross S=1500"),
+             (B, WHISPER_MAX_LEN, 8, 8, 64, [19, 23, 31, 39],
+              torch.bfloat16, "whisper self S=448"),
+             (B, WHISPER_MAX_LEN, 8, 8, 64, [447, 0, 200, 31],
+              torch.bfloat16, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -1239,8 +1296,10 @@ def serving_requests(n: int):
 
 def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
                on_step=None):
-    """Submit every request, then drive ``step`` until the engine is
-    idle, timing each step; launch counts zeroed before and read after.
+    """Submit every request (``(prompt, max_new)``, or ``(prompt,
+    max_new, encoder frames or None)`` for an encoder-decoder), then
+    drive ``step`` until the engine is idle, timing each step; launch
+    counts zeroed before and read after.
     With ``preempt_after``, the first occupied slot is preempted after
     that many steps and resumes from its spilled rows; ``on_step()``
     runs after each step, outside its time."""
@@ -1250,8 +1309,9 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
     torch.cuda.reset_peak_memory_stats()
     at_start = torch.cuda.memory_allocated() / 2**30
     before = dict(eng.stats)
-    for i, (p, m) in enumerate(reqs):
-        eng.submit(Request(rid=rid0 + i, prompt=p.copy(), max_new=m))
+    for i, (p, m, *enc) in enumerate(reqs):
+        eng.submit(Request(rid=rid0 + i, prompt=p.copy(), max_new=m,
+                           enc_embeds=enc[0] if enc else None))
     done, steps, preempted = [], [], None
     t0 = time.perf_counter()
     while not eng.idle():
@@ -2791,12 +2851,14 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
-                                       "families", "mla", "ssm"),
+                                       "families", "mla", "ssm",
+                                       "frontends"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(v) only (plan), or (o) and "
+                         "them and runs (g)-(x) only (plan), or (o) and "
                          "(p) only (moe), or (q)-(s) only (families), or "
-                         "(t) only (mla), or (u) and (v) only (ssm)")
+                         "(t) only (mla), or (u) and (v) only (ssm), or "
+                         "(w) and (x) only (frontends)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2887,6 +2949,9 @@ def main(argv=None) -> int:
     if args.only == "ssm":
         run_ssm(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "frontends":
+        run_frontends(torch, ops, np, counts, summaries, release, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces)
@@ -2951,6 +3016,7 @@ def main(argv=None) -> int:
     run_families(torch, ops, np, counts, summaries, release, stamp)
     run_deepseek(torch, ops, np, counts, summaries, release, stamp)
     run_ssm(torch, ops, np, counts, summaries, release, stamp)
+    run_frontends(torch, ops, np, counts, summaries, release, stamp)
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -3661,6 +3727,236 @@ def run_ssm(torch, ops, np, counts, summaries, release, stamp):
     counts["v"], summaries["v"] = run_jamba(torch, ops, np)
     release(None)
     stamp("v")
+
+
+# ---------------------------------------------------------------------------
+# runs (w)-(x): the two resident-engine frontends (whisper's
+# encoder-decoder, qwen2-vl's M-RoPE)
+# ---------------------------------------------------------------------------
+
+def resident_whole_path(torch, ops, eng, reqs, name):
+    """Kernels against ``use_kernels(False)`` on a resident engine's
+    weights: each request served with 2 new tokens in both arms; the
+    encoder's output (an encoder-decoder's, at each prefill) and every
+    prefill's final hidden states within 1e-4 x max, the first decode
+    step's (all slots full, over each arm's own bf16 caches) within 2e-2
+    x max, and each request's first token equal."""
+    from repro_torch.models import transformer as T
+    seen = {"encoder": [], "prefill": [], "decode": []}
+    head, encode = T._head, T._encode
+
+    def grab_head(params, x, cfg):
+        seen["prefill" if x.shape[1] > 1 else "decode"].append(
+            x[:, -1].detach().clone())
+        return head(params, x, cfg)
+
+    def grab_encode(params, cfg, frames):
+        out = encode(params, cfg, frames)
+        seen["encoder"].append(out.detach().clone())
+        return out
+
+    short = [(r[0], 2) + tuple(r[2:]) for r in reqs]
+    arms = {}
+    T._head, T._encode = grab_head, grab_encode
+    try:
+        for kernels, rid0 in ((True, 500), (False, 600)):
+            ops.use_kernels(kernels)
+            r = serve_once(torch, ops, eng, short, rid0)
+            arms[kernels] = ({k: list(v) for k, v in seen.items()},
+                             r["outs"])
+            for v in seen.values():
+                v.clear()
+    finally:
+        ops.use_kernels(True)
+        T._head, T._encode = head, encode
+    (hk, ok), (hp, op) = arms[True], arms[False]
+    res = {}
+    for phase in ("encoder", "prefill", "decode"):
+        pairs = list(zip(hk[phase], hp[phase]))
+        if phase == "decode":
+            pairs = pairs[:1]
+        if not pairs:
+            continue
+        if any(not torch.isfinite(a).all() for a, _ in pairs):
+            raise RuntimeError(f"{name} {phase}: non-finite values")
+        res[phase + "_rel_err"] = max(
+            ((a - b).abs().max() / b.abs().max()).item() for a, b in pairs)
+    res["first_tokens_equal"] = all(ok[i][0] == op[i][0] for i in ok)
+    res["tokens_equal"] = sum(x == y for i in ok
+                              for x, y in zip(ok[i], op[i]))
+    res["tolerance_rel"] = {"encoder": HIDDEN_RTOL, "prefill": HIDDEN_RTOL,
+                            "decode": BF16_HIDDEN_RTOL}
+    log(json.dumps({f"{name}_whole_path": res}))
+    if not res["first_tokens_equal"] \
+            or res.get("encoder_rel_err", 0.0) > HIDDEN_RTOL \
+            or res["prefill_rel_err"] > HIDDEN_RTOL \
+            or res["decode_rel_err"] > BF16_HIDDEN_RTOL:
+        raise RuntimeError(f"run {name}: kernels differ from plain: {res}")
+    return res
+
+
+def resident_summary(name, plan, build_s, r) -> dict:
+    steps_ms = sorted(1e3 * x for x in r["steps"])
+    st = r["stats"]
+    return {"run": name, "plan": plan.summary(),
+            "engine_why": plan.provenance["engine"], "build_s": build_s,
+            **st, "wall_s": r["wall"], "tok_s": st["tokens_out"] / r["wall"],
+            "step_ms_median": statistics.median(steps_ms),
+            "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
+            "ttft_s_median": statistics.median(r["ttft_s"]),
+            "device_max_allocated_gb": r["device_max_allocated_gb"],
+            "launches": r["counts"]}
+
+
+def run_whisper(torch, ops, np):
+    """Run (w): whisper-base at full width and depth through
+    ``create_engine(EngineSpec(arch="whisper-base",
+    max_len=WHISPER_MAX_LEN).resolve())`` (resident by
+    ``offload_capability``): six requests on 4 slots, the first with the
+    zero-frame stub, the others with seeded (1500, 512) frames; exact
+    launches (per prefill 6 encoder, 6 self and 6 cross
+    ``flash_attention``; per decode step 6 self and 6 cross
+    ``decode_attention``); a rerun with a slot preempted after
+    ``WHISPER_PREEMPT`` steps, the same tokens; then the whole path
+    against ``use_kernels(False)``."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch="whisper-base",
+                      max_len=WHISPER_MAX_LEN).resolve()
+    log(f"(w) plan: {plan.summary()}; engine: {plan.provenance['engine']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if type(eng) is not ServingEngine:
+        raise RuntimeError(f"run w: built {type(eng).__name__}")
+    cfg = eng.cfg
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate(WHISPER_PROMPTS):
+        prompt = rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+        frames = (rng.standard_normal((cfg.encoder_seq_len, cfg.d_model))
+                  .astype(np.float32) if i else None)
+        reqs.append((prompt, WHISPER_NEW, frames))
+    r = serve_once(torch, ops, eng, reqs, 0)
+    n_enc, n, st = cfg.num_encoder_layers, cfg.num_layers, r["stats"]
+    check_launches("w", r["counts"], {
+        "flash_attention": (n_enc + 2 * n) * st["prefills"],
+        "decode_attention": 2 * n * st["decode_steps"],
+        "decode_attention_int4": 0, "int4_matmul": 0}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != WHISPER_NEW for i in outs) or any(
+            not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise RuntimeError(f"run w: bad tokens {outs}")
+    summary = resident_summary("w", plan, build_s, r)
+    rp = serve_once(torch, ops, eng, reqs, 100,
+                    preempt_after=WHISPER_PREEMPT)
+    summary["preempted"] = {"request": rp["preempted"],
+                            "tokens_equal": rp["outs"] == outs,
+                            "slot_restores": rp["stats"]["slot_restores"]}
+    if rp["outs"] != outs or rp["stats"]["slot_restores"] != 1:
+        raise RuntimeError(f"run w: the preempted rerun differs: "
+                           f"{summary['preempted']}")
+    summary["whole_path"] = resident_whole_path(torch, ops, eng, reqs, "w")
+    summary["stub_vs_frames"] = {"stub_request_tokens": outs[0][:8],
+                                 "frames_request_tokens": outs[1][:8]}
+    log(json.dumps({"whisper": summary}))
+    eng.shutdown()
+    return r["counts"], summary
+
+
+def run_qwen2vl(torch, ops, np):
+    """Run (x): qwen2-vl-72b at full width, cut in depth to
+    ``QWEN2VL_LAYERS`` layers, through ``create_engine`` (resident by
+    ``offload_capability``: the embeds frontend, token prompts through
+    the shared table); (g)'s four prompts at its vocabulary,
+    ``QWEN2VL_NEW`` new tokens each; the M-RoPE angles on the card
+    bit-equal to 1-D rope at equal components; exact launches (per
+    prefill one ``flash_attention`` a layer, per decode step one
+    ``decode_attention`` a layer); the peak device memory beside the
+    plan's budget and the memory model's estimate; then the whole path
+    against ``use_kernels(False)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.memory_model import estimate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.rope import rope_angles
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                              num_layers=QWEN2VL_LAYERS,
+                              num_periods=QWEN2VL_LAYERS)
+    plan = EngineSpec(arch="qwen2-vl-72b", cfg=cfg,
+                      max_len=QWEN2VL_MAX_LEN).resolve()
+    log(f"(x) plan: {plan.summary()}; engine: {plan.provenance['engine']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = create_engine(plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if type(eng) is not ServingEngine:
+        raise RuntimeError(f"run x: built {type(eng).__name__}")
+    # M-RoPE on the card: a prompt's positions and ragged decode ones
+    pos = torch.arange(QWEN2VL_MAX_LEN, device=eng.dev)
+    ragged = torch.tensor([[113], [92], [80], [57]], device=eng.dev)
+    mrope = {}
+    for label, p_ in (("prompt", pos), ("ragged", ragged)):
+        a3 = T._angles(cfg, p_)
+        a1 = rope_angles(p_, cfg.head_dim, cfg.rope_theta)
+        mrope[label] = {"shape": list(a3.shape), "device": str(a3.device),
+                        "bit_equal_1d": bool(torch.equal(a3, a1)),
+                        "max_abs_diff": (a3 - a1).abs().max().item()}
+    log(json.dumps({"mrope_angles_on_card": mrope}))
+    if not all(v["bit_equal_1d"] for v in mrope.values()):
+        raise RuntimeError(f"run x: M-RoPE differs from 1-D rope: {mrope}")
+    reqs = [(p, QWEN2VL_NEW) for p, _ in paper_requests(np, cfg.vocab_size)]
+    r = serve_once(torch, ops, eng, reqs, 0)
+    n, st = cfg.num_layers, r["stats"]
+    check_launches("x", r["counts"], {
+        "flash_attention": n * st["prefills"],
+        "decode_attention": n * st["decode_steps"],
+        "decode_attention_int4": 0, "int4_matmul": 0}, exact=True)
+    outs = r["outs"]
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != QWEN2VL_NEW for i in outs) or any(
+            not 0 <= t < cfg.vocab_size for o in outs.values() for t in o):
+        raise RuntimeError(f"run x: bad tokens {outs}")
+    summary = resident_summary("x", plan, build_s, r)
+    est = estimate(cfg, batch=plan.b_max, seq=plan.max_len, p=4, preload=0)
+    params_n = sum(t.numel() for t in tree_leaves(eng.params))
+    summary["memory"] = {
+        "device_max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "device_budget_gb": plan.device_budget / 2**30,
+        "modeled_weights_gb": est.weights / 2**30,
+        "modeled_w_plus_m_gb": (est.weights + max(est.peak_prefill,
+                                                  est.peak_decode)) / 2**30,
+        "parameters": params_n, "parameter_gb": 4 * params_n / 2**30,
+        "peak_rss_gb": peak_rss_gb()}
+    summary["whole_path"] = resident_whole_path(torch, ops, eng, reqs, "x")
+    log(json.dumps({"qwen2_vl": summary}))
+    eng.shutdown()
+    return r["counts"], summary
+
+
+def tree_leaves(tree):
+    """Every tensor of a nested dict/tuple parameter tree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def run_frontends(torch, ops, np, counts, summaries, release, stamp):
+    """Runs (w) and (x), each engine released before the next."""
+    counts["w"], summaries["w"] = run_whisper(torch, ops, np)
+    release(None)
+    stamp("w")
+    counts["x"], summaries["x"] = run_qwen2vl(torch, ops, np)
+    release(None)
+    stamp("x")
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

@@ -1,7 +1,6 @@
 """``arch`` registry of the port: the JAX package's registry, name for
 name (the ten assigned architectures and the paper's models).  Every
-name resolves to a plan; building an engine for a family the port does
-not run yet raises ``NotImplementedError`` naming its later slice."""
+name resolves to a plan and builds the engine its plan names."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

@@ -1,7 +1,8 @@
 """Load the JAX engines' parameters into the port's engines.
 
 The JAX resident ``ServingEngine`` keeps one parameter tree
-(``embed``, ``final_norm``, ``pat`` stacked over periods, ``rem``);
+(``embed``, ``final_norm``, ``pat`` stacked over periods, ``rem``, and
+an encoder-decoder's ``enc``);
 taken out as numpy arrays it replaces the port ``ServingEngine``'s tree
 leaf for leaf (``from_reference_resident``).  The JAX ``PipelinedLM``
 keeps its embedding on the device and each unit's tensors merged on its
@@ -123,12 +124,17 @@ def from_reference_serving(resident: Dict[str, Dict[str, np.ndarray]],
 
 def from_reference_resident(params, eng) -> None:
     """Replace a port ``ServingEngine``'s parameter tree with the JAX
-    resident engine's (the same structure, numpy or array leaves).
+    resident engine's (the same structure, numpy or array leaves; an
+    encoder-decoder's ``enc`` subtree and its cross weights too).
     Every table must name the same tensors, each of the same shape."""
     def tables(tree):
+        enc = tree.get("enc")
         return ([("embed", tree["embed"]), ("final_norm", tree["final_norm"])]
                 + [(f"{grp}[{q}]", t) for grp in ("pat", "rem")
-                   for q, t in enumerate(tree[grp])])
+                   for q, t in enumerate(tree[grp])]
+                + ([] if enc is None else
+                   [(f"enc/pat[{q}]", t) for q, t in enumerate(enc["pat"])]
+                   + [("enc/final_norm", enc["final_norm"])]))
     mine, theirs = tables(eng.params), tables(params)
     if [k for k, _ in mine] != [k for k, _ in theirs]:
         raise ValueError(f"tables differ: got {[k for k, _ in theirs]}, "

@@ -45,7 +45,12 @@ at ``d_ff`` (reference behaviour, ROADMAP Queue 3 item 11).  Nor
 ``num_heads`` x ``head_dim`` with MLP or MoE units at ``d_ff``; at
 mamba2-1.3b's full width (``num_heads`` 0, ``d_ff`` 0) the first MLP
 unit's draw divides by ``d_ff`` and raises ``ZeroDivisionError``, as in
-the JAX engine (reference behaviour, ROADMAP Queue 3 item 15).
+the JAX engine (reference behaviour, ROADMAP Queue 3 item 15).  Nor
+the encoder, the cross attention or M-RoPE: whisper runs as its decoder's
+self-attention ``mha`` and ``mlp`` units with 1-D rope at its
+``rope_theta`` of 0, whose angles are NaN past position 0 (0 times the
+infinite frequencies), so its greedy tokens are all 0; qwen2-vl runs with
+1-D rope (reference behaviour, ROADMAP Queue 3 item 19).
 """
 from __future__ import annotations
 
@@ -59,8 +64,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, SSM,
-                                      ModelConfig)
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import convert
 from repro_torch.core.draft import accept_length
 from repro_torch.core.kvstore import (PackedRows, PhasedKVExtents,
@@ -198,11 +202,6 @@ class PipelinedLM(PhasedKVExtents):
             raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
                             f"{type(plan).__name__}")
         cfg = plan.model_config()
-        if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM)
-               for s in (*cfg.pattern, *cfg.remainder)):
-            raise NotImplementedError(
-                "the port runs ATTN, ATTN_LOCAL, MLA and SSM stacks; the "
-                "CROSS and ENC mixers come with later slices")
         self.dev = resolve_device(device)
         self.plan = plan
         self.cfg = cfg

@@ -17,7 +17,7 @@ from repro_torch.kernels.decode_attention_int4 import decode_attention_int4
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int4_matmul import int4_matmul
 
-__all__ = ["use_kernels", "int4_matmul_op",
+__all__ = ["use_kernels", "kernels_enabled", "int4_matmul_op",
            "flash_attention_op", "decode_attention_op",
            "decode_attention_int4_op", "LAUNCHES",
            "reset_launches"]
@@ -27,6 +27,11 @@ _STATE = {"enabled": True}
 
 def use_kernels(flag: bool):
     _STATE["enabled"] = bool(flag)
+
+
+def kernels_enabled() -> bool:
+    """Whether the ops launch their kernels (``use_kernels``)."""
+    return _STATE["enabled"]
 
 
 def int4_matmul_op(x, packed, scale, *, group: int = 128):

@@ -23,6 +23,11 @@ counts spec_steps/spec_proposed/spec_accepted), and two pipeline stages:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
       --offload --quant int4 --stages 2
 
+The architectures the offloaded engine cannot stream resolve to the
+resident engine: whisper (its encoder fed the zero-frame stub) and
+qwen2-vl (token prompts, M-RoPE):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
+
 Plans are first-class: --plan-json resolves the spec and dumps the plan
 (every auto field and why it got its value) WITHOUT building an engine;
 --spec-json loads an EngineSpec JSON as the base (explicit flags still

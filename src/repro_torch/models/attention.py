@@ -15,7 +15,9 @@ sequence, each query attended as its own ragged decode step.
 ``chunk_prefill_attention`` is a prefill chunk's attention over the
 engine-held prefix (``flash_attention`` with ``q_offset``).
 ``local_decode_attention`` is a sliding-window layer's decode step over
-its rolling buffer, through the same ``decode_attention`` kernel.  Layout
+its rolling buffer, through the same ``decode_attention`` kernel.
+``cross_decode_attention`` is a whisper decoder token's attention over
+every cached encoder row, through the same kernel.  Layout
 BSHD: q (b, sq, h, dh), k/v (b, sk, hkv, dh).
 
 MLA (DeepSeek) keeps a latent cache, ``c`` (b, S, r) and ``kr`` (b, S,
@@ -37,6 +39,7 @@ from repro_torch.kernels.ref import attn_partials, ref_attention
 from repro_torch.models.common import NEG_INF
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
+           "cross_decode_attention",
            "decode_attention_packed", "spec_decode_attention",
            "spec_decode_attention_packed", "chunk_prefill_attention",
            "local_decode_attention", "mla_decode_attention",
@@ -178,6 +181,26 @@ def local_decode_attention(q, k_cache, v_cache, k_new, v_new, pos, window):
         clamped = min(int(pos), W - 1)
     out = ops.decode_attention_op(q[:, 0], k_cache, v_cache, clamped)
     return out[:, None], k_cache, v_cache
+
+
+def cross_decode_attention(q, ck, cv):
+    """A decode token's cross attention over every encoder row: q (b, 1,
+    h, dh); ck/cv (b, S_enc, hkv, dh), the cache (bf16 in serving); ->
+    (b, 1, h, dh) at the cache's dtype.  Nothing is written and every
+    row is valid, so on the card it is one ``decode_attention`` launch
+    at ``pos = S_enc - 1`` for every row, its f32 output rounded to the
+    cache's dtype.  The plain version (CPU tensors, or
+    ``use_kernels(False)``) is the reference's own arithmetic,
+    ``ref_attention(q, ck, cv, causal=False)``
+    (``src/repro/models/layers.py:446`` calling
+    ``src/repro/models/attention.py:47-67``): f32 scores, the softmax's
+    probabilities rounded to the cache's dtype, their product with
+    ``cv`` at that dtype.  It differs from the self-attention decode's
+    plain version, which rounds the unnormalized partials."""
+    if q.device.type == "cpu" or not ops.kernels_enabled():
+        return ref_attention(q, ck, cv, causal=False)
+    out = ops.decode_attention_op(q[:, 0], ck, cv, ck.shape[1] - 1)
+    return out[:, None].to(cv.dtype)
 
 
 def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, c_new, kr_new,

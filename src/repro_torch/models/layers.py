@@ -1,13 +1,19 @@
 """Layer parameter tables and apply functions for ``ATTN``,
-``ATTN_LOCAL``, ``MLA`` and ``SSM`` layers with a ``DENSE`` or ``MOE``
-feed-forward.
+``ATTN_LOCAL``, ``MLA``, ``SSM``, ``ENC`` and ``CROSS`` layers with a
+``DENSE`` or ``MOE`` feed-forward.
 
 The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
 ``models.transformer.init_params``, and the layer math the serving
 engines run (the offloaded one per unit, the resident one over the whole
-stack).  Sharding (``Dist``) and the CROSS and ENC mixers come with
-later slices.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
+stack).  Sharding (``Dist``) is not ported; neither are resident INT4
+tables (``cfg.quant_weights``, which only the JAX package's dry run
+sets).  An ``ENC`` layer (whisper's encoder) is bidirectional attention
+without rope; a ``CROSS`` layer (whisper's decoder) is a causal
+self-attention, then attention over every encoder row through the
+``c``-prefixed projections (``apply_cross_layer``), its decode cache the
+self-attention's ``k``/``v`` slabs beside the encoder's ``ck``/``cv``
+rows.  ``cfg.qk_norm`` (Qwen3) normalizes q and k per head before
 rope; an ``ATTN_LOCAL`` layer (Gemma 3) attends a sliding window of
 ``cfg.window`` positions and keeps a rolling ``(b, W, hkv, dh)`` buffer
 as its decode cache.  An ``MLA`` layer (DeepSeek) projects through low-rank
@@ -25,11 +31,14 @@ cache.  An MoE layer's routed experts run in
 and go to ``int4_matmul`` expert by expert.
 
 On the card every attention goes through the port's kernels: prefill
+(and the encoder, and a cross attention's prefill, at ``causal=False``)
 through ``flash_attention``, decode through ``decode_attention`` over the
-loaded cache (bf16 in serving) or ``decode_attention_int4`` over packed
-rows, and a packed ``name#q``/``name#s`` projection through
-``int4_matmul``.  The ``quant=None`` projections and the LM head stay
-``torch.matmul``, as the JAX package leaves them to XLA.
+loaded cache (bf16 in serving; a cross attention's decode over its
+encoder rows at the last row's position) or ``decode_attention_int4``
+over packed rows, and a packed ``name#q``/``name#s`` projection through
+``int4_matmul``.  The ``quant=None`` projections, the cross attention's
+``cwq``/``cwk``/``cwv``/``cwo`` and the LM head stay ``torch.matmul``,
+as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -39,13 +48,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MLA, MOE,
-                                      SSM, LayerSpec, ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, CROSS, DENSE, ENC,
+                                      MLA, MOE, SSM, LayerSpec, ModelConfig)
 from repro_torch.core.kvstore import PackedRows
 from repro_torch.kernels.ops import flash_attention_op, int4_matmul_op
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (chunk_prefill_attention,
+                                          cross_decode_attention,
                                           decode_attention,
                                           decode_attention_packed,
                                           local_decode_attention,
@@ -64,14 +74,14 @@ class ParamDef(NamedTuple):
 
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
-    if spec.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM) \
+    if spec.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM, ENC, CROSS) \
             or spec.ffn not in (DENSE, MOE) or cfg.quant_weights:
         raise NotImplementedError(
-            f"the port runs ATTN, ATTN_LOCAL, MLA and SSM layers with a "
-            f"DENSE or MOE feed-forward, got {spec} ({cfg.name}, "
-            f"quant_weights={cfg.quant_weights}); the CROSS and ENC mixers "
-            f"and resident INT4 tables (quant_weights) come with later "
-            f"slices")
+            f"the port runs ATTN, ATTN_LOCAL, MLA, SSM, ENC and CROSS "
+            f"layers with a DENSE or MOE feed-forward and f32 tables, got "
+            f"{spec} ({cfg.name}, quant_weights={cfg.quant_weights}); "
+            f"resident INT4 tables (quant_weights) wait for the dry run's "
+            f"port (ROADMAP Queue 1 item 5)")
 
 
 # ===========================================================================
@@ -79,15 +89,18 @@ def _dense_only(cfg: ModelConfig, spec: LayerSpec):
 # ===========================================================================
 
 
-def attn_table(cfg: ModelConfig) -> dict:
+def attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
+    """The attention projections; ``cross``: the cross attention's
+    ``c``-prefixed ones, without ``qk_norm``'s norms."""
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pre = "c" if cross else ""
     t = {
-        "wq": ParamDef((d, h * dh), ("embed", "heads_ff")),
-        "wk": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
-        "wv": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
-        "wo": ParamDef((h * dh, d), ("heads_ff", "embed")),
+        pre + "wq": ParamDef((d, h * dh), ("embed", "heads_ff")),
+        pre + "wk": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
+        pre + "wv": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
+        pre + "wo": ParamDef((h * dh, d), ("heads_ff", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         t["q_norm"] = ParamDef((dh,), (None,), 0.0)
         t["k_norm"] = ParamDef((dh,), (None,), 0.0)
     return t
@@ -146,6 +159,9 @@ def mixer_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
         return mla_table(cfg)
     if spec.mixer == SSM:
         return ssm_table(cfg)
+    if spec.mixer == CROSS:
+        return {**attn_table(cfg), **attn_table(cfg, cross=True),
+                "norm_cross": ParamDef((cfg.d_model,), (None,), 0.0)}
     return attn_table(cfg)
 
 
@@ -221,6 +237,8 @@ class Ctx:
     mode: str                               # prefill | decode
     angles: Optional[torch.Tensor] = None   # (s, half) or (b, s, half)
     pos: Any = None                         # decode position: int or (b,)
+    memory: Optional[torch.Tensor] = None   # (b, s_enc, d) encoder output
+    is_encoder: bool = False
 
 
 # ===========================================================================
@@ -240,9 +258,9 @@ def _mm(x: torch.Tensor, p, name: str) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-def _qkv(p, xn, ctx: Ctx):
+def _qkv(p, xn, ctx: Ctx, rope: bool = True):
     """The projections, per-head RMSNorm of q and k under ``qk_norm``,
-    then rope (the reference's order)."""
+    then rope (the reference's order; none for an encoder layer)."""
     cfg = ctx.cfg
     b, s, _ = xn.shape
     q = _mm(xn, p, "wq").reshape(b, s, cfg.num_heads, cfg.head_dim)
@@ -251,7 +269,7 @@ def _qkv(p, xn, ctx: Ctx):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if ctx.angles is not None:
+    if ctx.angles is not None and rope:
         q = apply_rope(q, ctx.angles)
         k = apply_rope(k, ctx.angles)
     return q, k, v
@@ -263,18 +281,21 @@ def apply_attention(p, x, ctx: Ctx, cache, spec: LayerSpec):
     rows at the cache's compute dtype, the rows the reference gathers
     back out of its updated cache for the save; for an ``ATTN_LOCAL``
     layer the whole updated rolling buffer, which the reference saves
-    whole."""
+    whole.  An ``ENC`` layer attends every row (``causal=False``) without
+    rope."""
     cfg = ctx.cfg
     b, s, d = x.shape
     window = cfg.window if spec.mixer == ATTN_LOCAL else 0
+    enc = spec.mixer == ENC
     xn = rms_norm(x, p["norm_mixer"], cfg.norm_eps)
-    q, k, v = _qkv(p, xn, ctx)
+    q, k, v = _qkv(p, xn, ctx, rope=not enc)
     if ctx.mode == "decode":
         out, new_cache = _decode_attn(q, k, v, ctx, cache, window)
     else:
-        out = flash_attention_op(q, k, v, causal=True, window=window)
+        out = flash_attention_op(q, k, v, causal=not enc, window=window)
         new_cache = (_build_cache(k, v, ctx, window)
-                     if ctx.mode == "prefill" else None)
+                     if ctx.mode == "prefill" and not ctx.is_encoder
+                     else None)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + _mm(out, p, "wo"), new_cache
 
@@ -346,6 +367,40 @@ def _decode_attn(q, k_new, v_new, ctx: Ctx, cache, window: int = 0):
         fn = spec_decode_attention if spec else decode_attention
         out, _, _ = fn(q, kc, vc, k_new, v_new, ctx.pos)
     return out, {"k": k_new.to(kc.dtype), "v": v_new.to(kc.dtype)}
+
+
+# ===========================================================================
+# Cross-attention (whisper decoder)
+# ===========================================================================
+
+
+def apply_cross_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
+    """The JAX package's ``apply_cross_layer`` -> (x', new_cache): a
+    causal self-attention (``apply_attention`` as ``ATTN``), then
+    ``rms_norm(norm_cross)``, ``q = xn @ cwq`` and attention over every
+    encoder row, then ``@ cwo``.  Prefill projects the encoder output
+    ``ctx.memory`` to ``ck``/``cv`` (plain matmuls, as the reference's)
+    and attends them through ``flash_attention`` at ``causal=False``;
+    decode attends the cached ``ck``/``cv`` (``cross_decode_attention``)
+    and passes them through unchanged.  ``new_cache``: the
+    self-attention's rows beside ``ck``/``cv``."""
+    cfg = ctx.cfg
+    b, s, d = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x, new_cache = apply_attention(p, x, ctx, cache, LayerSpec(ATTN, spec.ffn))
+    xn = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+    q = (xn @ p["cwq"]).reshape(b, s, h, dh)
+    if ctx.mode == "decode":
+        ck, cv = cache["ck"], cache["cv"]
+        out = cross_decode_attention(q, ck, cv)
+    else:
+        mem = ctx.memory
+        sm = mem.shape[1]
+        ck = (mem @ p["cwk"]).reshape(b, sm, hkv, dh)
+        cv = (mem @ p["cwv"]).reshape(b, sm, hkv, dh)
+        out = flash_attention_op(q, ck, cv, causal=False)
+    out = out.reshape(b, s, h * dh).to(x.dtype)
+    return x + out @ p["cwo"], {**new_cache, "ck": ck, "cv": cv}
 
 
 # ===========================================================================
@@ -497,6 +552,8 @@ def apply_mixer(p, x, ctx: Ctx, cache, spec: LayerSpec):
         return apply_mla(p, x, ctx, cache, spec)
     if spec.mixer == SSM:
         return apply_ssm(p, x, ctx, cache, spec)
+    if spec.mixer == CROSS:
+        return apply_cross_layer(p, x, ctx, cache, spec)
     return apply_attention(p, x, ctx, cache, spec)
 
 
@@ -535,8 +592,8 @@ def apply_moe_ffn(p, x, ctx: Ctx):
 
 
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
-    """One ATTN, ATTN_LOCAL, MLA or SSM layer with its DENSE or MOE
-    feed-forward -> (x', new_cache)."""
+    """One ATTN, ATTN_LOCAL, MLA, SSM, ENC or CROSS layer with its DENSE
+    or MOE feed-forward -> (x', new_cache)."""
     _dense_only(ctx.cfg, spec)
     x, new_cache = apply_mixer(p, x, ctx, cache, spec)
     if spec.ffn == MOE:

@@ -26,11 +26,12 @@ class Model:
         return T.decode_step(params, batch, caches, self.cfg)
 
     # ---- caches ------------------------------------------------------------
-    def init_cache(self, b: int, cache_len: int, device="cuda"):
-        return T.init_cache(self.cfg, b, cache_len, device)
+    def init_cache(self, b: int, cache_len: int, device="cuda",
+                   enc_len=None):
+        return T.init_cache(self.cfg, b, cache_len, device, enc_len)
 
-    def cache_struct(self, b: int, cache_len: int):
-        return T.cache_struct(self.cfg, b, cache_len)
+    def cache_struct(self, b: int, cache_len: int, enc_len=None):
+        return T.cache_struct(self.cfg, b, cache_len, enc_len)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,4 +1,5 @@
-"""Model assembly for ``ATTN``/``ATTN_LOCAL``/``MLA``/``SSM`` stacks with
+"""Model assembly for ``ATTN``/``ATTN_LOCAL``/``MLA``/``SSM`` stacks and
+whisper's encoder-decoder (``ENC`` encoder, ``CROSS`` decoder) with
 dense or MoE feed-forwards:
 parameter tables, an own parameter init, cache shapes and rope angles,
 and the whole-model forward passes (``init_cache``, ``_run_stack``,
@@ -35,6 +36,19 @@ An SSM layer's is its conv halo ``(b, d_conv - 1, conv_ch)`` (bf16, kind
 as the reference's functional decode does, so the halo leaf holds f32
 after the first decode step there too.  Every parameter is f32, the
 reference's SSM scalars (``A_log``, ``D``, ``dt_bias``) among them.
+
+Encoder-decoder (whisper): the tree gains ``"enc"``, its one ``ENC``
+table stacked over ``num_encoder_layers`` and its final norm.  Prefill
+encodes the batch's ``enc_embeds`` frames (``_encode``: sinusoidal
+positions, the ENC stack, the norm) and each CROSS layer caches its
+``ck``/``cv`` projections of them (kind ``"rep"``, ``enc_len`` rows)
+beside its ``k``/``v`` slabs; decode attends those rows.  A rope-free
+model (``rope_theta`` 0) adds sinusoidal positions to its inputs: the
+prompt's first ``s`` rows, or each decode row's own, computed at its
+position where the reference indexes a ``max_seq_len`` table.  A batch
+may carry ``"embeds"`` in place of tokens (the frontends' stubs), and
+an M-RoPE model (qwen2-vl) rotates by its three equal position
+components.
 """
 from __future__ import annotations
 
@@ -48,25 +62,33 @@ from typing import Dict, Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, MLA, SSM,
-                                      LayerSpec, ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, CROSS, DENSE, ENC,
+                                      MLA, SSM, LayerSpec, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.rope import rope_angles
+from repro_torch.models.rope import (rope_angles, sinusoidal_positions,
+                                     sinusoidal_rows)
 
-PARTS = ("embed", "final_norm", "pat", "rem")
+# the tree's tables; a part's index seeds its draws ("enc_pat" and
+# "enc_final_norm" are the encoder's "pat" and "final_norm")
+PARTS = ("embed", "final_norm", "pat", "rem", "enc_pat", "enc_final_norm")
+ENC_SPEC = LayerSpec(ENC, DENSE)
 
 
 def model_tables(cfg: ModelConfig):
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder stacks come with a later "
-                                  "slice of the port")
-    return {
+    t = {
         "embed": L.embed_table(cfg),
         "final_norm": {"scale": L.ParamDef((cfg.d_model,), (None,), 0.0)},
         "pat": tuple(L.layer_table(cfg, s) for s in cfg.pattern),
         "rem": tuple(L.layer_table(cfg, s) for s in cfg.remainder),
     }
+    if cfg.enc_dec:
+        t["enc"] = {
+            "pat": (L.layer_table(cfg, ENC_SPEC),),
+            "final_norm": {"scale": L.ParamDef((cfg.d_model,), (None,),
+                                               0.0)},
+        }
+    return t
 
 
 def _init_entry(rng: np.random.Generator, pd: L.ParamDef,
@@ -84,24 +106,39 @@ def _init_entry(rng: np.random.Generator, pd: L.ParamDef,
 
 def _table(cfg: ModelConfig, part: str, q: int, tables=None):
     tabs = tables or model_tables(cfg)
+    if part.startswith("enc_"):
+        tabs, part = tabs["enc"], part[4:]
     return tabs[part][q] if part in ("pat", "rem") else tabs[part]
 
 
 def table_params(cfg: ModelConfig, seed: int, part: str, q: int = 0,
-                 p: int = 0, tables=None,
-                 experts: bool = True) -> Dict[str, np.ndarray]:
+                 p: int = 0, tables=None, experts: bool = True,
+                 workers: int = 1) -> Dict[str, np.ndarray]:
     """One table's f32 tensors: ``embed`` or ``final_norm``, or the layer
     at pattern position ``q`` of period ``p`` (``pat``) / remainder
-    position ``q`` (``rem``).  Every entry has its own generator; a
+    position ``q`` (``rem``), or the encoder's layer ``p`` (``enc_pat``)
+    / final norm (``enc_final_norm``).  Every entry has its own generator; a
     routed-expert stack is ``expert_params`` stacked over the experts
-    (left out with ``experts=False``)."""
+    (left out with ``experts=False``).  ``workers`` > 1 draws the other
+    entries on that many threads (the same numbers)."""
     tab = _table(cfg, part, q, tables)
     k = PARTS.index(part)
+    items = sorted(tab.items())
+
+    def entry(i):
+        return _init_entry(np.random.default_rng([seed, k, q, p, i]),
+                           items[i][1])
+    dense = [i for i, (_, pd) in enumerate(items)
+             if not L.is_expert_stack(pd)]
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as ex:
+            drawn = dict(zip(dense, ex.map(entry, dense)))
+    else:
+        drawn = {i: entry(i) for i in dense}
     out = {}
-    for i, (name, pd) in enumerate(sorted(tab.items())):
-        if not L.is_expert_stack(pd):
-            out[name] = _init_entry(np.random.default_rng([seed, k, q, p, i]),
-                                    pd)
+    for i, (name, pd) in enumerate(items):
+        if i in drawn:
+            out[name] = drawn[i]
         elif experts:
             out[name] = np.stack([
                 expert_params(cfg, seed, part, q, p, e, tables)[name]
@@ -166,9 +203,12 @@ def draw_tables(cfg: ModelConfig, seed: int, keys: Iterable[Tuple],
 def init_params(cfg: ModelConfig, seed: int):
     """The reference's parameter tree as f32 numpy arrays: ``embed``,
     ``final_norm``, ``pat`` (one table per pattern position, stacked over
-    periods) and ``rem``."""
+    periods) and ``rem``; an encoder-decoder's ``enc`` (``pat``: its one
+    table stacked over ``num_encoder_layers``, and ``final_norm``)."""
     tabs = model_tables(cfg)
-    params = {part: table_params(cfg, seed, part, tables=tabs)
+    # the vocabulary tables (``emb``, an untied ``w_out``) are a wide
+    # model's largest entries: one thread each
+    params = {part: table_params(cfg, seed, part, tables=tabs, workers=2)
               for part in ("embed", "final_norm")}
     pat = [{name: np.empty((cfg.num_periods,) + pd.shape, np.float32)
             for name, pd in t.items()} for t in tabs["pat"]]
@@ -180,6 +220,16 @@ def init_params(cfg: ModelConfig, seed: int):
         else:
             rem[q] = t
     params["pat"], params["rem"] = tuple(pat), tuple(rem)
+    if cfg.enc_dec:
+        n = cfg.num_encoder_layers
+        enc = {name: np.empty((n,) + pd.shape, np.float32)
+               for name, pd in tabs["enc"]["pat"][0].items()}
+        keys = [("enc_pat", 0, p) for p in range(n)]
+        for (_, _, p), t in draw_tables(cfg, seed, keys):
+            for name, a in t.items():
+                enc[name][p] = a
+        params["enc"] = {"pat": (enc,), "final_norm": table_params(
+            cfg, seed, "enc_final_norm", tables=tabs)}
     return params
 
 
@@ -198,13 +248,16 @@ def to_device(tree, device):
 # ===========================================================================
 
 
-def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
+def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int,
+                       enc_len=None):
     """dict name -> (shape, dtype, kind) for one layer's decode cache:
     a ``max_len`` slab (kind ``"kv"``) for global attention, the rolling
     buffer of ``cfg.window`` rows (kind ``"rep"``) for a sliding-window
     layer, the latent ``c``/``kr`` slabs (kind ``"kv"``) for MLA, the
     conv halo (kind ``"rep"``) and f32 state (kind ``"state"``) for
-    SSM."""
+    SSM; for CROSS the ``k``/``v`` slabs beside the encoder rows
+    ``ck``/``cv`` (kind ``"rep"``, ``enc_len`` rows, by default
+    ``cfg.encoder_seq_len``)."""
     dh, hkv = cfg.head_dim, cfg.num_kv_heads
     bf = torch.bfloat16
     if spec.mixer == ATTN:
@@ -226,15 +279,22 @@ def _layer_cache_shape(cfg: ModelConfig, spec: LayerSpec, b: int, L_: int):
         return {"conv": ((b, s.d_conv - 1, conv_ch), bf, "rep"),
                 "state": ((b, H, s.head_dim, s.d_state), torch.float32,
                           "state")}
-    raise NotImplementedError(f"the {spec.mixer} cache comes with a later "
-                              f"slice of the port (CROSS)")
+    if spec.mixer == CROSS:
+        E = enc_len or cfg.encoder_seq_len
+        return {"k": ((b, L_, hkv, dh), bf, "kv"),
+                "v": ((b, L_, hkv, dh), bf, "kv"),
+                "ck": ((b, E, hkv, dh), bf, "rep"),
+                "cv": ((b, E, hkv, dh), bf, "rep")}
+    raise ValueError(f"no decode cache for a {spec.mixer} layer")
 
 
-def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
+def cache_struct(cfg: ModelConfig, b: int, cache_len: int, enc_len=None):
     """({"pat": per-position {name: (shape, dtype)} with the period
-    stack leading, "rem": ...}, the matching {name: kind} tree)."""
+    stack leading, "rem": ...}, the matching {name: kind} tree).
+    ``enc_len``: a CROSS layer's encoder rows (``cfg.encoder_seq_len``
+    when None)."""
     def one(spec, stack):
-        shapes = _layer_cache_shape(cfg, spec, b, cache_len)
+        shapes = _layer_cache_shape(cfg, spec, b, cache_len, enc_len)
         sds = {k: (((stack,) + s) if stack else s, d)
                for k, (s, d, _) in shapes.items()}
         return sds, {k: kind for k, (_, _, kind) in shapes.items()}
@@ -244,12 +304,13 @@ def cache_struct(cfg: ModelConfig, b: int, cache_len: int):
             {"pat": tuple(k for _, k in pat), "rem": tuple(k for _, k in rem)})
 
 
-def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda"):
+def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda",
+               enc_len=None):
     """The zeroed decode cache (bf16 rows and f32 SSM states, as the
     reference's) on ``device`` (CUDA unless the caller asks for the
-    CPU)."""
+    CPU); ``enc_len`` as in ``cache_struct``."""
     device = resolve_device(device)
-    struct, _ = cache_struct(cfg, b, cache_len)
+    struct, _ = cache_struct(cfg, b, cache_len, enc_len)
     return {grp: tuple({n: torch.zeros(s, dtype=dt, device=device)
                         for n, (s, dt) in t.items()} for t in struct[grp])
             for grp in ("pat", "rem")}
@@ -263,14 +324,17 @@ def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda"):
 def _angles(cfg: ModelConfig, positions: torch.Tensor):
     """Rope angles (..., s, rope_dim // 2) for integer ``positions``
     (..., s): ``rope_dim`` is ``head_dim``, or MLA's
-    ``qk_rope_head_dim``; None for a rope-free model."""
+    ``qk_rope_head_dim``; None for a rope-free model.  Under M-RoPE the
+    positions broadcast to three equal (t, h, w) components, as the
+    reference's text-only stub does."""
     if cfg.rope_theta == 0:
         return None
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE comes with a later slice of the "
-                                  "port (qwen2-vl)")
     rope_dim = (cfg.mla.qk_rope_head_dim if cfg.mla is not None
                 else cfg.head_dim)
+    if cfg.mrope_sections:
+        pos3 = positions.expand((3,) + tuple(positions.shape))
+        return rope_angles(pos3, rope_dim, cfg.rope_theta,
+                           cfg.mrope_sections)
     return rope_angles(positions, rope_dim, cfg.rope_theta)
 
 
@@ -300,16 +364,56 @@ def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
     return L.lm_head_argmax(params["embed"], x[:, -1:], cfg)
 
 
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
+    """Whisper's encoder over precomputed frame embeddings (b, s_enc, d):
+    sinusoidal positions added, the ENC layers (bidirectional, no rope),
+    then the encoder's final norm -> (b, s_enc, d)."""
+    b, s_enc, d = enc_embeds.shape
+    x = enc_embeds + sinusoidal_positions(s_enc, d, enc_embeds.dtype,
+                                          enc_embeds.device)[None]
+    ctx = L.Ctx(cfg=cfg, mode="prefill", is_encoder=True)
+    stack = params["enc"]["pat"][0]
+    for p in range(cfg.num_encoder_layers):
+        x, _ = L.apply_layer({n: t[p] for n, t in stack.items()}, x, ctx,
+                             None, ENC_SPEC)
+    return L.rms_norm(x, params["enc"]["final_norm"]["scale"], cfg.norm_eps)
+
+
+def _inputs_to_x(params, cfg: ModelConfig, ctx: L.Ctx, batch):
+    """The batch's ``embeds``, or its ``tokens``/``token`` embedded; a
+    rope-free model adds sinusoidal positions: rows ``0..s-1`` at
+    prefill, the row at each decode position (int or ragged (b,))."""
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = L.embed_tokens(params["embed"],
+                           batch["tokens" if "tokens" in batch else "token"])
+    if cfg.rope_theta == 0:
+        if ctx.mode == "decode":
+            pos = torch.as_tensor(ctx.pos, device=x.device).reshape(-1)
+            x = x + sinusoidal_rows(pos, cfg.d_model).to(x.dtype)[:, None]
+        else:
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
+                                         x.device)[None]
+    return x
+
+
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
-    """Process the prompt ``batch["tokens"]`` (b, s); returns
-    (next_token (b,), caches): every global or MLA layer's rows laid into
-    a zeroed ``cache_len`` slab, every sliding-window layer's rolling
-    buffer as it is, at compute precision."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    """Process the prompt, ``batch["tokens"]`` (b, s) or
+    ``batch["embeds"]`` (b, s, d), with an encoder-decoder's frames
+    ``batch["enc_embeds"]`` (b, s_enc, d); returns (next_token (b,),
+    caches): every global or MLA layer's rows laid into a zeroed
+    ``cache_len`` slab, every sliding-window layer's rolling buffer and
+    every CROSS layer's ``ck``/``cv`` as they are, at compute
+    precision."""
+    inp = batch["embeds" if "embeds" in batch else "tokens"]
+    b, s = inp.shape[:2]
+    memory = (_encode(params, cfg, batch["enc_embeds"]) if cfg.enc_dec
+              else None)
     ctx = L.Ctx(cfg=cfg, mode="prefill",
-                angles=_angles(cfg, torch.arange(s, device=tokens.device)))
-    x = L.embed_tokens(params["embed"], tokens)
+                angles=_angles(cfg, torch.arange(s, device=inp.device)),
+                memory=memory)
+    x = _inputs_to_x(params, cfg, ctx, batch)
     x, rows = _run_stack(params, x, ctx, None, cfg)
     struct, kinds = cache_struct(cfg, b, cache_len)
 
@@ -332,20 +436,21 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
 
 
 def decode_step(params, batch, caches, cfg: ModelConfig):
-    """One decode step.  batch: {"token": (b, 1), "pos": int or (b,)
-    ragged positions}.  Writes each row's K/V at its position into
-    ``caches`` in place, replaces each SSM layer's halo and state with
-    the step's new ones (every row's, as the reference's), and returns
-    (next_token (b,), caches)."""
+    """One decode step.  batch: {"token": (b, 1) or "embeds": (b, 1, d),
+    "pos": int or (b,) ragged positions}.  Writes each row's K/V at its
+    position into ``caches`` in place, replaces each SSM layer's halo and
+    state with the step's new ones (every row's, as the reference's),
+    and returns (next_token (b,), caches).  A CROSS layer attends its
+    cached encoder rows."""
     pos = batch["pos"]
-    tok = batch["token"]
+    inp = batch["token" if "token" in batch else "embeds"]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None]
     else:
-        positions = torch.tensor([int(pos)], device=tok.device)
+        positions = torch.tensor([int(pos)], device=inp.device)
     ctx = L.Ctx(cfg=cfg, mode="decode", angles=_angles(cfg, positions),
                 pos=pos)
-    x = L.embed_tokens(params["embed"], tok)
+    x = _inputs_to_x(params, cfg, ctx, batch)
     x, rows = _run_stack(params, x, ctx, caches, cfg)
     for q, spec in enumerate(cfg.pattern):
         if spec.mixer == SSM and cfg.num_periods:

@@ -1,7 +1,7 @@
 """Resident-weight continuous-batching serving engine (the JAX package's
 ``serving/engine.py``, for ``ATTN``, ``ATTN_LOCAL``, ``MLA`` and ``SSM``
-stacks with dense or MoE feed-forwards; ``moe_quant="int4"`` keeps the
-routed expert stacks packed).
+stacks and whisper's encoder-decoder, with dense or MoE feed-forwards;
+``moe_quant="int4"`` keeps the routed expert stacks packed).
 
 All parameters stay in device memory at f32; each engine step decodes
 ALL slots with *ragged* per-slot positions in one whole-model decode
@@ -20,10 +20,15 @@ in place (the JAX engine donates its caches to a jitted step instead).
 A spill snapshots the slot's rows as device copies, so later steps'
 in-place writes cannot reach the rows a transfer thread is copying.
 
-Architectures the offloaded engine cannot stream (encoder-decoder,
-embeds frontends) and the other model families resolve to this engine
-in a plan; building it for them raises ``NotImplementedError`` naming
-the later slice of the port.
+This engine also carries the architectures the offloaded engine cannot
+stream (``serving.spec.offload_capability``), so ``create_engine`` has a
+resident fallback for every registry config: encoder-decoder stacks
+(whisper: each prefill encodes the request's ``Request.enc_embeds``
+frames, or a zero-frame stub of ``(encoder_seq_len, d_model)`` when it
+has none, and the slot keeps the encoder rows ``ck``/``cv`` of every
+CROSS layer beside its ``k``/``v``) and embeds-frontend configs
+(qwen2-vl: token prompts embed through the shared table, the text-only
+stub, and rotate by M-RoPE).
 """
 from __future__ import annotations
 
@@ -69,14 +74,28 @@ class ServingEngine(SlotEngineBase):
             self.params = quant_policy_for(
                 plan.quant, plan.kv_mode,
                 plan.moe_quant).prepare_moe_params(self.params)
+        self.enc_len = cfg.encoder_seq_len if cfg.enc_dec else None
         self.caches = self.model.init_cache(self.b_max, self.max_len,
-                                            self.dev)
+                                            self.dev, self.enc_len)
 
     # ---- compute ------------------------------------------------------------
-    def _prefill_into_slot(self, slot: int, req: Request) -> int:
+    def _prefill_batch(self, req: Request) -> dict:
+        """b=1 prompt batch: token prompts always embed through the
+        shared table (the text-only stub for embeds-frontend configs);
+        enc-dec configs also carry encoder frames, the request's
+        ``enc_embeds`` or a zero-frame stub."""
         tokens = torch.from_numpy(np.asarray(req.prompt, np.int32)[None])
-        nt, cache1 = self.model.prefill(self.params,
-                                        {"tokens": tokens.to(self.dev)},
+        batch = {"tokens": tokens.to(self.dev)}
+        if self.cfg.enc_dec:
+            enc = req.enc_embeds
+            if enc is None:
+                enc = np.zeros((self.enc_len, self.cfg.d_model), np.float32)
+            batch["enc_embeds"] = torch.from_numpy(
+                np.asarray(enc, np.float32)[None]).to(self.dev)
+        return batch
+
+    def _prefill_into_slot(self, slot: int, req: Request) -> int:
+        nt, cache1 = self.model.prefill(self.params, self._prefill_batch(req),
                                         self.max_len)
         # scatter the b=1 cache slab into the slot (KV "admission"),
         # broadcasting as the reference's scatter does
@@ -144,7 +163,7 @@ class KVRoundtripServingEngine(ServingEngine):
     def __init__(self, plan: ResolvedPlan, **kw):
         super().__init__(plan, **kw)
         _, self._kv_kinds = T.cache_struct(self.cfg, self.b_max,
-                                           self.max_len)
+                                           self.max_len, self.enc_len)
 
     def _roundtrip_slot_rows(self, slot: int, pos=None):
         """Roundtrip slot ``slot``'s eligible cache rows in place: every

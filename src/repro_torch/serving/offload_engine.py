@@ -55,8 +55,9 @@ attention layer) keep a conv halo (kind ``"rep"``) and an f32 state (kind
 leaves and ships the whole new ones back, as the reference's
 ``decode_fn`` does for every kind other than ``"kv"``, and neither is
 ever packed.  The single-device subset of the JAX package's
-``serving/offload_engine.py``: the CROSS mixer raises
-``NotImplementedError`` naming a later slice.
+``serving/offload_engine.py``: encoder-decoder and embeds-frontend
+configs raise ``UnsupportedModelError`` here, as in the JAX package, and
+serve on the resident ``ServingEngine`` (``create_engine``'s fallback).
 ``depth_policy="adaptive"`` re-sizes the window between
 decode steps from the live pressure and the measured link
 (``_resize_window``, ``AdaptiveDepth``).  The port draws its own weights
@@ -251,8 +252,9 @@ class OffloadedServingEngine(SlotEngineBase):
         if any(s.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM)
                for s in (*cfg.pattern, *cfg.remainder)):
             raise NotImplementedError(
-                "the port serves ATTN, ATTN_LOCAL, MLA and SSM stacks; the "
-                "CROSS mixer comes with a later slice")
+                "the offloaded engine streams ATTN, ATTN_LOCAL, MLA and SSM "
+                "stacks; a CROSS or ENC stack serves on the resident "
+                "ServingEngine, which create_engine builds for its plan")
         self.dev = resolve_device(device)
         self.plan = plan
         self.preload_policy = preload_policy_for(plan, cfg)

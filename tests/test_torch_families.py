@@ -89,14 +89,21 @@ def test_tables_match_reference():
 
 
 def test_dense_only_names_what_is_still_unported():
+    """Whisper's CROSS and ENC layers now build, their tables equal to
+    the JAX package's; resident INT4 tables (``quant_weights``) are still
+    refused."""
     for arch in ("whisper-base",):
+        jc = scaled_down(get_config(arch))
         cfg = PB.scaled_down(port_config(arch))
-        spec = next(s for s in cfg.pattern + cfg.remainder
-                    if s.mixer not in (PB.ATTN, PB.ATTN_LOCAL, PB.MLA,
-                                       PB.SSM))
-        with pytest.raises(NotImplementedError, match="later slices") as e:
-            PL.layer_table(cfg, spec)
-        assert "qk_norm" not in str(e.value)
+        for jspec, spec in ((jc.pattern[0], cfg.pattern[0]),
+                            (JT.LayerSpec(JT.ENC, JT.DENSE),
+                             PB.LayerSpec(PB.ENC, PB.DENSE))):
+            jt, pt = JL.layer_table(jc, jspec), PL.layer_table(cfg, spec)
+            assert sorted(jt) == sorted(pt), spec
+            for n in jt:
+                assert tuple(jt[n].shape) == tuple(pt[n].shape), (spec, n)
+                assert jt[n].scale == pt[n].scale, (spec, n)
+        assert "cwq" in PL.layer_table(cfg, cfg.pattern[0])
     pc = CFGS["qwen3-8b"][1]
     with pytest.raises(NotImplementedError, match="quant_weights"):
         PL.layer_table(dataclasses.replace(pc, quant_weights=True),

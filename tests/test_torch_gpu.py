@@ -993,3 +993,103 @@ def test_ssm_offloaded_engine_on_card_matches_cpu(dev, arch):
             assert ops.LAUNCHES["int4_matmul"] > 0
             assert ops.LAUNCHES["flash_attention"] == (3 if cfg.moe else 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+# Whisper's encoder-decoder and qwen2-vl's M-RoPE on the resident engine
+# (runs w and x of chip_smoke.py): the encoder and the cross attention's
+# prefill run flash_attention at causal=False, group 1, dh 64; the cross
+# attention's decode runs decode_attention at group 1 over every encoder
+# row
+
+
+@pytest.mark.parametrize("b,sq,sk,causal", [(1, 1500, 1500, False),
+                                            (1, 48, 1500, False),
+                                            (1, 48, 48, True),
+                                            (2, 37, 24, False)])
+def test_flash_attention_encoder_and_cross_shapes(dev, b, sq, sk, causal):
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (_t(rng, dev, b, sq, 8, 64), _t(rng, dev, b, sk, 8, 64),
+               _t(rng, dev, b, sk, 8, 64))
+    out = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(out, plain(q, k, v, causal=causal), rtol=0,
+                               atol=2e-5)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("S,pos", [(1500, 1499), (448, [447, 0, 200, 31])])
+def test_decode_attention_group1(dev, S, pos):
+    """Group 1 (8/8 heads), dh 64, bf16 caches: the cross attention's
+    every-row step (an int ``pos`` of S - 1) and the decoder's ragged
+    self-attention over its 448-row slab."""
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    rng = np.random.default_rng(S)
+    q = _t(rng, dev, 4, 8, 64)
+    kc = _t(rng, dev, 4, S, 8, 64).to(torch.bfloat16)
+    vc = _t(rng, dev, 4, S, 8, 64).to(torch.bfloat16)
+    p = pos if isinstance(pos, int) else torch.tensor(pos, device=dev)
+    torch.testing.assert_close(decode_attention(q, kc, vc, p),
+                               plain(q, kc, vc, p), rtol=0, atol=2e-2)
+
+
+def test_cross_decode_attention_on_card(dev):
+    """The kernel route (one ``decode_attention`` launch at S - 1, its
+    output rounded to bf16) against the plain version, the reference's
+    arithmetic, on the same card tensors."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import cross_decode_attention
+    rng = np.random.default_rng(7)
+    q = _t(rng, dev, 4, 1, 8, 64)
+    ck = _t(rng, dev, 4, 1500, 8, 64).to(torch.bfloat16)
+    cv = _t(rng, dev, 4, 1500, 8, 64).to(torch.bfloat16)
+    ops.reset_launches()
+    out = cross_decode_attention(q, ck, cv)
+    assert ops.LAUNCHES["decode_attention"] == 1
+    ops.use_kernels(False)
+    try:
+        ref = cross_decode_attention(q, ck, cv)
+    finally:
+        ops.use_kernels(True)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-72b"])
+def test_frontend_resident_engine_on_card_matches_cpu(dev, arch):
+    """The scaled whisper (with seeded frames and the zero stub) and
+    qwen2-vl resident engines on the card give the tokens of the same
+    engines on the CPU, from the same seed; exact launches: whisper's
+    prefill runs the encoder's, the self-attention's and the cross
+    attention's flash per layer, its decode step two decode launches a
+    layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.base import Request
+    from repro_torch.serving.spec import EngineSpec, create_engine
+    plan = EngineSpec(arch=arch, scaled=True, b_max=2, max_len=48).resolve()
+    cfg = plan.model_config()
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate((9, 20, 13)):
+        enc = (rng.standard_normal((cfg.encoder_seq_len, cfg.d_model))
+               .astype(np.float32) if cfg.enc_dec and i else None)
+        reqs.append((rng.integers(0, 256, (n,)).astype(np.int32), enc))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = create_engine(plan, device=device)
+        ops.reset_launches()
+        for i, (p, enc) in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new=5,
+                               enc_embeds=enc))
+        outs[device] = {r.rid: list(r.out) for r in eng.run()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            n, st = cfg.num_layers, eng.stats
+            per_prefill = (cfg.num_encoder_layers + 2 * n if cfg.enc_dec
+                           else n)
+            per_step = 2 * n if cfg.enc_dec else n
+            assert ops.LAUNCHES["flash_attention"] == \
+                per_prefill * st["prefills"]
+            assert ops.LAUNCHES["decode_attention"] == \
+                per_step * st["decode_steps"]
+        eng.shutdown()
+    assert outs["cuda"] == outs["cpu"]

@@ -125,9 +125,16 @@ def test_angles_at_rope_dim(positions):
 
 
 def test_angles_refuse_mrope():
+    """M-RoPE (qwen2-vl) no longer raises: ``_angles`` equals the JAX
+    function's at a prompt's and at ragged decode positions."""
+    jcfg = scaled_down(get_config("qwen2-vl-72b"))
     cfg = PB.scaled_down(port_config("qwen2-vl-72b"))
-    with pytest.raises(NotImplementedError, match="qwen2-vl"):
-        PT._angles(cfg, torch.arange(3))
+    for positions in ([0, 3, 40], [[5], [0], [17]]):
+        pos = np.array(positions, np.int32)
+        want = np.asarray(JT._angles(jcfg, jnp.asarray(pos)))
+        got = PT._angles(cfg, torch.from_numpy(pos)).numpy()
+        assert got.shape == pos.shape + (cfg.head_dim // 2,)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
 def _decode_inputs(seed, b, S):

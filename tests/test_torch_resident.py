@@ -285,8 +285,9 @@ def test_adaptive_depth_matches_reference():
 def test_create_engine_takes_a_spec_and_dispatches():
     eng = create_engine(EngineSpec(**_spec("tinyllama-1.1b")), device="cpu")
     assert type(eng) is ServingEngine and eng.plan.engine == "resident"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        create_engine(EngineSpec(**_spec("whisper-base")), device="cpu")
+    enc = create_engine(EngineSpec(**_spec("whisper-base")), device="cpu")
+    assert type(enc) is ServingEngine and enc.plan.engine == "resident"
+    assert "ck" in enc.caches["pat"][0] and "enc" in enc.params
     moe = create_engine(EngineSpec(**_spec("mixtral-8x7b",
                                            moe_quant="int4")), device="cpu")
     assert type(moe) is ServingEngine and "w_gate#q" in moe.params["pat"][0]
