@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py                 # everything (needs one H100-class card)
     python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(x)
+    python3 chip_smoke.py --only plan     # kernel checks, then runs (g)-(y)
     python3 chip_smoke.py --only moe      # kernel checks, then runs (o), (p)
     python3 chip_smoke.py --only families # kernel checks, then runs (q)-(s)
     python3 chip_smoke.py --only mla      # kernel checks, then run (t)
     python3 chip_smoke.py --only ssm      # kernel checks, then runs (u), (v)
     python3 chip_smoke.py --only frontends # kernel checks, then runs (w), (x)
+    python3 chip_smoke.py --only train    # kernel checks, then run (y)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -217,7 +218,25 @@ before the result line:
    1500 rows and the cross attention's 48 x 1500, and
    ``decode_attention`` at group 1 over 1500 encoder rows and the
    448-row slab;
-17. print the ``kernels`` JSON line, the card, then the result line.
+17. single-device training: (y) ``repro_torch.launch.train.main``
+   trains tinyllama-1.1b at full width and depth (1.10e9 parameters,
+   bf16, AdamW's f32 moments, seq 512, batch 8) for 4 steps into a fresh
+   checkpoint directory, drawing seed 0's weights itself while the
+   script holds nothing on the card; then again to step 6 on the same
+   directory, which resumes from step 4; then 6 steps uninterrupted
+   into another directory from seed 0's draws, taken once more by the
+   script and handed to ``main``.  Checks: the checkpoint
+   restores bit-equal to the state it saved, steps 5-6 of the resumed
+   run (and 1-4 of the first) equal the uninterrupted run's within 1e-3
+   relative (the embedding backward's atomics are not deterministic),
+   every loss finite and step 1's in (2, 12), and no kernel launched
+   (training attends through plain PyTorch).  Prints the step ms (the
+   first step apart), tokens/s, the model FLOPs a step (6 N tokens, the
+   remat forward's 2 N tokens beside it) and their share of the card's
+   bf16 dense peak, the first call's peak device memory (less what the
+   script held) beside params + grads + moments, the checkpoint's bytes
+   and its save and restore seconds;
+18. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -349,6 +368,14 @@ WHISPER_PROMPTS, WHISPER_NEW, WHISPER_PREEMPT = (4, 8, 16, 24, 32, 48), 32, 6
 # layers (the 80 layers at f32 are about 286 GB, more than the card
 # holds), (g)'s prompts at its vocabulary with QWEN2VL_NEW new tokens
 QWEN2VL_LAYERS, QWEN2VL_NEW, QWEN2VL_MAX_LEN = 2, 8, 256
+# run (y): tinyllama-1.1b training through launch.train.main: TRAIN_STEPS
+# steps, then resumed to TRAIN_RESUME; losses held to TRAIN_RTOL between
+# the resumed and the uninterrupted run; step 1's loss inside
+# TRAIN_FIRST_LOSS (about ln 32000 = 10.37 at init)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "tinyllama-1.1b", 512, 8
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_RTOL = 4, 6, 1e-3
+TRAIN_FIRST_LOSS = (2.0, 12.0)
+BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 
 
 def log(msg=""):
@@ -1342,10 +1369,11 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
 
 
 def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
-                on_build=None, launches=None):
-    """Build the engine with ``create_engine`` (``on_build(eng)`` runs
-    then), serve ``reqs`` once (and, with ``preempt``, once more with a
-    slot preempted mid-run, which must give the same tokens); fails on
+                on_build=None, launches=None, draws=None):
+    """Build the engine with ``create_engine`` (from ``draws``, a
+    ``DrawCache``, where given; ``on_build(eng)`` runs then), serve
+    ``reqs`` once (and, with ``preempt``, once more with a slot
+    preempted mid-run, which must give the same tokens); fails on
     bad tokens or launch counts other than flash = layers x prefill
     passes (whole prompts, or chunks under a chunked ``sched``, those
     after a prompt's first with q_offset > 0) and ``decode_kernel`` =
@@ -1362,7 +1390,7 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = create_engine(plan)
+    eng = create_engine(plan, draws=draws)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1521,12 +1549,13 @@ def paper_requests(np, vocab: int):
             for n in rng.integers(32, 129, PAPER_REQS)]
 
 
-def run_paper(torch, ops, np):
+def run_paper(torch, ops, np, draws):
     """Run (g): Llama-3.1-8B, INT4 weights, through ``EngineSpec.resolve``
     and ``create_engine`` on the default budget; 4 ragged requests, then
-    the whole path against ``use_kernels(False)``.  Returns the engine
-    (still up: run (k) drives it), its counts and summary, and the served
-    run."""
+    the whole path against ``use_kernels(False)``.  The build draws and
+    packs the 8B into ``draws``, for (j), (m) and (n).  Returns the
+    engine (still up: run (k) drives it), its counts and summary, and
+    the served run."""
     from repro_torch.serving.spec import EngineSpec
     plan = EngineSpec(arch="llama3.1-8b", quant="int4").resolve()
     cfg = plan.model_config()
@@ -1535,7 +1564,8 @@ def run_paper(torch, ops, np):
     log(f"(g) host RAM (MemTotal): {host_mem_gb():.1f} GiB")
     reqs = paper_requests(np, cfg.vocab_size)
     eng, counts, summary, served = run_serving(torch, ops, "g", plan, reqs,
-                                               "decode_attention")
+                                               "decode_attention",
+                                               draws=draws)
     short = [(p, 4) for p, _ in reqs]
     summary["profiled"] = {"requests": PAPER_REQS, "max_new": 4, **busy_share(
         device_events(torch, lambda: serve_once(torch, ops, eng, short, 400)))}
@@ -1630,10 +1660,11 @@ def chunked_vs_monolithic(torch, eng, name, reqs, outs, heads, mono_outs):
     return res
 
 
-def run_chunked(torch, ops, np, g_outs, g_depth):
+def run_chunked(torch, ops, np, g_outs, g_depth, draws):
     """Run (j): Llama-3.1-8B, INT4 weights, ``sched="online"`` (chunks of
     32) through ``EngineSpec.resolve`` and ``create_engine`` on (g)'s
-    seed; (g)'s 4 requests; against (g)'s tokens; the memory report,
+    seed, built from (g)'s ``draws``; (g)'s 4 requests; against (g)'s
+    tokens; the memory report,
     also at a 3.5 GiB device budget.  Returns the engine (run (k) drives
     it), its counts and summary."""
     from repro_torch.core.offload import MemoryBudget
@@ -1649,7 +1680,7 @@ def run_chunked(torch, ops, np, g_outs, g_depth):
     heads = []
     eng, counts, summary, served = run_serving(
         torch, ops, "j", plan, reqs, "decode_attention",
-        on_build=capture_chunk_heads(heads))
+        on_build=capture_chunk_heads(heads), draws=draws)
     del eng._head
     if counts["flash_attention_q_offset"] <= 0:
         raise RuntimeError("run j: no flash_attention launch with q_offset")
@@ -2113,10 +2144,11 @@ def spec_serve(torch, ops, eng, reqs, rid0):
     return r
 
 
-def run_spec_paper(torch, ops, np, g_summary, g_outs):
+def run_spec_paper(torch, ops, np, g_summary, g_outs, draws):
     """Run (m): Llama-3.1-8B, INT4 weights, with the llama3.2-1b draft
     through ``EngineSpec(..., draft_arch=...).resolve()`` and
-    ``create_engine`` on (g)'s seed; (g)'s 4 requests with the real draft
+    ``create_engine`` on (g)'s seed (from (g)'s ``draws``); (g)'s 4
+    requests with the real draft
     (random weights: about no acceptance), then, on the same engine, an
     oracle proposer built from (g)'s streams (full acceptance).  Each
     arm's tokens must equal (g)'s; the target's launches are exact
@@ -2140,7 +2172,7 @@ def run_spec_paper(torch, ops, np, g_summary, g_outs):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = create_engine(plan)
+    eng = create_engine(plan, draws=draws)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     if not isinstance(eng.draft, ResidentDraft):
@@ -2225,9 +2257,10 @@ def run_spec_paper(torch, ops, np, g_summary, g_outs):
     return summary["launches"], summary
 
 
-def run_staged_paper(torch, ops, np, g_summary, g_outs):
+def run_staged_paper(torch, ops, np, g_summary, g_outs, draws):
     """Run (n): (g)'s spec with ``stages=2``: two stages on one card, each
-    with its own stores, pool and window; (g)'s requests; tokens must
+    with its own stores, pool and window, built from (g)'s ``draws``;
+    (g)'s requests; tokens must
     equal (g)'s (launch counts exact, as in (g)).  Prints the step
     median, each stage's weight-load busy time and ``stage_bubbles``."""
     from repro_torch.core.tasks import _merged_busy
@@ -2236,7 +2269,8 @@ def run_staged_paper(torch, ops, np, g_summary, g_outs):
     log(f"(n) plan: {plan.summary()}; stages: {plan.provenance['stages']}")
     reqs = paper_requests(np, plan.model_config().vocab_size)
     eng, counts, summary, served = run_serving(torch, ops, "n", plan, reqs,
-                                               "decode_attention")
+                                               "decode_attention",
+                                               draws=draws)
     equal = sum(x == y for i in g_outs
                 for x, y in zip(served["outs"][i], g_outs[i]))
     evs = served["trace"].events()
@@ -2852,13 +2886,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
                                        "families", "mla", "ssm",
-                                       "frontends"),
+                                       "frontends", "train"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
-                         "them and runs (g)-(x) only (plan), or (o) and "
+                         "them and runs (g)-(y) only (plan), or (o) and "
                          "(p) only (moe), or (q)-(s) only (families), or "
                          "(t) only (mla), or (u) and (v) only (ssm), or "
-                         "(w) and (x) only (frontends)")
+                         "(w) and (x) only (frontends), or (y) only "
+                         "(train)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2952,6 +2987,10 @@ def main(argv=None) -> int:
     if args.only == "frontends":
         run_frontends(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "train":
+        counts["y"], summaries["y"] = run_train(torch, ops, np, card)
+        stamp("y")
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces)
@@ -2963,39 +3002,45 @@ def main(argv=None) -> int:
     # arrival traffic through it; (j) the same model and seed with
     # chunked prefill, then (k) through it; (h) the CLI, (i) the
     # resident engine, (l) replay of the recorded traces
-    eng, counts["g"], summaries["g"], served_g = run_paper(torch, ops, np)
-    stamp("g")
-    traces["g"] = (served_g["trace"], summaries["g"]["prefills"])
-    rate = 0.5 * PAPER_REQS / summaries["g"]["wall_s"]
-    from repro_torch.serving.workload import poisson_trace
-    atrace = poisson_trace(TRAFFIC_REQS, rate, seed=0,
-                           vocab=eng.cfg.vocab_size, prompt_len=(32, 160),
-                           max_new=PAPER_NEW)
-    log(f"(k) rate {rate:.4f} req/s: half of the {PAPER_REQS} requests "
-        f"over (g)'s {summaries['g']['wall_s']:.2f} s")
-    counts["k_mono"], summaries["k_mono"] = run_traffic(
-        torch, ops, "k_mono", eng, atrace, rate)
-    stamp("k_mono")
-    eng.shutdown()
-    del eng                     # before (j) builds: (j)'s peak is its own
-    release(None)
-    eng, counts["j"], summaries["j"] = run_chunked(
-        torch, ops, np, served_g["outs"], summaries["g"]["plan_depth"])
-    stamp("j")
-    counts["k_online"], summaries["k_online"] = run_traffic(
-        torch, ops, "k_online", eng, atrace, rate)
-    stamp("k_online")
-    eng.shutdown()
-    del eng
-    release(None)
-    # (m) speculative decoding on the 8B with the llama3.2-1b draft, then
-    # (n) the 8B in two pipeline stages; both against (g)'s tokens
-    counts["m"], summaries["m"] = run_spec_paper(
-        torch, ops, np, summaries["g"], served_g["outs"])
-    release(None)
-    stamp("m")
-    counts["n"], summaries["n"] = run_staged_paper(
-        torch, ops, np, summaries["g"], served_g["outs"])
+    # (g)'s build draws and packs the 8B once; (j), (m) and (n) take it
+    from repro_torch.serving.offload_engine import DrawCache
+    with DrawCache() as draws:
+        eng, counts["g"], summaries["g"], served_g = run_paper(
+            torch, ops, np, draws)
+        stamp("g")
+        traces["g"] = (served_g["trace"], summaries["g"]["prefills"])
+        rate = 0.5 * PAPER_REQS / summaries["g"]["wall_s"]
+        from repro_torch.serving.workload import poisson_trace
+        atrace = poisson_trace(TRAFFIC_REQS, rate, seed=0,
+                               vocab=eng.cfg.vocab_size,
+                               prompt_len=(32, 160), max_new=PAPER_NEW)
+        log(f"(k) rate {rate:.4f} req/s: half of the {PAPER_REQS} "
+            f"requests over (g)'s {summaries['g']['wall_s']:.2f} s")
+        counts["k_mono"], summaries["k_mono"] = run_traffic(
+            torch, ops, "k_mono", eng, atrace, rate)
+        stamp("k_mono")
+        eng.shutdown()
+        del eng                 # before (j) builds: (j)'s peak is its own
+        release(None)
+        eng, counts["j"], summaries["j"] = run_chunked(
+            torch, ops, np, served_g["outs"], summaries["g"]["plan_depth"],
+            draws)
+        stamp("j")
+        counts["k_online"], summaries["k_online"] = run_traffic(
+            torch, ops, "k_online", eng, atrace, rate)
+        stamp("k_online")
+        eng.shutdown()
+        del eng
+        release(None)
+        # (m) speculative decoding on the 8B with the llama3.2-1b draft,
+        # then (n) the 8B in two pipeline stages; both against (g)'s
+        # tokens
+        counts["m"], summaries["m"] = run_spec_paper(
+            torch, ops, np, summaries["g"], served_g["outs"], draws)
+        release(None)
+        stamp("m")
+        counts["n"], summaries["n"] = run_staged_paper(
+            torch, ops, np, summaries["g"], served_g["outs"], draws)
     release(None)
     stamp("n")
     counts["h"], summaries["h"] = run_cli(torch, ops)
@@ -3017,6 +3062,8 @@ def main(argv=None) -> int:
     run_deepseek(torch, ops, np, counts, summaries, release, stamp)
     run_ssm(torch, ops, np, counts, summaries, release, stamp)
     run_frontends(torch, ops, np, counts, summaries, release, stamp)
+    counts["y"], summaries["y"] = run_train(torch, ops, np, card)
+    stamp("y")
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -3957,6 +4004,216 @@ def run_frontends(torch, ops, np, counts, summaries, release, stamp):
     counts["x"], summaries["x"] = run_qwen2vl(torch, ops, np)
     release(None)
     stamp("x")
+
+
+# ---------------------------------------------------------------------------
+# run (y): single-device training
+# ---------------------------------------------------------------------------
+
+def run_train(torch, ops, np, card):
+    """Run (y): tinyllama-1.1b trained through ``launch.train.main`` on
+    the card (its own seed-0 draws, the script holding nothing on the
+    card, so the peak is the entry point's), a resume, then an
+    uninterrupted run from seed 0's draws taken once more and reused;
+    the checks and numbers of step 17.  Returns (launch counts,
+    summary)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import flatten_with_path, leaves
+    cfg = get_config(TRAIN_ARCH)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    root = Path(tempfile.mkdtemp(prefix="pipo_train_"))
+
+    def argv(steps, d):
+        return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--seq",
+                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--ckpt",
+                str(root / d), "--device", "cuda"]
+    before = dict(ops.LAUNCHES)
+    failed = []
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train.main(argv(TRAIN_STEPS, "run"))
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = root / "run" / f"step_{TRAIN_STEPS}"
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        saved = {"params": first.pop("params"),
+                 "opt": first.pop("opt_state")}
+        n = sum(t.numel() for t in leaves(saved["params"]))
+        pbytes = sum(t.numel() * t.element_size()
+                     for t in leaves(saved["params"]))
+        state_bytes = 2 * pbytes + 8 * n      # params, grads, f32 m and v
+        t0 = time.perf_counter()
+        back, _ = restore_checkpoint(str(root / "run"), TRAIN_STEPS, saved)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        unequal = [path for (path, a), b in zip(flatten_with_path(saved),
+                                                 leaves(back))
+                   if a.dtype != b.dtype or a.device != b.device
+                   or not torch.equal(a, b)]
+        del saved, back
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        init = build_model(cfg).init(0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = train.main(argv(TRAIN_RESUME, "run"), init_params=init)
+        resumed_s = time.perf_counter() - t0
+        del resumed["params"], resumed["opt_state"]
+        shutil.rmtree(root / "run")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        whole = train.main(argv(TRAIN_RESUME, "whole"), init_params=init)
+        whole_s = time.perf_counter() - t0
+        del whole["params"], whole["opt_state"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    breakdown = train_breakdown(torch, build_model(cfg), init)
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    resume_rel = rel(resumed["losses"], whole["losses"][TRAIN_STEPS:])
+    first_rel = rel(first["losses"], whole["losses"][:TRAIN_STEPS])
+    losses = first["losses"] + resumed["losses"] + whole["losses"]
+    if unequal:
+        failed.append(f"restored leaves differ from the saved: {unequal[:5]}")
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"losses not finite: {losses}")
+    if not TRAIN_FIRST_LOSS[0] < first["losses"][0] < TRAIN_FIRST_LOSS[1]:
+        failed.append(f"step 1's loss {first['losses'][0]} outside "
+                      f"{TRAIN_FIRST_LOSS}")
+    if (resumed["restore_s"] is None or resumed["final_step"] != TRAIN_RESUME
+            or len(resumed["losses"]) != TRAIN_RESUME - TRAIN_STEPS):
+        failed.append("the second call did not resume from step "
+                      f"{TRAIN_STEPS}: {resumed['final_step']}, "
+                      f"{resumed['losses']}")
+    if max(resume_rel + first_rel) > TRAIN_RTOL:
+        failed.append(f"resumed/first losses differ from the uninterrupted "
+                      f"run's: {resume_rel} {first_rel}")
+    if any(launched.values()):
+        failed.append(f"training launched kernels: {launched}")
+    step_s = whole["step_s"][1:]
+    med = statistics.median(step_s)
+    model_flops, remat_flops = 6 * n * tokens, 2 * n * tokens
+    summary = {
+        "run": "y", "arch": TRAIN_ARCH, "card": card, "params": n,
+        "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "tokens_per_step": tokens,
+        "draw_s": draw_s,
+        "losses": {"first": first["losses"], "resumed": resumed["losses"],
+                   "uninterrupted": whole["losses"]},
+        "resume_rel": resume_rel, "first_rel": first_rel,
+        "restored_bit_equal": not unequal,
+        "step_ms": {"first_step": [first["step_s"][0] * 1e3,
+                                   whole["step_s"][0] * 1e3],
+                    "median": med * 1e3,
+                    "steps": [t * 1e3 for t in step_s],
+                    "first_call_rest": [t * 1e3 for t in
+                                        first["step_s"][1:]]},
+        "tokens_per_s": tokens / med,
+        "flops_per_step": {"model_6NT": model_flops,
+                           "remat_forward_2NT": remat_flops,
+                           "total": model_flops + remat_flops,
+                           "attention": "not counted"},
+        "bf16_peak_share": {"model": model_flops / med / BF16_PEAK,
+                            "with_remat": (model_flops + remat_flops)
+                            / med / BF16_PEAK},
+        "peak_device_gib": (peak - held) / 2**30,
+        "script_held_gib": held / 2**30,
+        "state_gib": state_bytes / 2**30,
+        "checkpoint": {"bytes": ckpt_bytes,
+                       "save": first["ckpt_s"],
+                       "restore_s": restore_s,
+                       "runner_restore_s": resumed["restore_s"]},
+        "call_s": {"first": first_s, "resumed": resumed_s,
+                   "uninterrupted": whole_s},
+        "breakdown": breakdown, "launches": launched, "failed": failed,
+    }
+    log(json.dumps({"train": summary}))
+    log(f"(y) {TRAIN_ARCH} train on {card}: {med * 1e3:.1f} ms a step "
+        f"(first {first['step_s'][0] * 1e3:.0f} ms), "
+        f"{tokens / med:.0f} tok/s, "
+        f"{summary['bf16_peak_share']['model']:.3f} of the bf16 peak "
+        f"(6NT), peak {(peak - held) / 2**30:.2f} GiB vs state "
+        f"{state_bytes / 2**30:.2f} GiB, checkpoint "
+        f"{ckpt_bytes / 1e9:.2f} GB")
+    if failed:
+        raise RuntimeError(f"run (y) failed: {failed}")
+    return launched, summary
+
+
+def train_breakdown(torch, model, params):
+    """Where a (y) step goes, on the draws ``params`` (updated in place)
+    and step 0's batch: the forward alone (no grad, no remat), the
+    forward and backward with remat (``value_and_grad``), the in-place
+    AdamW update, each timed by the host around a synchronized call
+    (the calls of ``launch.train.main`` before it ran the same shapes);
+    then one whole step under ``torch.profiler``: the card's busy share
+    and the kernels that took the most device time."""
+    from repro_torch.data import DataConfig, DataPipeline, SyntheticSource
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.optim import AdamW, apply_updates
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=model.cfg.vocab_size)
+    batch = DataPipeline(SyntheticSource(dcfg), dcfg).batch_at(0)
+    batch.pop("step")
+    opt = AdamW()
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    tb = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        _, fwd_ms = timed(lambda: model.train_loss(params, tb, remat=False))
+    (_, grads), fb_ms = timed(lambda: value_and_grad(model, params, batch))
+
+    def update():
+        upd, _, _ = opt.update(grads, state, params)
+        apply_updates(params, upd)
+    _, opt_ms = timed(update)
+    del grads
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"forward_ms": fwd_ms, "forward_backward_remat_ms": fb_ms,
+           "adamw_ms": opt_ms,
+           "profiled_step": {**busy_share([(e.time_range.start,
+                                            e.time_range.end) for e in dev]),
+                             "device_ms": sum(by_name.values()),
+                             "kernels": len(dev),
+                             "top_ms": [[n[:80], ms] for n, ms in top]}}
+    log(json.dumps({"train_breakdown": out}))
+    return out
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

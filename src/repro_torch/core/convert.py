@@ -22,6 +22,11 @@ f)``/``(E, f, d)`` experts, router and shared expert as table leaves.
 ``quant_roundtrip_params`` is the reference of the INT4 offloaded
 engines: a resident tree whose streamed leaves went through the INT4
 codec.
+
+Training: ``from_reference_train_state`` carries the JAX training state
+(parameters and the AdamW or Adafactor state, as numpy trees; bf16
+leaves as ``ml_dtypes`` arrays) into the port's tensors leaf for leaf,
+bf16 bytes reinterpreted rather than rounded.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ import torch
 
 from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core.transfer import int4_group
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import F32_NAMES
 from repro_torch.quant.int4 import dequantize_int4, quantize_int4
 
 
@@ -202,3 +209,38 @@ def quant_roundtrip_params(cfg: ModelConfig, params):
         "rem": tuple(do_tab(params["rem"][q], cfg.remainder[q], False)
                      for q in range(len(cfg.remainder))),
     }
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """One numpy leaf as a tensor on ``device`` with the same bytes: a
+    bf16 (``ml_dtypes``) array is viewed as ``torch.bfloat16``, which
+    numpy cannot name."""
+    arr = np.array(arr, order="C")            # a copy; 0-d stays 0-d
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def from_reference_train_state(params, opt_state=None, device="cuda",
+                               dtype=None):
+    """The JAX package's training state as the port's: ``params`` (its
+    ``init_params`` tree) and ``opt_state`` (AdamW's ``{"m", "v",
+    "step"}`` or Adafactor's ``{"s": {name: {"m", "vr", "vc" | "v"}},
+    "step"}``, or None), numpy leaves, become tensors on ``device`` in
+    the same structure.  Every leaf keeps its dtype, except that with
+    ``dtype`` the parameters are cast to it (the SSM scalars stay f32,
+    as in the reference).  Returns (params, opt_state)."""
+    dev = resolve_device(device)
+
+    def walk(t, cast, name=None):
+        if isinstance(t, dict):
+            return {k: walk(v, cast, k) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v, cast, name) for v in t)
+        out = _tensor(t, dev)
+        if cast and dtype is not None and name not in F32_NAMES:
+            out = out.to(dtype)
+        return out
+    return (walk(params, True),
+            None if opt_state is None else walk(opt_state, False))

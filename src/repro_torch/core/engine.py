@@ -504,11 +504,12 @@ class PipelinedLM(PhasedKVExtents):
         return self._last_tokens
 
     # -- public API -----------------------------------------------------------
+    @torch.no_grad()
     def generate(self, prompt: np.ndarray, gen_len: int, pool=None):
         """prompt (b, s) int32.  Greedy-generates gen_len tokens.  Returns
         (tokens (b, gen_len), stats dict).  ``pool`` injects a transfer
         pool (e.g. ``VirtualPool`` for virtual-clock byte tests); its
-        trace becomes the engine's."""
+        trace becomes the engine's.  Runs with grad mode off."""
         b, s = prompt.shape
         if b != self.batch or s + gen_len > self.max_len:
             raise ValueError(f"prompt {prompt.shape} + gen_len {gen_len} "

@@ -5,6 +5,14 @@ CUDA tensor and runs the plain PyTorch version for a CPU tensor.
 ``use_kernels(False)`` is the explicit caller choice of the plain
 versions on any device (the card's reference path).  ``LAUNCHES`` counts
 each wrapper's kernel launches; ``reset_launches`` zeroes them.
+
+The kernels have no backward pass, and neither do the reference's
+Pallas kernels: training attends through plain PyTorch
+(``models.attention.ring_attention``).  So an op handed a tensor that
+requires grad while grad mode is on raises (``NoGradError``) rather than
+return a result autograd cannot see through; it neither detaches the
+input nor switches to its plain version.  Serving never needs gradients
+and is unaffected.
 """
 from __future__ import annotations
 
@@ -20,9 +28,24 @@ from repro_torch.kernels.int4_matmul import int4_matmul
 __all__ = ["use_kernels", "kernels_enabled", "int4_matmul_op",
            "flash_attention_op", "decode_attention_op",
            "decode_attention_int4_op", "LAUNCHES",
-           "reset_launches"]
+           "reset_launches", "NoGradError"]
 
 _STATE = {"enabled": True}
+
+
+class NoGradError(RuntimeError):
+    """A kernel op was asked to differentiate."""
+
+
+def _no_grad(op: str, *tensors):
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NoGradError(
+            f"{op}: the kernel has no backward pass and an input requires "
+            f"grad; train through the plain PyTorch path "
+            f"(Ctx(mode='train'), models.attention.ring_attention), or "
+            f"call under torch.no_grad()")
 
 
 def use_kernels(flag: bool):
@@ -35,12 +58,14 @@ def kernels_enabled() -> bool:
 
 
 def int4_matmul_op(x, packed, scale, *, group: int = 128):
+    _no_grad("int4_matmul", x, packed, scale)
     if not _STATE["enabled"]:
         return R.int4_matmul_ref(x, packed, scale, group)
     return int4_matmul(x, packed, scale, group=group)
 
 
 def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
+    _no_grad("flash_attention", q, k, v)
     if not _STATE["enabled"]:
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -49,6 +74,7 @@ def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def decode_attention_op(q, k_cache, v_cache, pos):
+    _no_grad("decode_attention", q, k_cache, v_cache)
     if not _STATE["enabled"]:
         return R.decode_attention_ref(q, k_cache, v_cache, pos)
     return decode_attention(q, k_cache, v_cache, pos)
@@ -57,6 +83,8 @@ def decode_attention_op(q, k_cache, v_cache, pos):
 def decode_attention_int4_op(q, k_packed, k_scale, v_packed, v_scale, pos, *,
                              hkv: int, group: int, k_new=None, v_new=None,
                              cache_dtype=torch.float32):
+    _no_grad("decode_attention_int4", q, k_packed, k_scale, v_packed,
+             v_scale, k_new, v_new)
     kw = dict(hkv=hkv, group=group, k_new=k_new, v_new=v_new,
               cache_dtype=cache_dtype)
     if not _STATE["enabled"]:

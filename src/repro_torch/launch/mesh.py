@@ -1,6 +1,6 @@
 """Device placement for pipeline-parallel stages (the JAX package's
 ``launch/mesh.py::stage_devices``; its production meshes come with the
-training slice of the port)."""
+sharding slice of the port)."""
 from __future__ import annotations
 
 from typing import List

@@ -27,6 +27,13 @@ reference computes it in jnp, not in a Pallas kernel).
 ``mla_prefill_attention`` is ``mla_ring_attention`` on one device: the
 latent expands to per-head K/V and the causal attention runs through
 ``flash_attention``.
+
+Training attends through plain, differentiable PyTorch, as the JAX
+package's training path does (it reaches no Pallas kernel): the kernels
+have no backward.  ``ring_attention`` and ``mla_ring_attention`` are the
+reference's at ``axis=None`` (one ring step over the whole sequence),
+``attn_partials`` bounds the score matrix to ``q_chunk`` query rows at a
+time.  The ring over a mesh axis waits for the sharding slice.
 """
 from __future__ import annotations
 
@@ -35,15 +42,71 @@ import torch.nn.functional as F
 
 from repro_torch.core.kvstore import quantize_kv_rows
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attn_partials, ref_attention
-from repro_torch.models.common import NEG_INF
+from repro_torch.kernels.ref import _mask, ref_attention
+from repro_torch.kernels.ref import attn_partials as _block_partials
+from repro_torch.models.common import (NEG_INF, empty_partials,
+                                       finalize_partials, merge_partials)
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
            "cross_decode_attention",
            "decode_attention_packed", "spec_decode_attention",
            "spec_decode_attention_packed", "chunk_prefill_attention",
            "local_decode_attention", "mla_decode_attention",
-           "mla_prefill_attention"]
+           "mla_prefill_attention", "ring_attention", "mla_ring_attention"]
+
+
+def attn_partials(q, k, v, mask, *, q_chunk: int = 0):
+    """Online-softmax partials (m (b, h, sq), l, o (b, h, sq, dv)) in
+    f32 (``kernels.ref.attn_partials``).  mask (sq, sk) or (b, sq, sk)
+    bool, or None.  ``q_chunk`` > 0 that divides a longer ``sq`` takes
+    the queries ``q_chunk`` rows at a time, as the reference's
+    ``lax.map`` does, so a score matrix never exceeds (..., q_chunk,
+    sk)."""
+    sq = q.shape[1]
+    if not (q_chunk and sq > q_chunk and sq % q_chunk == 0):
+        return _block_partials(q, k, v, mask)
+    parts = [_block_partials(
+        q[:, i:i + q_chunk], k, v,
+        None if mask is None else mask[..., i:i + q_chunk, :])
+        for i in range(0, sq, q_chunk)]
+    return tuple(torch.cat(t, dim=2) for t in zip(*parts))
+
+
+def ring_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                   q_chunk: int = 512):
+    """The JAX package's ``ring_attention`` at ``axis=None``: q (b, sq,
+    h, dh), k/v (b, sk, hkv, dv) -> (b, sq, h, dv) at q's dtype.  One
+    block of partials over every key (``attn_partials``, ``q_chunk``
+    rows at a time), merged into the empty partials and finalized, in
+    the reference's order."""
+    b, sq, h, _ = q.shape
+    sk, dv = v.shape[1], v.shape[3]
+    dev = q.device
+    msk = _mask(torch.arange(sq, device=dev), torch.arange(sk, device=dev),
+                causal, window)
+    m, l, o = merge_partials(empty_partials((b, h, sq), dv, dev),
+                             attn_partials(q, k, v, msk, q_chunk=q_chunk))
+    return finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
+
+
+def mla_ring_attention(q, c, kr, w_uk, w_uv, *, q_chunk: int = 256):
+    """The JAX package's ``mla_ring_attention`` at ``axis=None``: the
+    latent c (b, sk, r) and kr (b, sk, dr) expand to ``k = [c . w_uk |
+    kr]`` and ``v = c . w_uv``, then causal partials over q (b, sq, h, dn
+    + dr) (``q_chunk`` rows at a time, the reference's default of 256),
+    merged and finalized -> (b, sq, h, dv) at q's dtype."""
+    b, sq, h, _ = q.shape
+    sk, dr = c.shape[1], kr.shape[-1]
+    dv = w_uv.shape[-1]
+    dev = q.device
+    k_nope = torch.einsum("bsr,rhn->bshn", c, w_uk)
+    v = torch.einsum("bsr,rhv->bshv", c, w_uv)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, sk, h, dr)], dim=-1)
+    msk = _mask(torch.arange(sq, device=dev), torch.arange(sk, device=dev),
+                True, 0)
+    m, l, o = merge_partials(empty_partials((b, h, sq), dv, dev),
+                             attn_partials(q, k, v, msk, q_chunk=q_chunk))
+    return finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):

@@ -42,3 +42,11 @@ def merge_partials(a, b):
 
 def finalize_partials(m, l, o):
     return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def empty_partials(shape_ml, d: int, device=None, dtype=torch.float32):
+    """The partials of no block: m = NEG_INF, l = 0, o = 0."""
+    m = torch.full(shape_ml, NEG_INF, dtype=dtype, device=device)
+    l = torch.zeros(shape_ml, dtype=dtype, device=device)
+    o = torch.zeros((*shape_ml, d), dtype=dtype, device=device)
+    return m, l, o

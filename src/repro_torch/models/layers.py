@@ -30,7 +30,15 @@ cache.  An MoE layer's routed experts run in
 ``moe_quant="int4"`` their stacks arrive packed (``w_gate#q``/``#s``)
 and go to ``int4_matmul`` expert by expert.
 
-On the card every attention goes through the port's kernels: prefill
+Train mode (``Ctx.mode == "train"``, the JAX package's training path)
+launches no kernel: every sequence attention is plain, differentiable
+PyTorch (``ring_attention``; MLA's ``mla_ring_attention``; a cross
+attention the reference's ``ref_attention``), the SSM runs
+``ssd_chunked`` and MoE ``moe_ffn`` as at prefill, no layer builds a
+cache, and ``apply_layer`` returns each layer's load-balance loss for
+``lm_head_loss``'s caller to add.
+
+Outside train mode every attention goes through the port's kernels: prefill
 (and the encoder, and a cross attention's prefill, at ``causal=False``)
 through ``flash_attention``, decode through ``decode_attention`` over the
 loaded cache (bf16 in serving; a cross attention's decode over its
@@ -61,6 +69,8 @@ from repro_torch.models.attention import (chunk_prefill_attention,
                                           local_decode_attention,
                                           mla_decode_attention,
                                           mla_prefill_attention,
+                                          mla_ring_attention, ref_attention,
+                                          ring_attention,
                                           spec_decode_attention,
                                           spec_decode_attention_packed)
 from repro_torch.models.common import NEG_INF, rms_norm, silu
@@ -234,7 +244,7 @@ def embed_table(cfg: ModelConfig) -> dict:
 @dataclass
 class Ctx:
     cfg: ModelConfig
-    mode: str                               # prefill | decode
+    mode: str                               # train | prefill | decode
     angles: Optional[torch.Tensor] = None   # (s, half) or (b, s, half)
     pos: Any = None                         # decode position: int or (b,)
     memory: Optional[torch.Tensor] = None   # (b, s_enc, d) encoder output
@@ -291,6 +301,9 @@ def apply_attention(p, x, ctx: Ctx, cache, spec: LayerSpec):
     q, k, v = _qkv(p, xn, ctx, rope=not enc)
     if ctx.mode == "decode":
         out, new_cache = _decode_attn(q, k, v, ctx, cache, window)
+    elif ctx.mode == "train":
+        out = ring_attention(q, k, v, causal=not enc, window=window)
+        new_cache = None
     else:
         out = flash_attention_op(q, k, v, causal=not enc, window=window)
         new_cache = (_build_cache(k, v, ctx, window)
@@ -380,7 +393,9 @@ def apply_cross_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
     ``rms_norm(norm_cross)``, ``q = xn @ cwq`` and attention over every
     encoder row, then ``@ cwo``.  Prefill projects the encoder output
     ``ctx.memory`` to ``ck``/``cv`` (plain matmuls, as the reference's)
-    and attends them through ``flash_attention`` at ``causal=False``;
+    and attends them through ``flash_attention`` at ``causal=False``
+(in train mode through the reference's own ``ref_attention``, with no
+cache);
     decode attends the cached ``ck``/``cv`` (``cross_decode_attention``)
     and passes them through unchanged.  ``new_cache``: the
     self-attention's rows beside ``ck``/``cv``."""
@@ -398,8 +413,11 @@ def apply_cross_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
         sm = mem.shape[1]
         ck = (mem @ p["cwk"]).reshape(b, sm, hkv, dh)
         cv = (mem @ p["cwv"]).reshape(b, sm, hkv, dh)
-        out = flash_attention_op(q, ck, cv, causal=False)
+        out = (ref_attention(q, ck, cv, causal=False) if ctx.mode == "train"
+               else flash_attention_op(q, ck, cv, causal=False))
     out = out.reshape(b, s, h * dh).to(x.dtype)
+    if ctx.mode == "train":
+        return x + out @ p["cwo"], None
     return x + out @ p["cwo"], {**new_cache, "ck": ck, "cv": cv}
 
 
@@ -447,6 +465,10 @@ def apply_mla(p, x, ctx: Ctx, cache, spec: LayerSpec):
             scale=1.0 / math.sqrt(dn + dr))
         out = torch.einsum("bshr,rhv->bshv", ctxl.to(x.dtype), p["w_uv"])
         new_cache = {"c": c.to(cc.dtype), "kr": k_rope.to(krc.dtype)}
+    elif ctx.mode == "train":
+        out = mla_ring_attention(torch.cat([q_nope, q_rope], dim=-1), c,
+                                 k_rope, p["w_uk"], p["w_uv"])
+        new_cache = None
     else:
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = mla_prefill_attention(q, c, k_rope, p["w_uk"], p["w_uv"])
@@ -562,6 +584,11 @@ def apply_mixer(p, x, ctx: Ctx, cache, spec: LayerSpec):
 # ===========================================================================
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """A dense layer's load-balance loss: f32 zero."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def apply_dense_ffn(p, x, ctx: Ctx):
     cfg = ctx.cfg
     if cfg.d_ff == 0 or ("w_gate" not in p and "w_gate#q" not in p):
@@ -593,12 +620,14 @@ def apply_moe_ffn(p, x, ctx: Ctx):
 
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
     """One ATTN, ATTN_LOCAL, MLA, SSM, ENC or CROSS layer with its DENSE
-    or MOE feed-forward -> (x', new_cache)."""
+    or MOE feed-forward -> (x', new_cache, aux): ``aux`` the MoE
+    feed-forward's load-balance loss, f32 zero for a dense one."""
     _dense_only(ctx.cfg, spec)
     x, new_cache = apply_mixer(p, x, ctx, cache, spec)
     if spec.ffn == MOE:
-        return apply_moe_ffn(p, x, ctx)[0], new_cache
-    return apply_dense_ffn(p, x, ctx), new_cache
+        x, aux = apply_moe_ffn(p, x, ctx)
+        return x, new_cache, aux
+    return apply_dense_ffn(p, x, ctx), new_cache, _no_aux(x)
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
@@ -606,10 +635,28 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["emb"][tokens.long()]
 
 
+def _w_out(p, cfg: ModelConfig) -> torch.Tensor:
+    return p["emb"].T if cfg.tie_embeddings else p["w_out"]
+
+
+def lm_head_loss(p, x: torch.Tensor, labels: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Mean token cross-entropy, the reference's single-device head: f32
+    logits of ``x @ w_out`` (x (b, s, d), labels (b, s) int), the
+    vocabulary padding masked to ``NEG_INF``, the mean of ``lse - ll``.
+    The vocabulary-sharded head waits for the sharding slice."""
+    logits = (x @ _w_out(p, cfg)).to(torch.float32)
+    pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
+    logits = logits.masked_fill(pad, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
 def lm_head_argmax(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Greedy next token from the last position, the vocabulary padding
     masked.  x (b, s, d) -> (b,) int32."""
-    w = p["emb"].T if cfg.tie_embeddings else p["w_out"]
+    w = _w_out(p, cfg)
     logits = (x[:, -1] @ w).to(torch.float32)
     pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
     logits = logits.masked_fill(pad, NEG_INF)

@@ -1,11 +1,14 @@
 """Public model facade: one object binding a ``ModelConfig`` to init,
-prefill, decode and its caches (the JAX package's ``models/model.py``,
-without training and the dry-run input specs)."""
+the training loss, prefill, decode and its caches (the JAX package's
+``models/model.py``, without the dry-run input specs)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 
 
@@ -14,11 +17,23 @@ class Model:
     cfg: ModelConfig
 
     # ---- parameters -------------------------------------------------------
-    def init(self, seed: int):
-        """The f32 numpy parameter tree drawn from ``seed``."""
-        return T.init_params(self.cfg, seed)
+    def init(self, seed: int, device=None, dtype=torch.bfloat16):
+        """The parameter tree drawn from ``seed``: f32 numpy arrays with
+        no ``device``; with one, tensors there at ``dtype`` (bf16 by
+        default, the reference's training dtype; the SSM scalars stay
+        f32)."""
+        params = T.init_params(self.cfg, seed)
+        if device is None:
+            return params
+        return T.to_device(params, resolve_device(device), dtype)
+
+    def param_axes(self):
+        return T.param_axes(self.cfg)
 
     # ---- compute entry points ---------------------------------------------
+    def train_loss(self, params, batch, remat: bool = True):
+        return T.train_loss(params, batch, self.cfg, remat)
+
     def prefill(self, params, batch, cache_len: int):
         return T.prefill(params, batch, self.cfg, cache_len)
 

@@ -15,7 +15,7 @@ The port of the JAX package's ``models/ssm.py`` with no sequence axis:
 
 Everything computes in f32, whatever dtype arrives.  A group of ``B``/``C``
 serves ``H // G`` consecutive heads (the reference's ``repeat``).  The
-sequence-sharded ``ssd_sharded`` waits for the distributed slice.
+sequence-sharded ``ssd_sharded`` waits for the sharding slice.
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 whisper's encoder-decoder (``ENC`` encoder, ``CROSS`` decoder) with
 dense or MoE feed-forwards:
 parameter tables, an own parameter init, cache shapes and rope angles,
-and the whole-model forward passes (``init_cache``, ``_run_stack``,
-``prefill``, ``decode_step``) — a subset of the JAX package's
-``models/transformer.py``.
+the whole-model forward passes (``init_cache``, ``_run_stack``,
+``prefill``, ``decode_step``) and the training loss (``train_loss``),
+with the tree's shapes, dtypes and logical axes (``map_params_tree``,
+``param_struct``, ``param_axes``) — the single-device part of the JAX
+package's ``models/transformer.py``.
 
 ``init_params`` draws every table's shapes at the reference's scales (a
 matrix at 1/sqrt(fan-in), a zero-scale vector as zeros, the embedding at
@@ -49,6 +51,15 @@ position where the reference indexes a ``max_seq_len`` table.  A batch
 may carry ``"embeds"`` in place of tokens (the frontends' stubs), and
 an M-RoPE model (qwen2-vl) rotates by its three equal position
 components.
+
+Training (``train_loss``) runs the stack in train mode (plain,
+differentiable PyTorch, no kernel and no cache), sums the layers'
+load-balance losses and adds ``AUX_WEIGHT`` times their mean over the
+MoE layers to the head's cross-entropy, as the reference does.  With
+``remat`` each layer of the period loop and of the encoder goes through
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward pass, the counterpart of the reference's
+``jax.checkpoint(policy=nothing_saveable)`` around its scan body.
 """
 from __future__ import annotations
 
@@ -61,9 +72,10 @@ from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, CROSS, DENSE, ENC,
-                                      MLA, SSM, LayerSpec, ModelConfig)
+                                      MLA, MOE, SSM, LayerSpec, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.rope import (rope_angles, sinusoidal_positions,
@@ -73,6 +85,9 @@ from repro_torch.models.rope import (rope_angles, sinusoidal_positions,
 # "enc_final_norm" are the encoder's "pat" and "final_norm")
 PARTS = ("embed", "final_norm", "pat", "rem", "enc_pat", "enc_final_norm")
 ENC_SPEC = LayerSpec(ENC, DENSE)
+AUX_WEIGHT = 0.01  # load-balance loss weight
+# parameters the reference keeps in f32 whatever the tree's dtype
+F32_NAMES = ("A_log", "dt_bias", "D")
 
 
 def model_tables(cfg: ModelConfig):
@@ -233,14 +248,72 @@ def init_params(cfg: ModelConfig, seed: int):
     return params
 
 
-def to_device(tree, device):
+def to_device(tree, device, dtype=None):
     """A parameter tree of numpy arrays (``init_params``) as tensors on
-    ``device``, in the same structure."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(to_device(v, device) for v in tree)
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+    ``device``, in the same structure; with ``dtype`` every leaf but the
+    SSM scalars (``F32_NAMES``, f32 in the reference whatever its dtype)
+    is cast to it on the device."""
+    def put(name, a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return t if dtype is None or name in F32_NAMES else t.to(dtype)
+
+    def walk(t, name=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(walk(v, name) for v in t)
+        return put(name, t)
+    return walk(tree)
+
+
+def map_params_tree(cfg: ModelConfig, fn):
+    """A tree of ``init_params``'s structure with leaf ``fn(name,
+    ParamDef, stacked)``: ``stacked`` for the tables of ``pat`` and the
+    encoder's ``pat``."""
+    tabs = model_tables(cfg)
+
+    def tab(t, stacked):
+        return {name: fn(name, pd, stacked) for name, pd in t.items()}
+    out = {
+        "embed": tab(tabs["embed"], False),
+        "final_norm": tab(tabs["final_norm"], False),
+        "pat": tuple(tab(t, True) for t in tabs["pat"]),
+        "rem": tuple(tab(t, False) for t in tabs["rem"]),
+    }
+    if cfg.enc_dec:
+        out["enc"] = {
+            "pat": tuple(tab(t, True) for t in tabs["enc"]["pat"]),
+            "final_norm": tab(tabs["enc"]["final_norm"], False),
+        }
+    return out
+
+
+def param_struct(cfg: ModelConfig, dtype=torch.bfloat16):
+    """The tree's shapes and dtypes as ``device="meta"`` tensors: every
+    leaf at ``dtype`` but the f32 SSM scalars; ``pat`` stacked over
+    ``num_periods``, the encoder's over ``num_encoder_layers``."""
+    def leaf(shape, name):
+        dt = torch.float32 if name in F32_NAMES else dtype
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    def fn(name, pd, stacked):
+        return leaf(((cfg.num_periods,) + pd.shape) if stacked
+                    else pd.shape, name)
+    tree = map_params_tree(cfg, fn)
+    if cfg.enc_dec:
+        tree["enc"]["pat"] = tuple(
+            {name: leaf((cfg.num_encoder_layers,) + pd.shape, name)
+             for name, pd in t.items()}
+            for t in model_tables(cfg)["enc"]["pat"])
+    return tree
+
+
+def param_axes(cfg: ModelConfig):
+    """The tree's logical axis names per leaf (``ParamDef.axes``, with a
+    leading None for a stacked table), for the sharding slice."""
+    return map_params_tree(
+        cfg, lambda name, pd, stacked: ((None,) + pd.axes) if stacked
+        else pd.axes)
 
 
 # ===========================================================================
@@ -338,25 +411,50 @@ def _angles(cfg: ModelConfig, positions: torch.Tensor):
     return rope_angles(positions, rope_dim, cfg.rope_theta)
 
 
-def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig):
+def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig,
+               remat: bool = False):
     """Every layer in order (the periods of ``pat``, then ``rem``).
     Returns (x, each layer's new cache rows: ``pat`` a list per pattern
-    position over periods, ``rem`` a list)."""
+    position over periods, ``rem`` a list; the layers' summed
+    load-balance loss, f32).  ``remat`` (no caches) recomputes each
+    period's activations in the backward pass."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_pat = [[] for _ in cfg.pattern]
-    for p in range(cfg.num_periods):
+    # one unbind per stacked leaf: its backward stacks the periods'
+    # gradients once, where indexing ``t[p]`` would add a zero-filled
+    # leaf-sized gradient per period
+    pat = [{n: t.unbind(0) for n, t in tab.items()}
+           for tab in params["pat"]]
+
+    def period(x, p):
+        a, rows = torch.zeros_like(aux), []
         for q, spec in enumerate(cfg.pattern):
-            ps = {n: t[p] for n, t in params["pat"][q].items()}
+            ps = {n: t[p] for n, t in pat[q].items()}
             cs = (None if caches is None else
                   {n: c[p] for n, c in caches["pat"][q].items()})
-            x, nc = L.apply_layer(ps, x, ctx, cs, spec)
+            x, nc, la = L.apply_layer(ps, x, ctx, cs, spec)
+            a = a + la
+            rows.append(nc)
+        return x, a, rows
+
+    for p in range(cfg.num_periods):
+        if remat:
+            x, a = checkpoint(lambda x, p=p: period(x, p)[:2], x,
+                              use_reentrant=False)
+            rows = [None] * len(cfg.pattern)
+        else:
+            x, a, rows = period(x, p)
+        aux = aux + a
+        for q, nc in enumerate(rows):
             new_pat[q].append(nc)
     new_rem = []
     for q, spec in enumerate(cfg.remainder):
-        x, nc = L.apply_layer(params["rem"][q], x, ctx,
-                              None if caches is None else caches["rem"][q],
-                              spec)
+        x, nc, a = L.apply_layer(params["rem"][q], x, ctx,
+                                 None if caches is None
+                                 else caches["rem"][q], spec)
+        aux = aux + a
         new_rem.append(nc)
-    return x, {"pat": new_pat, "rem": new_rem}
+    return x, {"pat": new_pat, "rem": new_rem}, aux
 
 
 def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
@@ -364,18 +462,24 @@ def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
     return L.lm_head_argmax(params["embed"], x[:, -1:], cfg)
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+            mode: str = "prefill"):
     """Whisper's encoder over precomputed frame embeddings (b, s_enc, d):
     sinusoidal positions added, the ENC layers (bidirectional, no rope),
-    then the encoder's final norm -> (b, s_enc, d)."""
+    then the encoder's final norm -> (b, s_enc, d).  In train mode each
+    layer is rematerialised, as the reference's encoder stack is."""
     b, s_enc, d = enc_embeds.shape
     x = enc_embeds + sinusoidal_positions(s_enc, d, enc_embeds.dtype,
                                           enc_embeds.device)[None]
-    ctx = L.Ctx(cfg=cfg, mode="prefill", is_encoder=True)
-    stack = params["enc"]["pat"][0]
+    ctx = L.Ctx(cfg=cfg, mode=mode, is_encoder=True)
+    stack = {n: t.unbind(0) for n, t in params["enc"]["pat"][0].items()}
+
+    def layer(x, p):
+        return L.apply_layer({n: t[p] for n, t in stack.items()}, x, ctx,
+                             None, ENC_SPEC)[0]
     for p in range(cfg.num_encoder_layers):
-        x, _ = L.apply_layer({n: t[p] for n, t in stack.items()}, x, ctx,
-                             None, ENC_SPEC)
+        x = (checkpoint(layer, x, p, use_reentrant=False)
+             if mode == "train" else layer(x, p))
     return L.rms_norm(x, params["enc"]["final_norm"]["scale"], cfg.norm_eps)
 
 
@@ -398,6 +502,36 @@ def _inputs_to_x(params, cfg: ModelConfig, ctx: L.Ctx, batch):
     return x
 
 
+def n_moe_layers(cfg: ModelConfig) -> int:
+    return (cfg.num_periods * sum(1 for sp in cfg.pattern if sp.ffn == MOE)
+            + sum(1 for sp in cfg.remainder if sp.ffn == MOE))
+
+
+def train_loss(params, batch, cfg: ModelConfig, remat: bool = True):
+    """The training loss of a batch of tensors: ``labels`` (b, s) with
+    ``tokens`` (b, s) or ``embeds`` (b, s, d), and an encoder-decoder's
+    ``enc_embeds`` (b, s_enc, d).  The stack in train mode (rope angles at
+    positions ``0..s-1``, M-RoPE's three equal components), the final
+    norm, ``lm_head_loss``, plus ``AUX_WEIGHT`` times the load-balance
+    loss per MoE layer.  ``remat`` as the reference's (on)."""
+    lab = batch["labels"]
+    s = lab.shape[1]
+    dev = lab.device
+    memory = (_encode(params, cfg, batch["enc_embeds"], "train")
+              if cfg.enc_dec else None)
+    ctx = L.Ctx(cfg=cfg, mode="train",
+                angles=_angles(cfg, torch.arange(s, device=dev)),
+                memory=memory)
+    x = _inputs_to_x(params, cfg, ctx, batch)
+    x, _, aux = _run_stack(params, x, ctx, None, cfg, remat=remat)
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    loss = L.lm_head_loss(params["embed"], x, lab, cfg)
+    n_moe = n_moe_layers(cfg)
+    if n_moe:
+        loss = loss + AUX_WEIGHT * aux / n_moe
+    return loss
+
+
 def prefill(params, batch, cfg: ModelConfig, cache_len: int):
     """Process the prompt, ``batch["tokens"]`` (b, s) or
     ``batch["embeds"]`` (b, s, d), with an encoder-decoder's frames
@@ -414,7 +548,7 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: int):
                 angles=_angles(cfg, torch.arange(s, device=inp.device)),
                 memory=memory)
     x = _inputs_to_x(params, cfg, ctx, batch)
-    x, rows = _run_stack(params, x, ctx, None, cfg)
+    x, rows, _ = _run_stack(params, x, ctx, None, cfg)
     struct, kinds = cache_struct(cfg, b, cache_len)
 
     def slab(r, shape_dtype, kind, seq):  # s rows -> cache_len rows
@@ -451,7 +585,7 @@ def decode_step(params, batch, caches, cfg: ModelConfig):
     ctx = L.Ctx(cfg=cfg, mode="decode", angles=_angles(cfg, positions),
                 pos=pos)
     x = _inputs_to_x(params, cfg, ctx, batch)
-    x, rows = _run_stack(params, x, ctx, caches, cfg)
+    x, rows, _ = _run_stack(params, x, ctx, caches, cfg)
     for q, spec in enumerate(cfg.pattern):
         if spec.mixer == SSM and cfg.num_periods:
             caches["pat"][q].update({n: torch.stack([r[n] for r in

@@ -38,6 +38,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.kvstore import PhasedKVExtents
 from repro_torch.core.offload import HostStore
@@ -189,11 +190,14 @@ class SlotEngineBase(PhasedKVExtents):
         slots (main thread)."""
         return not self.queue and all(s is None for s in self.slots)
 
+    @torch.no_grad()
     def step(self, done: List[Request]):
         """One admission + decode step — the unit ``run()`` loops;
         public so a traffic runner can
         interleave request arrivals with engine steps.  Main thread;
-        completed requests are appended to ``done``."""
+        completed requests are appended to ``done``.  Serving needs no
+        gradients: the step runs with grad mode off, so autograd keeps
+        no records and the kernel ops' grad guard returns at once."""
         self._admit()
         self._decode_step(done)
 

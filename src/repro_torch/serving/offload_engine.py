@@ -126,7 +126,7 @@ class _Unit:
         ``_compute_moe``)."""
         if self.moe:
             return L.apply_mixer(weights, x, ctx, cache, self.spec)
-        return L.apply_layer(weights, x, ctx, cache, self.spec)
+        return L.apply_layer(weights, x, ctx, cache, self.spec)[:2]
 
 
 class _StagedWeightStore:
@@ -232,12 +232,50 @@ class _MeshStagedScheduler(StagedScheduler):
         return x
 
 
+class DrawCache:
+    """Weights that offloaded engines of one model share across their
+    builds: the drawn ``embed`` and ``final_norm`` tables and each
+    layer's (and expert's) packed tensors, kept on the host by model
+    config, seed, quant policy and table key.  An engine built with it
+    takes what an earlier build of the same model and seed left and
+    draws and packs only the rest: the same numbers, without the draw.
+    It empties when its ``with`` block ends::
+
+        with DrawCache() as draws:
+            a = create_engine(plan, draws=draws)
+            b = create_engine(other_plan_same_model, draws=draws)
+    """
+
+    def __init__(self):
+        self._kept: Dict[tuple, Any] = {}
+
+    def __enter__(self) -> "DrawCache":
+        return self
+
+    def __exit__(self, *exc):
+        self._kept.clear()
+
+    def tables(self, tag: tuple, keys, make):
+        """``(key, value)`` for each of ``keys`` in order: the value kept
+        under ``tag``, or else the next of ``make(missing keys)`` (a
+        generator of ``(key, value)`` in the order of its keys), which
+        is then kept."""
+        keys = list(keys)
+        fresh = make([k for k in keys if (tag, k) not in self._kept])
+        for k in keys:
+            if (tag, k) not in self._kept:
+                k2, value = next(fresh)
+                self._kept[tag, k2] = value
+            yield k, self._kept[tag, k]
+
+
 class OffloadedServingEngine(SlotEngineBase):
     """See module docstring.  Main-thread object: all public methods run
     on the caller's thread; weight/KV transfers run on the internal
     transfer pool."""
 
-    def __init__(self, plan: ResolvedPlan, device="cuda"):
+    def __init__(self, plan: ResolvedPlan, device="cuda",
+                 draws: "DrawCache | None" = None):
         if not isinstance(plan, ResolvedPlan):
             raise TypeError(f"OffloadedServingEngine takes a ResolvedPlan, "
                             f"got {type(plan).__name__}")
@@ -338,7 +376,7 @@ class OffloadedServingEngine(SlotEngineBase):
         # the routing
         self.route = lambda key, logits, k: moe_mod.router_topk(logits, k)
         self.units: List[_Unit] = []
-        self._split_params(plan.seed)
+        self._split_params(plan.seed, draws)
         # the bytes that never stream (embedding, untied head, final
         # norm, MoE routers), to report beside the plan's device budget
         resident = [t for tab in self.resident.values() for t in tab.values()]
@@ -422,14 +460,16 @@ class OffloadedServingEngine(SlotEngineBase):
                          f"{self.stage_bounds}")
 
     # ---- weight tiering -----------------------------------------------------
-    def _split_params(self, seed: int):
+    def _split_params(self, seed: int, draws: "DrawCache | None" = None):
         """The embedding, LM head and final norm go to the device; each
         layer's tensors (INT4-packed under ``quant="int4"``) merge into
         one tiered buffer.  An MoE layer splits further: its router goes
         to the device, and each expert is drawn and becomes a buffer of
         its own, so decode can load just the routed union.  Tables (and
         experts) are drawn on threads a few ahead, so at most that many
-        f32 copies exist at once.  Main thread, build time only."""
+        f32 copies exist at once; ``draws`` keeps what is drawn and
+        packed for later engines of the same model and seed, and gives
+        what an earlier one kept.  Main thread, build time only."""
         cfg = self.cfg
         keys = [("embed", 0, 0), ("final_norm", 0, 0)]
         for part, q, p in T.table_keys(cfg):
@@ -439,8 +479,23 @@ class OffloadedServingEngine(SlotEngineBase):
                          for e in (None, *range(cfg.moe.num_experts))]
             else:
                 keys.append((part, q, p))
+
+        def packed(keys):
+            """(key, (tensors, router)): the resident tables as drawn, a
+            layer's packed by the quant policy, an MoE layer's router
+            ``wg`` kept apart and unpacked."""
+            for key, tensors in T.draw_tables(cfg, seed, keys):
+                if key[0] in ("embed", "final_norm"):
+                    yield key, (tensors, None)
+                    continue
+                wg = tensors.pop("wg", None)
+                yield key, (self.quant_policy.prepare_unit(tensors, self.dev),
+                            wg)
+        tables = packed(keys) if draws is None else draws.tables(
+            (repr(cfg), seed, self.quant_policy.name, self.dev.type), keys,
+            packed)
         self.resident = {}
-        for key, tensors in T.draw_tables(cfg, seed, keys):
+        for key, (tensors, wg) in tables:
             part, q, p = key[:3]
             if part in ("embed", "final_norm"):
                 self.resident[part] = {
@@ -449,23 +504,21 @@ class OffloadedServingEngine(SlotEngineBase):
             elif len(key) == 4 and key[3] is not None:
                 u = self.units[-1]            # expert key[3] of this unit
                 ek = f"{u.key}/exp[{key[3]}]"
-                self.weights.put(ek, self.quant_policy.prepare_unit(
-                    tensors, self.dev))
+                self.weights.put(ek, dict(tensors))
                 u.expert_keys.append(ek)
             elif part == "pat":
                 self._put_unit("pat", p, q, cfg.pattern[q], f"u[{p}][{q}]",
-                               tensors)
+                               tensors, wg)
             else:
                 self._put_unit("rem", 0, q, cfg.remainder[q], f"rem[{q}]",
-                               tensors)
+                               tensors, wg)
 
-    def _put_unit(self, group, p, q, spec, key, tensors):
+    def _put_unit(self, group, p, q, spec, key, tensors, wg):
         u = _Unit(group, p, q, spec, key)
         if spec.ffn == MOE:
             u.moe = True
-            u.router = self.device.put(f"{key}/wg", tensors.pop("wg"))
-        self.weights.put(key, self.quant_policy.prepare_unit(tensors,
-                                                             self.dev))
+            u.router = self.device.put(f"{key}/wg", wg)
+        self.weights.put(key, dict(tensors))
         self.units.append(u)
 
     # ---- tiered KV ----------------------------------------------------------

@@ -1189,11 +1189,14 @@ def sched_policy_for(plan: ResolvedPlan) -> SchedPolicy:
 # ---------------------------------------------------------------------------
 
 
-def create_engine(plan: "ResolvedPlan | EngineSpec", device="cuda"):
+def create_engine(plan: "ResolvedPlan | EngineSpec", device="cuda", *,
+                  draws=None):
     """The one serving-engine constructor: dispatches a resolved plan to
     ``ServingEngine`` (resident) or ``OffloadedServingEngine`` (streamed)
     on ``device`` (CUDA unless the caller asks for the CPU).  Accepts an
-    unresolved ``EngineSpec`` (resolved against the default budget)."""
+    unresolved ``EngineSpec`` (resolved against the default budget).
+    ``draws``: an open ``serving.offload_engine.DrawCache`` that
+    offloaded engines of one model and seed build from in turn."""
     if isinstance(plan, EngineSpec):
         plan = plan.resolve()
     if not isinstance(plan, ResolvedPlan):
@@ -1201,7 +1204,10 @@ def create_engine(plan: "ResolvedPlan | EngineSpec", device="cuda"):
                         f"EngineSpec, got {type(plan).__name__}")
     if plan.engine == "offloaded":
         from repro_torch.serving.offload_engine import OffloadedServingEngine
-        return OffloadedServingEngine(plan, device=device)
+        return OffloadedServingEngine(plan, device=device, draws=draws)
+    if draws is not None:
+        raise SpecError(f"draws: a DrawCache serves offloaded engines; the "
+                        f"plan resolved {plan.engine!r}")
     from repro_torch.serving.engine import ServingEngine
     return ServingEngine(plan, device=device)
 

@@ -181,9 +181,9 @@ def test_encoder_layer_is_bidirectional_without_rope():
                  angles=PT._angles(PC, torch.arange(S_ENC)))
     spec = PB.LayerSpec(PB.ENC, PB.DENSE)
     w = {n: t[0] for n, t in pp["enc"]["pat"][0].items()}
-    a, cache = PL.apply_layer(w, torch.from_numpy(enc), ctx, None, spec)
+    a, cache, _ = PL.apply_layer(w, torch.from_numpy(enc), ctx, None, spec)
     enc[0, -1] += 1.0
-    b, _ = PL.apply_layer(w, torch.from_numpy(enc), ctx, None, spec)
+    b, _, _ = PL.apply_layer(w, torch.from_numpy(enc), ctx, None, spec)
     assert cache is None
     assert not torch.equal(a[0, 0], b[0, 0])
 

@@ -1093,3 +1093,81 @@ def test_frontend_resident_engine_on_card_matches_cpu(dev, arch):
                 per_step * st["decode_steps"]
         eng.shutdown()
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# training on the card (plain PyTorch, no kernel): one step against the
+# port's CPU step, bf16, checkpoints
+# ---------------------------------------------------------------------------
+
+def _train_setup(arch, dev, dtype=torch.float32):
+    """Scaled ``arch``'s seed-0 parameters on ``dev`` at ``dtype``, its
+    model, AdamW and step 0's synthetic batch (numpy)."""
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.data import DataConfig, DataPipeline, SyntheticSource
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    cfg = scaled_down(get_config(arch))
+    model = build_model(cfg)
+    dcfg = DataConfig(seq_len=32, global_batch=2, vocab_size=cfg.vocab_size)
+    batch = DataPipeline(SyntheticSource(dcfg), dcfg).batch_at(0)
+    batch.pop("step")
+    return model, model.init(0, device=dev, dtype=dtype), AdamW(), batch
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-1.3b",
+                                  "deepseek-v3-671b"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """f32 with TF32 off (``resolve_device``): the loss within 1e-5
+    relative, every gradient leaf within 1e-4 x its max |g|, the updated
+    AdamW moments within 1e-5; no kernel launched."""
+    from repro_torch import tree as PT
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    out = []
+    for d in (torch.device("cpu"), dev):
+        model, params, opt, batch = _train_setup(arch, d)
+        before = dict(ops.LAUNCHES)
+        loss, grads = value_and_grad(model, params, batch)
+        _, state, m = make_train_step(model, opt)(params, opt.init(params),
+                                                  batch)
+        assert dict(ops.LAUNCHES) == before
+        assert float(m["loss"]) == float(loss)
+        out.append((float(loss), PT.leaves(grads), PT.leaves(state)))
+    cpu, gpu = out
+    assert abs(gpu[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for a, b in zip(cpu[1], gpu[1]):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=1e-4 * a.abs().max().item())
+    for a, b in zip(cpu[2], gpu[2]):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
+def test_train_bf16_step_on_card(dev):
+    from repro_torch.launch.steps import make_train_step
+    losses = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model, params, opt, batch = _train_setup("tinyllama-1.1b", dev, dt)
+        params, _, m = make_train_step(model, opt)(
+            params, opt.init(params), batch)
+        assert params["pat"][0]["wq"].dtype == dt
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+        losses[dt] = float(m["loss"])
+    assert abs(losses[torch.bfloat16] - losses[torch.float32]) \
+        <= 2e-2 * abs(losses[torch.float32])
+
+
+def test_train_checkpoint_on_card_restores_bit_equal(dev, tmp_path):
+    from repro_torch import tree as PT
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.steps import make_train_step
+    model, params, opt, batch = _train_setup("tinyllama-1.1b", dev,
+                                             torch.bfloat16)
+    params, state, _ = make_train_step(model, opt)(
+        params, opt.init(params), batch)
+    tree = {"params": params, "opt": state}
+    save_checkpoint(str(tmp_path), 1, tree)
+    back, _ = restore_checkpoint(str(tmp_path), 1, tree)
+    for a, b in zip(PT.leaves(tree), PT.leaves(back)):
+        assert b.device == a.device and b.dtype == a.dtype
+        assert torch.equal(a, b)

@@ -67,7 +67,12 @@ def probe():
 def test_every_module_is_probed():
     assert "repro_torch.models.moe" in MODULES
     assert "repro_torch.serving.offload_engine" in MODULES
-    assert len(MODULES) > 40
+    for name in ("optim.adamw", "optim.adafactor", "data.pipeline",
+                 "checkpoint.ckpt", "runtime.compression",
+                 "runtime.fault_tolerance", "launch.steps", "launch.train",
+                 "tree"):
+        assert f"repro_torch.{name}" in MODULES
+    assert len(MODULES) > 50
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -333,7 +333,7 @@ def test_apply_layer_routes_mla():
     jx, _, _ = JL.apply_layer(jw, jnp.asarray(x), jctx, None, JC.pattern[0])
     pctx = PL.Ctx(cfg=PC, mode="prefill",
                   angles=PT._angles(PC, torch.arange(s)))
-    px, rows = PL.apply_layer(pw, torch.from_numpy(x), pctx, None,
+    px, rows, _ = PL.apply_layer(pw, torch.from_numpy(x), pctx, None,
                               PC.pattern[0])
     np.testing.assert_allclose(px.numpy(), np.asarray(jx), atol=ATOL,
                                rtol=1e-5)

@@ -264,7 +264,7 @@ def test_apply_layer_prefill_matches_reference(quant):
                                    JCFG.pattern[0])
     pctx = PL.Ctx(cfg=PCFG, mode="prefill",
                   angles=PT._angles(PCFG, torch.arange(9)))
-    px, pcache = PL.apply_layer(pw, torch.from_numpy(x), pctx, None,
+    px, pcache, _ = PL.apply_layer(pw, torch.from_numpy(x), pctx, None,
                                 PCFG.pattern[0])
     np.testing.assert_allclose(px.numpy(), np.asarray(jx), atol=2e-5, rtol=0)
     for n in ("k", "v"):
@@ -310,10 +310,46 @@ def test_apply_layer_decode_matches_reference(kv_mode, quant):
     pp = torch.from_numpy(pos)
     pctx = PL.Ctx(cfg=PCFG, mode="decode",
                   angles=PT._angles(PCFG, pp[:, None]), pos=pp)
-    px, prows = PL.apply_layer(pw, torch.from_numpy(x), pctx, pcache,
+    px, prows, _ = PL.apply_layer(pw, torch.from_numpy(x), pctx, pcache,
                                PCFG.pattern[0])
     np.testing.assert_allclose(px.numpy(), np.asarray(jx), atol=2e-5, rtol=0)
     for n in ("k", "v"):
         want = np.asarray(jnew[n], np.float32)[np.arange(b), pos]
         assert prows[n].dtype == torch.bfloat16
         np.testing.assert_array_equal(prows[n][:, 0].float().numpy(), want)
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+def test_draw_cache_shares_one_draw(family, monkeypatch):
+    """Offloaded engines built inside one ``DrawCache`` draw and pack the
+    model once: a second build of the same model and seed (another
+    scheduler; two stages for the dense model) draws nothing, and each serves the tokens of
+    its plan's engine built without the cache; the cache empties on exit, and a
+    resident plan refuses it."""
+    from repro_torch.serving.offload_engine import DrawCache
+    _, pplan = _plans("fp32", "int4", 1)
+    if family == "moe":
+        pplan = dataclasses.replace(pplan, cfg=dataclasses.replace(
+            PCFG, pattern=(PB.LayerSpec(PB.ATTN, PB.MOE),),
+            moe=PB.MoEConfig(num_experts=2, expert_d_ff=64)))
+    kws = [{}, {"sched": "online", "prefill_chunk": 4}]
+    if family == "dense":       # an MoE unit's expert loads are unstaged
+        kws.append({"stages": 2})
+    plans = [dataclasses.replace(pplan, **kw) for kw in kws]
+    want = [_serve(create_engine(p, device="cpu"), Request) for p in plans]
+    draw, drawn = PT.draw_tables, []
+
+    def counted(cfg, seed, keys, workers=0):
+        keys = list(keys)
+        drawn.append(len(keys))
+        return draw(cfg, seed, keys, workers)
+    monkeypatch.setattr(PT, "draw_tables", counted)
+    with DrawCache() as draws:
+        engines = [create_engine(p, device="cpu", draws=draws)
+                   for p in plans]
+        assert len(drawn) == 1 and drawn[0] > 0
+        assert [_serve(eng, Request) for eng in engines] == want
+    assert not draws._kept
+    res = dataclasses.replace(pplan, engine="resident", quant=None)
+    with pytest.raises(SpecError, match="DrawCache"):
+        create_engine(res, device="cpu", draws=DrawCache())
