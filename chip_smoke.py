@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only ssm      # kernel checks, then runs (u), (v)
     python3 chip_smoke.py --only frontends # kernel checks, then runs (w), (x)
     python3 chip_smoke.py --only train    # kernel checks, then run (y)
+    python3 chip_smoke.py --only shard    # kernel checks, then run (z)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -236,7 +237,29 @@ before the result line:
    bf16 dense peak, the first call's peak device memory (less what the
    script held) beside params + grads + moments, the checkpoint's bytes
    and its save and restore seconds;
-18. print the ``kernels`` JSON line, the card, then the result line.
+18. the sharding slice: (z) opens a world-1 NCCL process group (a
+   ``FileStore`` under the temporary directory) and a (1, 1) ("data",
+   "model") ``DeviceMesh`` on the card, so every sharded branch runs its
+   collective body over groups of one; trains tinyllama-1.1b at full
+   width and depth from (y)'s seed-0 draws (bf16 parameters under
+   ``param_pspecs``, AdamW moments under ``zero_pspecs``) for
+   ``SHARD_STEPS`` steps of ``make_train_step(model, dist, opt)`` and the
+   same steps with ``Dist.local()`` (losses within 1e-3, grad norms
+   within 1e-2, relative); saves the mesh's parameters and restores them
+   under ``Dist.local()`` bit-equal, and the reverse; serves 4 prompts of
+   128 tokens and ``SHARD_NEW`` decode steps in f32 with the KV over
+   ``model`` against the local path, which runs ``flash_attention`` and
+   ``decode_attention`` (the sharded path runs the plain ring and
+   partials): equal tokens, head inputs within ``SHARD_HIDDEN_TOL`` x
+   max; then the five scaled archs of the JAX package's distributed
+   check (granite-8b, gemma3-4b, deepseek-v3-671b, jamba-1.5-large-398b,
+   mamba2-1.3b) on the same mesh against their local plain path (loss
+   within 2e-4, grad norm within 1e-3, tokens equal), which puts the MoE,
+   SSM and MLA islands on the card.  Prints step ms under the mesh and
+   locally, the NCCL set-up seconds and the collectives a train step
+   issues, beside the card (with ``--only shard`` also one profiled step
+   each way: device ms, the card's busy share, host operators);
+19. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -375,7 +398,20 @@ QWEN2VL_LAYERS, QWEN2VL_NEW, QWEN2VL_MAX_LEN = 2, 8, 256
 TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "tinyllama-1.1b", 512, 8
 TRAIN_STEPS, TRAIN_RESUME, TRAIN_RTOL = 4, 6, 1e-3
 TRAIN_FIRST_LOSS = (2.0, 12.0)
+# run (z): the sharded path on a (1, 1) mesh of the one card: SHARD_STEPS
+# train steps each way at (y)'s shapes, prompts of SHARD_PROMPT tokens
+# with SHARD_NEW decode steps in f32 (cache SHARD_PROMPT + SHARD_NEW),
+# the head's inputs held to SHARD_HIDDEN_TOL x max; the scaled archs as
+# the JAX package's distributed check scales them
+SHARD_STEPS, SHARD_PROMPT, SHARD_NEW, SHARD_HIDDEN_TOL = 3, 128, 8, 1e-4
+SHARD_ARCHS = ("granite-8b", "gemma3-4b", "deepseek-v3-671b",
+               "jamba-1.5-large-398b", "mamba2-1.3b")
+SHARD_SCALE = dict(d_model=64, num_heads=4, num_kv_heads=4, vocab_size=256)
 BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+# calls a timed row averages for the microsecond kernels (decode, int4 at
+# M <= 16) and their plain and library versions: each traced call costs
+# the host far more than the card, and the checks' time grows with them
+TIMING_ITERS = 20
 
 
 def log(msg=""):
@@ -558,7 +594,7 @@ def check_int4(torch, rng, dev):
             row.update(timings(
                 torch, lambda: int4_matmul(x, packed, scale, group=G),
                 lambda: plain(x, packed, scale, G),
-                lambda: torch.matmul(x, wd), 50 if M <= 16 else 10))
+                lambda: torch.matmul(x, wd), TIMING_ITERS if M <= 16 else 10))
             nbytes = 4 * M * K + K * N // 2 + 4 * (K // G) * N + 4 * M * N
             flops = 2.0 * M * K * N
             row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
@@ -799,7 +835,8 @@ def check_decode(torch, rng, dev):
             row.update(timings(
                 torch, lambda: decode_attention(q, kc, vc, pos_t),
                 lambda: plain(q, kc, vc, pos_t),
-                _sdpa_decode(torch, q, kc.float(), vc.float(), pos_t), 50))
+                _sdpa_decode(torch, q, kc.float(), vc.float(), pos_t),
+                TIMING_ITERS))
             live = sum(p + 1 for p in pos)
             nbytes = (4 * 2 * q.numel() + 2 * live * hkv * dh
                       * kc.element_size() + 4 * b)
@@ -855,7 +892,8 @@ def check_rolling_decode(torch, rng, dev):
     row.update(timings(
         torch, lambda: decode_attention(q, kc, vc, clamped), plain,
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               enable_gqa=True), 50))
+                                               enable_gqa=True),
+        TIMING_ITERS))
     live = int(valid.sum())
     nbytes = 4 * 2 * q.numel() + 2 * live * hkv * dh * 2 + 4 * b
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * h * dh * live)
@@ -956,7 +994,7 @@ def check_decode_int4(torch, rng, dev):
                 torch, lambda: decode_attention_int4(q, kq, ks, vq, vs,
                                                      pos_t, **kw),
                 lambda: plain(q, kq, ks, vq, vs, pos_t, **kw),
-                _sdpa_decode(torch, q, kd, vd, pos_t), 50))
+                _sdpa_decode(torch, q, kd, vd, pos_t), TIMING_ITERS))
             hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
             live = hist + (b if fresh else 0)
             nbytes = (4 * 2 * q.numel() + 4 * b
@@ -2801,10 +2839,13 @@ def serve_mla(torch, ops, np, plan):
 
 
 def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
-                  traces):
+                  traces, stamp):
     """Runs (a)-(f) and (j) on tinyllama-1.1b: generation, offloaded
     serving, and (e)'s requests through the online (chunked) engine.
-    Records (b)'s and (c)'s traces in ``traces`` for run (l)."""
+    Records (b)'s and (c)'s traces in ``traces`` for run (l).  (e), (f)
+    and (j_tiny) build from one ``DrawCache``: the first draws and packs
+    tinyllama's INT4 units, the other two take them."""
+    from repro_torch.serving.offload_engine import DrawCache
     # 4. the main path: batch generation (a)-(d)
     prompt = rng.integers(0, 32000, (B, PROMPT)).astype(np.int32)
     n_layers = 22
@@ -2815,6 +2856,7 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
     from repro_torch.core.convert import lm_weights
     lm, _, counts["a"], summaries["a"], _ = run_main(
         torch, ops, "a", make_plan(None, "performance"), prompt, attn_expect)
+    stamp("a")
     # (b), (c) and (d) take (a)'s draws instead of drawing them again (a
     # tinyllama draw from one generator takes 24-27 s): (b) packs them
     # as its own build would, (c) and (d) load (b)'s packed weights
@@ -2824,18 +2866,22 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
         torch, ops, "b", make_plan("int4", "performance"), prompt,
         int4_expect, weights_a, "run (a)'s, packed on the card")
     del weights_a
+    stamp("b")
 
     # 5. the whole path against the plain versions, same weights
     whole_path_check(torch, ops, lm, prompt, toks_b)
+    stamp("b whole path")
     # 5b. (b') speculative decoding on (b)'s engine and tokens
     summaries["b_spec"] = run_spec_lm(torch, ops, "b", lm, prompt, toks_b)
     counts["b_spec"] = summaries["b_spec"]["random"]["launches"]
+    stamp("b'")
     weights_b = lm_weights(lm)
     release(lm)
     lm, _, counts["c"], summaries["c"], traces["c"] = run_main(
         torch, ops, "c", make_plan("int4", "sequential"), prompt, int4_expect,
         weights_b, "run (b)'s")
     release(lm)
+    stamp("c")
     lm, toks_d, counts["d"], summaries["d"], _ = run_main(
         torch, ops, "d", make_plan("int4", "performance", "int4"), prompt,
         {**int4_expect, "decode_attention": 0,
@@ -2846,6 +2892,7 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
     summaries["d_spec"] = run_spec_lm(torch, ops, "d", lm, prompt, toks_d)
     counts["d_spec"] = summaries["d_spec"]["random"]["launches"]
     release(lm)
+    stamp("d, d'")
     log(json.dumps({"kv_load_bytes": {
         "b_fp32_kv": summaries["b"]["bytes"]["kv_load"],
         "d_int4_kv": summaries["d"]["bytes"]["kv_load"],
@@ -2854,46 +2901,51 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
 
     # 6. serving: (e) int4 KV with a preempted rerun and the whole-path
     # check, (f) fp32 KV over bf16 caches
-    eng, counts["e"], summaries["e"], served_e = run_serving(
-        torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
-        "decode_attention_int4", preempt=True)
-    serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
-    eng.shutdown()
-    release(eng)
-    eng, counts["f"], summaries["f"], _ = run_serving(
-        torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
-        "decode_attention")
-    eng.shutdown()
-    release(eng)
+    with DrawCache() as draws:
+        eng, counts["e"], summaries["e"], served_e = run_serving(
+            torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
+            "decode_attention_int4", preempt=True, draws=draws)
+        serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
+        eng.shutdown()
+        release(eng)
+        stamp("e")
+        eng, counts["f"], summaries["f"], _ = run_serving(
+            torch, ops, "f", make_plan("int4", "performance"), reqs[:B],
+            "decode_attention", draws=draws)
+        eng.shutdown()
+        release(eng)
+        stamp("f")
 
-    # 6b. (j) on tinyllama: (e)'s requests through the online engine
-    # (chunks of 32: final chunks of 13, 18, 1, 2, 7, 5, 9, 2 tokens, so
-    # most take int4_matmul's small-M path), INT4 KV in the mixed steps
-    heads = []
-    plan = dataclasses.replace(make_plan("int4", "performance", "int4"),
-                               sched="online", prefill_chunk=TINY_CHUNK)
-    eng, counts["j_tiny"], summaries["j_tiny"], served = run_serving(
-        torch, ops, "j_tiny", plan, reqs, "decode_attention_int4",
-        on_build=capture_chunk_heads(heads))
-    del eng._head
-    summaries["j_tiny"]["vs_e"] = chunked_vs_monolithic(
-        torch, eng, "j_tiny", reqs, served["outs"], heads, served_e["outs"])
-    eng.shutdown()
-    release(eng)
+        # 6b. (j) on tinyllama: (e)'s requests through the online engine
+        # (chunks of 32: final chunks of 13, 18, 1, 2, 7, 5, 9, 2 tokens,
+        # so most take int4_matmul's small-M path), INT4 KV in the mixed
+        # steps
+        heads = []
+        plan = dataclasses.replace(make_plan("int4", "performance", "int4"),
+                                   sched="online", prefill_chunk=TINY_CHUNK)
+        eng, counts["j_tiny"], summaries["j_tiny"], served = run_serving(
+            torch, ops, "j_tiny", plan, reqs, "decode_attention_int4",
+            on_build=capture_chunk_heads(heads), draws=draws)
+        del eng._head
+        summaries["j_tiny"]["vs_e"] = chunked_vs_monolithic(
+            torch, eng, "j_tiny", reqs, served["outs"], heads,
+            served_e["outs"])
+        eng.shutdown()
+        release(eng)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
                                        "families", "mla", "ssm",
-                                       "frontends", "train"),
+                                       "frontends", "train", "shard"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
                          "them and runs (g)-(y) only (plan), or (o) and "
                          "(p) only (moe), or (q)-(s) only (families), or "
                          "(t) only (mla), or (u) and (v) only (ssm), or "
                          "(w) and (x) only (frontends), or (y) only "
-                         "(train)")
+                         "(train), or (z) only (shard)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -2921,6 +2973,7 @@ def main(argv=None) -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)}")
 
+    stamp("card")
     # 2. build
     t0 = time.perf_counter()
     secs = _build.build_all()
@@ -2937,14 +2990,26 @@ def main(argv=None) -> int:
                     log(f"ptxas {name} {fn}: "
                         f"{line.split(':', 1)[-1].strip()}")
 
+    stamp("build")
     # 3. kernels vs plain versions
     rng = np.random.default_rng(0)
-    checks = {"int4_matmul": check_int4(torch, rng, dev),
-              "flash_attention": (check_flash(torch, rng, dev)
-                                  + check_mla_flash(torch, rng, dev)),
-              "decode_attention": check_decode(torch, rng, dev),
-              "decode_attention_int4": check_decode_int4(torch, rng, dev)}
-    verify, verify_int4 = check_verify(torch, rng, dev)
+
+    def timed(phase, fn, *a):
+        out = fn(*a)
+        stamp(phase)
+        return out
+    checks = {"int4_matmul": timed("check int4_matmul", check_int4, torch,
+                                   rng, dev),
+              "flash_attention": (
+                  timed("check flash", check_flash, torch, rng, dev)
+                  + timed("check mla flash", check_mla_flash, torch, rng,
+                          dev)),
+              "decode_attention": timed("check decode", check_decode,
+                                        torch, rng, dev),
+              "decode_attention_int4": timed(
+                  "check decode int4", check_decode_int4, torch, rng, dev)}
+    verify, verify_int4 = timed("check verify", check_verify, torch, rng,
+                                dev)
     checks["decode_attention"] += verify
     checks["decode_attention_int4"] += verify_int4
     torch.cuda.synchronize()
@@ -2957,9 +3022,8 @@ def main(argv=None) -> int:
     if failed:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{failed}")
-    time_mla_decode(torch, rng, dev)
-    time_ssm_plain(torch, rng, dev)
-    stamp("card, build, kernel checks")
+    timed("time mla decode", time_mla_decode, torch, rng, dev)
+    timed("time ssm plain", time_ssm_plain, torch, rng, dev)
     if args.only == "kernels":
         return 0
 
@@ -2988,15 +3052,20 @@ def main(argv=None) -> int:
         run_frontends(torch, ops, np, counts, summaries, release, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only == "train":
-        counts["y"], summaries["y"] = run_train(torch, ops, np, card)
+        counts["y"], summaries["y"], _ = run_train(torch, ops, np, card)
         stamp("y")
+        return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "shard":
+        counts["z"], summaries["z"] = run_shard(torch, ops, np, card,
+                                                profile=True)
+        stamp("z")
         return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
-                      traces)
+                      traces, stamp)
         gc.collect()                # the engines hold reference cycles
         torch.cuda.empty_cache()
-        stamp("tinyllama runs a-f, j_tiny")
+        stamp("j_tiny")
 
     # 7.-9. the plan entry point: (g) the paper's Llama-3.1-8B, then (k)
     # arrival traffic through it; (j) the same model and seed with
@@ -3062,8 +3131,11 @@ def main(argv=None) -> int:
     run_deepseek(torch, ops, np, counts, summaries, release, stamp)
     run_ssm(torch, ops, np, counts, summaries, release, stamp)
     run_frontends(torch, ops, np, counts, summaries, release, stamp)
-    counts["y"], summaries["y"] = run_train(torch, ops, np, card)
+    counts["y"], summaries["y"], draws = run_train(torch, ops, np, card)
     stamp("y")
+    counts["z"], summaries["z"] = run_shard(torch, ops, np, card, draws)
+    del draws
+    stamp("z")
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -3797,8 +3869,8 @@ def resident_whole_path(torch, ops, eng, reqs, name):
             x[:, -1].detach().clone())
         return head(params, x, cfg)
 
-    def grab_encode(params, cfg, frames):
-        out = encode(params, cfg, frames)
+    def grab_encode(*args, **kw):
+        out = encode(*args, **kw)
         seen["encoder"].append(out.detach().clone())
         return out
 
@@ -4016,7 +4088,7 @@ def run_train(torch, ops, np, card):
     card, so the peak is the entry point's), a resume, then an
     uninterrupted run from seed 0's draws taken once more and reused;
     the checks and numbers of step 17.  Returns (launch counts,
-    summary)."""
+    summary, seed 0's draws on the card for run (z))."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import restore_checkpoint
@@ -4081,8 +4153,9 @@ def run_train(torch, ops, np, card):
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    breakdown = train_breakdown(torch, build_model(cfg), init)
-    del init
+    from repro_torch.tree import tree_map
+    breakdown = train_breakdown(torch, build_model(cfg), tree_map(
+        lambda t: t.detach().clone(), init))
     gc.collect()
     torch.cuda.empty_cache()
     launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
@@ -4155,7 +4228,7 @@ def run_train(torch, ops, np, card):
         f"{ckpt_bytes / 1e9:.2f} GB")
     if failed:
         raise RuntimeError(f"run (y) failed: {failed}")
-    return launched, summary
+    return launched, summary, init
 
 
 def train_breakdown(torch, model, params):
@@ -4193,27 +4266,323 @@ def train_breakdown(torch, model, params):
         apply_updates(params, upd)
     _, opt_ms = timed(update)
     del grads
+    out = {"forward_ms": fwd_ms, "forward_backward_remat_ms": fb_ms,
+           "adamw_ms": opt_ms,
+           "profiled_step": profiled(torch, lambda: step(params, state,
+                                                         batch))}
+    log(json.dumps({"train_breakdown": out}))
+    return out
+
+
+def profiled(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy share
+    over its span, its device ms and kernels, the host's operator count
+    (``aten::`` calls, the collectives' ``c10d::`` ones apart) and the
+    eight kernels that took the most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        step(params, state, batch)
+        fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
+    events = prof.events()
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"forward_ms": fwd_ms, "forward_backward_remat_ms": fb_ms,
-           "adamw_ms": opt_ms,
-           "profiled_step": {**busy_share([(e.time_range.start,
-                                            e.time_range.end) for e in dev]),
-                             "device_ms": sum(by_name.values()),
-                             "kernels": len(dev),
-                             "top_ms": [[n[:80], ms] for n, ms in top]}}
-    log(json.dumps({"train_breakdown": out}))
-    return out
+    return {**busy_share([(e.time_range.start, e.time_range.end)
+                          for e in dev]),
+            "device_ms": sum(by_name.values()), "kernels": len(dev),
+            "aten_ops": sum(n.startswith("aten::") for n in host),
+            "c10d_ops": sum(n.startswith("c10d::") for n in host),
+            "top_ms": [[n[:80], ms] for n, ms in top]}
+
+
+# ---------------------------------------------------------------------------
+# run (z): the sharding slice on a (1, 1) mesh of the card
+# ---------------------------------------------------------------------------
+
+def head_inputs(L):
+    """Patch ``layers.lm_head_argmax`` to record each call's input (the
+    normed last rows, (b, 1, d)); returns (records, restore)."""
+    rec, orig = [], L.lm_head_argmax
+
+    def wrapped(p, x, ctx):
+        rec.append(x.detach().float().clone())
+        return orig(p, x, ctx)
+    L.lm_head_argmax = wrapped
+
+    def restore():
+        L.lm_head_argmax = orig
+    return rec, restore
+
+
+def shard_serve(torch, model, params, toks, dist, L):
+    """Prefill ``toks`` then SHARD_NEW greedy decode steps under ``dist``
+    (None: the local path); (tokens (b, 1 + SHARD_NEW), head inputs)."""
+    whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    rec, restore = head_inputs(L)
+    try:
+        with torch.no_grad():
+            cache_len = SHARD_PROMPT + SHARD_NEW
+            tok, caches = model.prefill(params, {"tokens": toks}, dist,
+                                        cache_len)
+            out = [whole(tok)]
+            for k in range(SHARD_NEW):
+                tok, caches = model.decode_step(
+                    params, {"token": out[-1][:, None],
+                             "pos": SHARD_PROMPT + k}, caches, dist)
+                out.append(whole(tok))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return torch.stack(out, 1), rec
+
+
+def shard_scaled(torch, ops, np, dist):
+    """The five scaled archs on ``dist``'s mesh against their local plain
+    path: loss and grad norm of one batch (b 4, s 32, f32), prefill and
+    one decode step's tokens."""
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import global_norm
+    out, failed = {}, []
+    rng = np.random.default_rng(1)
+    for arch in SHARD_ARCHS:
+        cfg = scaled_down(get_config(arch), **SHARD_SCALE)
+        model = build_model(cfg)
+        params = model.init(0, device="cuda", dtype=torch.float32)
+        placed = S.place(params, S.param_pspecs(cfg, dist), dist.mesh)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))
+                                     .astype(np.int32)).cuda()
+                 for k in ("labels", "tokens")}
+        t0 = time.perf_counter()
+        was = ops.kernels_enabled()
+        ops.use_kernels(False)
+        try:
+            loss_l, g_l = value_and_grad(model, params, batch)
+            loss_m, g_m = value_and_grad(model, placed, batch, dist=dist)
+            gn_l, gn_m = float(global_norm(g_l)), float(global_norm(g_m))
+            with torch.no_grad():
+                toks = {"tokens": batch["tokens"]}
+                t_l, c_l = model.prefill(params, toks, 36)
+                d_l, _ = model.decode_step(params, {"token": t_l[:, None],
+                                                    "pos": 32}, c_l)
+                t_m, c_m = model.prefill(placed, toks, dist, 36)
+                t_m = t_m.full_tensor()
+                d_m, _ = model.decode_step(placed, {"token": t_m[:, None],
+                                                    "pos": 32}, c_m, dist)
+                d_m = d_m.full_tensor()
+        finally:
+            ops.use_kernels(was)
+        torch.cuda.synchronize()
+        r = {"loss": [float(loss_l), float(loss_m)],
+             "loss_rel": abs(float(loss_m) - float(loss_l)) / abs(float(loss_l)),
+             "grad_norm": [gn_l, gn_m], "gn_rel": abs(gn_m - gn_l) / gn_l,
+             "prefill_equal": bool(torch.equal(t_l, t_m)),
+             "decode_equal": bool(torch.equal(d_l, d_m)),
+             "s": time.perf_counter() - t0}
+        out[arch] = r
+        if (r["loss_rel"] > 2e-4 or r["gn_rel"] > 1e-3
+                or not (r["prefill_equal"] and r["decode_equal"])):
+            failed.append(f"{arch}: {r}")
+        del params, placed, g_l, g_m
+    return out, failed
+
+
+def run_shard(torch, ops, np, card, init=None, profile=False):
+    """Run (z), step 18: the sharded path on a world-1 NCCL group and a
+    (1, 1) mesh against the local path.  ``init``: (y)'s seed-0 draws on
+    the card (drawn here when None).  ``profile``: one more step each
+    way under ``torch.profiler`` (``profiled``; about 10 s of tracing,
+    so only ``--only shard`` takes it).  Returns (launch counts,
+    summary)."""
+    import shutil
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataPipeline, SyntheticSource
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common as C
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import Dist
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+    t_run = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    draw_s = None
+    if init is None:
+        t0 = time.perf_counter()
+        init = model.init(0, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+    root = Path(tempfile.mkdtemp(prefix="pipo_shard_"))
+    before = dict(ops.LAUNCHES)
+    failed = []
+    clone = lambda tree: tree_map(lambda t: t.detach().clone(), tree)
+    t0 = time.perf_counter()
+    tdist.init_process_group("nccl", store=tdist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(model=1, data=1, device="cuda")
+        dist = S.make_dist(mesh)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+
+        # -- train: SHARD_STEPS steps under the mesh, then locally --------
+        opt = AdamW()
+        pspecs, ospecs = S.param_pspecs(cfg, dist), S.zero_pspecs(cfg, dist)
+        dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          vocab_size=cfg.vocab_size)
+        data = DataPipeline(SyntheticSource(dcfg), dcfg)
+        batches = [{k: v for k, v in data.batch_at(i).items() if k != "step"}
+                   for i in range(SHARD_STEPS)]
+
+        def train(params, state, step_fn):
+            res, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, state, m = step_fn(params, state, b)
+                res.append((float(m["loss"]), float(m["grad_norm"])))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return params, state, res, ms
+        pm = S.place(init, pspecs, mesh)
+        sm = opt.init(pm)
+        for k in ("m", "v"):
+            sm[k] = S.redistribute(sm[k], ospecs[k], mesh)
+        C.COLLECTIVES.clear()
+        pm, sm, mesh_res, mesh_ms = train(pm, sm, make_train_step(
+            model, dist, opt))
+        per_step = {k: v / SHARD_STEPS for k, v in C.COLLECTIVES.items()}
+        # one more mesh step under the profiler: the card's share of the
+        # mesh's extra step time, and the host's operators
+        mesh_prof = profile and profiled(torch, lambda: make_train_step(
+            model, dist, opt)(pm, sm, batches[0]))
+        del sm
+        pl = clone(init)
+        sl = opt.init(pl)
+        pl, sl, loc_res, loc_ms = train(pl, sl, make_train_step(model, opt))
+        local_prof = profile and profiled(torch, lambda: make_train_step(
+            model, opt)(clone(pl), sl, batches[0]))
+        del sl
+        loss_rel = [abs(a[0] - b[0]) / abs(b[0])
+                    for a, b in zip(mesh_res, loc_res)]
+        gn_rel = [abs(a[1] - b[1]) / abs(b[1])
+                  for a, b in zip(mesh_res, loc_res)]
+        if max(loss_rel) > 1e-3 or max(gn_rel) > 1e-2:
+            failed.append(f"train: losses {mesh_res} vs {loc_res}")
+
+        # -- checkpoints: the mesh's under Dist.local(), and the reverse --
+        t0 = time.perf_counter()
+        save_checkpoint(str(root / "mesh"), SHARD_STEPS, {"params": pm})
+        back, _ = restore_checkpoint(str(root / "mesh"), SHARD_STEPS,
+                                     {"params": pl})
+        whole = S.unplace(pm)
+        bad = [p for (p, a), b in zip(flatten_with_path(whole),
+                                      leaves(back["params"]))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        del back, whole
+        save_checkpoint(str(root / "local"), SHARD_STEPS, {"params": pl})
+        back, _ = restore_checkpoint(str(root / "local"), SHARD_STEPS,
+                                     {"params": pm})
+        bad += [p for (p, a), b in zip(flatten_with_path(pl),
+                                       leaves(back["params"]))
+                if not hasattr(b, "placements") or a.dtype != b.dtype
+                or not torch.equal(a, b.to_local())]
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+        if bad:
+            failed.append(f"checkpoint leaves differ: {bad[:5]}")
+        del back, pm, pl
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- serve in f32: the local path's kernels vs the plain islands --
+        pf = tree_map(lambda t: t.float(), init)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, SHARD_PROMPT)).astype(np.int32)).cuda()
+        dkv = Dist(mesh=mesh, data_axes=("data",), model_axis="model",
+                   kv_axes=("model",))
+        launched0 = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        tok_l, hid_l = shard_serve(torch, model, pf, toks, None, L)
+        serve_local_s = time.perf_counter() - t0
+        serve_launch = {k: ops.LAUNCHES[k] - launched0[k] for k in launched0}
+        pfm = S.place(pf, pspecs, mesh)
+        del pf
+        t0 = time.perf_counter()
+        tok_m, hid_m = shard_serve(torch, model, pfm, toks, dkv, L)
+        serve_mesh_s = time.perf_counter() - t0
+        del pfm
+        errs = [float((a - b).abs().max()) / float(a.abs().max())
+                for a, b in zip(hid_l, hid_m)]
+        if not torch.equal(tok_l, tok_m):
+            failed.append(f"serve tokens differ: {tok_l.tolist()} vs "
+                          f"{tok_m.tolist()}")
+        if len(errs) != 1 + SHARD_NEW or max(errs) > SHARD_HIDDEN_TOL:
+            failed.append(f"head inputs differ: {errs}")
+        if not (serve_launch["flash_attention"] and
+                serve_launch["decode_attention"]):
+            failed.append(f"the local serve launched {serve_launch}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the scaled archs: MoE, SSM and MLA islands on the card ------
+        t0 = time.perf_counter()
+        scaled, bad = shard_scaled(torch, ops, np, dist)
+        scaled_s = time.perf_counter() - t0
+        failed += bad
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    summary = {
+        "run": "z", "arch": TRAIN_ARCH, "card": card, "mesh": {"data": 1,
+                                                               "model": 1},
+        "nccl_init_s": nccl_s, "draw_s": draw_s,
+        "train": {"mesh": mesh_res, "local": loc_res, "loss_rel": loss_rel,
+                  "grad_norm_rel": gn_rel, "mesh_step_ms": mesh_ms,
+                  "local_step_ms": loc_ms,
+                  "collectives_per_step": per_step,
+                  "profiled_step": {"mesh": mesh_prof or None,
+                                    "local": local_prof or None}},
+        "checkpoint_s": ckpt_s,
+        "serve": {"tokens_equal": bool(torch.equal(tok_l, tok_m)),
+                  "head_input_rel": errs, "local_s": serve_local_s,
+                  "mesh_s": serve_mesh_s, "local_launches": serve_launch},
+        "scaled": scaled, "scaled_s": scaled_s,
+        "wall_s": time.perf_counter() - t_run, "launches": launched,
+        "failed": failed}
+    log(json.dumps({"shard": summary}))
+    log(f"(z) {TRAIN_ARCH} on a (1, 1) mesh, {card}: "
+        f"{statistics.median(mesh_ms[1:]):.1f} ms a step under the mesh vs "
+        f"{statistics.median(loc_ms[1:]):.1f} locally (first "
+        f"{mesh_ms[0]:.0f}/{loc_ms[0]:.0f}), NCCL set-up {nccl_s:.2f} s, "
+        f"{sum(per_step.values()):.0f} collectives a train step "
+        f"{per_step}; "
+        + (f"a profiled step: device {mesh_prof['device_ms']:.1f} ms, "
+           f"{mesh_prof['aten_ops']} aten ops under the mesh vs "
+           f"{local_prof['device_ms']:.1f} ms, {local_prof['aten_ops']} "
+           f"locally; " if profile else "")
+        + f"serve head inputs within {max(errs):.2e} x max, "
+        f"(z) {summary['wall_s']:.1f} s")
+    if failed:
+        raise RuntimeError(f"run (z) failed: {failed}")
+    return launched, summary
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

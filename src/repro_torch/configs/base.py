@@ -4,8 +4,9 @@ A copy of the JAX package's ``configs/base.py`` fields, so a plan
 resolved there describes the same model here: the dataclasses, the
 layer kinds, the parameter counts the memory model reads
 (``mixer_params``, ``ffn_params``, ``param_count``,
-``kv_bytes_per_token_layer``, ``attn_layer_indices``) and
-``scaled_down``.  Standard library only.
+``kv_bytes_per_token_layer``, ``attn_layer_indices``), the input shapes
+the sharding rules read (``ShapeConfig``, ``SHAPES``,
+``shape_applicable``) and ``scaled_down``.  Standard library only.
 """
 from __future__ import annotations
 
@@ -191,6 +192,37 @@ class ModelConfig:
     def attn_layer_indices(self):
         return [i for i, s in enumerate(self._all_specs())
                 if s.mixer in (ATTN, ATTN_LOCAL, MLA, CROSS)]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes: every arch is exercised on its own shape set (the sharding
+# rules read them; the dry run's cell helpers come with its port).
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+# archs for which long_500k runs (sub-quadratic mixers); the others skip it
+LONG_CONTEXT_OK = ("mamba2-1.3b", "jamba-1.5-large-398b", "gemma3-4b")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """(runnable, reason if skipped) for an (arch, shape) cell."""
+    if shape.name == "long_500k" and cfg.name not in LONG_CONTEXT_OK:
+        return False, ("pure full-attention arch: long_500k needs "
+                       "sub-quadratic mixer")
+    return True, ""
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:

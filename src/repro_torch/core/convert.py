@@ -27,6 +27,10 @@ Training: ``from_reference_train_state`` carries the JAX training state
 (parameters and the AdamW or Adafactor state, as numpy trees; bf16
 leaves as ``ml_dtypes`` arrays) into the port's tensors leaf for leaf,
 bf16 bytes reinterpreted rather than rounded.
+
+Under a mesh both take ``mesh`` and ``specs`` (``launch.sharding``'s
+spec trees) and return the trees placed as DTensors, each rank keeping
+its block.
 """
 from __future__ import annotations
 
@@ -129,11 +133,16 @@ def from_reference_serving(resident: Dict[str, Dict[str, np.ndarray]],
                               for name, a in units[key].items()})
 
 
-def from_reference_resident(params, eng) -> None:
+def from_reference_resident(params, eng=None, *, mesh=None, specs=None):
     """Replace a port ``ServingEngine``'s parameter tree with the JAX
     resident engine's (the same structure, numpy or array leaves; an
     encoder-decoder's ``enc`` subtree and its cross weights too).
-    Every table must name the same tensors, each of the same shape."""
+    Every table must name the same tensors, each of the same shape.
+    With ``mesh``: the JAX tree placed under ``specs`` (``param_pspecs``)
+    as DTensors, returned (no engine is touched)."""
+    if mesh is not None:
+        from repro_torch.launch.sharding import place
+        return place(_numpy_tree(params), specs, mesh)
     def tables(tree):
         enc = tree.get("enc")
         return ([("embed", tree["embed"]), ("final_norm", tree["final_norm"])]
@@ -211,6 +220,14 @@ def quant_roundtrip_params(cfg: ModelConfig, params):
     }
 
 
+def leaves_device(tree) -> torch.device:
+    """The device of a placed tree's blocks."""
+    from repro_torch.tree import leaves
+    leaf = leaves(tree)[0]
+    return leaf.to_local().device if hasattr(leaf, "to_local") \
+        else leaf.device
+
+
 def _tensor(arr, device) -> torch.Tensor:
     """One numpy leaf as a tensor on ``device`` with the same bytes: a
     bf16 (``ml_dtypes``) array is viewed as ``torch.bfloat16``, which
@@ -222,15 +239,37 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return _tensor(tree, "cpu")
+
+
 def from_reference_train_state(params, opt_state=None, device="cuda",
-                               dtype=None):
+                               dtype=None, *, mesh=None, specs=None):
     """The JAX package's training state as the port's: ``params`` (its
     ``init_params`` tree) and ``opt_state`` (AdamW's ``{"m", "v",
     "step"}`` or Adafactor's ``{"s": {name: {"m", "vr", "vc" | "v"}},
     "step"}``, or None), numpy leaves, become tensors on ``device`` in
     the same structure.  Every leaf keeps its dtype, except that with
     ``dtype`` the parameters are cast to it (the SSM scalars stay f32,
-    as in the reference).  Returns (params, opt_state)."""
+    as in the reference).  Returns (params, opt_state).  With ``mesh``
+    (a ``DeviceMesh``) and ``specs`` ((parameter specs, optimizer-state
+    specs), ``param_pspecs`` and ``zero_pspecs`` or ``adafactor_pspecs``)
+    both come back placed on the mesh; ``device`` is then the mesh's."""
+    if mesh is not None:
+        from repro_torch.launch.sharding import place
+        p, o = from_reference_train_state(params, opt_state, "cpu", dtype)
+        p = place(p, specs[0], mesh)
+        if o is None:
+            return p, None
+        step = o.pop("step")
+        o = place(o, {k: v for k, v in specs[1].items() if k != "step"},
+                  mesh)
+        o["step"] = step.to(leaves_device(p))
+        return p, o
     dev = resolve_device(device)
 
     def walk(t, cast, name=None):

@@ -1,43 +1,68 @@
 """Step functions: train / prefill / decode (the JAX package's
-``launch/steps.py``, on one device)."""
+``launch/steps.py``), on one device or under a mesh ``Dist``.
+
+Under a mesh the parameters and the optimizer state are DTensors
+(``launch.sharding.place``): every rank computes the loss whole and
+differentiates ``loss / world`` (the collectives' backward passes are
+the JAX transpose rules, the adjoints of the program summed over ranks),
+so each gradient comes back as a DTensor of its parameter's placements,
+counted once.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import Dist
 from repro_torch.models.model import Model
 from repro_torch.optim import apply_updates
 from repro_torch.tree import leaves, unflatten
 
 
 def _to(device, batch):
-    """A numpy (or tensor) batch on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """A numpy (or tensor) batch on ``device`` (DTensors as they are)."""
+    return {k: v if isinstance(v, torch.Tensor) and v.device == device
+            else torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def value_and_grad(model: Model, params, batch, remat: bool = True):
+def _device(t) -> torch.device:
+    local = getattr(t, "to_local", None)
+    return local().device if local is not None else t.device
+
+
+def value_and_grad(model: Model, params, batch, remat: bool = True,
+                   dist: Dist = None):
     """(loss, gradient tree) of ``model.train_loss`` at ``params`` by
     ``torch.autograd``, the batch moved to the parameters' device; a
     parameter the loss does not reach gets a zero gradient, as under
-    ``jax.grad``.  ``params`` is left as it was (no ``requires_grad``)."""
+    ``jax.grad``.  ``params`` is left as it was (no ``requires_grad``).
+    Under a mesh ``dist`` the loss is the whole one and the gradients are
+    DTensors like the parameters."""
+    dist = dist or Dist.local()
     flat = leaves(params)
-    batch = _to(flat[0].device, batch)
+    batch = _to(_device(flat[0]), batch)
     live = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        loss = model.train_loss(unflatten(params, live), batch, remat=remat)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        loss = model.train_loss(unflatten(params, live), batch, dist,
+                                remat=remat)
+        share = loss / dist.world if dist.is_dist else loss
+        grads = torch.autograd.grad(share, live, allow_unused=True)
     return loss.detach(), unflatten(params, [
         torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
 
 
-def make_train_step(model: Model, opt):
+def make_train_step(model: Model, dist: Dist = None, opt=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: ``value_and_grad``, then ``opt.update`` and
     ``apply_updates``.  The batch's numpy arrays move to the parameters'
     device.  The step updates the parameters and the optimizer state in
     place, as the reference's launchers donate them to the jitted step
-    (``donate_argnums=(0, 1)``): the caller's trees hold the new state."""
+    (``donate_argnums=(0, 1)``): the caller's trees hold the new state.
+    ``make_train_step(model, opt)`` is the one-device step."""
+    if opt is None and not isinstance(dist, Dist):
+        dist, opt = None, dist
+
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(model, params, batch)
+        loss, grads = value_and_grad(model, params, batch, dist=dist)
         updates, opt_state, gnorm = opt.update(grads, opt_state, params)
         del grads
         params = apply_updates(params, updates)
@@ -45,15 +70,18 @@ def make_train_step(model: Model, opt):
     return train_step
 
 
-def make_prefill_step(model: Model, cache_len: int):
+def make_prefill_step(model: Model, dist: Dist = None, cache_len=None):
+    if cache_len is None and not isinstance(dist, Dist):
+        dist, cache_len = None, dist
+
     def prefill_step(params, batch):
         with torch.no_grad():
-            return model.prefill(params, batch, cache_len)
+            return model.prefill(params, batch, dist, cache_len)
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, dist: Dist = None):
     def decode_step(params, batch, caches):
         with torch.no_grad():
-            return model.decode_step(params, batch, caches)
+            return model.decode_step(params, batch, caches, dist)
     return decode_step

@@ -33,7 +33,17 @@ package's training path does (it reaches no Pallas kernel): the kernels
 have no backward.  ``ring_attention`` and ``mla_ring_attention`` are the
 reference's at ``axis=None`` (one ring step over the whole sequence),
 ``attn_partials`` bounds the score matrix to ``q_chunk`` query rows at a
-time.  The ring over a mesh axis waits for the sharding slice.
+time.
+
+Under a mesh (inside ``in_mesh``, ``models.layers``' islands) the same
+functions take their ``axis``/``axes`` branches, the reference's
+collective bodies in plain PyTorch: ``ring_attention`` and
+``mla_ring_attention`` rotate the K/V (the MLA latent) around the
+sequence shards of ``axis`` by ``ppermute``, merging each block's
+partials; ``decode_attention`` and ``mla_decode_attention`` write the
+step's row into the shard that owns ``pos`` of a sequence-sharded cache
+and merge the shards' ``(m, l, o)`` partials by one ``pmax`` and two
+``psum``s, never the cache.  No kernel runs there.
 """
 from __future__ import annotations
 
@@ -44,8 +54,9 @@ from repro_torch.core.kvstore import quantize_kv_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import _mask, ref_attention
 from repro_torch.kernels.ref import attn_partials as _block_partials
-from repro_torch.models.common import (NEG_INF, empty_partials,
-                                       finalize_partials, merge_partials)
+from repro_torch.models.common import (NEG_INF, axis_index, axis_size,
+                                       empty_partials, finalize_partials,
+                                       merge_partials, pmax, ppermute, psum)
 
 __all__ = ["ref_attention", "attn_partials", "decode_attention",
            "cross_decode_attention",
@@ -72,50 +83,123 @@ def attn_partials(q, k, v, mask, *, q_chunk: int = 0):
     return tuple(torch.cat(t, dim=2) for t in zip(*parts))
 
 
-def ring_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                   q_chunk: int = 512):
-    """The JAX package's ``ring_attention`` at ``axis=None``: q (b, sq,
-    h, dh), k/v (b, sk, hkv, dv) -> (b, sq, h, dv) at q's dtype.  One
+def ring_attention(q, k, v, *, axis=None, causal: bool = True,
+                   window: int = 0, q_chunk: int = 512):
+    """The JAX package's ``ring_attention``: q (b, sq, h, dh), k/v (b,
+    sk, hkv, dv) -> (b, sq, h, dv) at q's dtype.  At ``axis=None`` one
     block of partials over every key (``attn_partials``, ``q_chunk``
     rows at a time), merged into the empty partials and finalized, in
-    the reference's order."""
+    the reference's order.  Under a mesh the inputs are this rank's
+    sequence shard of ``axis``: step ``t`` attends the K/V block of
+    shard ``i - t`` (masked by global positions) and passes its block on
+    to shard ``i + 1``; a windowed layer takes only the
+    ``ceil(window / sk) + 1`` steps its window reaches."""
     b, sq, h, _ = q.shape
     sk, dv = v.shape[1], v.shape[3]
     dev = q.device
-    msk = _mask(torch.arange(sq, device=dev), torch.arange(sk, device=dev),
-                causal, window)
-    m, l, o = merge_partials(empty_partials((b, h, sq), dv, dev),
-                             attn_partials(q, k, v, msk, q_chunk=q_chunk))
+    P = axis_size(axis)
+    i = axis_index(axis)
+    q_pos = i * sq + torch.arange(sq, device=dev)
+    steps = min(P, -(-window // sk) + 1) if window else P
+    m, l, o = empty_partials((b, h, sq), dv, dev)
+    for t in range(steps):
+        j = (i - t) % P
+        msk = _mask(q_pos, j * sk + torch.arange(sk, device=dev), causal,
+                    window)
+        m, l, o = merge_partials((m, l, o), attn_partials(
+            q, k, v, msk, q_chunk=q_chunk))
+        if axis and t < steps - 1:
+            perm = [(s_, (s_ + 1) % P) for s_ in range(P)]
+            k, v = ppermute(k, axis, perm), ppermute(v, axis, perm)
     return finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
 
 
-def mla_ring_attention(q, c, kr, w_uk, w_uv, *, q_chunk: int = 256):
-    """The JAX package's ``mla_ring_attention`` at ``axis=None``: the
-    latent c (b, sk, r) and kr (b, sk, dr) expand to ``k = [c . w_uk |
-    kr]`` and ``v = c . w_uv``, then causal partials over q (b, sq, h, dn
-    + dr) (``q_chunk`` rows at a time, the reference's default of 256),
-    merged and finalized -> (b, sq, h, dv) at q's dtype."""
+def mla_ring_attention(q, c, kr, w_uk, w_uv, *, axis=None,
+                       q_chunk: int = 256):
+    """The JAX package's ``mla_ring_attention``: the latent c (b, sk, r)
+    and kr (b, sk, dr) expand to ``k = [c . w_uk | kr]`` and ``v = c .
+    w_uv``, then causal partials over q (b, sq, h, dn + dr) (``q_chunk``
+    rows at a time, the reference's default of 256), merged and
+    finalized -> (b, sq, h, dv) at q's dtype.  Under a mesh the ring
+    rotates the latent (c, kr), not the expanded K/V, and expands each
+    block where it arrives."""
     b, sq, h, _ = q.shape
     sk, dr = c.shape[1], kr.shape[-1]
     dv = w_uv.shape[-1]
     dev = q.device
-    k_nope = torch.einsum("bsr,rhn->bshn", c, w_uk)
-    v = torch.einsum("bsr,rhv->bshv", c, w_uv)
-    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, sk, h, dr)], dim=-1)
-    msk = _mask(torch.arange(sq, device=dev), torch.arange(sk, device=dev),
-                True, 0)
-    m, l, o = merge_partials(empty_partials((b, h, sq), dv, dev),
-                             attn_partials(q, k, v, msk, q_chunk=q_chunk))
+    P = axis_size(axis)
+    i = axis_index(axis)
+    q_pos = i * sq + torch.arange(sq, device=dev)
+    m, l, o = empty_partials((b, h, sq), dv, dev)
+    for t in range(P):
+        j = (i - t) % P
+        k_nope = torch.einsum("bsr,rhn->bshn", c, w_uk)
+        v = torch.einsum("bsr,rhv->bshv", c, w_uv)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(b, sk, h, dr)],
+                      dim=-1)
+        msk = _mask(q_pos, j * sk + torch.arange(sk, device=dev), True, 0)
+        m, l, o = merge_partials((m, l, o), attn_partials(
+            q, k, v, msk, q_chunk=q_chunk))
+        if axis and t < P - 1:
+            perm = [(s_, (s_ + 1) % P) for s_ in range(P)]
+            c, kr = ppermute(c, axis, perm), ppermute(kr, axis, perm)
     return finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, k_new, v_new, pos):
+def _owner_write(cache, new, pos, i: int):
+    """Write the step's row ``new`` (b, 1, ...) at global position
+    ``pos`` (int or (b,)) into this shard's slab ``cache`` (b, S_loc,
+    ...), in place, where shard ``i`` owns it (``pos // S_loc == i``)."""
+    S_loc = cache.shape[1]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        p_ = pos.to(device=cache.device, dtype=torch.long)
+        owner = torch.div(p_, S_loc, rounding_mode="floor")
+        loc = p_ - owner * S_loc
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        own = (owner == i).reshape((-1,) + (1,) * (cache.ndim - 2))
+        cache[rows, loc] = torch.where(own, new[:, 0].to(cache.dtype),
+                                       cache[rows, loc])
+    elif int(pos) // S_loc == i:
+        cache[:, int(pos) - i * S_loc] = new[:, 0].to(cache.dtype)
+
+
+def _merge_shards(m, l, o, axes):
+    """The shards' partials merged over ``axes``: one pmax, two psums."""
+    M = pmax(m, axes)
+    scale = torch.exp(m - M)
+    return M, psum(l * scale, axes), psum(o * scale[..., None], axes)
+
+
+def _valid(pos, kv_pos):
+    """Key positions ``<= pos``: (1, S) for an int, (b, 1, S) ragged."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        p_ = pos.to(device=kv_pos.device, dtype=torch.long)
+        return (kv_pos[None, :] <= p_[:, None])[:, None, :]
+    return (kv_pos <= int(pos))[None, :]
+
+
+def decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *, axes=()):
     """q (b, 1, h, dh); caches (b, S, hkv, dh); k_new/v_new (b, 1, hkv,
     dh); pos: int OR (b,) int tensor of ragged positions (each row writes
     and attends its own position).  Returns (out (b, 1, h, dh), k_cache,
     v_cache).  The caches are updated IN PLACE (the JAX package returns
     functionally updated copies; the port saves a cache-sized copy per
-    layer and step)."""
+    layer and step).
+
+    ``axes`` (under a mesh): the caches are this rank's sequence shard
+    over ``axes``; the shard that owns ``pos`` writes the row, each
+    shard computes its partials over its rows (plain PyTorch, as the
+    reference's jnp) and the partials merge across shards."""
+    if axes:
+        i = axis_index(axes)
+        S_loc = k_cache.shape[1]
+        _owner_write(k_cache, k_new, pos, i)
+        _owner_write(v_cache, v_new, pos, i)
+        kv_pos = i * S_loc + torch.arange(S_loc, device=k_cache.device)
+        m, l, o = _merge_shards(*attn_partials(q, k_cache, v_cache,
+                                               _valid(pos, kv_pos)), axes)
+        out = finalize_partials(m, l, o).transpose(1, 2).to(q.dtype)
+        return out, k_cache, v_cache
     b = k_cache.shape[0]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         rows = torch.arange(b, device=k_cache.device)
@@ -267,38 +351,32 @@ def cross_decode_attention(q, ck, cv):
 
 
 def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, c_new, kr_new,
-                         pos, *, scale: float):
-    """The JAX package's ``mla_decode_attention`` on one device
-    (``axes=()``).  q_eff (b, 1, h, r): ``q_nope`` absorbed through
-    ``w_uk``; q_rope (b, 1, h, dr); latent caches c_cache (b, S, r),
-    kr_cache (b, S, dr); the step's rows c_new (b, 1, r), kr_new (b, 1,
-    dr); ``pos`` an int or a ragged (b,) tensor.  The rows are written at
-    ``pos`` IN PLACE, at the caches' dtype (a position outside the slab
-    writes nothing, the reference's ownership rule on one shard); row i
-    attends positions ``<= pos[i]`` with f32 scores ``(q_eff . c +
-    q_rope . kr) * scale``.
+                         pos, *, scale: float, axes=()):
+    """The JAX package's ``mla_decode_attention``.  q_eff (b, 1, h, r):
+    ``q_nope`` absorbed through ``w_uk``; q_rope (b, 1, h, dr); latent
+    caches c_cache (b, S, r), kr_cache (b, S, dr); the step's rows c_new
+    (b, 1, r), kr_new (b, 1, dr); ``pos`` an int or a ragged (b,)
+    tensor.  The rows are written at ``pos`` IN PLACE, at the caches'
+    dtype, by the shard that owns it (on one device: a position outside
+    the slab writes nothing); row i attends positions ``<= pos[i]`` with
+    f32 scores ``(q_eff . c + q_rope . kr) * scale``.
     A row with nothing to attend (the reference's dead rows) gets zero
     probabilities.  The probabilities are rounded to the cache dtype
     before ``p . c``, and that product to the cache dtype, as the
-    reference's ``einsum(p.astype(c.dtype), c)`` does; ``ctx = o /
-    max(l, 1e-30)``.  Returns (ctx (b, 1, h, r) f32, c_cache,
-    kr_cache)."""
+    reference's ``einsum(p.astype(c.dtype), c)`` does; under a mesh
+    (``axes``: the caches are this rank's sequence shard) the shards'
+    ``(m, l, o)`` merge by one pmax and two psums; ``ctx = o / max(l,
+    1e-30)``.  Returns (ctx (b, 1, h, r) f32, c_cache, kr_cache)."""
     b, S, _ = c_cache.shape
     dev = c_cache.device
+    i = axis_index(axes)
+    _owner_write(c_cache, c_new, pos, i)
+    _owner_write(kr_cache, kr_new, pos, i)
+    kv_pos = i * S + torch.arange(S, device=dev)
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        p_ = pos.to(device=dev, dtype=torch.long)
-        rows, loc = torch.arange(b, device=dev), p_ % S
-        own = ((p_ >= 0) & (p_ < S))[:, None]
-        for cache, new in ((c_cache, c_new), (kr_cache, kr_new)):
-            cache[rows, loc] = torch.where(own, new[:, 0].to(cache.dtype),
-                                           cache[rows, loc])
-        valid = (torch.arange(S, device=dev)[None, :]
-                 <= p_[:, None])[:, None, None]            # (b, 1, 1, S)
+        valid = _valid(pos, kv_pos)[:, None]                # (b, 1, 1, S)
     else:
-        if 0 <= int(pos) < S:
-            c_cache[:, int(pos)] = c_new[:, 0].to(c_cache.dtype)
-            kr_cache[:, int(pos)] = kr_new[:, 0].to(kr_cache.dtype)
-        valid = torch.arange(S, device=dev) <= int(pos)    # (S,)
+        valid = kv_pos <= int(pos)                          # (S,)
     f32 = torch.float32
     s = (torch.einsum("bqhr,bsr->bhqs", q_eff.to(f32), c_cache.to(f32))
          + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32),
@@ -312,6 +390,8 @@ def mla_decode_attention(q_eff, q_rope, c_cache, kr_cache, c_new, kr_new,
     dt = c_cache.dtype
     o = torch.einsum("bhqs,bsr->bhqr", p.to(dt).to(f32),
                      c_cache.to(f32)).to(dt).to(f32)
+    if axes:
+        m, l, o = _merge_shards(m, l, o, axes)
     ctx = o / torch.clamp_min(l, 1e-30)[..., None]         # (b, h, 1, r)
     return ctx.transpose(1, 2), c_cache, kr_cache
 

@@ -1,13 +1,504 @@
-"""Shared model numerics: norms, activation, online-softmax partials.
+"""Shared model utilities: the distribution context, the axis-optional
+collectives, norms, activation, online-softmax partials (the JAX
+package's ``models/common.py``).
 
-The port of the single-device parts of the JAX package's
-``models/common.py``.
+``Dist`` makes every model function runnable in two worlds:
+
+  * ``Dist.local()``: no mesh; every collective is the identity, so each
+    island body doubles as the single-device oracle;
+  * a mesh: one process (rank) per device, each holding its local shard
+    of every tensor, and the islands (ring attention, flash-decode over
+    a sequence-sharded cache, expert-parallel all-to-all, the sharded
+    SSD, the vocabulary-sharded embedding and head) exchange through
+    collectives over the mesh axes' process groups.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named
+dims, or an ``AbstractMesh`` (axis names and sizes, no process group;
+``launch.mesh``), on which only the spec trees are built.  A tuple of
+axes is one flattened group, its ranks in row-major order of the mesh
+(``axis_index`` of ``("data", "model")`` is ``data * model_size +
+model``).
+
+Every rank runs the same program: a collective's output enters each
+rank's result by the same ops (masked where the rank's part is void, as
+the reference's static loops are), so each rank's backward meets the
+same collectives in the same order.  The collectives differentiate by
+the JAX transpose rules: the backward
+of ``psum`` is ``psum``, of ``all_gather`` ``psum_scatter`` (and back),
+of ``all_to_all`` the same exchange, of ``ppermute`` the inverse
+permutation, and ``pmax`` stops the gradient.  These are the adjoints of
+the program summed over ranks, so a loss that every rank holds whole
+(psum'd) is differentiated as ``loss / world`` on each rank, and a
+parameter's local shard enters through ``pvary`` (identity forward,
+``psum`` over the axes it is replicated on backward): each gradient is
+then counted once, neither multiplied by a group's size nor dropped.
+``COLLECTIVES`` counts the calls by name, forward and backward.
+
+Collectives run inside ``in_mesh(dist)``, the counterpart of
+``shard_map``'s mesh: the groups come from the ``Dist`` in force, and
+each backward keeps the group of its forward.
 """
 from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import itertools
+import math
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
 
 import torch
 
 NEG_INF = -1e30
+
+# collectives issued, by name ("all_gather", "psum", ...), forward and
+# backward; reset by whoever reads them
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def mesh_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.mesh.shape))
+    return dict(mesh.shape)
+
+
+def _axes(axis) -> tuple:
+    if not axis:
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def flat_groups(mesh) -> dict:
+    """{axes: this rank's process group} for every tuple of two or more
+    of ``mesh``'s axes, made at the first call and kept on the mesh
+    (``new_subgroups_by_enumeration`` is collective over the world: every
+    rank makes them at the same point, in the same order)."""
+    groups = getattr(mesh, "_repro_flat_groups", None)
+    if groups is not None:
+        return groups
+    import torch.distributed as tdist
+    names = tuple(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    groups = {}
+    for n in range(2, len(names) + 1):
+        for combo in itertools.combinations(range(len(names)), n):
+            rest = [i for i in range(len(names)) if i not in combo]
+            k = math.prod(grid.shape[i] for i in combo)
+            rows = grid.permute(*rest, *combo).reshape(-1, k).tolist()
+            mine, _ = tdist.new_subgroups_by_enumeration(rows)
+            groups[tuple(names[i] for i in combo)] = mine
+    mesh._repro_flat_groups = groups
+    return groups
+
+
+@dataclass(frozen=True)
+class Dist:
+    """Distribution context threaded through every model function."""
+
+    mesh: Any = None                     # DeviceMesh, AbstractMesh or None
+    data_axes: tuple = ()                # batch axes, e.g. ("pod", "data")
+    model_axis: Optional[str] = None     # TP/SP/EP axis ("model")
+    # axes the decode KV cache's sequence dim is sharded over; defaults to
+    # (model_axis,); long_500k (batch 1) uses ("data", "model")
+    kv_axes: tuple = ()
+
+    @staticmethod
+    def local() -> "Dist":
+        return Dist()
+
+    @property
+    def is_dist(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shape(self) -> dict:
+        return mesh_sizes(self.mesh) if self.is_dist else {}
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def model_size(self) -> int:
+        if not self.is_dist or self.model_axis is None:
+            return 1
+        return self.shape[self.model_axis]
+
+    @property
+    def kv_shard_axes(self) -> tuple:
+        if self.kv_axes:
+            return self.kv_axes
+        return (self.model_axis,) if self.model_axis else ()
+
+    def kv_shards(self) -> int:
+        n = 1
+        for a in self.kv_shard_axes:
+            n *= self.shape[a]
+        return n
+
+    @property
+    def world(self) -> int:
+        n = 1
+        for s in self.shape.values():
+            n *= s
+        return n
+
+    def size(self, axis) -> int:
+        n = 1
+        for a in _axes(axis):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axis) -> int:
+        """This rank's coordinate along ``axis`` (a tuple: flattened,
+        row-major)."""
+        idx = 0
+        for a in _axes(axis):
+            idx = idx * self.shape[a] + self.mesh.get_local_rank(a)
+        return idx
+
+    def group(self, axis):
+        """The process group of ``axis`` (a name or a tuple of names)."""
+        axes = _axes(axis)
+        order = self.axis_names
+        if tuple(sorted(axes, key=order.index)) != axes:
+            raise ValueError(f"axes {axes} out of the mesh's order {order}")
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        return flat_groups(self.mesh)[axes]
+
+    # ---- specs <-> DTensor placements --------------------------------
+    def placements(self, spec, ndim: int):
+        """DTensor placements (one per mesh dim) of a spec: a tuple of
+        None, an axis name or a tuple of names per tensor dim (missing
+        trailing dims replicated)."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for a in self.axis_names:
+            dims = [d for d, s in enumerate(tuple(spec)[:ndim])
+                    if a in _axes(s)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return out
+
+    def spec_of(self, placements, ndim: int) -> tuple:
+        """The spec of DTensor ``placements`` (the inverse of
+        ``placements``)."""
+        dims = [[] for _ in range(ndim)]
+        for a, pl in zip(self.axis_names, placements):
+            if pl.is_shard():
+                dims[pl.dim].append(a)
+            elif not pl.is_replicate():
+                raise ValueError(f"placement {pl} has no spec")
+        return tuple(None if not d else d[0] if len(d) == 1 else tuple(d)
+                     for d in dims)
+
+    def dtensor(self, local, spec, shape):
+        """This rank's block ``local`` as the DTensor of whole ``shape``
+        laid out by ``spec`` on the mesh."""
+        from torch.distributed.tensor import DTensor
+        shape = torch.Size(shape)
+        return DTensor.from_local(
+            local, self.mesh, self.placements(spec, len(shape)),
+            run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+
+    def constrain(self, x, *spec):
+        """``with_sharding_constraint``: a DTensor is redistributed to
+        ``spec``; a local shard is already laid out by the islands'
+        convention (activations (batch over the data axes, sequence over
+        ``model``)), so it passes as it is, as does everything locally."""
+        if not self.is_dist:
+            return x
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            return x.redistribute(self.mesh, self.placements(spec, x.ndim))
+        return x
+
+    def sharding(self, *spec):
+        """The DTensor placements of ``spec`` (None locally)."""
+        if not self.is_dist:
+            return None
+        return self.placements(spec, len(spec))
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def in_mesh(dist: Dist):
+    """Run collectives over ``dist``'s mesh (``shard_map``'s mesh)."""
+    token = _ACTIVE.set(dist)
+    try:
+        yield dist
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active() -> Dist:
+    d = _ACTIVE.get()
+    if d is None or not d.is_dist:
+        raise RuntimeError("a collective over a mesh axis runs inside "
+                           "in_mesh(dist) with a mesh Dist")
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Axis-optional collectives (identity when axis is None), differentiated by
+# the JAX transpose rules.
+# ---------------------------------------------------------------------------
+
+def _tdist():
+    import torch.distributed as tdist
+    return tdist
+
+
+def _all_reduce(x, group, op="sum"):
+    tdist = _tdist()
+    y = x.contiguous().clone()
+    tdist.all_reduce(y, op=getattr(tdist.ReduceOp, op.upper()), group=group)
+    return y
+
+
+def _gather(x, group, n, dim):
+    tdist = _tdist()
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    tdist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum(x, group, n, dim):
+    tdist = _tdist()
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    tdist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
+def _a2a(x, group):
+    tdist = _tdist()
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    tdist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _permute(x, group, pairs, me):
+    """Send ``x`` along ``pairs`` ((src, dst) group indices); a rank that
+    receives nothing gets zeros."""
+    tdist = _tdist()
+    ranks = tdist.get_process_group_ranks(group)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for s, d in pairs:
+        if s == me and d == me:
+            out.copy_(x)
+        elif s == me:
+            ops.append(tdist.P2POp(tdist.isend, x, ranks[d], group))
+        elif d == me:
+            ops.append(tdist.P2POp(tdist.irecv, out, ranks[s], group))
+    if ops:
+        for w in tdist.batch_isend_irecv(ops):
+            w.wait()
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        COLLECTIVES["psum"] += 1
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["psum"] += 1
+        return _all_reduce(g, ctx.group), None
+
+
+class _Pvary(torch.autograd.Function):
+    """Identity forward; psum of the cotangent backward (JAX's
+    ``pvary``/``pbroadcast``: a value replicated over ``axis`` entering
+    per-rank computation)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["psum"] += 1
+        return _all_reduce(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        COLLECTIVES["all_gather"] += 1
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["psum_scatter"] += 1
+        return _scatter_sum(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        COLLECTIVES["psum_scatter"] += 1
+        return _scatter_sum(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["all_gather"] += 1
+        return _gather(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        COLLECTIVES["all_to_all"] += 1
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["all_to_all"] += 1
+        return _a2a(g, ctx.group), None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, pairs, me):
+        ctx.group, ctx.pairs, ctx.me = group, pairs, me
+        COLLECTIVES["ppermute"] += 1
+        return _permute(x, group, pairs, me)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["ppermute"] += 1
+        inv = [(d, s) for s, d in ctx.pairs]
+        return _permute(g, ctx.group, inv, ctx.me), None, None, None
+
+
+def psum(x, axis):
+    return _Psum.apply(x, active().group(axis)) if axis else x
+
+
+def pvary(x, axis):
+    """``x``, replicated over ``axis``, entering per-rank computation:
+    the identity, whose backward psums the cotangent over ``axis``."""
+    return _Pvary.apply(x, active().group(axis)) if axis else x
+
+
+def pmax(x, axis):
+    """pmax for softmax/logsumexp stabilization, on the detached ``x``
+    (JAX's stop-gradient): every use stabilizes an ``exp`` whose final
+    value does not depend on the max."""
+    if not axis:
+        return x
+    COLLECTIVES["pmax"] += 1
+    return _all_reduce(x.detach(), active().group(axis), "max")
+
+
+def pmean(x, axis):
+    return psum(x, axis) / axis_size(axis) if axis else x
+
+
+def axis_index(axis) -> int:
+    return active().index(axis) if axis else 0
+
+
+def axis_size(axis) -> int:
+    return active().size(axis) if axis else 1
+
+
+def all_gather(x, axis, dim: int = 0, tiled: bool = True):
+    """The shards of ``axis`` concatenated along ``dim`` (``tiled``), or
+    stacked on a new leading dim."""
+    if not axis:
+        return x if tiled else x[None]
+    if not tiled:
+        x, dim = x[None], 0
+    return _AllGather.apply(x, active().group(axis), axis_size(axis),
+                            dim % x.ndim)
+
+
+def psum_scatter(x, axis, dim: int = 0):
+    """Sum over ``axis``, this rank keeping its ``1/size`` block of
+    ``dim`` (tiled)."""
+    if not axis:
+        return x
+    return _PsumScatter.apply(x, active().group(axis), axis_size(axis),
+                              dim % x.ndim)
+
+
+def all_to_all(x, axis):
+    """The symmetric tiled all-to-all over dim 0: block ``j`` of dim 0
+    goes to shard ``j``, whose block ``i`` of the result is this rank's
+    (JAX's ``all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
+    if not axis:
+        return x
+    return _AllToAll.apply(x, active().group(axis))
+
+
+def ppermute(x, axis, perm: Sequence):
+    """``x`` sent from shard ``s`` to shard ``d`` for each ``(s, d)`` of
+    ``perm``; a shard that receives nothing gets zeros."""
+    if not axis:
+        return x
+    return _Ppermute.apply(x, active().group(axis),
+                           tuple((int(s), int(d)) for s, d in perm),
+                           axis_index(axis))
+
+
+def chunk(x, axis, dim: int):
+    """This rank's block of ``dim`` split over ``axis``: a local slice,
+    whose backward zero-pads."""
+    if not axis:
+        return x
+    n = axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axis} ({n})")
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(axis) * size, size)
+
+
+def relayout(x, src, dst):
+    """A local shard laid out by spec ``src`` as laid out by ``dst``
+    (each a tuple of None, an axis name or a tuple of names per dim):
+    all-gather every axis ``src`` shards a dim over and ``dst`` does
+    not, then slice every axis ``dst`` adds.  Differentiable (the
+    gather's backward psum-scatters, the slice's zero-pads)."""
+    src = tuple(src) + (None,) * (x.ndim - len(tuple(src)))
+    dst = tuple(dst) + (None,) * (x.ndim - len(tuple(dst)))
+    for d in range(x.ndim):
+        s_ax, d_ax = _axes(src[d]), _axes(dst[d])
+        if s_ax == d_ax:
+            continue
+        if s_ax:
+            x = all_gather(x, s_ax, d)
+    for d in range(x.ndim):
+        s_ax, d_ax = _axes(src[d]), _axes(dst[d])
+        if s_ax != d_ax and d_ax:
+            x = chunk(x, d_ax, d)
+    return x
+
+
+def replicated_axes(dist: Dist, spec) -> tuple:
+    """The mesh axes ``spec`` shards no dim over, in mesh order."""
+    used = {a for s in tuple(spec) for a in _axes(s)}
+    return tuple(a for a in dist.axis_names if a not in used)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):

@@ -6,9 +6,9 @@ The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
 ``models.transformer.init_params``, and the layer math the serving
 engines run (the offloaded one per unit, the resident one over the whole
-stack).  Sharding (``Dist``) is not ported; neither are resident INT4
-tables (``cfg.quant_weights``, which only the JAX package's dry run
-sets).  An ``ENC`` layer (whisper's encoder) is bidirectional attention
+stack).  Resident INT4 tables (``cfg.quant_weights``, which only the
+JAX package's dry run sets) are not ported.  An ``ENC`` layer
+(whisper's encoder) is bidirectional attention
 without rope; a ``CROSS`` layer (whisper's decoder) is a causal
 self-attention, then attention over every encoder row through the
 ``c``-prefixed projections (``apply_cross_layer``), its decode cache the
@@ -37,6 +37,29 @@ attention the reference's ``ref_attention``), the SSM runs
 ``ssd_chunked`` and MoE ``moe_ffn`` as at prefill, no layer builds a
 cache, and ``apply_layer`` returns each layer's load-balance loss for
 ``lm_head_loss``'s caller to add.
+
+Under a mesh (``Ctx.dist`` a ``Dist`` with one, the JAX package's
+``shard_map`` islands): each rank holds its shard of the activations,
+the batch over the data axes and, outside decode, the sequence over
+``model`` (``Ctx.act_spec``); every per-token op runs on the shard as it
+is, with each layer's weights all-gathered where they are used
+(``use_params``; the routed-expert stacks stay split over ``model``, and
+their ff dim over ``data`` where ``_moe_ff_axis`` says so), and the ops
+that mix rows run their collective bodies inside ``in_mesh``: the ring
+over ``model`` (``ring_attention``, ``mla_ring_attention``), the
+flash-decode over a sequence-sharded cache (``decode_attention``,
+``mla_decode_attention`` with ``axes``), the SSM's conv halo
+(``ppermute``) and ``ssd_sharded``, the MoE's three expert-parallel
+branches (train and prefill ``moe_ffn`` over ``all_to_all`` with the
+capacity taken on the local tokens; decode ``moe_ffn_decode`` when the
+ff dim is split, else ``moe_ffn_replicated``), and the vocabulary-sharded
+``embed_tokens``, ``lm_head_loss`` and ``lm_head_argmax``.  The sharded
+path's sequence attention is the plain ring and partials, as the
+reference's islands are jnp; what stays on one shard (a rolling buffer,
+the encoder rows) runs as on one device.  A sharded branch that cannot run
+raises; nothing falls back to the local branch.  Without a mesh
+(``Dist.local()``, the default, as the serving engines build ``Ctx``)
+every function runs exactly as on one device.
 
 Outside train mode every attention goes through the port's kernels: prefill
 (and the encoder, and a cross attention's prefill, at ``causal=False``)
@@ -73,7 +96,11 @@ from repro_torch.models.attention import (chunk_prefill_attention,
                                           ring_attention,
                                           spec_decode_attention,
                                           spec_decode_attention_packed)
-from repro_torch.models.common import NEG_INF, rms_norm, silu
+from repro_torch.models.common import (NEG_INF, Dist, all_gather,
+                                       axis_index, axis_size, chunk,
+                                       in_mesh, pmax, pmean, ppermute, psum,
+                                       psum_scatter, relayout, rms_norm,
+                                       silu)
 from repro_torch.models.rope import apply_rope
 
 
@@ -249,6 +276,69 @@ class Ctx:
     pos: Any = None                         # decode position: int or (b,)
     memory: Optional[torch.Tensor] = None   # (b, s_enc, d) encoder output
     is_encoder: bool = False
+    dist: Dist = Dist()                     # the mesh, or local
+    batch_size: int = 0                     # global batch (0: shardable)
+
+    @property
+    def sharded(self) -> bool:
+        return self.dist.is_dist
+
+    @property
+    def dp(self):
+        """The batch dim's axes; None when the batch cannot shard (b=1)."""
+        ax = self.dist.data_axes
+        if not ax:
+            return None
+        if self.batch_size and self.dist.is_dist:
+            n = self.dist.size(ax)
+            if self.batch_size % n != 0 or self.batch_size < n:
+                return None
+        return ax if len(ax) > 1 else ax[0]
+
+    def act_spec(self):
+        """The spec of (b, s, ...) activations."""
+        if self.mode == "decode":
+            return (self.dp, None)
+        return (self.dp, self.dist.model_axis)
+
+    def seq_axis(self):
+        return self.dist.model_axis if self.mode != "decode" else None
+
+
+def _moe_ff_axis(ctx: Ctx):
+    """The mesh axis the expert ff dim is storage-sharded over, or None;
+    mirrors ``launch.sharding.AXIS_RULES``' divisibility rule."""
+    if (not ctx.dist.is_dist or ctx.cfg.moe is None
+            or "data" not in ctx.dist.shape):
+        return None
+    f = ctx.cfg.moe.expert_d_ff
+    n = ctx.dist.shape["data"]
+    return "data" if (f % n == 0 and f >= n) else None
+
+
+def use_params(p, specs, table, ctx: Ctx):
+    """A layer's local weight shards (laid out by ``specs``, the storage
+    specs) at the layout its islands use: an expert stack split over
+    ``model`` on its experts and over ``_moe_ff_axis`` on its ff dim
+    (the reference's ``w_specs``), every other weight whole
+    (all-gathered).  Differentiable: each gather's backward
+    psum-scatters the layer's gradient back to the shards."""
+    ff_axis = _moe_ff_axis(ctx)
+    rule = {"experts": ctx.dist.model_axis, "expert_ff": ff_axis}
+    out = {}
+    with in_mesh(ctx.dist):
+        for name, t in p.items():
+            pd = table[name]
+            want = (tuple(rule.get(a) for a in pd.axes)
+                    if is_expert_stack(pd) else (None,) * t.ndim)
+            out[name] = relayout(t, specs[name], want)
+    return out
+
+
+def _gather_seq(ctx: Ctx, *ts):
+    """Sequence shards (dim 1) gathered over ``model``: every row."""
+    with in_mesh(ctx.dist):
+        return tuple(all_gather(t, ctx.seq_axis(), 1) for t in ts)
 
 
 # ===========================================================================
@@ -302,13 +392,17 @@ def apply_attention(p, x, ctx: Ctx, cache, spec: LayerSpec):
     if ctx.mode == "decode":
         out, new_cache = _decode_attn(q, k, v, ctx, cache, window)
     elif ctx.mode == "train":
-        out = ring_attention(q, k, v, causal=not enc, window=window)
+        out = _seq_attn(q, k, v, ctx, not enc, window)
         new_cache = None
     else:
-        out = flash_attention_op(q, k, v, causal=not enc, window=window)
-        new_cache = (_build_cache(k, v, ctx, window)
-                     if ctx.mode == "prefill" and not ctx.is_encoder
-                     else None)
+        out = (_seq_attn(q, k, v, ctx, not enc, window) if ctx.sharded
+               else flash_attention_op(q, k, v, causal=not enc,
+                                       window=window))
+        new_cache = None
+        if ctx.mode == "prefill" and not ctx.is_encoder:
+            if ctx.sharded:
+                k, v = _gather_seq(ctx, k, v)
+            new_cache = _build_cache(k, v, ctx, window)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return x + _mm(out, p, "wo"), new_cache
 
@@ -335,6 +429,15 @@ def apply_layer_chunk(p, x, ctx: Ctx, prefix_k, prefix_v, q_offset: int):
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     x = x + _mm(out, p, "wo")
     return apply_dense_ffn(p, x, ctx), k, v
+
+
+def _seq_attn(q, k, v, ctx: Ctx, causal: bool, window: int):
+    """Full-sequence attention, plain: the ring over ``model`` under a
+    mesh, one block locally (the training path's)."""
+    axis = ctx.seq_axis() if ctx.sharded else None
+    with in_mesh(ctx.dist):
+        return ring_attention(q, k, v, axis=axis, causal=causal,
+                              window=window)
 
 
 def _build_cache(k, v, ctx: Ctx, window: int = 0):
@@ -368,6 +471,8 @@ def _decode_attn(q, k_new, v_new, ctx: Ctx, cache, window: int = 0):
     (``local_decode_attention``), returned whole.  Returns (out, the
     fresh rows at the cache's compute dtype)."""
     kc, vc = cache["k"], cache["v"]
+    if ctx.sharded:
+        return _decode_attn_sharded(q, k_new, v_new, ctx, kc, vc, window)
     if window:
         out, kc, vc = local_decode_attention(q, kc, vc, k_new, v_new,
                                              ctx.pos, window)
@@ -379,6 +484,24 @@ def _decode_attn(q, k_new, v_new, ctx: Ctx, cache, window: int = 0):
     else:
         fn = spec_decode_attention if spec else decode_attention
         out, _, _ = fn(q, kc, vc, k_new, v_new, ctx.pos)
+    return out, {"k": k_new.to(kc.dtype), "v": v_new.to(kc.dtype)}
+
+
+def _decode_attn_sharded(q, k_new, v_new, ctx: Ctx, kc, vc, window: int):
+    """The sharded decode step: a rolling buffer (replicated over
+    ``model``) as on one device; a slab sequence-sharded over the KV
+    axes by the flash-decode merge."""
+    if q.shape[1] > 1 or isinstance(kc, PackedRows):
+        raise NotImplementedError(
+            "a verify pass or packed rows under a mesh: the reference's "
+            "speculative and offloaded engines run Dist.local()")
+    if window:
+        out, kc, vc = local_decode_attention(q, kc, vc, k_new, v_new,
+                                             ctx.pos, window)
+        return out, {"k": kc, "v": vc}
+    with in_mesh(ctx.dist):
+        out, _, _ = decode_attention(q, kc, vc, k_new, v_new, ctx.pos,
+                                     axes=ctx.dist.kv_shard_axes)
     return out, {"k": k_new.to(kc.dtype), "v": v_new.to(kc.dtype)}
 
 
@@ -413,6 +536,8 @@ cache);
         sm = mem.shape[1]
         ck = (mem @ p["cwk"]).reshape(b, sm, hkv, dh)
         cv = (mem @ p["cwv"]).reshape(b, sm, hkv, dh)
+        if ctx.sharded:     # every encoder row, each rank its own queries
+            ck, cv = _gather_seq(ctx, ck, cv)
         out = (ref_attention(q, ck, cv, causal=False) if ctx.mode == "train"
                else flash_attention_op(q, ck, cv, causal=False))
     out = out.reshape(b, s, h * dh).to(x.dtype)
@@ -460,15 +585,23 @@ def apply_mla(p, x, ctx: Ctx, cache, spec: LayerSpec):
         if isinstance(cc, PackedRows):
             cc, krc = cc.dequantize(), krc.dequantize()
         q_eff = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"])
-        ctxl, _, _ = mla_decode_attention(
-            q_eff, q_rope, cc, krc, c, k_rope, ctx.pos,
-            scale=1.0 / math.sqrt(dn + dr))
+        with in_mesh(ctx.dist):
+            ctxl, _, _ = mla_decode_attention(
+                q_eff, q_rope, cc, krc, c, k_rope, ctx.pos,
+                scale=1.0 / math.sqrt(dn + dr),
+                axes=ctx.dist.kv_shard_axes if ctx.sharded else ())
         out = torch.einsum("bshr,rhv->bshv", ctxl.to(x.dtype), p["w_uv"])
         new_cache = {"c": c.to(cc.dtype), "kr": k_rope.to(krc.dtype)}
-    elif ctx.mode == "train":
-        out = mla_ring_attention(torch.cat([q_nope, q_rope], dim=-1), c,
-                                 k_rope, p["w_uk"], p["w_uv"])
+    elif ctx.mode == "train" or ctx.sharded:
+        # the MLA-aware ring: the latent rotates, each block expands
+        with in_mesh(ctx.dist):
+            out = mla_ring_attention(
+                torch.cat([q_nope, q_rope], dim=-1), c, k_rope, p["w_uk"],
+                p["w_uv"], axis=ctx.seq_axis() if ctx.sharded else None)
         new_cache = None
+        if ctx.mode == "prefill":
+            c_all, kr_all = _gather_seq(ctx, c, k_rope)
+            new_cache = {"c": c_all, "kr": kr_all}
     else:
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = mla_prefill_attention(q, c, k_rope, p["w_uk"], p["w_uv"])
@@ -548,9 +681,20 @@ def apply_ssm(p, x, ctx: Ctx, cache, spec: LayerSpec):
         Bc = conv[..., d_in:d_in + gn].reshape(b, G, N)
         Cc = conv[..., d_in + gn:].reshape(b, G, N)
         dt = softplus(dt_raw[:, 0] + p["dt_bias"])        # (b, H)
-        y, h_new = ssm_mod.ssd_decode_step(xc, dt, A, Bc, Cc, cache["state"])
+        state = cache["state"]
+        heads_split = ctx.sharded and state.shape[1] != H
+        if heads_split:     # the cache's heads over ``model``
+            with in_mesh(ctx.dist):
+                state = all_gather(state, ctx.dist.model_axis, 1)
+        y, h_new = ssm_mod.ssd_decode_step(xc, dt, A, Bc, Cc, state)
         y = (y + xc.to(torch.float32) * D).reshape(b, 1, d_in)
-        new_cache = {"conv": new_halo, "state": h_new.to(torch.float32)}
+        h_new = h_new.to(torch.float32)
+        if heads_split:
+            with in_mesh(ctx.dist):
+                h_new = chunk(h_new, ctx.dist.model_axis, 1)
+        new_cache = {"conv": new_halo, "state": h_new}
+    elif ctx.sharded:
+        y, new_cache = _ssm_seq_sharded(p, conv_in, dt_raw, A, D, ctx)
     else:
         dt = softplus(dt_raw + p["dt_bias"])
         conv = silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"]))
@@ -566,6 +710,40 @@ def apply_ssm(p, x, ctx: Ctx, cache, spec: LayerSpec):
     # gated RMSNorm, then the out projection
     y = rms_norm(y.to(x.dtype) * silu(z), p["ssm_norm"], cfg.norm_eps)
     return x + _mm(y, p, "out_proj"), new_cache
+
+
+def _ssm_seq_sharded(p, conv_in, dt_raw, A, D, ctx: Ctx):
+    """The SSM's train/prefill body under a mesh, on this rank's
+    sequence shard: the conv's halo comes from the previous shard
+    (``ppermute``; the first shard's is zeros), then ``ssd_sharded``.
+    Returns (y (b, l_loc, d_in) f32, the prefill cache: the last
+    ``d_conv - 1`` rows of the whole sequence and the final state, or
+    None in train mode)."""
+    s_cfg = ctx.cfg.ssm
+    b, l, ch = conv_in.shape
+    d_in = s_cfg.expand * ctx.cfg.d_model
+    hd = s_cfg.head_dim
+    H = d_in // hd
+    G, N = s_cfg.n_groups, s_cfg.d_state
+    gn = G * N
+    axis = ctx.seq_axis()
+    width = s_cfg.d_conv
+    dt = softplus(dt_raw + p["dt_bias"])
+    with in_mesh(ctx.dist):
+        tail = conv_in[:, -(width - 1):]
+        prev = ppermute(tail, axis,
+                        [(i, i + 1) for i in range(axis_size(axis) - 1)])
+        conv = silu(_causal_conv(conv_in, p["conv_w"], p["conv_b"], prev))
+        xc = conv[..., :d_in].reshape(b, l, H, hd)
+        Bc = conv[..., d_in:d_in + gn].reshape(b, l, G, N)
+        Cc = conv[..., d_in + gn:].reshape(b, l, G, N)
+        y, h_fin = ssm_mod.ssd_sharded(xc, dt, A, Bc, Cc,
+                                       _pick_chunk(l, s_cfg.chunk_size), axis)
+        y = (y + xc.to(torch.float32) * D).reshape(b, l, d_in)
+        if ctx.mode != "prefill":
+            return y, None
+        halo = all_gather(tail, axis, tiled=False)[-1]
+    return y, {"conv": halo, "state": h_fin.to(torch.float32)}
 
 
 def apply_mixer(p, x, ctx: Ctx, cache, spec: LayerSpec):
@@ -605,17 +783,61 @@ def shared_expert(p, xn):
 
 
 def apply_moe_ffn(p, x, ctx: Ctx):
-    """The MoE feed-forward over the whole bank (single device): route
-    and combine the routed experts, then add the shared expert.  Returns
-    (x', the load-balance loss)."""
+    """The MoE feed-forward: route and combine the routed experts, then
+    add the shared expert.  Returns (x', the load-balance loss).  On one
+    device over the whole bank; under a mesh by the reference's
+    expert-parallel branches (``_moe_sharded``)."""
     cfg = ctx.cfg
     b, s, d = x.shape
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
-    out, aux = moe_mod.moe_ffn(xn.reshape(b * s, d), p, cfg.moe)
+    if ctx.sharded:
+        out, aux = _moe_sharded(p, xn, ctx)
+    else:
+        out, aux = moe_mod.moe_ffn(xn.reshape(b * s, d), p, cfg.moe)
     x = x + out.reshape(b, s, d)
     if cfg.moe.num_shared:
         x = x + shared_expert(p, xn)
     return x, aux
+
+
+def _moe_sharded(p, xn, ctx: Ctx):
+    """The reference's three branches over ``model`` (experts) and
+    ``_moe_ff_axis`` (each expert's ff dim): decode with the ff dim split
+    gathers the batch and runs ``moe_ffn_decode``, one psum over both
+    axes; decode otherwise runs ``moe_ffn_replicated``; train and prefill
+    run ``moe_ffn`` over ``all_to_all`` on the local tokens, the capacity
+    taken on their count (``T_loc``), the ff slices all-gathered first.
+    Returns (out like ``xn``, aux)."""
+    m = ctx.cfg.moe
+    bl, sl, d = xn.shape
+    axis = ctx.dist.model_axis
+    ff_axis = _moe_ff_axis(ctx)
+    data = ctx.dist.data_axes
+    w = {k: p[k] for k in ("wg", "w_gate", "w_up", "w_down")}
+    with in_mesh(ctx.dist):
+        if ctx.mode == "decode" and ff_axis is not None:
+            spec = (ctx.dp, None, None)
+            xa = relayout(xn, spec, (None, None, None))
+            o, a = moe_mod.moe_ffn_decode(
+                xa.reshape(-1, d), w, m, ep_axis=axis, ff_axis=ff_axis,
+                combine_axes=(ff_axis, axis))
+            return relayout(o.reshape(xa.shape), (None, None, None),
+                            spec), a
+        if ctx.mode == "decode":
+            o, a = moe_mod.moe_ffn_replicated(xn.reshape(-1, d), w, m,
+                                              axis=axis)
+            return o.reshape(xn.shape), pmean(a, data) if ctx.dp else a
+        T_loc = bl * sl
+        capacity = int(m.capacity_factor * T_loc * m.top_k
+                       / m.num_experts) + 1
+        if ff_axis is not None:    # the FSDP gather of the expert slices
+            w["w_gate"] = all_gather(w["w_gate"], ff_axis, 2)
+            w["w_up"] = all_gather(w["w_up"], ff_axis, 2)
+            w["w_down"] = all_gather(w["w_down"], ff_axis, 1)
+        o, a = moe_mod.moe_ffn(xn.reshape(T_loc, d), w, m, capacity,
+                               axis=axis)
+        a = pmean(a, data + (axis,)) if ctx.dp else pmean(a, axis)
+        return o.reshape(xn.shape), a
 
 
 def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
@@ -630,37 +852,113 @@ def apply_layer(p, x, ctx: Ctx, cache, spec: LayerSpec):
     return apply_dense_ffn(p, x, ctx), new_cache, _no_aux(x)
 
 
-def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (b, s) -> (b, s, d)."""
-    return p["emb"][tokens.long()]
+def _head_ctx(ctx):
+    """(cfg, the ``Ctx`` under a mesh or None): the head functions take
+    a ``Ctx``, or a ``ModelConfig`` for one device (the engines')."""
+    if isinstance(ctx, Ctx):
+        return ctx.cfg, (ctx if ctx.sharded else None)
+    return ctx, None
+
+
+def embed_tokens(p, tokens: torch.Tensor, ctx: Optional[Ctx] = None):
+    """tokens (b, s) -> (b, s, d).  Under a mesh ``p["emb"]`` is this
+    rank's vocabulary shard over ``model`` and each shard looks up the
+    ids in its slice (zeros elsewhere): a psum merges them, or, with the
+    sequence sharded over the same axis, every token is gathered first
+    and a psum-scatter returns each rank its rows."""
+    if ctx is None or not ctx.sharded:
+        return p["emb"][tokens.long()]
+    axis = ctx.dist.model_axis
+    s_sharded = ctx.mode != "decode"
+    emb = p["emb"]
+    with in_mesh(ctx.dist):
+        V_loc = emb.shape[0]
+        start = axis_index(axis) * V_loc
+        tok = all_gather(tokens, axis, 1) if s_sharded else tokens
+        rel = tok.long() - start
+        ok = (rel >= 0) & (rel < V_loc)
+        e = torch.where(ok[..., None], emb[torch.clamp(rel, 0, V_loc - 1)],
+                        0.0)
+        return psum_scatter(e, axis, 1) if s_sharded else psum(e, axis)
 
 
 def _w_out(p, cfg: ModelConfig) -> torch.Tensor:
     return p["emb"].T if cfg.tie_embeddings else p["w_out"]
 
 
-def lm_head_loss(p, x: torch.Tensor, labels: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """Mean token cross-entropy, the reference's single-device head: f32
-    logits of ``x @ w_out`` (x (b, s, d), labels (b, s) int), the
-    vocabulary padding masked to ``NEG_INF``, the mean of ``lse - ll``.
-    The vocabulary-sharded head waits for the sharding slice."""
-    logits = (x @ _w_out(p, cfg)).to(torch.float32)
-    pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
-    logits = logits.masked_fill(pad, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - ll)
+def lm_head_loss(p, x: torch.Tensor, labels: torch.Tensor, ctx,
+                 s_chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy, the reference's head: f32 logits of ``x
+    @ w_out`` (x (b, s, d), labels (b, s) int), the vocabulary padding
+    masked to ``NEG_INF``, the mean of ``lse - ll``.  ``ctx``: a
+    ``Ctx``, or the ``ModelConfig`` on one device.
 
-
-def lm_head_argmax(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Greedy next token from the last position, the vocabulary padding
-    masked.  x (b, s, d) -> (b,) int32."""
+    Under a mesh the head is vocabulary-sharded over ``model``: x and
+    the labels are all-gathered over ``model``, each shard computes its
+    logits ``s_chunk`` rows at a time and the softmax statistics merge
+    by pmax/psum, so no rank holds the whole vocabulary's logits; the
+    loss is then averaged over the data axes (the same on every rank)."""
+    cfg, sh = _head_ctx(ctx)
+    if sh is None:
+        logits = (x @ _w_out(p, cfg)).to(torch.float32)
+        pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(lse - ll)
+    axis = sh.dist.model_axis
     w = _w_out(p, cfg)
-    logits = (x[:, -1] @ w).to(torch.float32)
-    pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
-    logits = logits.masked_fill(pad, NEG_INF)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    with in_mesh(sh.dist):
+        x_all = all_gather(x, axis, 1)
+        lab = all_gather(labels, axis, 1)
+        V_loc = w.shape[1]
+        start = axis_index(axis) * V_loc
+        pad_mask = (start + torch.arange(V_loc, device=x.device)) \
+            < cfg.vocab_size
+        s = x_all.shape[1]
+        n = max(1, s // s_chunk) if s % s_chunk == 0 else 1
+        cs = s // n
+        losses = []
+        for c in range(n):
+            xc, lc = x_all[:, c * cs:(c + 1) * cs], lab[:, c * cs:(c + 1) * cs]
+            lg = (xc @ w).to(torch.float32)
+            lg = torch.where(pad_mask, lg, NEG_INF)
+            m = pmax(lg.amax(dim=-1), axis)
+            se = psum(torch.exp(lg - m[..., None]).sum(dim=-1), axis)
+            lse = m + torch.log(se)
+            rel = lc.long() - start
+            ok = (rel >= 0) & (rel < V_loc)
+            ll = torch.gather(lg, -1,
+                              torch.clamp(rel, 0, V_loc - 1)[..., None])[..., 0]
+            losses.append(lse - psum(torch.where(ok, ll, 0.0), axis))
+        return pmean(torch.mean(torch.stack(losses)), sh.dist.data_axes)
+
+
+def lm_head_argmax(p, x: torch.Tensor, ctx) -> torch.Tensor:
+    """Greedy next token from the last position, the vocabulary padding
+    masked.  x (b, s, d) -> (b,) int32.  ``ctx``: a ``Ctx``, or the
+    ``ModelConfig`` on one device.  Under a mesh each vocabulary shard
+    takes its own best and a pmax picks the best of them (on a tie
+    across shards the higher id, as the reference's)."""
+    cfg, sh = _head_ctx(ctx)
+    w = _w_out(p, cfg)
+    if sh is None:
+        logits = (x[:, -1] @ w).to(torch.float32)
+        pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    axis = sh.dist.model_axis
+    with in_mesh(sh.dist):
+        V_loc = w.shape[1]
+        start = axis_index(axis) * V_loc
+        lg = (x[:, -1] @ w).to(torch.float32)
+        lg = torch.where((start + torch.arange(V_loc, device=x.device))
+                         < cfg.vocab_size, lg, NEG_INF)
+        m_loc = lg.amax(dim=-1)
+        i_loc = torch.argmax(lg, dim=-1).to(torch.int32) + start
+        m = pmax(m_loc, axis)
+        idx = torch.where(m_loc >= m, i_loc, torch.full_like(i_loc, -1))
+        return pmax(idx, axis)
 
 
 def lm_head_argmax_positions(p, x: torch.Tensor,

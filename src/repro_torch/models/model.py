@@ -1,6 +1,7 @@
 """Public model facade: one object binding a ``ModelConfig`` to init,
 the training loss, prefill, decode and its caches (the JAX package's
-``models/model.py``, without the dry-run input specs)."""
+``models/model.py``, without the dry-run input specs), each on one
+device or, with a mesh ``Dist``, sharded."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,6 +11,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.common import Dist
 
 
 @dataclass(frozen=True)
@@ -31,14 +33,21 @@ class Model:
         return T.param_axes(self.cfg)
 
     # ---- compute entry points ---------------------------------------------
-    def train_loss(self, params, batch, remat: bool = True):
-        return T.train_loss(params, batch, self.cfg, remat)
+    # ``dist`` as the JAX package's (``Dist.local()`` when None): under a
+    # mesh the parameters and caches are DTensors (``launch.sharding``)
+    def train_loss(self, params, batch, dist: Dist = None,
+                   remat: bool = True):
+        return T.train_loss(params, batch, self.cfg, remat, dist)
 
-    def prefill(self, params, batch, cache_len: int):
-        return T.prefill(params, batch, self.cfg, cache_len)
+    def prefill(self, params, batch, dist: Dist = None, cache_len=None):
+        """``prefill(params, batch, dist, cache_len)``, the JAX
+        signature; ``prefill(params, batch, cache_len)`` on one device."""
+        if cache_len is None and not isinstance(dist, Dist):
+            dist, cache_len = None, dist
+        return T.prefill(params, batch, self.cfg, cache_len, dist)
 
-    def decode_step(self, params, batch, caches):
-        return T.decode_step(params, batch, caches, self.cfg)
+    def decode_step(self, params, batch, caches, dist: Dist = None):
+        return T.decode_step(params, batch, caches, self.cfg, dist)
 
     # ---- caches ------------------------------------------------------------
     def init_cache(self, b: int, cache_len: int, device="cuda",

@@ -1,6 +1,6 @@
-"""Mamba2 / SSD (state-space duality) [arXiv:2405.21060] on one device.
+"""Mamba2 / SSD (state-space duality) [arXiv:2405.21060].
 
-The port of the JAX package's ``models/ssm.py`` with no sequence axis:
+The port of the JAX package's ``models/ssm.py``:
 
   * ``segsum``: lower-triangular segment sums, ``-inf`` above the
     diagonal so that ``exp`` gives exact zeros (the mask is applied
@@ -14,14 +14,21 @@ The port of the JAX package's ``models/ssm.py`` with no sequence axis:
   * ``ssd_decode_step``: one token's recurrent update.
 
 Everything computes in f32, whatever dtype arrives.  A group of ``B``/``C``
-serves ``H // G`` consecutive heads (the reference's ``repeat``).  The
-sequence-sharded ``ssd_sharded`` waits for the sharding slice.
+serves ``H // G`` consecutive heads (the reference's ``repeat``).
+``ssd_sharded`` runs under a mesh with the sequence sharded over an
+axis: each shard scans its own rows, the shards' (decay, state)
+summaries are all-gathered, each shard applies its true incoming state
+through ``state_factor``, and the last shard's final state is psum'd to
+every shard.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.models.common import (all_gather, axis_index, axis_size,
+                                       psum)
 
 F32 = torch.float32
 
@@ -138,3 +145,37 @@ def ssd_decode_step(xh, dt, A, B, C, h: Optional[torch.Tensor]):
     h = h.to(F32) * decay[..., None, None] + upd
     y = torch.einsum("bhn,bhpn->bhp", C_heads, h)
     return y, h
+
+
+def ssd_sharded(xh, dt, A, B, C, chunk: int, axis):
+    """Sequence-sharded SSD (inside ``in_mesh``; ``axis=None`` or one
+    shard: ``ssd_chunked``).  The inputs are this rank's rows of
+    ``axis``; the incoming state of shard ``i`` is ``sum_{j<i} state_j
+    * prod_{j<m<i} decay_m`` over the gathered summaries, applied
+    through ``state_factor``.  Returns (y (b, l_loc, H, hd), the global
+    final state (b, H, hd, N), the same on every shard)."""
+    y, h_final, (state_factor, total_decay) = ssd_chunked(
+        xh, dt, A, B, C, chunk)
+    if not axis or axis_size(axis) == 1:
+        return y, h_final
+    P = axis_size(axis)
+    i = axis_index(axis)
+    decays = all_gather(total_decay, axis, tiled=False)   # (P, b, H)
+    states = all_gather(h_final, axis, tiled=False)       # (P, b, H, hd, N)
+    # walk back j = i-1 .. 0 over the same P - 1 candidates on every shard
+    # (masked where j < 0): each shard's backward then runs the same
+    # collectives
+    h_in = torch.zeros_like(h_final)
+    run = torch.ones_like(total_decay)
+    for step_back in range(1, P):
+        j = i - step_back
+        valid = torch.tensor(j >= 0, device=xh.device)
+        h_in = h_in + torch.where(valid, states[max(j, 0)],
+                                  0.0) * run[..., None, None]
+        run = run * torch.where(valid, decays[max(j, 0)], 1.0)
+    b, l, H, hd = xh.shape
+    C_heads = _heads(C.to(F32), H)
+    y = y + torch.einsum("bihn,bhpn,bih->bihp", C_heads, h_in, state_factor)
+    h_final = h_final + h_in * total_decay[..., None, None]
+    last = torch.tensor(i == P - 1, device=xh.device)
+    return y, psum(torch.where(last, h_final, 0.0), axis)

@@ -60,6 +60,20 @@ MoE layers to the head's cross-entropy, as the reference does.  With
 ``torch.utils.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward pass, the counterpart of the reference's
 ``jax.checkpoint(policy=nothing_saveable)`` around its scan body.
+
+Under a mesh (``dist``, one rank per device; ``models.layers``): a
+parameter leaf is a DTensor (``launch.sharding.place``), whose
+placements give its storage spec, or a whole tensor, replicated; each
+enters through ``pvary`` over the axes it is replicated on, so its
+gradient is summed over them, and each layer all-gathers its own weights
+(``layers.use_params``) where the reference's GSPMD gathers inside the
+scan.  The batch's leaves, DTensors or whole tensors, become this rank's
+shard of the activations' layout (``Ctx.act_spec``); rope angles and
+sinusoidal rows are taken at the shard's own positions.  ``train_loss``
+returns the loss every rank holds whole (``launch.steps`` differentiates
+it divided by the world); ``prefill`` returns the next tokens and the
+caches as DTensors under ``launch.sharding.cache_pspecs``, and
+``decode_step`` takes them so (or whole) and returns them so.
 """
 from __future__ import annotations
 
@@ -78,8 +92,11 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, CROSS, DENSE, ENC,
                                       MLA, MOE, SSM, LayerSpec, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.common import (Dist, all_gather, in_mesh, pvary,
+                                       relayout, replicated_axes)
 from repro_torch.models.rope import (rope_angles, sinusoidal_positions,
                                      sinusoidal_rows)
+from repro_torch.tree import leaves, unflatten
 
 # the tree's tables; a part's index seeds its draws ("enc_pat" and
 # "enc_final_norm" are the encoder's "pat" and "final_norm")
@@ -411,13 +428,113 @@ def _angles(cfg: ModelConfig, positions: torch.Tensor):
     return rope_angles(positions, rope_dim, cfg.rope_theta)
 
 
+# ===========================================================================
+# Under a mesh: local shards in, DTensors out
+# ===========================================================================
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _enter(params, dist: Dist):
+    """(this rank's shard of every parameter leaf, each through
+    ``pvary`` over the axes it is replicated on; the storage specs).  A
+    DTensor's spec comes from its placements; a whole tensor is
+    replicated."""
+    local, specs = [], []
+    with in_mesh(dist):
+        for t in leaves(params):
+            if _is_dtensor(t):
+                spec = dist.spec_of(t.placements, t.ndim)
+                t = t.to_local()
+            else:
+                spec = (None,) * t.ndim
+            local.append(pvary(t, replicated_axes(dist, spec)))
+            specs.append(spec)
+    return unflatten(params, local), unflatten(params, specs)
+
+
+def _local(t, want, dist: Dist):
+    """This rank's block of ``t`` (a DTensor, or the whole tensor on
+    every rank) under the spec ``want``."""
+    with in_mesh(dist):
+        if _is_dtensor(t):
+            return relayout(t.to_local(), dist.spec_of(t.placements, t.ndim),
+                            want)
+        return relayout(t, (None,) * t.ndim, want)
+
+
+def _local_batch(batch, ctx: L.Ctx):
+    """The batch's leaves at the activations' layout: tokens, labels and
+    embeds (batch, sequence), the encoder's frames (batch, frames over
+    ``model``), a decode step's tokens and ragged positions (batch)."""
+    dist = ctx.dist
+    spec = ctx.act_spec()
+    out = {}
+    for k, v in batch.items():
+        if k == "pos":
+            out[k] = (_local(v, (ctx.dp,), dist)
+                      if isinstance(v, torch.Tensor) and v.ndim == 1 else v)
+        elif k == "enc_embeds":
+            out[k] = _local(v, (ctx.dp, dist.model_axis, None), dist)
+        else:
+            out[k] = _local(v, spec + (None,) * (v.ndim - 2), dist)
+    return out
+
+
+def _positions(n: int, ctx: L.Ctx, device):
+    """The positions of this rank's ``n`` sequence rows: its block of
+    the whole sequence under a mesh, else ``0..n-1``."""
+    axis = ctx.seq_axis() if ctx.sharded else None
+    start = ctx.dist.index(axis) * n if axis else 0
+    return torch.arange(start, start + n, device=device)
+
+
+def _use(t, spec, want, dist: Dist):
+    with in_mesh(dist):
+        return relayout(t, spec, want)
+
+
+def _embed_use(params, specs, ctx: L.Ctx):
+    """The vocabulary tables at the islands' layout: ``emb`` split over
+    ``model`` on the vocabulary, an untied ``w_out`` likewise."""
+    if not ctx.sharded:
+        return params["embed"]
+    m = ctx.dist.model_axis
+    want = {"emb": (m, None), "w_out": (None, m)}
+    return {n: _use(t, specs["embed"][n], want[n], ctx.dist)
+            for n, t in params["embed"].items()}
+
+
+def _whole(params, specs, key, ctx: L.Ctx):
+    """A table's leaves whole (all-gathered) under a mesh."""
+    tab = params[key]
+    if not ctx.sharded:
+        return tab
+    return {n: _use(t, specs[key][n], (None,) * t.ndim, ctx.dist)
+            for n, t in tab.items()}
+
+
 def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig,
-               remat: bool = False):
+               remat: bool = False, specs=None):
     """Every layer in order (the periods of ``pat``, then ``rem``).
     Returns (x, each layer's new cache rows: ``pat`` a list per pattern
     position over periods, ``rem`` a list; the layers' summed
     load-balance loss, f32).  ``remat`` (no caches) recomputes each
-    period's activations in the backward pass."""
+    period's activations in the backward pass.  Under a mesh ``specs``
+    holds the leaves' storage specs and each layer gathers its weights
+    (``layers.use_params``)."""
+    tabs = model_tables(cfg) if ctx.sharded else None
+
+    def use(ps, grp, q, stacked):
+        if not ctx.sharded:
+            return ps
+        sp = specs[grp][q]
+        sp = {n: t[1:] for n, t in sp.items()} if stacked else sp
+        return L.use_params(ps, sp, tabs[grp][q], ctx)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_pat = [[] for _ in cfg.pattern]
     # one unbind per stacked leaf: its backward stacks the periods'
@@ -429,7 +546,7 @@ def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig,
     def period(x, p):
         a, rows = torch.zeros_like(aux), []
         for q, spec in enumerate(cfg.pattern):
-            ps = {n: t[p] for n, t in pat[q].items()}
+            ps = use({n: t[p] for n, t in pat[q].items()}, "pat", q, True)
             cs = (None if caches is None else
                   {n: c[p] for n, c in caches["pat"][q].items()})
             x, nc, la = L.apply_layer(ps, x, ctx, cs, spec)
@@ -449,7 +566,8 @@ def _run_stack(params, x, ctx: L.Ctx, caches, cfg: ModelConfig,
             new_pat[q].append(nc)
     new_rem = []
     for q, spec in enumerate(cfg.remainder):
-        x, nc, a = L.apply_layer(params["rem"][q], x, ctx,
+        x, nc, a = L.apply_layer(use(params["rem"][q], "rem", q, False), x,
+                                 ctx,
                                  None if caches is None
                                  else caches["rem"][q], spec)
         aux = aux + a
@@ -462,40 +580,74 @@ def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
     return L.lm_head_argmax(params["embed"], x[:, -1:], cfg)
 
 
+def _next_tokens(params, x, cfg: ModelConfig, ctx: L.Ctx, specs,
+                 embed) -> torch.Tensor:
+    """``_head`` on one device; under a mesh the last row of the whole
+    sequence (gathered from the shard that holds it) through the
+    vocabulary-sharded head."""
+    if not ctx.sharded:
+        return _head(params, x, cfg)
+    if ctx.mode != "decode":
+        with in_mesh(ctx.dist):
+            x = all_gather(x[:, -1:], ctx.seq_axis(), 1)
+    x = L.rms_norm(x, _whole(params, specs, "final_norm", ctx)["scale"],
+                   cfg.norm_eps)
+    return L.lm_head_argmax(embed, x[:, -1:], ctx)
+
+
 def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
-            mode: str = "prefill"):
+            mode: str = "prefill", dist: Dist = None, specs=None):
     """Whisper's encoder over precomputed frame embeddings (b, s_enc, d):
     sinusoidal positions added, the ENC layers (bidirectional, no rope),
     then the encoder's final norm -> (b, s_enc, d).  In train mode each
-    layer is rematerialised, as the reference's encoder stack is."""
+    layer is rematerialised, as the reference's encoder stack is.  Under
+    a mesh the frames are this rank's block (batch, frames over
+    ``model``), the attention the non-causal ring."""
+    dist = dist or Dist.local()
     b, s_enc, d = enc_embeds.shape
-    x = enc_embeds + sinusoidal_positions(s_enc, d, enc_embeds.dtype,
-                                          enc_embeds.device)[None]
-    ctx = L.Ctx(cfg=cfg, mode=mode, is_encoder=True)
-    stack = {n: t.unbind(0) for n, t in params["enc"]["pat"][0].items()}
+    ctx = L.Ctx(cfg=cfg, mode=mode, is_encoder=True, dist=dist)
+    rows = sinusoidal_positions(
+        s_enc * dist.size(ctx.seq_axis()) if dist.is_dist else s_enc, d,
+        enc_embeds.dtype, enc_embeds.device)
+    x = enc_embeds + rows[_positions(s_enc, ctx, rows.device)][None]
+    enc = params["enc"]
+    stack = {n: t.unbind(0) for n, t in enc["pat"][0].items()}
+    tab = model_tables(cfg)["enc"]["pat"][0] if dist.is_dist else None
 
     def layer(x, p):
-        return L.apply_layer({n: t[p] for n, t in stack.items()}, x, ctx,
-                             None, ENC_SPEC)[0]
+        ps = {n: t[p] for n, t in stack.items()}
+        if dist.is_dist:
+            ps = L.use_params(ps, {n: sp[1:] for n, sp in
+                                   specs["enc"]["pat"][0].items()}, tab, ctx)
+        return L.apply_layer(ps, x, ctx, None, ENC_SPEC)[0]
     for p in range(cfg.num_encoder_layers):
         x = (checkpoint(layer, x, p, use_reentrant=False)
              if mode == "train" else layer(x, p))
-    return L.rms_norm(x, params["enc"]["final_norm"]["scale"], cfg.norm_eps)
+    norm = (_whole(enc, specs["enc"], "final_norm", ctx) if dist.is_dist
+            else enc["final_norm"])
+    return L.rms_norm(x, norm["scale"], cfg.norm_eps)
 
 
-def _inputs_to_x(params, cfg: ModelConfig, ctx: L.Ctx, batch):
+def _inputs_to_x(params, cfg: ModelConfig, ctx: L.Ctx, batch, embed=None):
     """The batch's ``embeds``, or its ``tokens``/``token`` embedded; a
     rope-free model adds sinusoidal positions: rows ``0..s-1`` at
-    prefill, the row at each decode position (int or ragged (b,))."""
+    prefill (this rank's block of them under a mesh), the row at each
+    decode position (int or ragged (b,))."""
     if "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = L.embed_tokens(params["embed"],
-                           batch["tokens" if "tokens" in batch else "token"])
+        x = L.embed_tokens(params["embed"] if embed is None else embed,
+                           batch["tokens" if "tokens" in batch else "token"],
+                           ctx)
     if cfg.rope_theta == 0:
         if ctx.mode == "decode":
             pos = torch.as_tensor(ctx.pos, device=x.device).reshape(-1)
             x = x + sinusoidal_rows(pos, cfg.d_model).to(x.dtype)[:, None]
+        elif ctx.sharded:
+            n = x.shape[1]
+            rows = sinusoidal_positions(n * ctx.dist.size(ctx.seq_axis()),
+                                        cfg.d_model, x.dtype, x.device)
+            x = x + rows[_positions(n, ctx, x.device)][None]
         else:
             x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                          x.device)[None]
@@ -507,85 +659,166 @@ def n_moe_layers(cfg: ModelConfig) -> int:
             + sum(1 for sp in cfg.remainder if sp.ffn == MOE))
 
 
-def train_loss(params, batch, cfg: ModelConfig, remat: bool = True):
+def _setup(params, batch, cfg: ModelConfig, mode: str, dist: Dist,
+           global_batch: int):
+    """(params at this rank, their storage specs, the batch at this
+    rank, the ``Ctx``) for one pass."""
+    ctx = L.Ctx(cfg=cfg, mode=mode, dist=dist, batch_size=global_batch)
+    if not dist.is_dist:
+        return params, None, batch, ctx
+    params, specs = _enter(params, dist)
+    return params, specs, _local_batch(batch, ctx), ctx
+
+
+def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
+               dist: Dist = None):
     """The training loss of a batch of tensors: ``labels`` (b, s) with
     ``tokens`` (b, s) or ``embeds`` (b, s, d), and an encoder-decoder's
     ``enc_embeds`` (b, s_enc, d).  The stack in train mode (rope angles at
     positions ``0..s-1``, M-RoPE's three equal components), the final
     norm, ``lm_head_loss``, plus ``AUX_WEIGHT`` times the load-balance
-    loss per MoE layer.  ``remat`` as the reference's (on)."""
+    loss per MoE layer.  ``remat`` as the reference's (on).  Under a mesh
+    every rank returns the whole loss."""
+    dist = dist or Dist.local()
+    params, specs, batch, ctx = _setup(params, batch, cfg, "train", dist,
+                                       batch["labels"].shape[0])
     lab = batch["labels"]
-    s = lab.shape[1]
     dev = lab.device
-    memory = (_encode(params, cfg, batch["enc_embeds"], "train")
-              if cfg.enc_dec else None)
-    ctx = L.Ctx(cfg=cfg, mode="train",
-                angles=_angles(cfg, torch.arange(s, device=dev)),
-                memory=memory)
-    x = _inputs_to_x(params, cfg, ctx, batch)
-    x, _, aux = _run_stack(params, x, ctx, None, cfg, remat=remat)
-    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    loss = L.lm_head_loss(params["embed"], x, lab, cfg)
+    ctx.memory = (_encode(params, cfg, batch["enc_embeds"], "train", dist,
+                          specs) if cfg.enc_dec else None)
+    ctx.angles = _angles(cfg, _positions(lab.shape[1], ctx, dev))
+    embed = _embed_use(params, specs, ctx)
+    x = _inputs_to_x(params, cfg, ctx, batch, embed)
+    x = dist.constrain(x, *ctx.act_spec(), None)
+    x, _, aux = _run_stack(params, x, ctx, None, cfg, remat=remat,
+                           specs=specs)
+    norm = _whole(params, specs, "final_norm", ctx)
+    x = L.rms_norm(x, norm["scale"], cfg.norm_eps)
+    loss = L.lm_head_loss(embed, x, lab, ctx)
     n_moe = n_moe_layers(cfg)
     if n_moe:
         loss = loss + AUX_WEIGHT * aux / n_moe
     return loss
 
 
-def prefill(params, batch, cfg: ModelConfig, cache_len: int):
+def _slab(r, kind: str, seq: int, cache_len: int):
+    """A layer's prefill rows laid into a zeroed ``cache_len`` slab along
+    dim ``seq`` (a ``kv`` leaf); any other leaf as it is."""
+    if kind != "kv":
+        return r
+    shape = list(r.shape)
+    shape[seq] = cache_len
+    out = r.new_zeros(shape)
+    out.narrow(seq, 0, r.shape[seq]).copy_(r)
+    return out
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_len: int,
+            dist: Dist = None):
     """Process the prompt, ``batch["tokens"]`` (b, s) or
     ``batch["embeds"]`` (b, s, d), with an encoder-decoder's frames
     ``batch["enc_embeds"]`` (b, s_enc, d); returns (next_token (b,),
     caches): every global or MLA layer's rows laid into a zeroed
     ``cache_len`` slab, every sliding-window layer's rolling buffer and
     every CROSS layer's ``ck``/``cv`` as they are, at compute
-    precision."""
+    precision.  Under a mesh both come back as DTensors (the caches
+    under ``cache_pspecs``)."""
+    dist = dist or Dist.local()
     inp = batch["embeds" if "embeds" in batch else "tokens"]
     b, s = inp.shape[:2]
-    memory = (_encode(params, cfg, batch["enc_embeds"]) if cfg.enc_dec
-              else None)
-    ctx = L.Ctx(cfg=cfg, mode="prefill",
-                angles=_angles(cfg, torch.arange(s, device=inp.device)),
-                memory=memory)
-    x = _inputs_to_x(params, cfg, ctx, batch)
-    x, rows, _ = _run_stack(params, x, ctx, None, cfg)
-    struct, kinds = cache_struct(cfg, b, cache_len)
-
-    def slab(r, shape_dtype, kind, seq):  # s rows -> cache_len rows
-        if kind != "kv":
-            return r
-        out = r.new_zeros(shape_dtype[0])
-        out.narrow(seq, 0, s).copy_(r)
-        return out
+    params, specs, batch, ctx = _setup(params, batch, cfg, "prefill", dist,
+                                       b)
+    inp = batch["embeds" if "embeds" in batch else "tokens"]
+    ctx.memory = (_encode(params, cfg, batch["enc_embeds"], "prefill",
+                          dist, specs) if cfg.enc_dec else None)
+    ctx.angles = _angles(cfg, _positions(inp.shape[1], ctx, inp.device))
+    embed = _embed_use(params, specs, ctx)
+    x = _inputs_to_x(params, cfg, ctx, batch, embed)
+    x = dist.constrain(x, *ctx.act_spec(), None)
+    x, rows, _ = _run_stack(params, x, ctx, None, cfg, specs=specs)
+    _, kinds = cache_struct(cfg, b, cache_len)
     caches = {
-        "pat": tuple({n: slab(torch.stack([c[n] for c in per]), st[n], kd[n],
-                              2)
+        "pat": tuple({n: _slab(torch.stack([c[n] for c in per]), kd[n], 2,
+                               cache_len)
                       for n in per[0]}
-                     for per, st, kd in zip(rows["pat"], struct["pat"],
-                                            kinds["pat"])),
-        "rem": tuple({n: slab(r, st[n], kd[n], 1) for n, r in t.items()}
-                     for t, st, kd in zip(rows["rem"], struct["rem"],
-                                          kinds["rem"]))}
-    return _head(params, x, cfg), caches
+                     for per, kd in zip(rows["pat"], kinds["pat"])),
+        "rem": tuple({n: _slab(r, kd[n], 1, cache_len) for n, r in t.items()}
+                     for t, kd in zip(rows["rem"], kinds["rem"]))}
+    tok = _next_tokens(params, x, cfg, ctx, specs, embed)
+    if not dist.is_dist:
+        return tok, caches
+    return (dist.dtensor(tok, (ctx.dp,), (b,)),
+            _cache_out(caches, cfg, ctx, b, cache_len, from_rows=True))
 
 
-def decode_step(params, batch, caches, cfg: ModelConfig):
+def _cache_specs(cfg: ModelConfig, ctx: L.Ctx, b: int, cache_len: int,
+                 enc_len=None):
+    from repro_torch.launch.sharding import cache_pspecs
+    return cache_pspecs(cfg, ctx.dist, b, cache_len, enc_len)
+
+
+def _cache_out(caches, cfg: ModelConfig, ctx: L.Ctx, b: int,
+               cache_len: int, from_rows: bool = False):
+    """Local cache leaves as DTensors under ``cache_pspecs``: prefill's
+    rows (``from_rows``: the batch over the data axes, the rest whole)
+    are cut to their blocks first."""
+    dist = ctx.dist
+    enc_len = _enc_len(caches)
+    specs = _cache_specs(cfg, ctx, b, cache_len, enc_len)
+    struct, _ = cache_struct(cfg, b, cache_len, enc_len)
+
+    def one(t, spec, sd, stacked):
+        if from_rows:
+            lead = (None,) if stacked else ()
+            src = lead + (ctx.dp,) + (None,) * (t.ndim - len(lead) - 1)
+            t = _use(t, src, spec, dist)
+        return dist.dtensor(t, spec, sd[0])
+    return {grp: tuple({n: one(t[n], sp[n], st[n], grp == "pat")
+                        for n in t}
+                       for t, sp, st in zip(caches[grp], specs[grp],
+                                            struct[grp]))
+            for grp in ("pat", "rem")}
+
+
+def _enc_len(caches):
+    for grp in ("pat", "rem"):
+        for t in caches[grp]:
+            if "ck" in t:
+                return t["ck"].shape[-3]
+    return None
+
+
+def decode_step(params, batch, caches, cfg: ModelConfig, dist: Dist = None):
     """One decode step.  batch: {"token": (b, 1) or "embeds": (b, 1, d),
     "pos": int or (b,) ragged positions}.  Writes each row's K/V at its
     position into ``caches`` in place, replaces each SSM layer's halo and
     state with the step's new ones (every row's, as the reference's),
     and returns (next_token (b,), caches).  A CROSS layer attends its
-    cached encoder rows."""
+    cached encoder rows.  Under a mesh the caches are DTensors under
+    ``cache_pspecs`` (their blocks written in place) or whole tensors,
+    and both results come back as DTensors."""
+    dist = dist or Dist.local()
     pos = batch["pos"]
     inp = batch["token" if "token" in batch else "embeds"]
+    b = inp.shape[0]
+    params, specs, batch, ctx = _setup(params, batch, cfg, "decode", dist, b)
+    pos = batch["pos"]
+    inp = batch["token" if "token" in batch else "embeds"]
+    if dist.is_dist:
+        cache_len = _cache_len(caches, cfg)
+        cspecs = _cache_specs(cfg, ctx, b, cache_len, _enc_len(caches))
+        caches = {grp: tuple({n: _local(t[n], sp[n], dist) for n in t}
+                             for t, sp in zip(caches[grp], cspecs[grp]))
+                  for grp in ("pat", "rem")}
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         positions = pos[:, None]
     else:
         positions = torch.tensor([int(pos)], device=inp.device)
-    ctx = L.Ctx(cfg=cfg, mode="decode", angles=_angles(cfg, positions),
-                pos=pos)
-    x = _inputs_to_x(params, cfg, ctx, batch)
-    x, rows, _ = _run_stack(params, x, ctx, caches, cfg)
+    ctx.angles, ctx.pos = _angles(cfg, positions), pos
+    embed = _embed_use(params, specs, ctx)
+    x = _inputs_to_x(params, cfg, ctx, batch, embed)
+    x = dist.constrain(x, *ctx.act_spec(), None)
+    x, rows, _ = _run_stack(params, x, ctx, caches, cfg, specs=specs)
     for q, spec in enumerate(cfg.pattern):
         if spec.mixer == SSM and cfg.num_periods:
             caches["pat"][q].update({n: torch.stack([r[n] for r in
@@ -594,4 +827,20 @@ def decode_step(params, batch, caches, cfg: ModelConfig):
     for q, spec in enumerate(cfg.remainder):
         if spec.mixer == SSM:
             caches["rem"][q].update(rows["rem"][q])
-    return _head(params, x, cfg), caches
+    tok = _next_tokens(params, x, cfg, ctx, specs, embed)
+    if not dist.is_dist:
+        return tok, caches
+    return (dist.dtensor(tok, (ctx.dp,), (b,)),
+            _cache_out(caches, cfg, ctx, b, cache_len))
+
+
+def _cache_len(caches, cfg: ModelConfig) -> int:
+    """The slab length of the caches' first ``kv`` leaf (the global one
+    of a DTensor)."""
+    _, kinds = cache_struct(cfg, 1, 1)
+    for grp, seq in (("pat", 2), ("rem", 1)):
+        for t, kd in zip(caches[grp], kinds[grp]):
+            for n, kind in kd.items():
+                if kind == "kv":
+                    return t[n].shape[seq]
+    return 1

@@ -7,7 +7,11 @@ A leaf of two or more dims keeps row and column statistics ``vr``
 second moment, a vector leaf a full f32 ``v``; the momentum ``m`` is
 bf16.  The state keeps the reference's keys (``{"s": {leaf: {"m", "vr",
 "vc" | "v"}}, "step"}``).  ``update`` writes the new statistics into
-the state's tensors, as in ``optim.adamw``.
+the state's tensors, as in ``optim.adamw``.  Placed leaves (DTensors)
+keep ``m`` at the parameter's placements and ``vr``/``vc`` at the
+reductions' (``adafactor_pspecs``: the parameter's spec without the
+reduced dim); the math runs on the local blocks, and a mean over a
+sharded dim is a ``pmean`` of the blocks' means over its axes.
 """
 from __future__ import annotations
 
@@ -16,8 +20,27 @@ from typing import Callable, Union
 
 import torch
 
-from repro_torch.optim.adamw import F32, clip_scale, global_norm
-from repro_torch.tree import leaves, tree_map
+from repro_torch.models.common import pmean, relayout
+from repro_torch.optim.adamw import (F32, _mesh, _placed, _shard,
+                                     _sharded_axes, _step_device, clip_scale,
+                                     global_norm)
+from repro_torch.tree import tree_map
+
+
+def _zeros_without(p, dim: int):
+    """f32 zeros of ``p``'s shape without ``dim``; for a DTensor at
+    ``p``'s placements without that dim (replicated where ``p`` is
+    sharded on it)."""
+    shape = p.shape[:dim] + p.shape[dim + 1:]
+    pl = getattr(p, "placements", None)
+    if pl is None:
+        return torch.zeros(shape, dtype=F32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+    out = [Replicate() if not q.is_shard() or q.dim == dim
+           else Shard(q.dim - (q.dim > dim)) for q in pl]
+    return dzeros(shape, dtype=F32, device_mesh=p.device_mesh,
+                  placements=out)
 
 
 @dataclass(frozen=True)
@@ -35,19 +58,19 @@ class Adafactor:
 
     def init(self, params):
         def leaf(p):
-            z = lambda shape, dt: torch.zeros(shape, dtype=dt,
-                                              device=p.device)
             st = {}
             if self.b1:
-                st["m"] = z(p.shape, torch.bfloat16)
+                st["m"] = torch.zeros_like(
+                    p, dtype=torch.bfloat16,
+                    memory_format=torch.contiguous_format)
             if self._factored(p.shape):
-                st["vr"] = z(p.shape[:-1], F32)
-                st["vc"] = z(p.shape[:-2] + p.shape[-1:], F32)
+                st["vr"] = _zeros_without(p, p.ndim - 1)
+                st["vc"] = _zeros_without(p, p.ndim - 2)
             else:
-                st["v"] = z(p.shape, F32)
+                st["v"] = torch.zeros_like(
+                    p, dtype=F32, memory_format=torch.contiguous_format)
             return st
-        step = torch.zeros((), dtype=torch.int32,
-                           device=leaves(params)[0].device)
+        step = torch.zeros((), dtype=torch.int32, device=_step_device(params))
         return {"s": tree_map(leaf, params), "step": step}
 
     @torch.no_grad()
@@ -55,37 +78,47 @@ class Adafactor:
         """-> (updates at each parameter's dtype, the new state, the
         global norm of ``grads`` before clipping); the new statistics
         are written into ``state``'s."""
-        step = state["step"] + 1
+        step = _shard(state["step"])[0] + 1
         gn = global_norm(grads)
         scale = clip_scale(gn, self.clip_norm)
         lr = self.lr(step) if callable(self.lr) else self.lr
         d = self.decay
 
         def leaf(g, st, p):
-            g = g.to(F32) * scale
+            (g, gs), (p_l, ps) = _shard(g), _shard(p)
+            g = relayout(g.to(F32) * scale, gs, ps)
+            loc = {k: _shard(t)[0] for k, t in st.items()}
             new = {}
             if self._factored(g.shape):
-                vr = d * st["vr"] + (1 - d) * torch.mean(torch.square(g), -1)
-                vc = d * st["vc"] + (1 - d) * torch.mean(torch.square(g), -2)
+                spec = tuple(ps) + (None,) * (g.ndim - len(ps))
+                rows, cols = (_sharded_axes((spec[-2],)),
+                              _sharded_axes((spec[-1],)))
+                vr = d * loc["vr"] + (1 - d) * pmean(
+                    torch.mean(torch.square(g), -1), cols)
+                vc = d * loc["vc"] + (1 - d) * pmean(
+                    torch.mean(torch.square(g), -2), rows)
                 new["vr"], new["vc"] = vr, vc
-                row = torch.clamp_min(torch.mean(vr, -1, keepdim=True),
-                                      self.eps)[..., None]
+                row = torch.clamp_min(pmean(torch.mean(vr, -1, keepdim=True),
+                                            rows), self.eps)[..., None]
                 denom = torch.sqrt(vr[..., None] * vc[..., None, :] / row
                                    + self.eps)
             else:
-                v = d * st["v"] + (1 - d) * torch.square(g)
+                v = d * loc["v"] + (1 - d) * torch.square(g)
                 new["v"] = v
                 denom = torch.sqrt(v + self.eps)
             u = g / denom
             if self.b1:
-                m = self.b1 * st["m"].to(F32) + (1 - self.b1) * u
+                m = self.b1 * loc["m"].to(F32) + (1 - self.b1) * u
                 new["m"] = m.to(torch.bfloat16)
                 u = m
-            u = u + self.weight_decay * p.to(F32)
-            return (-lr * u).to(p.dtype), {k: st[k].copy_(t)
-                                           for k, t in new.items()}
+            u = u + self.weight_decay * p_l.to(F32)
+            for k, t in new.items():
+                loc[k].copy_(t)
+            return (_placed((-lr * u).to(p.dtype), p),
+                    {k: st[k] for k in new})
 
-        out = tree_map(leaf, grads, state["s"], params)
+        with _mesh(params):
+            out = tree_map(leaf, grads, state["s"], params)
         updates = tree_map(lambda g, o: o[0], grads, out)
         new_s = tree_map(lambda g, o: o[1], grads, out)
         return updates, {"s": new_s, "step": step}, gn

@@ -8,7 +8,10 @@ straggler statistics.
   * an asynchronous checkpoint every ``ckpt_every`` steps and at the
     last, renamed into place atomically (a crash during a save leaves
     the previous checkpoint whole);
-  * ``TrainRunner.run`` restores the latest step and continues; a
+  * ``TrainRunner.run`` restores the latest step and continues (under
+    ``shardings``, (parameter, optimizer-state) trees of
+    ``launch.sharding.NamedSharding``, the restored leaves are placed on
+    any mesh: a run saved at one world size resumes at another); a
     ``FailureInjector`` raised at ``fail_at`` stands for a lost host, and
     a fresh runner reproduces the uninterrupted losses;
   * ``StragglerDetector`` keeps per-step wall times per host and names
@@ -72,15 +75,17 @@ class TrainRunner:
     """Drives ``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with checkpoint/restart.  ``init_state() -> (params,
     opt_state)`` gives the structure a restore fills (and the state of a
-    fresh run)."""
+    fresh run); ``shardings`` (param, opt) where the restore places it."""
 
     def __init__(self, cfg: RunnerConfig, step_fn: Callable,
                  init_state: Callable[[], tuple], data,
+                 shardings: Optional[tuple] = None,
                  fail_at: Optional[int] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.init_state = init_state
         self.data = data
+        self.shardings = shardings
         self.fail_at = fail_at
         self.ckpt = AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.detector = StragglerDetector()
@@ -94,8 +99,12 @@ class TrainRunner:
         if last is None:
             return params, opt_state, 0
         t0 = time.perf_counter()
+        sh = None
+        if self.shardings is not None:
+            sh = {"params": self.shardings[0], "opt": self.shardings[1]}
         restored, manifest = restore_checkpoint(
-            self.cfg.ckpt_dir, last, {"params": params, "opt": opt_state})
+            self.cfg.ckpt_dir, last, {"params": params, "opt": opt_state},
+            shardings=sh)
         self.restore_s = time.perf_counter() - t0
         return restored["params"], restored["opt"], int(manifest["step"])
 

@@ -70,7 +70,8 @@ def test_every_module_is_probed():
     for name in ("optim.adamw", "optim.adafactor", "data.pipeline",
                  "checkpoint.ckpt", "runtime.compression",
                  "runtime.fault_tolerance", "launch.steps", "launch.train",
-                 "tree"):
+                 "launch.mesh", "launch.sharding", "launch.ranks",
+                 "models.common", "tree"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) > 50
 

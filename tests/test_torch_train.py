@@ -186,13 +186,26 @@ def test_train_cli_cpu(tmp_path, capsys):
     assert (tmp_path / "step_2" / "manifest.json").exists()
 
 
-@pytest.mark.parametrize("flag", [["--multi-pod"], ["--coordinator", "h:1"],
+@pytest.mark.parametrize("flag", [["--multi-pod"], ["--coordinator"],
                                   ["--fake-devices", "8"]])
-def test_train_cli_mesh_flags_raise(flag):
+def test_train_cli_mesh_flags_raise(flag, tmp_path):
+    """The mesh flags raised ``NotImplementedError`` until the sharding
+    slice was ported; now each trains one step on its path:
+    ``--multi-pod`` below 512 ranks on one device, ``--coordinator`` as
+    the one rank of a group on a free localhost port, ``--fake-devices
+    8`` on eight gloo CPU ranks and a (2, 4) mesh."""
+    import socket
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        train.main(["--arch", "tinyllama-1.1b", "--scaled", "--device",
-                    "cpu"] + flag)
+    if flag == ["--coordinator"]:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        flag = ["--coordinator", f"localhost:{port}", "--num-hosts", "1",
+                "--host-id", "0"]
+    out = train.main(["--arch", "tinyllama-1.1b", "--scaled", "--device",
+                      "cpu", "--steps", "1", "--seq", "32", "--batch", "8",
+                      "--ckpt", str(tmp_path)] + flag)
+    assert out["final_step"] == 1 and np.isfinite(out["losses"]).all()
 
 
 def test_train_cli_cuda_without_card_raises(tmp_path):

@@ -175,6 +175,17 @@ def test_async_checkpointer_snapshots_and_gc(tmp_path):
     assert torch.equal(tree["w"], torch.full((4,), 4.0))
 
 
+def test_async_checkpointer_raises_a_failed_write(tmp_path):
+    blocked = tmp_path / "file"
+    blocked.write_text("not a directory")
+    ck = PC.AsyncCheckpointer(str(blocked))
+    ck.save(1, {"w": torch.ones(4)})
+    with pytest.raises(OSError):
+        ck.wait()
+    ck.wait()                        # raised once
+    assert ck.last_saved is None
+
+
 # ---------------------------------------------------------------------------
 # gradient compression, stragglers
 # ---------------------------------------------------------------------------
