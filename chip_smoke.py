@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only frontends # kernel checks, then runs (w), (x)
     python3 chip_smoke.py --only train    # kernel checks, then run (y)
     python3 chip_smoke.py --only shard    # kernel checks, then run (z)
+    python3 chip_smoke.py --only tooling  # kernel checks, then runs (aa)-(ac)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -37,7 +38,9 @@ before the result line:
    run (b)'s weights: final hidden states of a prefill and one decode
    step, and greedy-token agreement over run (b);
 6. serve through ``create_engine(plan)``: (e) int4 weights and KV,
-   ``SERVE_REQS`` (6) requests of ragged lengths on 4 slots, then the same requests again
+   ``SERVE_REQS`` (5) requests of ragged lengths on 4 slots (the fifth
+   must enter a slot that a finished request freed while the others
+   still decode), then the same requests again
    with a slot preempted mid-run (same tokens required), then kernels
    against ``use_kernels(False)`` on its weights; (f) bf16 caches
    (``kv_mode="fp32"``), 4 requests; (j) on tinyllama: (e)'s requests
@@ -99,7 +102,7 @@ before the result line:
    times the verify pass's attention at (m)'s shapes
    (``spec_decode_attention``, plain and packed);
 12. MoE: (o) ``create_engine(EngineSpec(arch="mixtral-8x7b",
-   cfg=<depth cut to MOE_LAYERS = 4>, quant="int4",
+   cfg=<depth cut to MOE_LAYERS = 2>, quant="int4",
    placement="disk").resolve())`` (Mixtral-8x7B at full width, 8
    experts, top-2; the whole model's plan: offloaded, disk, depth 1,
    with ``disk_root`` under the temporary directory, or a host budget
@@ -186,8 +189,8 @@ before the result line:
    carried to the INT4 weights against the offloaded engine, both plain
    (the first two tokens equal; the agreement after them printed); (v)
    ``create_engine(EngineSpec(arch="jamba-1.5-large-398b", cfg=<its
-   first 5 layers>, quant="int4", placement="host").resolve())`` (jamba
-   at full width: SSM+dense, SSM+MoE twice, attention+dense; the default
+   pattern's positions 2-4>, quant="int4", placement="host").resolve())``
+   (jamba at full width: SSM+dense, SSM+MoE, attention+dense; the default
    budget's plan, disk, printed first) serves (g)'s prompts with 4 new
    tokens: exact launches (``flash_attention`` and ``decode_attention``
    at group 8, dh 128; ``int4_matmul`` with K up to 24576), per decode
@@ -210,7 +213,7 @@ before the result line:
    preempted (the same tokens), then the whole path against
    ``use_kernels(False)`` (the encoder's output and every prefill within
    1e-4 x max, the first decode step within 2e-2 x max, each request's
-   first token equal); (x) qwen2-vl-72b at full width cut to 2 layers
+   first token equal); (x) qwen2-vl-72b at full width cut to 1 layer
    (resident: the embeds frontend) serves (g)'s prompts with 8 new
    tokens: the M-RoPE angles on the card bit-equal to 1-D rope, exact
    launches, the peak device memory beside the plan's budget and the
@@ -259,7 +262,28 @@ before the result line:
    locally, the NCCL set-up seconds and the collectives a train step
    issues, beside the card (with ``--only shard`` also one profiled step
    each way: device ms, the card's busy share, host operators);
-19. print the ``kernels`` JSON line, the card, then the result line.
+19. the tooling slice (``--only tooling`` runs the kernel checks and
+   these): (aa) tinyllama-1.1b at full width and depth with resident
+   INT4 tables (``quant_weights``, drawn as packed bytes from seed 0),
+   ``make_prefill_step`` on 4 x 128 tokens then 16 ``make_decode_step``
+   calls against ``use_kernels(False)`` (prefill hidden states within
+   1e-4 x max, tokens equal, exact launches of ``int4_matmul``,
+   ``flash_attention`` and ``decode_attention``), the roofline counter's
+   count of one decode step on meta tensors (``roofline.analyze_step``:
+   its bound on the H100's data-sheet rates, temp bytes, the INT4
+   kernel's share of the bytes) beside its profiled device ms and the
+   peak memory, and one bf16 decode step through the ops' cast path
+   against ``use_kernels(False)`` (head inputs within 2e-2 x max, tokens
+   equal, exact launches) with the casts' device time from its profile;
+   (ab) the dry run's three modes
+   (``launch.dryrun``): ``--serving --arch tinyllama-1.1b --scaled`` on
+   the card, ``--replay`` of a golden trace and one production-mesh cell
+   per mixer family in ``base`` and ``w4``, each held to its expected
+   status; (ac) the transfer suite on the disk tier: a 1 GiB key read
+   cold by ``naive_disk_to_host``, ``blockwise_disk_to_host`` and
+   ``pipelined_disk_to_device`` (GB/s each), ``host_to_device``, then
+   ``sweep_block_size`` over 1-64 MB;
+20. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -280,9 +304,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BPS = 3.35e12        # H100 SXM device memory rate (NVIDIA data sheet)
-FP32_FLOPS = 67e12       # H100 SXM fp32 outside the tensor cores
-TF32_FLOPS = 495e12      # H100 SXM TF32 on the tensor cores, dense
 ATTN_ATOL = 2e-5         # tests/test_kernels.py, fp32 attentions
 BF16_ATOL = 2e-2         # tests/test_kernels.py, bf16 attention
 INT4_KV_ATOL = 1e-6      # tests/test_kernels.py:101, int4 KV vs dequantized
@@ -309,12 +330,16 @@ CLI_ARGV = ["--arch", "llama3.2-1b", "--offload", "--quant", "int4",
             "--kv-mode", "int4", "--depth-policy", "adaptive",
             "--requests", "8"]     # run (h)
 SERVE_POS = [159, 0, 77, 131]      # ragged serving positions, one per slot
-SERVE_REQS = 6                     # serving run (e): requests, all submitted
+SERVE_REQS = 5                     # serving run (e): requests, all submitted,
+                                   # one more than its slots (PERF.md §4
+                                   # lists the earlier counts)
+SERVE_NEW = (8, 24)                # their new tokens, drawn in this range
 TINY_CHUNK = 32                    # run (j) on tinyllama: OnlineSLO's chunk
 TRAFFIC_REQS = 4                   # run (k): arrivals
 SPEC_K = 4                         # runs (m), (b'): proposals per verify
-MOE_LAYERS = 4                     # run (o): Mixtral's depth cut (disk
-                                   # forced: the cut store fits the host)
+MOE_LAYERS = 2                     # run (o): Mixtral's depth cut (disk
+                                   # forced: the cut store fits the host;
+                                   # PERF.md §4 lists the earlier depth)
 MOE_NEW = 3                        # run (o): new tokens per request (a
                                    # decode step takes ~10 s)
 # run (o)'s check: the share of routed rows whose top-k may differ
@@ -367,15 +392,16 @@ SSM_PROMPTS, SSM_NEW, SSM_MAX_LEN, SSM_PRIME = (400, 114, 93, 58), 16, 512, 397
 # longest prefill (M = 400)
 MAMBA2_PROJ = ((2048, 4096), (2048, 256), (2048, 64), (4096, 2048))
 MAMBA2_M = (4, 400)
-# run (v): jamba-1.5-large at full width, its first JAMBA_LAYERS layers
-# (SSM+dense, SSM+MoE, SSM+dense, SSM+MoE, attention+dense), (g)'s
-# prompts with JAMBA_NEW new tokens; its projections (K, N): the SSM's
-# z/x_proj, bc_proj, dt_proj, out_proj, the attention's wq/wo and wk/wv,
-# the dense FFN and experts' w_gate/w_up and w_down (K = 24576); M = 4
-# at decode, the experts at their capacities: int(1.25 * 4 * 2 / 16) + 1
-# = 1 at decode, 18 and 10 at (g)'s 114- and 58-token prefills; the
+# run (v): jamba-1.5-large at full width, its pattern's positions
+# JAMBA_LAYERS (SSM+dense, SSM+MoE, attention+dense: every kind of layer
+# it has, one MoE; PERF.md §4 lists the earlier cut), (g)'s prompts with
+# JAMBA_NEW new tokens; its projections (K, N): the SSM's z/x_proj,
+# bc_proj, dt_proj, out_proj, the attention's wq/wo and wk/wv, the dense
+# FFN and experts' w_gate/w_up and w_down (K = 24576); M = 4 at decode,
+# the experts at their capacities: int(1.25 * 4 * 2 / 16) + 1 = 1 at
+# decode, 18 and 10 at (g)'s 114- and 58-token prefills; the
 # dense w_down at a whole prompt (114)
-JAMBA_LAYERS, JAMBA_NEW = 5, 4
+JAMBA_LAYERS, JAMBA_NEW = (2, 3, 4), 4
 JAMBA_PROJ = ((8192, 16384), (8192, 256), (8192, 128), (16384, 8192),
               (8192, 8192), (8192, 1024), (8192, 24576), (24576, 8192))
 JAMBA_DOWN_M = (1, 10, 18, 114)
@@ -389,8 +415,9 @@ WHISPER_FRAMES, WHISPER_MAX_LEN = 1500, 448
 WHISPER_PROMPTS, WHISPER_NEW, WHISPER_PREEMPT = (4, 8, 16, 24, 32, 48), 32, 6
 # run (x): qwen2-vl-72b at full width, cut in depth only to QWEN2VL_LAYERS
 # layers (the 80 layers at f32 are about 286 GB, more than the card
-# holds), (g)'s prompts at its vocabulary with QWEN2VL_NEW new tokens
-QWEN2VL_LAYERS, QWEN2VL_NEW, QWEN2VL_MAX_LEN = 2, 8, 256
+# holds; PERF.md §4 lists the earlier depth), (g)'s prompts at its
+# vocabulary with QWEN2VL_NEW new tokens
+QWEN2VL_LAYERS, QWEN2VL_NEW, QWEN2VL_MAX_LEN = 1, 8, 256
 # run (y): tinyllama-1.1b training through launch.train.main: TRAIN_STEPS
 # steps, then resumed to TRAIN_RESUME; losses held to TRAIN_RTOL between
 # the resumed and the uninterrupted run; step 1's loss inside
@@ -407,6 +434,16 @@ SHARD_STEPS, SHARD_PROMPT, SHARD_NEW, SHARD_HIDDEN_TOL = 3, 128, 8, 1e-4
 SHARD_ARCHS = ("granite-8b", "gemma3-4b", "deepseek-v3-671b",
                "jamba-1.5-large-398b", "mamba2-1.3b")
 SHARD_SCALE = dict(d_model=64, num_heads=4, num_kv_heads=4, vocab_size=256)
+# run (aa): tinyllama-1.1b with resident INT4 tables, b W4_B x W4_PROMPT
+# tokens into a W4_CACHE-row cache, then W4_STEPS decode steps
+W4_B, W4_PROMPT, W4_CACHE, W4_STEPS = 4, 128, 256, 16
+# run (ab): one production-mesh cell per mixer family all_cells runs,
+# base and w4, and the status each must have; (ac): the disk tier's key
+DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"),
+                ("deepseek-v3-671b", "decode_32k"),
+                ("mamba2-1.3b", "long_500k"), ("whisper-base", "decode_32k"))
+DRYRUN_EXPECT = {("whisper-base", "w4"): "error"}   # KeyError 'cwq'
+LINK_KEY_BYTES = 1 << 30
 BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 # calls a timed row averages for the microsecond kernels (decode, int4 at
 # M <= 16) and their plain and library versions: each traced call costs
@@ -443,39 +480,57 @@ def call_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# where the profiler records no device events (some of the H100
+# machines give a CUPTI trace with none in it, from the first trace of
+# the process on), device times fall back to CUDA events on the stream;
+# ``TIMER`` says which stands behind the printed numbers
+TIMER = {"device": "cupti", "empty_traces": 0}
+
+
 def device_events(torch, fn, attempts: int = 3):
     """(start, end) in µs of every kernel and copy ``fn()`` ran on the
     card, from a ``torch.profiler`` (CUPTI) trace.  A trace that comes
-    back empty (seen once on the H100 machine, for a library call that
-    had traced before) is taken again, up to ``attempts`` times; then it
-    raises, so no other measure stands in for device time."""
+    back empty is taken again, up to ``attempts`` times (once, after a
+    call that got none); then it returns ``[]``, and ``TIMER`` records
+    that the callers time with CUDA events instead."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(attempts):
+    for _ in range(attempts if TIMER["device"] == "cupti" else 1):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
         dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if dev:
+            TIMER["device"] = "cupti"
             return dev
-    raise RuntimeError(f"the profiler recorded no device events in "
-                       f"{attempts} traces")
+        TIMER["empty_traces"] += 1
+    if TIMER["device"] == "cupti":
+        log(f"the profiler recorded no device events in {attempts} traces: "
+            f"device times fall back to CUDA events on the stream (host "
+            f"gaps between launches included) until a trace holds some")
+    TIMER["device"] = "cuda events"
+    return []
 
 
 def device_ms(torch, fn, iters: int) -> float:
     """Mean device time per call of ``fn``: the durations of every kernel
     and copy it ran on the card over ``iters`` calls, summed and divided
-    by ``iters``."""
+    by ``iters`` (``call_ms`` where the trace holds none)."""
     fn()
     torch.cuda.synchronize()
     dev = device_events(torch, lambda: [fn() for _ in range(iters)])
+    if not dev:
+        return call_ms(torch, fn, iters)
     return sum(e - s for s, e in dev) / iters / 1e3
 
 
 def busy_share(ivals) -> dict:
     """Union of device intervals over the span from the first start to
-    the last end."""
+    the last end (None where the trace holds no device event)."""
+    if not ivals:
+        return {"device_busy_s": None, "device_span_s": None,
+                "device_busy_share": None}
     busy, cur = 0.0, None
     for s, e in sorted(ivals):
         if cur is None or s > cur[1]:
@@ -490,18 +545,11 @@ def busy_share(ivals) -> dict:
 
 
 def timings(torch, kernel, plain, library, iters: int) -> dict:
-    return {"ms": device_ms(torch, kernel, iters),
-            "plain_ms": device_ms(torch, plain, iters),
-            "library_ms": device_ms(torch, library, iters),
-            "call_ms": call_ms(torch, kernel, iters)}
-
-
-def bound_ms(nbytes: float, flops: float, rate: float = None):
-    """The larger of bytes over the memory rate and operations over the
-    peak rate of their type (fp32 outside the tensor cores unless
-    ``rate`` says otherwise), in ms, and which of the two it is."""
-    t_b, t_f = nbytes / HBM_BPS, flops / (rate or FP32_FLOPS)
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    out = {"ms": device_ms(torch, kernel, iters),
+           "plain_ms": device_ms(torch, plain, iters),
+           "library_ms": device_ms(torch, library, iters),
+           "call_ms": call_ms(torch, kernel, iters)}
+    return {**out, "device_timer": TIMER["device"]}
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +572,7 @@ def check_int4(torch, rng, dev):
     mamba2's SSM projections (runs u: N 4096, 256 and 64, at M = 4 and
     the 400-token prefill) and jamba's (run v: M = 4, and ``w_down``'s
     K = 24576 at M = 1, 10, 18 and 114)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     verify_m = B * (SPEC_K + 1)
@@ -595,29 +644,13 @@ def check_int4(torch, rng, dev):
                 torch, lambda: int4_matmul(x, packed, scale, group=G),
                 lambda: plain(x, packed, scale, G),
                 lambda: torch.matmul(x, wd), TIMING_ITERS if M <= 16 else 10))
-            nbytes = 4 * M * K + K * N // 2 + 4 * (K // G) * N + 4 * M * N
-            flops = 2.0 * M * K * N
-            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
-            if M > SMALL_M:    # two TF32 terms on the tensor cores
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, 2 * flops, TF32_FLOPS)
-                row["bound_rate"] = "tf32 x2 terms, 495 TFLOP/s"
-            else:
-                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-                row["bound_rate"] = "fp32, 67 TFLOP/s"
+            c = cost.int4_matmul(M, K, N, G)
+            row["bound_fp32_ms"] = cost.bound_ms(c.nbytes, c.flops)[0]
+            # two TF32 terms on the tensor cores above SMALL_M
+            row["bound_ms"], row["bound_by"], row["bound_rate"] = \
+                cost.int4_matmul_bound(M, K, N, G)
         rows.append(row)
     return rows
-
-
-def _attn_flops(torch, sq, sk, h, dh, b, causal, window, q_offset):
-    qp = q_offset + torch.arange(sq)[:, None]
-    kp = torch.arange(sk)[None, :]
-    m = torch.ones(sq, sk, dtype=torch.bool)
-    if causal:
-        m &= kp <= qp
-    if window:
-        m &= (qp - kp) < window
-    return 4.0 * b * h * dh * int(m.sum())
 
 
 def check_flash(torch, rng, dev):
@@ -635,6 +668,7 @@ def check_flash(torch, rng, dev):
     multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
     mask attends, ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention, plain
     # (b, sq, sk, h, hkv, dh, causal, window, q_offset, timed as)
     cases = [(B, PROMPT, PROMPT, 32, 4, 64, True, 0, 0, True),
@@ -722,13 +756,11 @@ def check_flash(torch, rng, dev):
                 lambda: plain(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, enable_gqa=True, **sdpa), 20))
-            nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-            flops = _attn_flops(torch, sq, sk, h, dh, b, causal, window,
-                                q_offset)
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
-                                                        TF32_FLOPS)
-            row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
-            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
+            work = (b, sq, sk, h, hkv, dh, causal, window, q_offset)
+            c = cost.flash_attention(*work)
+            row["bound_ms"], row["bound_by"], row["bound_rate"] = \
+                cost.flash_attention_bound(*work)
+            row["bound_fp32_ms"] = cost.bound_ms(c.nbytes, c.flops)[0]
         rows.append(row)
     return rows
 
@@ -759,8 +791,9 @@ def check_decode(torch, rng, dev):
     v), whisper's cross attention over its 1500 encoder rows and its
     448-row self-attention slab (group 1, run w) and Gemma 3's rolling
     buffers (``check_rolling_decode``) beside SDPA."""
-    from repro_torch.kernels.decode_attention import decode_attention, plain
     from repro_torch.core.kvstore import KV_LEN_BUCKET
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.decode_attention import decode_attention, plain
     last = PROMPT + GEN - 2            # the last decode step's position
     S = -(-(last + 1) // KV_LEN_BUCKET) * KV_LEN_BUCKET
     # (b, S, h, hkv, dh, pos, cache dtype, timed as)
@@ -837,11 +870,11 @@ def check_decode(torch, rng, dev):
                 lambda: plain(q, kc, vc, pos_t),
                 _sdpa_decode(torch, q, kc.float(), vc.float(), pos_t),
                 TIMING_ITERS))
-            live = sum(p + 1 for p in pos)
-            nbytes = (4 * 2 * q.numel() + 2 * live * hkv * dh
-                      * kc.element_size() + 4 * b)
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                nbytes, 4.0 * h * dh * live)
+            c = cost.decode_attention(b, h, hkv, dh,
+                                      sum(p + 1 for p in pos),
+                                      kc.element_size())
+            row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes,
+                                                             c.flops)
         rows.append(row)
     rows.append(check_rolling_decode(torch, rng, dev))
     return rows
@@ -894,9 +927,9 @@ def check_rolling_decode(torch, rng, dev):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                enable_gqa=True),
         TIMING_ITERS))
-    live = int(valid.sum())
-    nbytes = 4 * 2 * q.numel() + 2 * live * hkv * dh * 2 + 4 * b
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4.0 * h * dh * live)
+    from repro_torch.kernels import cost
+    c = cost.decode_attention(b, h, hkv, dh, int(valid.sum()), 2)
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes, c.flops)
     return row
 
 
@@ -909,6 +942,7 @@ def check_decode_int4(torch, rng, dev):
     256, S = 2048)."""
     from repro_torch.core.kvstore import KV_LEN_BUCKET, PackedRows, kv_group
     from repro_torch.core.kvstore import quantize_kv_rows
+    from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.decode_attention_int4 import (
         decode_attention_int4, plain)
@@ -996,12 +1030,10 @@ def check_decode_int4(torch, rng, dev):
                 lambda: plain(q, kq, ks, vq, vs, pos_t, **kw),
                 _sdpa_decode(torch, q, kd, vd, pos_t), TIMING_ITERS))
             hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
-            live = hist + (b if fresh else 0)
-            nbytes = (4 * 2 * q.numel() + 4 * b
-                      + 2 * hist * (F // 2 + 4 * (F // g))
-                      + (2 * 4 * b * F if fresh else 0))
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                nbytes, 4.0 * h * dh * live)
+            c = cost.decode_attention_int4(b, h, hkv, dh, hist, g,
+                                           bool(fresh))
+            row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes,
+                                                             c.flops)
         rows.append(row)
     return rows
 
@@ -1018,7 +1050,7 @@ def check_verify(torch, rng, dev):
     ``decode_attention``, rows for ``decode_attention_int4``)."""
     import torch.nn.functional as F
     from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cost, ops
     from repro_torch.models import attention as A
     b, S, s, h, hkv, dh = PAPER_REQS, 160, SPEC_K + 1, 32, 8, 128
     Fd, g = hkv * dh, kv_group(hkv * dh)
@@ -1075,7 +1107,7 @@ def check_verify(torch, rng, dev):
                    main=f"llama3.1-8b verify k={SPEC_K}",
                    launches_per_call=s)
         row.update(timings(torch, fn, plain(fn), lib, 20))
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        row["bound_ms"], row["bound_by"] = cost.bound_ms(nbytes, flops)
         out_rows.append(row)
     return out_rows[:1], out_rows[1:]
 
@@ -1096,6 +1128,7 @@ def check_mla_flash(torch, rng, dev):
     dn + dr, V read and the output written at dv, and over the pairs the
     mask attends, QK^T at dn + dr plus PV at dv, as three TF32 terms."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention, plain
     h, dq, dv = 128, 192, 128
     rows = []
@@ -1124,12 +1157,11 @@ def check_mla_flash(torch, rng, dev):
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True), 20))
             nbytes = 4 * (q.numel() + k.numel() + 2 * v.numel())
-            pairs = _attn_flops(torch, sq, sq, h, 1, 1, True, 0, 0) / 4
-            flops = 2.0 * pairs * (dq + dv)
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
-                                                        TF32_FLOPS)
+            flops = 2.0 * h * cost.attended_pairs(sq, sq) * (dq + dv)
+            row["bound_ms"], row["bound_by"] = cost.bound_ms(
+                nbytes, 3 * flops, cost.TF32_FLOPS)
             row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
-            row["bound_fp32_ms"] = bound_ms(nbytes, flops)[0]
+            row["bound_fp32_ms"] = cost.bound_ms(nbytes, flops)[0]
         rows.append(row)
     return rows
 
@@ -1148,6 +1180,7 @@ def time_mla_decode(torch, rng, dev):
     mask) over f32 copies of the caches; the largest difference between
     the two printed."""
     import torch.nn.functional as F
+    from repro_torch.kernels import cost
     from repro_torch.models.attention import mla_decode_attention
     b, S, h, r, dr = MLA_B, MLA_S, 128, 512, 64
     scale = 1.0 / math.sqrt(192)
@@ -1182,10 +1215,10 @@ def time_mla_decode(torch, rng, dev):
                ms=device_ms(torch, fn, iters), host_ms=host_ms,
                call_ms=call_ms(torch, fn, iters),
                library_ms=device_ms(torch, lib, iters),
-               bytes_bound_ms=nbytes / HBM_BPS * 1e3,
+               bytes_bound_ms=nbytes / cost.HBM_BPS * 1e3,
                max_abs_diff_vs_library=diff)
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 3 * flops,
-                                                TF32_FLOPS)
+    row["bound_ms"], row["bound_by"] = cost.bound_ms(nbytes, 3 * flops,
+                                                     cost.TF32_FLOPS)
     row["bound_rate"] = "tf32 x3 terms, 495 TFLOP/s"
     log(json.dumps({"mla_decode_plain": row}))
     return row
@@ -1350,11 +1383,11 @@ def whole_path_check(torch, ops, lm, prompt, toks_b):
 
 def serving_requests(n: int):
     """``n`` requests: prompt lengths in [32, 160] and max_new_tokens in
-    [16, 64], drawn from ``default_rng(0)``."""
+    ``SERVE_NEW``, drawn from ``default_rng(0)``."""
     import numpy as np
     rng = np.random.default_rng(0)
     lens = rng.integers(32, 161, n)
-    news = rng.integers(16, 65, n)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, n)
     return [(rng.integers(0, 32000, (int(l),)).astype(np.int32), int(m))
             for l, m in zip(lens, news)]
 
@@ -1406,8 +1439,28 @@ def serve_once(torch, ops, eng, reqs, rid0: int, preempt_after=None,
                 / 2**30)
 
 
+def refill_watch(eng):
+    """An ``on_step`` hook for ``serve_once`` and its record: ``refills``
+    counts the requests that entered a slot a finished request had held
+    while another slot kept the request it held before that step."""
+    n = len(eng.slots)
+    prev, held, rec = [None] * n, [None] * n, {"refills": 0}
+
+    def on_step():
+        now = [r.rid if r is not None else None for r in eng.slots]
+        for i, rid in enumerate(now):
+            if rid is not None and held[i] not in (None, rid) and any(
+                    now[j] is not None and now[j] == prev[j]
+                    for j in range(n) if j != i):
+                rec["refills"] += 1
+            if rid is not None:
+                held[i] = rid
+        prev[:] = now
+    return on_step, rec
+
+
 def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
-                on_build=None, launches=None, draws=None):
+                on_build=None, launches=None, draws=None, refill=False):
     """Build the engine with ``create_engine`` (from ``draws``, a
     ``DrawCache``, where given; ``on_build(eng)`` runs then), serve
     ``reqs`` once (and, with ``preempt``, once more with a slot
@@ -1419,7 +1472,10 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     ``decode_attention`` over their rolling buffers; the other decode
     kernel 0), and, with packed weights, int4_matmul = 7 projections x
     layers x (prefill passes + decode steps); ``launches(stats)``, where
-    given, names the exact counts instead (an SSM stack's).  Returns the
+    given, names the exact counts instead (an SSM stack's).  With
+    ``refill``, fails unless a queued request entered a slot that a
+    finished request freed while another slot still decoded (more
+    requests than slots; ``refill_watch``).  Returns the
     engine, the counts, the summary and the
     served run (tokens, per-request latency, and a copy of its trace:
     run (l) replays it)."""
@@ -1434,7 +1490,12 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
     build_peak = torch.cuda.max_memory_allocated() / 2**30
     if on_build is not None:
         on_build(eng)
-    r = serve_once(torch, ops, eng, reqs, 0)
+    on_step, watch = refill_watch(eng)
+    r = serve_once(torch, ops, eng, reqs, 0, on_step=on_step)
+    if refill and not (len(reqs) > plan.b_max and watch["refills"]):
+        raise RuntimeError(f"run {name}: no request entered a freed slot "
+                           f"while another decoded ({len(reqs)} requests "
+                           f"on {plan.b_max} slots)")
     r["trace"] = Trace.from_json(json.dumps(eng.trace.to_json()))
     report = eng.pipeline_report()
     n = plan.model_config().num_layers
@@ -1486,7 +1547,7 @@ def run_serving(torch, ops, name, plan, reqs, decode_kernel, preempt=False,
         "kv_dequant_bytes": eng.kvstore.dequant_bytes_total,
         "resident_gb": eng.resident_bytes / 2**30,
         "device_budget_gb": plan.device_budget / 2**30,
-        "launches": r["counts"]}
+        "refills": watch["refills"], "launches": r["counts"]}
     if preempt:
         p = serve_once(torch, ops, eng, reqs, 100, preempt_after=6)
         summary["preempt"] = {
@@ -2904,7 +2965,7 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
     with DrawCache() as draws:
         eng, counts["e"], summaries["e"], served_e = run_serving(
             torch, ops, "e", make_plan("int4", "performance", "int4"), reqs,
-            "decode_attention_int4", preempt=True, draws=draws)
+            "decode_attention_int4", preempt=True, draws=draws, refill=True)
         serving_whole_path(torch, ops, eng, [(p, 8) for p, _ in reqs[:B]])
         eng.shutdown()
         release(eng)
@@ -2917,7 +2978,7 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
         stamp("f")
 
         # 6b. (j) on tinyllama: (e)'s requests through the online engine
-        # (chunks of 32: final chunks of 13, 18, 1, 2, 7, 5, 9, 2 tokens,
+        # (chunks of 32: final chunks of 13, 18, 1, 2, 7 tokens,
         # so most take int4_matmul's small-M path), INT4 KV in the mixed
         # steps
         heads = []
@@ -2925,7 +2986,7 @@ def run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                                    sched="online", prefill_chunk=TINY_CHUNK)
         eng, counts["j_tiny"], summaries["j_tiny"], served = run_serving(
             torch, ops, "j_tiny", plan, reqs, "decode_attention_int4",
-            on_build=capture_chunk_heads(heads), draws=draws)
+            on_build=capture_chunk_heads(heads), draws=draws, refill=True)
         del eng._head
         summaries["j_tiny"]["vs_e"] = chunked_vs_monolithic(
             torch, eng, "j_tiny", reqs, served["outs"], heads,
@@ -2938,14 +2999,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
                                        "families", "mla", "ssm",
-                                       "frontends", "train", "shard"),
+                                       "frontends", "train", "shard",
+                                       "tooling"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
                          "them and runs (g)-(y) only (plan), or (o) and "
                          "(p) only (moe), or (q)-(s) only (families), or "
                          "(t) only (mla), or (u) and (v) only (ssm), or "
                          "(w) and (x) only (frontends), or (y) only "
-                         "(train), or (z) only (shard)")
+                         "(train), or (z) only (shard), or (aa)-(ac) "
+                         "only (tooling)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -3060,6 +3123,9 @@ def main(argv=None) -> int:
                                                 profile=True)
         stamp("z")
         return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "tooling":
+        run_tooling(torch, ops, np, card, counts, summaries, stamp)
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces, stamp)
@@ -3136,6 +3202,9 @@ def main(argv=None) -> int:
     counts["z"], summaries["z"] = run_shard(torch, ops, np, card, draws)
     del draws
     stamp("z")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_tooling(torch, ops, np, card, counts, summaries, stamp)
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -3419,6 +3488,7 @@ def time_ssm_plain(torch, rng, dev):
     time a call, calls a step, the bound (bytes over 3.35 TB/s or f32
     operations at 67 TFLOP/s) and the largest difference from the same
     call on the CPU over the largest value.  Returns the rows."""
+    from repro_torch.kernels import cost
     from repro_torch.models import layers as L
     from repro_torch.models import ssm as S
     mk = lambda *s: torch.tensor(rng.standard_normal(s) * 0.3,
@@ -3443,7 +3513,7 @@ def time_ssm_plain(torch, rng, dev):
                  host_ms=host_ms, call_ms=call_ms(torch, call, iters),
                  calls=calls, rel_diff_vs_cpu=(
                      (out - cpu).abs().max() / cpu.abs().max()).item())
-        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
+        r["bound_ms"], r["bound_by"] = cost.bound_ms(nbytes, flops)
         rows.append(r)
         log(json.dumps({"ssm_plain": r}))
 
@@ -3719,24 +3789,26 @@ def run_mamba2(torch, ops, np):
 def run_jamba(torch, ops, np):
     """Run (v): jamba-1.5-large at full width (d 8192, 64/8 heads of
     128; SSM d_inner 16384, 128 heads of 128, d_state 128; 16 experts of
-    d_ff 24576, top-2; vocab 65536, untied), its depth cut to its first
-    ``JAMBA_LAYERS`` layers (SSM+dense, SSM+MoE, SSM+dense, SSM+MoE,
+    d_ff 24576, top-2; vocab 65536, untied), its depth cut to its
+    pattern's positions ``JAMBA_LAYERS`` (SSM+dense, SSM+MoE,
     attention+dense), INT4.  The default budget's plan (disk) is printed;
     the run forces ``placement="host"`` (run o covers the disk tier):
     offloaded, depth 1, bf16 caches, ``b_max`` 4, ``max_len`` 256.  (g)'s
     prompts with ``JAMBA_NEW`` new tokens: exact launches
-    (``int4_matmul`` = 33 a pass (5 x 4 SSM, 3 x 3 dense FFN, 4
-    attention) + 3 x the experts loaded; ``flash_attention`` = the
+    (``int4_matmul`` a pass: 5 an SSM layer, 4 an attention layer, 3 a
+    dense FFN, + 3 x the experts loaded; ``flash_attention`` = the
     prefills; ``decode_attention`` = the decode steps, group 8, dh 128);
     per decode step its ms, the weight bytes (units, routed union) and
     the state/halo and KV bytes; the build's seconds and peak RSS; the
     peak beside the memory model's estimate and its parts; then the whole
     path as run (o)'s (held routing, flips at most 0.5 %)."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, DENSE, MOE, SSM
     from repro_torch.serving.spec import EngineSpec, create_engine
     base = get_config("jamba-1.5-large-398b")
-    cfg = dataclasses.replace(base, num_layers=JAMBA_LAYERS, num_periods=0,
-                              remainder=tuple(base.pattern[:JAMBA_LAYERS]))
+    layers = tuple(base.pattern[i] for i in JAMBA_LAYERS)
+    cfg = dataclasses.replace(base, num_layers=len(layers), num_periods=0,
+                              remainder=layers)
     spec = dict(arch="jamba-1.5-large-398b", cfg=cfg, quant="int4")
     dplan = EngineSpec(**spec).resolve()
     log(f"(v) default plan: {dplan.summary()}")
@@ -3758,8 +3830,9 @@ def run_jamba(torch, ops, np):
     keys = [k for u in moe_units for k in u.expert_keys]
     per = {eng.weights.nbytes(k) for k in keys}
     kinds = [(u.spec.mixer, u.spec.ffn) for u in eng.units]
-    if (len(eng.units) != JAMBA_LAYERS or len(moe_units) != 2
-            or len(keys) != 2 * E or len(per) != 1):
+    n_moe = sum(s.ffn == MOE for s in layers)
+    if (len(eng.units) != len(layers) or len(moe_units) != n_moe
+            or len(keys) != n_moe * E or len(per) != 1):
         raise RuntimeError(f"run v: units {kinds}, {len(keys)} experts, "
                            f"sizes {per}")
     per_expert = per.pop()
@@ -3786,10 +3859,12 @@ def run_jamba(torch, ops, np):
     st = r["stats"]
     passes = st["prefills"] + st["decode_steps"]
     loads = sum(sum(s["experts_per_layer"]) for s in steps)
+    per_pass = sum({SSM: 5, ATTN: 4}[s.mixer] for s in layers) \
+        + 3 * sum(s.ffn == DENSE for s in layers)
     check_launches("v", r["counts"], {
         "flash_attention": st["prefills"], "flash_attention_q_offset": 0,
         "decode_attention": st["decode_steps"], "decode_attention_int4": 0,
-        "int4_matmul": 3 * loads + 33 * passes}, exact=True)
+        "int4_matmul": 3 * loads + per_pass * passes}, exact=True)
     outs = r["outs"]
     if sorted(outs) != list(range(len(reqs))) or any(
             len(outs[i]) != JAMBA_NEW or not all(0 <= t < cfg.vocab_size
@@ -4274,11 +4349,61 @@ def train_breakdown(torch, model, params):
     return out
 
 
-def profiled(torch, fn) -> dict:
+@contextlib.contextmanager
+def labelled(torch, sites, label: str):
+    """For the block's duration, wrap each ``(module, name)`` function of
+    ``sites`` in ``torch.profiler.record_function(label)``, so that a
+    profile can tell which operators it called itself."""
+    saved = [(m, a, getattr(m, a)) for m, a in sites]
+
+    def wrap(fn):
+        def labelled_fn(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return labelled_fn
+    for m, a, fn in saved:
+        setattr(m, a, wrap(fn))
+    try:
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+def cast_events(events, label: str, inner: str):
+    """The ``aten::to`` events called by a function ``labelled`` with
+    ``label`` itself: their nearest ``aten::`` or labelled ancestor is
+    ``label`` (not ``inner``, the label of the functions it calls)."""
+    out = []
+    for e in events:
+        if e.name != "aten::to":
+            continue
+        p = e.cpu_parent
+        while p is not None and not (p.name in (label, inner)
+                                     or p.name.startswith("aten::")):
+            p = p.cpu_parent
+        if p is not None and p.name == label:
+            out.append(e)
+    return out
+
+
+def subtree_device_ms(e) -> float:
+    """Device ms of the kernels an operator and its callees launched."""
+    own = getattr(e, "self_device_time_total", None)
+    if own is None:
+        own = e.self_cuda_time_total
+    return own / 1e3 + sum(subtree_device_ms(c) for c in e.cpu_children)
+
+
+def profiled(torch, fn, casts_of=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the card's busy share
     over its span, its device ms and kernels, the host's operator count
     (``aten::`` calls, the collectives' ``c10d::`` ones apart) and the
-    eight kernels that took the most device time."""
+    eight kernels that took the most device time.  With ``casts_of``, a
+    pair of ``labelled`` labels (the ops', the kernel wrappers'), also
+    the ``aten::to`` calls the ops made themselves (``casts``), those
+    whose launches the trace holds (``casts_timed``: a long run's trace
+    can miss a few) and their device ms (``casts_ms``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -4286,9 +4411,29 @@ def profiled(torch, fn) -> dict:
         torch.cuda.synchronize()
     events = prof.events()
     dev = [e for e in events
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name not in (casts_of or ())]
     host = [e.name for e in events
             if e.device_type == torch.autograd.DeviceType.CPU]
+    counts = {"aten_ops": sum(n.startswith("aten::") for n in host),
+              "c10d_ops": sum(n.startswith("c10d::") for n in host)}
+    casts = {}
+    if casts_of is not None:
+        ms = [subtree_device_ms(e) for e in cast_events(events, *casts_of)]
+        casts = {"casts": len(ms), "casts_timed": sum(t > 0 for t in ms),
+                 "casts_ms": sum(ms)}
+    if not dev:                 # CUDA events around one more call
+        TIMER["empty_traces"] += 1
+        TIMER["device"] = "cuda events"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return {**busy_share([]), "device_ms": start.elapsed_time(end),
+                "kernels": None, **counts, "top_ms": [],
+                "timer": "cuda events", **casts}
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
@@ -4297,9 +4442,8 @@ def profiled(torch, fn) -> dict:
     return {**busy_share([(e.time_range.start, e.time_range.end)
                           for e in dev]),
             "device_ms": sum(by_name.values()), "kernels": len(dev),
-            "aten_ops": sum(n.startswith("aten::") for n in host),
-            "c10d_ops": sum(n.startswith("c10d::") for n in host),
-            "top_ms": [[n[:80], ms] for n, ms in top]}
+            **counts, "top_ms": [[n[:80], ms] for n, ms in top],
+            "timer": "cupti", **casts}
 
 
 # ---------------------------------------------------------------------------
@@ -4585,6 +4729,321 @@ def run_shard(torch, ops, np, card, init=None, profile=False):
     return launched, summary
 
 
+# ---------------------------------------------------------------------------
+# runs (aa)-(ac): the tooling slice
+# ---------------------------------------------------------------------------
+
+def w4_serve(torch, model, params, toks, caches_out=None):
+    """Prefill ``toks`` (b, W4_PROMPT) into a W4_CACHE-row cache, then
+    W4_STEPS greedy decode steps, through ``launch.steps``; (tokens (b,
+    1 + W4_STEPS), the prefill's head input)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import layers as L
+    rec, restore = head_inputs(L)
+    try:
+        tok, caches = make_prefill_step(model, W4_CACHE)(params,
+                                                         {"tokens": toks})
+        out = [tok]
+        step = make_decode_step(model)
+        for k in range(W4_STEPS):
+            tok, caches = step(params, {"token": out[-1][:, None],
+                                        "pos": W4_PROMPT + k}, caches)
+            out.append(tok)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    if caches_out is not None:
+        caches_out.append(caches)
+    return torch.stack(out, 1), rec[0]
+
+
+def run_w4(torch, ops, np, card):
+    """Run (aa): tinyllama-1.1b at full width and depth with resident
+    INT4 tables (``quant_weights``: ``wq``, ``wk``, ``wv``, ``wo``,
+    ``w_gate``, ``w_up``, ``w_down`` packed, drawn from seed 0 as packed
+    bytes), f32 activations, ``Dist.local()``: ``make_prefill_step`` on
+    b 4 x 128 tokens, then 16 ``make_decode_step`` calls, against the
+    same on ``use_kernels(False)`` (hidden states at the prefill within
+    1e-4 x max, tokens equal) with exact launches: ``int4_matmul`` at
+    each packed projection the reference runs (the dense feed-forward is
+    skipped in both packages: ROADMAP Queue 3 item 24), ``flash_attention``
+    a layer at the prefill, ``decode_attention`` a layer a step.  Then
+    the roofline counter's count of one decode step on meta tensors
+    beside its profiled device ms and the peak memory, and one bf16
+    decode step through the ops' cast path against ``use_kernels(False)``
+    (head inputs within 2e-2 x max, tokens equal, exact launches), with
+    the casts' device time read from that step's profile.
+    Returns (launch counts, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline import HW, analyze_step, roofline_report
+    from repro_torch.launch.steps import make_decode_step
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              quant_weights=True)
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    host = T.init_params(cfg, 0)
+    params = T.to_device(host, dev)
+    del host
+    build_s = time.perf_counter() - t0
+    packed = sorted(n[:-2] for n in L.layer_table(cfg, cfg.pattern[0])
+                    if n.endswith("#q"))
+    # the projections that run: the attention's (the reference's dense
+    # feed-forward looks for an unpacked w_gate and is skipped)
+    ran = [n for n in packed if not n.startswith("w_")]
+    g = np.random.default_rng(0)
+    toks = torch.tensor(g.integers(0, cfg.vocab_size, (W4_B, W4_PROMPT)),
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    caches = []
+    with torch.no_grad():
+        out, head = w4_serve(torch, model, params, toks, caches)
+    serve_s = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = 1 + W4_STEPS
+    expect = {"int4_matmul": len(ran) * cfg.num_layers * forwards,
+              "flash_attention": cfg.num_layers,
+              "decode_attention": cfg.num_layers * W4_STEPS,
+              "decode_attention_int4": 0}
+    check_launches("aa", counts, expect, exact=True)
+    ops.use_kernels(False)
+    try:
+        with torch.no_grad():
+            plain_out, plain_head = w4_serve(torch, model, params, toks)
+    finally:
+        ops.use_kernels(True)
+    rel = ((head - plain_head).abs().max()
+           / plain_head.abs().max()).item()
+    same = bool(torch.equal(out, plain_out))
+    if rel > HIDDEN_RTOL or not same:
+        raise RuntimeError(f"(aa): prefill hidden states {rel:.3e} x max "
+                           f"(tol {HIDDEN_RTOL}), tokens equal {same}")
+    # one more decode step: the counter on meta tensors, the card's
+    # profile
+    step = make_decode_step(model)
+    pos = W4_PROMPT + W4_STEPS
+    batch = {"token": out[:, -1:].contiguous(), "pos": pos}
+    meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")
+    from repro_torch.tree import tree_map
+    acc = analyze_step(step, tree_map(meta, params),
+                       {"token": meta(batch["token"]), "pos": pos},
+                       tree_map(meta, caches[0]))
+    rep = roofline_report({k: v for k, v in acc.items()
+                           if k not in ("out", "kernels")}, HW())
+    prof = profiled(torch, lambda: step(params, batch, caches[0]))
+    count = {"t_bound_s": rep["t_bound_s"], "bottleneck": rep["bottleneck"],
+             "flops": acc["flops"], "hbm_bytes": acc["hbm_bytes"],
+             "temp_bytes": acc["temp_bytes"], "arg_bytes": acc["arg_bytes"],
+             "int4_matmul_bytes_share": acc["kernels"]["int4_matmul"][
+                 "bytes"] / acc["hbm_bytes"],
+             "kernels_counted": {k: v["count"]
+                                 for k, v in acc["kernels"].items()}}
+    # one bf16 decode step through the ops' cast path (the packed tables
+    # keep their uint8 and f32)
+    def bf16(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: bf16(v, k) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(bf16(v, name) for v in tree)
+        return tree if T.keeps_dtype(name) else tree.to(torch.bfloat16)
+    params_bf = bf16(params)
+    caches_bf = tree_map(lambda t: t.to(torch.bfloat16), caches[0])
+    bf_arm = {}
+    for on in (True, False):    # the same step (it rewrites row ``pos``)
+        rec, restore = head_inputs(L)
+        ops.use_kernels(on)
+        ops.reset_launches()
+        try:
+            with torch.no_grad():
+                tok_bf, _ = step(params_bf, batch, caches_bf)
+            torch.cuda.synchronize()
+        finally:
+            ops.use_kernels(True)
+            restore()
+        bf_arm[on] = (tok_bf, rec[0], dict(ops.LAUNCHES))
+    bf_launches = bf_arm[True][2]
+    bf_expect = {"int4_matmul": len(ran) * cfg.num_layers,
+                 "flash_attention": 0, "decode_attention": cfg.num_layers,
+                 "decode_attention_int4": 0}
+    check_launches("aa bf16", bf_launches, bf_expect, exact=True)
+    bf_rel = ((bf_arm[True][1] - bf_arm[False][1]).abs().max()
+              / bf_arm[False][1].abs().max()).item()
+    bf_same = bool(torch.equal(bf_arm[True][0], bf_arm[False][0]))
+    if bf_rel > BF16_HIDDEN_RTOL or not bf_same:
+        raise RuntimeError(f"(aa) bf16 step: head inputs {bf_rel:.3e} x "
+                           f"max (tol {BF16_HIDDEN_RTOL}), tokens equal "
+                           f"{bf_same}")
+    # the casts' device time from the step's own profile: the ``aten::to``
+    # calls the ops make themselves (two for each packed projection, q's
+    # and the output's for each decode attention), told apart by labels
+    # on the ops and on the kernel wrappers they call
+    with labelled(torch, [(L, "int4_matmul_op"),
+                          (ops, "decode_attention_op")], "kernel op"), \
+            labelled(torch, [(ops, "int4_matmul"),
+                             (ops, "decode_attention")], "kernel wrapper"):
+        prof_bf = profiled(torch, lambda: step(params_bf, batch, caches_bf),
+                           casts_of=("kernel op", "kernel wrapper"))
+    casts_expect = 2 * (len(ran) + 1) * cfg.num_layers
+    if prof_bf["timer"] == "cupti" and not prof_bf["casts"]:
+        raise RuntimeError(f"(aa) bf16 step: no cast found in its profile, "
+                           f"{casts_expect} expected")
+    del params_bf, caches_bf, caches
+    summary = {"card": card, "build_s": build_s, "serve_s": serve_s,
+               "launches": counts, "expect": expect,
+               "prefill_hidden_rel": rel, "tokens_equal": same,
+               "peak_gib": peak / 2**30, "step_device_ms": prof["device_ms"],
+               "step_busy_share": prof["device_busy_share"],
+               "step_top_ms": prof["top_ms"][:4], "counted": count,
+               "bf16_step_device_ms": prof_bf["device_ms"],
+               "bf16_step_casts": prof_bf["casts"],
+               "bf16_step_casts_expected": casts_expect,
+               "bf16_step_casts_timed": prof_bf["casts_timed"],
+               "bf16_step_casts_device_ms": prof_bf["casts_ms"],
+               "bf16_step_top_ms": prof_bf["top_ms"][:4],
+               "bf16_head_rel_vs_plain": bf_rel,
+               "bf16_tokens_equal": bf_same,
+               "bf16_launches": bf_launches}
+    log(json.dumps({"w4_run_aa": summary}))
+    del params
+    return counts, summary
+
+
+def run_dryrun_modes(torch):
+    """Run (ab): the dry run's three modes through
+    ``repro_torch.launch.dryrun``: ``--serving --arch tinyllama-1.1b
+    --scaled`` on the card (the plan lines and one request served),
+    ``--replay`` of a golden fixture, and one production-mesh cell per
+    mixer family (``DRYRUN_CELLS``) in ``base`` and ``w4``, traced on
+    meta tensors, each printed as the reference prints it and held to
+    its expected status.  Returns the summary."""
+    import io
+    import tempfile
+    from repro_torch.launch import dryrun as D
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        D.main(["--serving", "--arch", "tinyllama-1.1b", "--scaled"])
+    serving_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"(ab) {line}")
+    if not any(ln.startswith("[SMOKE] tinyllama-1.1b") for ln in lines):
+        raise RuntimeError("(ab) --serving served no request")
+    buf = io.StringIO()
+    fixture = ROOT / "tests" / "fixtures" / "trace_warm_d1.json"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        D.main(["--replay", str(fixture)])
+    replay_s = time.perf_counter() - t0
+    replay_lines = buf.getvalue().splitlines()
+    for line in replay_lines:
+        log(f"(ab) {line}")
+    if len(replay_lines) != 14:
+        raise RuntimeError(f"(ab) --replay printed {len(replay_lines)} "
+                           f"lines")
+    rows, bad = [], []
+    with tempfile.TemporaryDirectory(prefix="pipo_dryrun_") as out:
+        for variant in ("base", "w4"):
+            for arch, shape in DRYRUN_CELLS:
+                row = D.run_cell(arch, shape, False, Path(out), variant)
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    D.print_row(row)
+                log(f"(ab) {variant:4s} {buf.getvalue().rstrip()}")
+                want = DRYRUN_EXPECT.get((arch, variant), "ok")
+                if row["status"] != want:
+                    bad.append((arch, shape, variant, row["status"],
+                                row.get("error")))
+                rows.append({k: row.get(k) for k in (
+                    "arch", "shape", "variant", "status", "trace_s",
+                    "bytes_per_device", "bottleneck", "t_bound_s",
+                    "roofline_fraction", "error")})
+    if bad:
+        raise RuntimeError(f"(ab) cells with another status: {bad}")
+    summary = {"serving_s": serving_s, "replay_s": replay_s,
+               "cells": rows}
+    log(json.dumps({"dryrun_run_ab": summary}))
+    return summary
+
+
+def run_link_probe(np):
+    """Run (ac): the transfer suite on the card's disk tier: one
+    ``LINK_KEY_BYTES`` key in a fresh ``DiskStore`` under the temporary
+    directory, read cold (``DiskStore.drop_cache`` before each) by
+    ``naive_disk_to_host``, ``blockwise_disk_to_host`` (3 threads) and
+    ``pipelined_disk_to_device`` (to the card), each in GB/s and checked
+    bit-equal to what was written, then ``sweep_block_size`` over 1-64
+    MB (the reference's sizes, one read each, the page cache as the
+    reads leave it).  Returns the summary."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.offload import DiskStore
+    from repro_torch.core import transfer as X
+    root = tempfile.mkdtemp(prefix="pipo_link_")
+    try:
+        disk = DiskStore(root)
+        data = np.frombuffer(np.random.default_rng(0).bytes(LINK_KEY_BYTES),
+                             np.uint8).copy()
+        t0 = time.perf_counter()
+        disk.put("w", data)
+        write_s = time.perf_counter() - t0
+        out = {"key_bytes": LINK_KEY_BYTES, "write_s": write_s}
+        for name, fn in (
+                ("naive_disk_to_host", lambda: X.naive_disk_to_host(
+                    disk, "w")),
+                ("blockwise_disk_to_host", lambda: X.blockwise_disk_to_host(
+                    disk, "w", n_threads=3)),
+                ("pipelined_disk_to_device",
+                 lambda: X.pipelined_disk_to_device(disk, "w", n_threads=3,
+                                                    device="cuda"))):
+            cold = disk.drop_cache("w")
+            t0 = time.perf_counter()
+            got = fn()
+            if isinstance(got, torch.Tensor):
+                torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            same = np.array_equal(got.cpu().numpy() if isinstance(
+                got, torch.Tensor) else got, data)
+            if not same:
+                raise RuntimeError(f"(ac) {name} read other bytes")
+            out[name] = {"gb_s": LINK_KEY_BYTES / s / 1e9, "s": s,
+                         "cold": cold}
+            del got
+        t0 = time.perf_counter()
+        dev = X.host_to_device(data, device="cuda")
+        out["host_to_device"] = {"gb_s": LINK_KEY_BYTES / (
+            time.perf_counter() - t0) / 1e9, "includes_pin": True}
+        del dev
+        out["sweep_block_size"] = [
+            {"block_mb": bs / 2**20, "gb_s": bw / 1e9}
+            for bs, bw in X.sweep_block_size(disk, "w", repeats=1)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(json.dumps({"link_probe_run_ac": out}))
+    return out
+
+
+def run_tooling(torch, ops, np, card, counts, summaries, stamp):
+    """Runs (aa)-(ac), each its own phase."""
+    counts["aa"], summaries["aa"] = run_w4(torch, ops, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("aa")
+    summaries["ab"] = run_dryrun_modes(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("ab")
+    summaries["ac"] = run_link_probe(np)
+    stamp("ac")
+
+
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:
     """14. The kernels line (each kernel's launches in the run its timed
     shape comes from, and per run), the card and the result line."""
@@ -4605,6 +5064,7 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "call_ms": m["call_ms"],
             "parity": "ok", "shape": m["shape"],
+            "device_timer": m.get("device_timer", TIMER["device"]),
             "launches_by_run": {k: c[name] for k, c in counts.items()}}
         if name == "flash_attention":
             entry["q_offset_launches_by_run"] = {
@@ -4621,7 +5081,8 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
         kernels.append(entry)
     torch.cuda.synchronize()
     log(json.dumps({"wall_s": {"total": time.perf_counter() - t_start,
-                               "by_phase": phase_s}}))
+                               "by_phase": phase_s},
+                    "device_timer": TIMER}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 from repro_torch.configs.base import (ATTN, DENSE, MOE, SHAPES, LayerSpec,
                                       ModelConfig, MoEConfig, ShapeConfig,
                                       scaled_down, shape_applicable)
-from repro_torch.configs.registry import REGISTRY, get_config
+from repro_torch.configs.registry import (ASSIGNED, REGISTRY, all_cells,
+                                          get_config, get_shape, list_archs)
 
 __all__ = ["ATTN", "DENSE", "MOE", "LayerSpec", "ModelConfig", "MoEConfig",
            "SHAPES", "ShapeConfig", "scaled_down", "shape_applicable",
-           "REGISTRY", "get_config"]
+           "ASSIGNED", "REGISTRY", "all_cells", "get_config", "get_shape",
+           "list_archs"]

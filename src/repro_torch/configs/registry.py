@@ -1,9 +1,12 @@
 """``arch`` registry of the port: the JAX package's registry, name for
 name (the ten assigned architectures and the paper's models).  Every
-name resolves to a plan and builds the engine its plan names."""
+name resolves to a plan and builds the engine its plan names.  The dry
+run's cells are every assigned arch against the four production shapes
+(``all_cells``: 40, ``shape_applicable`` marking the runnable ones)."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3
 from repro_torch.configs.gemma3_4b import CONFIG as GEMMA3_4B
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B
@@ -27,3 +30,24 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def list_archs() -> list[str]:
+    return sorted(ASSIGNED)
+
+
+def all_cells():
+    """Every (arch, shape, runnable, skip_reason) cell — 40 total."""
+    out = []
+    for a in list_archs():
+        cfg = ASSIGNED[a]
+        for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            ok, why = shape_applicable(cfg, SHAPES[s])
+            out.append((a, s, ok, why))
+    return out

@@ -42,7 +42,7 @@ import torch
 from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core.transfer import int4_group
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import F32_NAMES
+from repro_torch.models.transformer import keeps_dtype
 from repro_torch.quant.int4 import dequantize_int4, quantize_int4
 
 
@@ -254,7 +254,8 @@ def from_reference_train_state(params, opt_state=None, device="cuda",
     "step"}`` or Adafactor's ``{"s": {name: {"m", "vr", "vc" | "v"}},
     "step"}``, or None), numpy leaves, become tensors on ``device`` in
     the same structure.  Every leaf keeps its dtype, except that with
-    ``dtype`` the parameters are cast to it (the SSM scalars stay f32,
+    ``dtype`` the parameters are cast to it (the SSM scalars stay f32
+    and a resident INT4 table's ``#q``/``#s`` keep their uint8 and f32,
     as in the reference).  Returns (params, opt_state).  With ``mesh``
     (a ``DeviceMesh``) and ``specs`` ((parameter specs, optimizer-state
     specs), ``param_pspecs`` and ``zero_pspecs`` or ``adafactor_pspecs``)
@@ -278,7 +279,7 @@ def from_reference_train_state(params, opt_state=None, device="cuda",
         if isinstance(t, (tuple, list)):
             return type(t)(walk(v, cast, name) for v in t)
         out = _tensor(t, dev)
-        if cast and dtype is not None and name not in F32_NAMES:
+        if cast and dtype is not None and not keeps_dtype(name):
             out = out.to(dtype)
         return out
     return (walk(params, True),

@@ -10,19 +10,28 @@
 Merged buffers and manifests are byte-identical to the JAX package's
 (``merge_tensors`` works on numpy arrays, sorted by name), so the link
 bytes a trace records are the same in both.
+
+The link probe (the reference's suite, with its signatures and an
+explicit ``device``): ``naive_disk_to_host`` (one read), the parallel
+``blockwise_disk_to_host``, ``host_to_device`` (a pinned buffer to the
+card, synchronized), ``pipelined_disk_to_device`` (blockwise reads
+overlapped with staged copies of the finished blocks on a side stream,
+the Fig. 3 timeline) and ``sweep_block_size`` (Appendix A).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.offload import DiskStore
+from repro_torch.core.offload import DiskStore, as_tensor
+from repro_torch.device import resolve_device
 from repro_torch.quant.int4 import GROUP, dequantize_int4, quantize_int4
 
 DEFAULT_BLOCK = 8 * 2**20          # 8MB disk blocks (paper Appendix A)
@@ -257,3 +266,78 @@ def blockwise_disk_to_host(disk: DiskStore, key: str,
     with ThreadPoolExecutor(max_workers=n_threads) as ex:
         list(ex.map(lambda b: disk.read_range(key, b[0], b[1], out), blocks))
     return out.view(dtype).reshape(shape)
+
+
+def naive_disk_to_host(disk: DiskStore, key: str) -> np.ndarray:
+    """Baseline: one read of the whole file (the ``torch.load`` analogue)."""
+    return disk.get(key)
+
+
+def host_to_device(arr, device="cuda") -> torch.Tensor:
+    """``arr`` (a numpy array or a host tensor) copied to ``device``
+    from a pinned buffer, synchronized before it returns (the card unless
+    the caller asks for the CPU, where it is a copy)."""
+    dev = resolve_device(device)
+    src = as_tensor(arr)
+    if dev.type == "cuda" and not src.is_pinned():
+        src = src.pin_memory()
+    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    out.copy_(src, non_blocking=dev.type == "cuda")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out
+
+
+def pipelined_disk_to_device(disk: DiskStore, key: str,
+                             block_bytes: int = DEFAULT_BLOCK,
+                             n_threads: int = 3,
+                             device="cuda") -> torch.Tensor:
+    """The whole suite: blockwise reads on ``n_threads`` threads into a
+    pinned host buffer, each finished block copied on to ``device`` on a
+    side stream while later blocks are still being read (Fig. 3), then
+    one synchronize.  Returns the key's array on ``device``."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    shape, dtype = disk.meta(key)
+    total = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+    host_np = host.numpy()
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    blocks = [(o, min(block_bytes, total - o))
+              for o in range(0, total, block_bytes)]
+
+    def read_block(b):
+        disk.read_range(key, b[0], b[1], host_np)
+        return b
+
+    stream = torch.cuda.Stream(dev) if cuda else None
+    with ThreadPoolExecutor(max_workers=max(1, n_threads)) as ex:
+        futs = [ex.submit(read_block, b) for b in blocks]
+        with (torch.cuda.stream(stream) if cuda
+              else contextlib.nullcontext()):
+            for fut in as_completed(futs):
+                o, n = fut.result()      # overlap: copy while reads go on
+                out[o:o + n].copy_(host[o:o + n], non_blocking=cuda)
+    if cuda:
+        stream.synchronize()
+    return out.view(_torch_dtype(dtype)).reshape(shape)
+
+
+def sweep_block_size(disk: DiskStore, key: str, sizes=None,
+                     n_threads: int = 3, repeats: int = 2):
+    """Appendix A: [(block bytes, bytes/s)] of ``blockwise_disk_to_host``
+    at each block size, the best of ``repeats`` reads each."""
+    sizes = sizes or [1 * 2**20, 2 * 2**20, 4 * 2**20, 8 * 2**20,
+                      16 * 2**20, 32 * 2**20, 64 * 2**20]
+    shape, dtype = disk.meta(key)
+    total = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    out = []
+    for bs in sizes:
+        ts = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            blockwise_disk_to_host(disk, key, block_bytes=bs,
+                                   n_threads=n_threads)
+            ts.append(time.perf_counter() - t0)
+        out.append((bs, total / min(ts)))
+    return out

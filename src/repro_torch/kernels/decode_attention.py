@@ -9,7 +9,8 @@ reuse it, and f32 or bf16 caches (the serving engine's cache dtype; the
 arithmetic stays f32).  An int ``pos`` goes to the kernel as an argument
 and ``q`` may have any batch stride, so a call launches nothing but the
 kernel.  A CPU tensor runs the plain version ``decode_attention_ref``; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises; a meta tensor gets an empty
+output and reports the kernel's operations and bytes (``kernels.cost``).
 
 The sequence split (``chunk_plan``) and the host-side argument helpers
 are shared with ``decode_attention_int4``, whose kernel runs the same
@@ -22,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import decode_attention_ref
 
 NAME = "decode_attention"
@@ -66,6 +67,20 @@ def pos_args(pos, b: int, device: torch.device):
     return pos_t.expand(b).contiguous(), 0
 
 
+def live_rows(pos, b: int, S: int, fresh: bool = False) -> int:
+    """Cached rows a decode call reads over the batch: ``pos`` (or
+    ``pos + 1`` without a fresh row) a row, at most ``S``; every row of
+    the slab where ``pos`` is a tensor on meta, whose values no one can
+    read."""
+    extra = 0 if fresh else 1
+    if not isinstance(pos, torch.Tensor):
+        return b * min(int(pos) + extra, S)
+    if pos.device.type == "meta":
+        return b * S
+    p = pos.reshape(-1).expand(b).to("cpu", torch.int64)
+    return int(torch.clamp(p + extra, max=S).sum())
+
+
 def _vec(dh: int, esize: int, *ptrs: int) -> int:
     """Cache elements per load: the most in 16 bytes that divides a row
     and keeps every base address aligned."""
@@ -91,9 +106,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if h // hkv > 32 or dh > MAX_DH:
         raise ValueError(f"decode_attention: needs h // hkv <= 32 and dh <= "
                          f"{MAX_DH}, got {h // hkv}, {dh}")
+    if q.device.type == "meta":
+        live = live_rows(pos, b, S)
     pos_t, pos0 = pos_args(pos, b, q.device)
-    _build.require_cuda(NAME, k_cache, v_cache,
-                        *(() if pos_t is None else (pos_t,)))
+    if q.device.type != "meta":
+        _build.require_cuda(NAME, k_cache, v_cache,
+                            *(() if pos_t is None else (pos_t,)))
     if q.device != k_cache.device:
         raise ValueError(f"{NAME}: tensors on {q.device} and "
                          f"{k_cache.device}")
@@ -101,6 +119,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or k_cache.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("decode_attention: needs f32 q and f32 or bf16 "
                          "caches of one dtype")
+    if q.device.type == "meta":
+        cost.report(NAME, cost.decode_attention(
+            b, h, hkv, dh, live, k_cache.element_size()),
+            (tuple(q.shape), tuple(k_cache.shape)))
+        return torch.empty((b, h, dh), dtype=torch.float32, device="meta")
     q_rs = row_stride(q, NAME + ": q")
     ranks, cpr = chunk_plan(S)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)

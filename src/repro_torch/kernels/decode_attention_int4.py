@@ -11,8 +11,10 @@ which it attends unquantized at ``pos[r]`` after the packed rows
 bf16 every value is rounded to bf16 before use (the serving cache's
 compute dtype).  A CPU tensor runs the plain version
 ``decode_attention_int4_ref``; a CUDA tensor launches the kernel or
-raises.  Its sequence split (``chunk_plan``) and chunk step are
-``decode_attention``'s (``csrc/decode_attention_common.cuh``).
+raises; a meta tensor gets an empty output and reports the kernel's
+operations and bytes (``kernels.cost``).  Its sequence split
+(``chunk_plan``) and chunk step are ``decode_attention``'s
+(``csrc/decode_attention_common.cuh``).
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.decode_attention import (MAX_DH, chunk_plan,
-                                                  pos_args, row_stride)
+                                                  live_rows, pos_args,
+                                                  row_stride)
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
@@ -76,13 +79,16 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         raise ValueError(f"decode_attention_int4: needs h // hkv <= 32, dh "
                          f"<= {MAX_DH} and a power-of-two group, got "
                          f"{h // hkv}, {dh}, {group}")
-    pos_t, pos0 = pos_args(pos, b, q.device)
     has_new = k_new is not None
+    if q.device.type == "meta":
+        hist = live_rows(pos, b, S, has_new)
+    pos_t, pos0 = pos_args(pos, b, q.device)
     if has_new:
         k_new, v_new = (t if t.dtype == torch.float32 else t.float()
                         for t in (k_new, v_new))
-    _build.require_cuda(NAME, k_packed, k_scale, v_packed, v_scale,
-                        *(() if pos_t is None else (pos_t,)))
+    if q.device.type != "meta":
+        _build.require_cuda(NAME, k_packed, k_scale, v_packed, v_scale,
+                            *(() if pos_t is None else (pos_t,)))
     for t in (q,) + ((k_new, v_new) if has_new else ()):
         if t.device != k_packed.device:
             raise ValueError(f"{NAME}: tensors on {t.device} and "
@@ -92,6 +98,11 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
                                torch.float32, torch.float32):
         raise ValueError("decode_attention_int4: needs f32 q, uint8 packed "
                          "rows and f32 scales")
+    if q.device.type == "meta":
+        cost.report(NAME, cost.decode_attention_int4(
+            b, h, hkv, dh, hist, group, has_new),
+            (tuple(q.shape), tuple(k_packed.shape)))
+        return torch.empty((b, h, dh), dtype=torch.float32, device="meta")
     q_rs = row_stride(q, NAME + ": q")
     kn_rs, vn_rs = ((row_stride(k_new, NAME + ": k_new"),
                      row_stride(v_new, NAME + ": v_new"))

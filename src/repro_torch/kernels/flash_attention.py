@@ -5,7 +5,9 @@ flash_attention`` with the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` (see its header for what bounds it and how
 the design answers).  Arbitrary ``sq``/``sk``; rows with nothing to
 attend output 0.  A CPU tensor runs the plain version
-``flash_attention_ref``; a CUDA tensor launches the kernel or raises.
+``flash_attention_ref``; a CUDA tensor launches the kernel or raises;
+a meta tensor gets an empty output and reports the kernel's operations
+and bytes (``kernels.cost``).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import flash_attention_ref
 
 NAME = "flash_attention"
@@ -54,9 +56,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dh > MAX_DH or dh % 4:
         raise ValueError(f"flash_attention: needs head_dim <= {MAX_DH} and "
                          f"a multiple of 4, got {dh}")
-    _build.require_cuda(NAME, q, k, v)
+    if q.device.type != "meta":
+        _build.require_cuda(NAME, q, k, v)
     if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
         raise ValueError("flash_attention: needs f32 q, k, v")
+    if q.device.type == "meta":
+        cost.report(NAME, cost.flash_attention(
+            b, sq, sk, h, hkv, dh, causal, window, q_offset),
+            (tuple(q.shape), tuple(k.shape)))
+        return torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)

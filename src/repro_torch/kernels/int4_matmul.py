@@ -4,7 +4,8 @@ Replaces the TPU kernel ``src/repro/kernels/int4_matmul.py:int4_matmul``
 with the hand-written CUDA kernel ``csrc/int4_matmul.cu`` (see its header
 for what bounds it and how the design answers).  A CPU tensor runs the
 plain version ``int4_matmul_ref``; a CUDA tensor launches the kernel or
-raises.
+raises; a meta tensor (the roofline counter's trace) gets an empty
+output and reports the kernel's operations and bytes (``kernels.cost``).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import int4_matmul_ref
 
 NAME = "int4_matmul"
@@ -95,10 +96,15 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                          f", group {group}")
     if x.device.type == "cpu":
         return plain(x, packed, scale, group)
-    _build.require_cuda(NAME, x, packed, scale)
+    if x.device.type != "meta":
+        _build.require_cuda(NAME, x, packed, scale)
     if (x.dtype, packed.dtype, scale.dtype) != (torch.float32, torch.uint8,
                                                 torch.float32):
         raise ValueError("int4_matmul: needs f32 x, uint8 packed, f32 scale")
+    if x.device.type == "meta":
+        cost.report(NAME, cost.int4_matmul(M, K, N, group),
+                    (tuple(x.shape), tuple(packed.shape)))
+        return torch.empty((M, N), dtype=torch.float32, device="meta")
     n_sms = _build.num_sms(x.device.index)
     xa = x.data_ptr() % 16 == 0
     if M <= SMALL_M:

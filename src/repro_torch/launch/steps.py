@@ -6,22 +6,29 @@ Under a mesh the parameters and the optimizer state are DTensors
 differentiates ``loss / world`` (the collectives' backward passes are
 the JAX transpose rules, the adjoints of the program summed over ranks),
 so each gradient comes back as a DTensor of its parameter's placements,
-counted once.
+counted once.  On an abstract mesh (the dry run's) the leaves are
+``AbstractDTensor``s, whose blocks are differentiated directly.
+
+A tree with an integer leaf (a resident INT4 table's ``#q``) cannot be
+differentiated: ``value_and_grad`` refuses it before any work, with the
+reference's ``jax.grad`` reason (ROADMAP Queue 3 item 22).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import Dist
+from repro_torch.models.common import AbstractDTensor, Dist
 from repro_torch.models.model import Model
 from repro_torch.optim import apply_updates
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import flatten_with_path, leaves, unflatten
 
 
 def _to(device, batch):
-    """A numpy (or tensor) batch on ``device`` (DTensors as they are)."""
-    return {k: v if isinstance(v, torch.Tensor) and v.device == device
-            else torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """A numpy (or tensor) batch on ``device`` (placed leaves as they
+    are)."""
+    return {k: v if isinstance(v, AbstractDTensor) or (
+        isinstance(v, torch.Tensor) and v.device == device)
+        else torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def _device(t) -> torch.device:
@@ -38,16 +45,37 @@ def value_and_grad(model: Model, params, batch, remat: bool = True,
     Under a mesh ``dist`` the loss is the whole one and the gradients are
     DTensors like the parameters."""
     dist = dist or Dist.local()
+    for path, t in flatten_with_path(params):
+        if not (t.dtype.is_floating_point or t.dtype.is_complex):
+            raise TypeError(
+                f"grad requires real- or complex-valued inputs (input dtype "
+                f"that is a sub-dtype of np.inexact), but got "
+                f"{str(t.dtype)[6:]} (parameter {path})")
     flat = leaves(params)
     batch = _to(_device(flat[0]), batch)
     live = [p.detach().requires_grad_(True) for p in flat]
+    blocks = [_block(p) for p in live]
     with torch.enable_grad():
         loss = model.train_loss(unflatten(params, live), batch, dist,
                                 remat=remat)
         share = loss / dist.world if dist.is_dist else loss
-        grads = torch.autograd.grad(share, live, allow_unused=True)
+        grads = torch.autograd.grad(share, blocks, allow_unused=True)
     return loss.detach(), unflatten(params, [
-        torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)])
+        _like(torch.zeros_like(b) if g is None else g, p)
+        for p, b, g in zip(flat, blocks, grads)])
+
+
+def _block(t):
+    """What autograd differentiates: an ``AbstractDTensor``'s block, any
+    other leaf (a tensor or a DTensor) itself."""
+    return t.to_local() if isinstance(t, AbstractDTensor) else t
+
+
+def _like(g, p):
+    """A gradient block laid out as the parameter ``p``."""
+    if isinstance(p, AbstractDTensor):
+        return AbstractDTensor(g, p.device_mesh, p.placements, p.shape)
+    return g
 
 
 def make_train_step(model: Model, dist: Dist = None, opt=None):

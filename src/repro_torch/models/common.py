@@ -37,6 +37,16 @@ then counted once, neither multiplied by a group's size nor dropped.
 Collectives run inside ``in_mesh(dist)``, the counterpart of
 ``shard_map``'s mesh: the groups come from the ``Dist`` in force, and
 each backward keeps the group of its forward.
+
+On an ``AbstractMesh`` (the dry run's production meshes, no process
+group) the program is one rank's, traced on meta tensors: every
+collective returns an empty tensor of its local result's shape, appends
+``(kind, bytes, group size)`` to ``COLL_RECORD`` (the roofline counter
+reads it; ``kind`` the HLO name, ``bytes`` the output's) and never
+calls ``torch.distributed``; ``axis_index`` is 0.  A placed leaf there
+is an ``AbstractDTensor`` (the block, the mesh, the placements and the
+whole shape), which ``Dist.dtensor`` makes where a ``DeviceMesh``
+gives a DTensor.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import contextvars
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -55,6 +65,60 @@ NEG_INF = -1e30
 # collectives issued, by name ("all_gather", "psum", ...), forward and
 # backward; reset by whoever reads them
 COLLECTIVES: collections.Counter = collections.Counter()
+# collectives issued on an AbstractMesh: (kind, output bytes, group
+# size), forward and backward; emptied by whoever reads them
+COLL_RECORD: list = []
+
+
+class AbstractGroup(NamedTuple):
+    """A group of axes on an ``AbstractMesh``: its size, no ranks."""
+    size: int
+
+
+class AbstractDTensor:
+    """One rank's block of a tensor laid out on an ``AbstractMesh``: what
+    a DTensor is on a ``DeviceMesh``, with the calls the port makes of
+    one (``to_local``, ``placements``, ``device_mesh``, the whole
+    ``shape``).  Not a tensor: the code that differentiates through one
+    takes its block (``launch.steps.value_and_grad``)."""
+
+    def __init__(self, local: torch.Tensor, device_mesh, placements, shape):
+        self._local = local
+        self.device_mesh = device_mesh
+        self.placements = tuple(placements)
+        self.shape = torch.Size(shape)
+
+    def to_local(self) -> torch.Tensor:
+        return self._local
+
+    @property
+    def dtype(self):
+        return self._local.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def detach(self) -> "AbstractDTensor":
+        return AbstractDTensor(self._local.detach(), self.device_mesh,
+                               self.placements, self.shape)
+
+    def requires_grad_(self, flag: bool = True) -> "AbstractDTensor":
+        self._local.requires_grad_(flag)
+        return self
+
+    def __repr__(self):
+        return (f"AbstractDTensor(local={tuple(self._local.shape)}, "
+                f"shape={tuple(self.shape)}, {self.placements})")
+
+
+def is_placed(t) -> bool:
+    """Whether ``t`` is a rank's block of a laid-out tensor (a DTensor
+    or an ``AbstractDTensor``)."""
+    if isinstance(t, AbstractDTensor):
+        return True
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
 
 
 def mesh_sizes(mesh) -> dict:
@@ -114,6 +178,11 @@ class Dist:
         return self.mesh is not None
 
     @property
+    def is_abstract(self) -> bool:
+        """A mesh with no process group (``launch.mesh.AbstractMesh``)."""
+        return self.is_dist and not hasattr(self.mesh, "get_group")
+
+    @property
     def shape(self) -> dict:
         return mesh_sizes(self.mesh) if self.is_dist else {}
 
@@ -154,7 +223,9 @@ class Dist:
 
     def index(self, axis) -> int:
         """This rank's coordinate along ``axis`` (a tuple: flattened,
-        row-major)."""
+        row-major); 0 on an abstract mesh."""
+        if self.is_abstract:
+            return 0
         idx = 0
         for a in _axes(axis):
             idx = idx * self.shape[a] + self.mesh.get_local_rank(a)
@@ -166,6 +237,8 @@ class Dist:
         order = self.axis_names
         if tuple(sorted(axes, key=order.index)) != axes:
             raise ValueError(f"axes {axes} out of the mesh's order {order}")
+        if self.is_abstract:
+            return AbstractGroup(self.size(axes))
         if len(axes) == 1:
             return self.mesh.get_group(axes[0])
         return flat_groups(self.mesh)[axes]
@@ -197,9 +270,13 @@ class Dist:
 
     def dtensor(self, local, spec, shape):
         """This rank's block ``local`` as the DTensor of whole ``shape``
-        laid out by ``spec`` on the mesh."""
-        from torch.distributed.tensor import DTensor
+        laid out by ``spec`` on the mesh (an ``AbstractDTensor`` on an
+        abstract mesh)."""
         shape = torch.Size(shape)
+        if self.is_abstract:
+            return AbstractDTensor(local, self.mesh,
+                                   self.placements(spec, len(shape)), shape)
+        from torch.distributed.tensor import DTensor
         return DTensor.from_local(
             local, self.mesh, self.placements(spec, len(shape)),
             run_check=False, shape=shape,
@@ -256,7 +333,18 @@ def _tdist():
     return tdist
 
 
+def _abstract(kind: str, x: torch.Tensor, group, shape=None):
+    """A collective on an abstract group: an empty result of ``shape``
+    (default ``x``'s), recorded in ``COLL_RECORD``."""
+    out = torch.empty(x.shape if shape is None else shape, dtype=x.dtype,
+                      device=x.device)
+    COLL_RECORD.append((kind, out.numel() * out.element_size(), group.size))
+    return out
+
+
 def _all_reduce(x, group, op="sum"):
+    if isinstance(group, AbstractGroup):
+        return _abstract("all-reduce", x, group)
     tdist = _tdist()
     y = x.contiguous().clone()
     tdist.all_reduce(y, op=getattr(tdist.ReduceOp, op.upper()), group=group)
@@ -264,6 +352,10 @@ def _all_reduce(x, group, op="sum"):
 
 
 def _gather(x, group, n, dim):
+    if isinstance(group, AbstractGroup):
+        shape = list(x.shape)
+        shape[dim] *= n
+        return _abstract("all-gather", x, group, shape)
     tdist = _tdist()
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
@@ -272,6 +364,10 @@ def _gather(x, group, n, dim):
 
 
 def _scatter_sum(x, group, n, dim):
+    if isinstance(group, AbstractGroup):
+        shape = list(x.shape)
+        shape[dim] //= n
+        return _abstract("reduce-scatter", x, group, shape)
     tdist = _tdist()
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
@@ -280,6 +376,8 @@ def _scatter_sum(x, group, n, dim):
 
 
 def _a2a(x, group):
+    if isinstance(group, AbstractGroup):
+        return _abstract("all-to-all", x, group)
     tdist = _tdist()
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -290,6 +388,8 @@ def _a2a(x, group):
 def _permute(x, group, pairs, me):
     """Send ``x`` along ``pairs`` ((src, dst) group indices); a rank that
     receives nothing gets zeros."""
+    if isinstance(group, AbstractGroup):
+        return _abstract("collective-permute", x, group)
     tdist = _tdist()
     ranks = tdist.get_process_group_ranks(group)
     x = x.contiguous()

@@ -6,8 +6,13 @@ The single-device subset of the JAX package's ``models/layers.py``: the
 tables (``name -> ParamDef(shape, axes, scale)``) that drive
 ``models.transformer.init_params``, and the layer math the serving
 engines run (the offloaded one per unit, the resident one over the whole
-stack).  Resident INT4 tables (``cfg.quant_weights``, which only the
-JAX package's dry run sets) are not ported.  An ``ENC`` layer
+stack).  Resident INT4 tables (``cfg.quant_weights``, which the dry
+run's ``w4`` variant sets) replace each eligible 2-D projection of the
+attention and dense-FFN tables by a packed ``name#q``/``name#s`` pair
+(``_maybe_quant``), which ``_mm`` sends through ``int4_matmul``; the
+cross attention reads its ``c``-prefixed tables unpacked, as the
+reference does, so a ``quant_weights`` whisper raises ``KeyError`` there
+in both packages.  An ``ENC`` layer
 (whisper's encoder) is bidirectional attention
 without rope; a ``CROSS`` layer (whisper's decoder) is a causal
 self-attention, then attention over every encoder row through the
@@ -112,18 +117,40 @@ class ParamDef(NamedTuple):
 
 def _dense_only(cfg: ModelConfig, spec: LayerSpec):
     if spec.mixer not in (ATTN, ATTN_LOCAL, MLA, SSM, ENC, CROSS) \
-            or spec.ffn not in (DENSE, MOE) or cfg.quant_weights:
+            or spec.ffn not in (DENSE, MOE):
         raise NotImplementedError(
             f"the port runs ATTN, ATTN_LOCAL, MLA, SSM, ENC and CROSS "
-            f"layers with a DENSE or MOE feed-forward and f32 tables, got "
-            f"{spec} ({cfg.name}, quant_weights={cfg.quant_weights}); "
-            f"resident INT4 tables (quant_weights) wait for the dry run's "
-            f"port (ROADMAP Queue 1 item 5)")
+            f"layers with a DENSE or MOE feed-forward, got {spec} "
+            f"({cfg.name})")
 
 
 # ===========================================================================
 # Parameter tables
 # ===========================================================================
+
+
+QUANT_GROUP = 128
+
+
+def _maybe_quant(cfg: ModelConfig, table: dict) -> dict:
+    """Under ``cfg.quant_weights`` each eligible 2-D entry (K % 128 == 0,
+    an even N, K * N >= 2**16) becomes a packed ``name#q`` (K, N/2) and
+    its scales ``name#s`` (K/128, N), the reference's rule; the scales
+    -2 and -3 mark them for ``init_params``."""
+    if not cfg.quant_weights:
+        return table
+    out = {}
+    for name, pd in table.items():
+        K = pd.shape[0] if pd.shape else 0
+        if (len(pd.shape) == 2 and K % QUANT_GROUP == 0
+                and pd.shape[1] % 2 == 0 and K * pd.shape[1] >= 1 << 16):
+            out[name + "#q"] = ParamDef((K, pd.shape[1] // 2),
+                                        (pd.axes[0], pd.axes[1]), -2.0)
+            out[name + "#s"] = ParamDef((K // QUANT_GROUP, pd.shape[1]),
+                                        (None, pd.axes[1]), -3.0)
+        else:
+            out[name] = pd
+    return out
 
 
 def attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
@@ -137,6 +164,7 @@ def attn_table(cfg: ModelConfig, cross: bool = False) -> dict:
         pre + "wv": ParamDef((d, hkv * dh), ("embed", "kv_ff")),
         pre + "wo": ParamDef((h * dh, d), ("heads_ff", "embed")),
     }
+    t = _maybe_quant(cfg, t)
     if cfg.qk_norm and not cross:
         t["q_norm"] = ParamDef((dh,), (None,), 0.0)
         t["k_norm"] = ParamDef((dh,), (None,), 0.0)
@@ -208,11 +236,11 @@ def ffn_table(cfg: ModelConfig, spec: LayerSpec) -> dict:
     if spec.ffn == DENSE:
         if cfg.d_ff == 0:
             return {}
-        return {
+        return _maybe_quant(cfg, {
             "w_gate": ParamDef((d, cfg.d_ff), ("embed", "ff")),
             "w_up": ParamDef((d, cfg.d_ff), ("embed", "ff")),
             "w_down": ParamDef((cfg.d_ff, d), ("ff", "embed")),
-        }
+        })
     m = cfg.moe
     t = {
         "wg": ParamDef((d, m.num_experts), ("embed", None)),
@@ -768,8 +796,14 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_dense_ffn(p, x, ctx: Ctx):
+    """The dense SwiGLU feed-forward; a streamed INT4 unit's packed
+    ``w_gate#q`` pairs go through ``_mm``.  A resident INT4 table
+    (``cfg.quant_weights``) holds ``w_gate#q`` where the reference looks
+    for ``w_gate``, so the reference skips its feed-forward: so does the
+    port (ROADMAP Queue 3 item 24)."""
     cfg = ctx.cfg
-    if cfg.d_ff == 0 or ("w_gate" not in p and "w_gate#q" not in p):
+    if cfg.d_ff == 0 or ("w_gate" not in p and (
+            cfg.quant_weights or "w_gate#q" not in p)):
         return x
     xn = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
     h = silu(_mm(xn, p, "w_gate")) * _mm(xn, p, "w_up")

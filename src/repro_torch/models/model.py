@@ -1,14 +1,14 @@
 """Public model facade: one object binding a ``ModelConfig`` to init,
-the training loss, prefill, decode and its caches (the JAX package's
-``models/model.py``, without the dry-run input specs), each on one
-device or, with a mesh ``Dist``, sharded."""
+the training loss, prefill, decode, its caches and the dry run's input
+structs (the JAX package's ``models/model.py``), each on one device or,
+with a mesh ``Dist``, sharded."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dist
@@ -56,6 +56,30 @@ class Model:
 
     def cache_struct(self, b: int, cache_len: int, enc_len=None):
         return T.cache_struct(self.cfg, b, cache_len, enc_len)
+
+    # ---- dry-run input structs ----------------------------------------------
+    def input_struct(self, shape: ShapeConfig, enc_pad: int = 0):
+        """The inputs of a workload shape as meta tensors, the reference's
+        structs: int32 tokens and labels, bf16 ``embeds``/``enc_embeds``
+        (the frontends' stubs, ``enc_pad`` frames when given); a decode
+        step's (b, 1) token and 0-d position."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = lambda sh, dt: torch.empty(sh, dtype=dt, device="meta")
+        i32, bf = torch.int32, torch.bfloat16
+        if shape.kind == "decode":
+            return {"token": meta((b, 1), i32), "pos": meta((), i32)}
+        batch = {}
+        if shape.kind == "train":
+            batch["labels"] = meta((b, s), i32)
+        if cfg.frontend == "embeds" and not cfg.enc_dec:
+            batch["embeds"] = meta((b, s, cfg.d_model), bf)
+        else:
+            batch["tokens"] = meta((b, s), i32)
+        if cfg.enc_dec:
+            batch["enc_embeds"] = meta(
+                (b, enc_pad or cfg.encoder_seq_len, cfg.d_model), bf)
+        return batch
 
 
 def build_model(cfg: ModelConfig) -> Model:

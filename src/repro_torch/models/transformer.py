@@ -92,8 +92,9 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, CROSS, DENSE, ENC,
                                       MLA, MOE, SSM, LayerSpec, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import (Dist, all_gather, in_mesh, pvary,
-                                       relayout, replicated_axes)
+from repro_torch.models.common import (Dist, all_gather, in_mesh,
+                                       is_placed, pvary, relayout,
+                                       replicated_axes)
 from repro_torch.models.rope import (rope_angles, sinusoidal_positions,
                                      sinusoidal_rows)
 from repro_torch.tree import leaves, unflatten
@@ -105,6 +106,17 @@ ENC_SPEC = LayerSpec(ENC, DENSE)
 AUX_WEIGHT = 0.01  # load-balance loss weight
 # parameters the reference keeps in f32 whatever the tree's dtype
 F32_NAMES = ("A_log", "dt_bias", "D")
+
+
+def keeps_dtype(name: str) -> bool:
+    """Whether a leaf keeps its own dtype whatever the tree's: the f32
+    SSM scalars and a resident INT4 table's packed bytes (``#q``,
+    uint8) and scales (``#s``, f32)."""
+    return name in F32_NAMES or name.endswith(("#q", "#s"))
+
+
+def _np_dtype(pd: L.ParamDef):
+    return np.uint8 if pd.scale == -2.0 else np.float32
 
 
 def model_tables(cfg: ModelConfig):
@@ -126,8 +138,14 @@ def model_tables(cfg: ModelConfig):
 def _init_entry(rng: np.random.Generator, pd: L.ParamDef,
                 shape=None) -> np.ndarray:
     """``pd`` drawn at its scale, at ``shape`` (default ``pd.shape``; an
-    expert's slice of a stack keeps the stack's scale)."""
+    expert's slice of a stack keeps the stack's scale).  A resident INT4
+    table's packed bytes (scale -2, ``#q``) are uint8 in [0, 255), its
+    scales (-3, ``#s``) f32 in [1e-3, 2e-3), as the reference draws them."""
     shape = pd.shape if shape is None else shape
+    if pd.scale == -2.0:
+        return rng.integers(0, 255, shape, dtype=np.uint8)
+    if pd.scale == -3.0:
+        return rng.uniform(1e-3, 2e-3, shape).astype(np.float32)
     if pd.scale == 0.0:
         return np.zeros(shape, np.float32)
     scale = pd.scale if pd.scale > 0 else 1.0 / math.sqrt(max(1, pd.shape[0]))
@@ -242,7 +260,7 @@ def init_params(cfg: ModelConfig, seed: int):
     # model's largest entries: one thread each
     params = {part: table_params(cfg, seed, part, tables=tabs, workers=2)
               for part in ("embed", "final_norm")}
-    pat = [{name: np.empty((cfg.num_periods,) + pd.shape, np.float32)
+    pat = [{name: np.empty((cfg.num_periods,) + pd.shape, _np_dtype(pd))
             for name, pd in t.items()} for t in tabs["pat"]]
     rem = [None] * len(cfg.remainder)
     for (part, q, p), t in draw_tables(cfg, seed, table_keys(cfg)):
@@ -254,7 +272,7 @@ def init_params(cfg: ModelConfig, seed: int):
     params["pat"], params["rem"] = tuple(pat), tuple(rem)
     if cfg.enc_dec:
         n = cfg.num_encoder_layers
-        enc = {name: np.empty((n,) + pd.shape, np.float32)
+        enc = {name: np.empty((n,) + pd.shape, _np_dtype(pd))
                for name, pd in tabs["enc"]["pat"][0].items()}
         keys = [("enc_pat", 0, p) for p in range(n)]
         for (_, _, p), t in draw_tables(cfg, seed, keys):
@@ -268,11 +286,11 @@ def init_params(cfg: ModelConfig, seed: int):
 def to_device(tree, device, dtype=None):
     """A parameter tree of numpy arrays (``init_params``) as tensors on
     ``device``, in the same structure; with ``dtype`` every leaf but the
-    SSM scalars (``F32_NAMES``, f32 in the reference whatever its dtype)
-    is cast to it on the device."""
+    SSM scalars and the packed INT4 tables (``keeps_dtype``: their dtype
+    in the reference whatever the tree's) is cast to it on the device."""
     def put(name, a):
         t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        return t if dtype is None or name in F32_NAMES else t.to(dtype)
+        return t if dtype is None or keeps_dtype(name) else t.to(dtype)
 
     def walk(t, name=None):
         if isinstance(t, dict):
@@ -307,10 +325,18 @@ def map_params_tree(cfg: ModelConfig, fn):
 
 def param_struct(cfg: ModelConfig, dtype=torch.bfloat16):
     """The tree's shapes and dtypes as ``device="meta"`` tensors: every
-    leaf at ``dtype`` but the f32 SSM scalars; ``pat`` stacked over
-    ``num_periods``, the encoder's over ``num_encoder_layers``."""
-    def leaf(shape, name):
-        dt = torch.float32 if name in F32_NAMES else dtype
+    leaf at ``dtype`` but the f32 SSM scalars, a packed ``#q`` uint8 and
+    its ``#s`` f32; ``pat`` stacked over ``num_periods``, the encoder's
+    over ``num_encoder_layers``.  The encoder's leaves are typed as the
+    reference's ``param_struct`` types them, ``#q``/``#s`` at ``dtype``
+    (ROADMAP Queue 3 item 23)."""
+    def leaf(shape, name, packed=True):
+        if packed and name.endswith("#q"):
+            dt = torch.uint8
+        elif (packed and name.endswith("#s")) or name in F32_NAMES:
+            dt = torch.float32
+        else:
+            dt = dtype
         return torch.empty(shape, dtype=dt, device="meta")
 
     def fn(name, pd, stacked):
@@ -319,7 +345,7 @@ def param_struct(cfg: ModelConfig, dtype=torch.bfloat16):
     tree = map_params_tree(cfg, fn)
     if cfg.enc_dec:
         tree["enc"]["pat"] = tuple(
-            {name: leaf((cfg.num_encoder_layers,) + pd.shape, name)
+            {name: leaf((cfg.num_encoder_layers,) + pd.shape, name, False)
              for name, pd in t.items()}
             for t in model_tables(cfg)["enc"]["pat"])
     return tree
@@ -433,11 +459,6 @@ def _angles(cfg: ModelConfig, positions: torch.Tensor):
 # ===========================================================================
 
 
-def _is_dtensor(t) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(t, DTensor)
-
-
 def _enter(params, dist: Dist):
     """(this rank's shard of every parameter leaf, each through
     ``pvary`` over the axes it is replicated on; the storage specs).  A
@@ -446,7 +467,7 @@ def _enter(params, dist: Dist):
     local, specs = [], []
     with in_mesh(dist):
         for t in leaves(params):
-            if _is_dtensor(t):
+            if is_placed(t):
                 spec = dist.spec_of(t.placements, t.ndim)
                 t = t.to_local()
             else:
@@ -460,7 +481,7 @@ def _local(t, want, dist: Dist):
     """This rank's block of ``t`` (a DTensor, or the whole tensor on
     every rank) under the spec ``want``."""
     with in_mesh(dist):
-        if _is_dtensor(t):
+        if is_placed(t):
             return relayout(t.to_local(), dist.spec_of(t.placements, t.ndim),
                             want)
         return relayout(t, (None,) * t.ndim, want)

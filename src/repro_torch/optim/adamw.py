@@ -33,7 +33,8 @@ from typing import Callable, Union
 
 import torch
 
-from repro_torch.models.common import Dist, active, in_mesh, psum, relayout
+from repro_torch.models.common import (AbstractDTensor, Dist, active,
+                                       in_mesh, psum, relayout)
 from repro_torch.tree import leaves, tree_map
 
 F32 = torch.float32
@@ -68,6 +69,8 @@ def _placed(local, like):
     pl = getattr(like, "placements", None)
     if pl is None:
         return local
+    if isinstance(like, AbstractDTensor):
+        return AbstractDTensor(local, like.device_mesh, pl, like.shape)
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(local, like.device_mesh, pl, run_check=False,
                               shape=like.shape, stride=like.stride())

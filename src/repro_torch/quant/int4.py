@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.tree import flatten_with_path, unflatten
+
 GROUP = 128
 
 
@@ -102,3 +104,22 @@ def dequantize_int4_stack(packed: torch.Tensor, scale: torch.Tensor,
     fs = scale.reshape((-1,) + tuple(scale.shape[-2:]))
     w = torch.stack([dequantize_int4(p, s, dtype, g) for p, s in zip(fp, fs)])
     return w.reshape(lead + tuple(w.shape[1:]))
+
+
+def quantize_tree(params, min_size: int = 1 << 16, group: int = GROUP):
+    """Quantize every 2-D leaf with K divisible by ``group``, an even N
+    and at least ``min_size`` elements; returns (the tree with each such
+    leaf replaced by ``{"packed", "scale"}``, the set of their paths,
+    ``/``-joined dict keys and sequence indices as in
+    ``repro_torch.tree``)."""
+    quantized, out = set(), []
+    for path, leaf in flatten_with_path(params):
+        if (isinstance(leaf, torch.Tensor) and leaf.ndim == 2
+                and leaf.shape[0] % group == 0 and leaf.shape[1] % 2 == 0
+                and leaf.numel() >= min_size):
+            packed, scale = quantize_int4(leaf, group)
+            out.append({"packed": packed, "scale": scale})
+            quantized.add(path)
+        else:
+            out.append(leaf)
+    return unflatten(params, out), quantized

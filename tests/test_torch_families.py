@@ -90,8 +90,9 @@ def test_tables_match_reference():
 
 def test_dense_only_names_what_is_still_unported():
     """Whisper's CROSS and ENC layers now build, their tables equal to
-    the JAX package's; resident INT4 tables (``quant_weights``) are still
-    refused."""
+    the JAX package's; resident INT4 tables (``quant_weights``) build
+    too since the tooling slice, qwen3's (with ``qk_norm``) equal to the
+    JAX package's: nothing of a registry arch is left unported."""
     for arch in ("whisper-base",):
         jc = scaled_down(get_config(arch))
         cfg = PB.scaled_down(port_config(arch))
@@ -104,10 +105,14 @@ def test_dense_only_names_what_is_still_unported():
                 assert tuple(jt[n].shape) == tuple(pt[n].shape), (spec, n)
                 assert jt[n].scale == pt[n].scale, (spec, n)
         assert "cwq" in PL.layer_table(cfg, cfg.pattern[0])
-    pc = CFGS["qwen3-8b"][1]
-    with pytest.raises(NotImplementedError, match="quant_weights"):
-        PL.layer_table(dataclasses.replace(pc, quant_weights=True),
-                       pc.pattern[0])
+    jc, pc = CFGS["qwen3-8b"]
+    wide = dict(d_model=256, num_heads=4, head_dim=64, quant_weights=True)
+    jt = JL.layer_table(dataclasses.replace(jc, **wide), jc.pattern[0])
+    pt = PL.layer_table(dataclasses.replace(pc, **wide), pc.pattern[0])
+    assert sorted(pt) == sorted(jt) and "wq#q" in pt and "q_norm" in pt
+    for n in jt:
+        assert tuple(jt[n].shape) == tuple(pt[n].shape), n
+        assert jt[n].scale == pt[n].scale, n
 
 
 @pytest.mark.parametrize("arch,s", [("qwen3-8b", 9), ("gemma3-4b", 9),

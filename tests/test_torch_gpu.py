@@ -1171,3 +1171,82 @@ def test_train_checkpoint_on_card_restores_bit_equal(dev, tmp_path):
     for a, b in zip(PT.leaves(tree), PT.leaves(back)):
         assert b.device == a.device and b.dtype == a.dtype
         assert torch.equal(a, b)
+
+
+def test_int4_matmul_op_bf16_cast_path(dev):
+    """A bf16 ``x``: the op widens it to f32, launches the f32 kernel
+    once and casts the output back (the op's cast path), within the
+    kernel's tolerance of the plain version at the widened input."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import int4_matmul_ref
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(4)
+    x = _t(rng, dev, 4, 2048).to(torch.bfloat16)
+    packed, scale = quantize_int4(_t(rng, dev, 2048, 512, scale=0.05))
+    ops.reset_launches()
+    got = ops.int4_matmul_op(x, packed, scale, group=128)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["int4_matmul"] == 1
+    ref = int4_matmul_ref(x.float(), packed, scale, 128)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.parametrize("op", ["flash", "decode"])
+def test_attention_ops_bf16_cast_path(dev, op):
+    """bf16 q, k and v (``flash_attention_op``) or bf16 q over bf16
+    caches (``decode_attention_op``): one f32 kernel launch between the
+    casts, within 1e-2 of the plain version at the widened inputs cast
+    to bf16 (the kernel's 2e-5 and one bf16 rounding) and within 2e-2 of
+    the plain arm (``use_kernels(False)``) on the bf16 inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (decode_attention_ref,
+                                         flash_attention_ref)
+    rng = np.random.default_rng(6)
+    bf = lambda *s: _t(rng, dev, *s).to(torch.bfloat16)
+    if op == "flash":
+        q, k, v = bf(4, 128, 32, 64), bf(4, 128, 4, 64), bf(4, 128, 4, 64)
+        run = lambda: ops.flash_attention_op(q, k, v, causal=True)
+        want = flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=True).to(torch.bfloat16)
+        name = "flash_attention"
+    else:
+        q, k, v = bf(4, 32, 64), bf(4, 256, 4, 64), bf(4, 256, 4, 64)
+        pos = torch.tensor([143, 0, 77, 255], device=dev)
+        run = lambda: ops.decode_attention_op(q, k, v, pos)
+        want = decode_attention_ref(q.float(), k, v,
+                                    pos).to(torch.bfloat16)
+        name = "decode_attention"
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=1e-2)
+    ops.use_kernels(False)
+    try:
+        plain = run()
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=0,
+                               atol=2e-2)
+
+
+def test_pipelined_disk_to_device_to_card(dev, tmp_path):
+    """The transfer suite to the card: blockwise reads into a pinned
+    buffer with the copies on a side stream, and ``host_to_device``,
+    bit-equal to what was written."""
+    from repro_torch.core import transfer as X
+    from repro_torch.core.offload import DiskStore
+    disk = DiskStore(str(tmp_path))
+    rng = np.random.default_rng(5)
+    arrays = {"f32": rng.standard_normal((1000, 77)).astype(np.float32),
+              "u8": rng.integers(0, 255, (3, 70001), dtype=np.uint8)}
+    for key, a in arrays.items():
+        disk.put(key, a)
+        got = X.pipelined_disk_to_device(disk, key, block_bytes=4096,
+                                         device=dev)
+        assert got.device.type == "cuda"
+        assert np.array_equal(got.cpu().numpy(), a)
+        assert np.array_equal(X.host_to_device(a, device=dev).cpu().numpy(),
+                              a)

@@ -1,10 +1,13 @@
 """The port's spec trees (``repro_torch.launch.sharding``) against the
 JAX package's, leaf for leaf and path for path, with no ranks: both are
 built on abstract meshes of shape (2, 4), (16, 16) and (2, 16, 16) for
-every registry arch.  A JAX ``NamedSharding``'s ``.spec`` and the port's
-``PartitionSpec`` are compared as tuples.  Each (arch, mesh, tree) is a
+every registry arch, and with resident INT4 tables (``quant_weights``:
+the ``#q``/``#s`` leaves of the dry run's ``w4`` variant).  A JAX
+``NamedSharding``'s ``.spec`` and the port's ``PartitionSpec`` are
+compared as tuples.  Each (arch, mesh, tree) is a
 case of its own; ``cache``, ``batch`` and ``kv_axes`` run every
 ``SHAPES`` entry that ``shape_applicable`` admits for the arch."""
+import dataclasses
 import functools
 
 import jax
@@ -50,10 +53,14 @@ def shapes_for(arch):
             if shape_applicable(cfg, sh)[0]]
 
 
-def trees(arch, mesh_name, kind):
-    """[(label, JAX flat specs, port flat specs)] of one case."""
+def trees(arch, mesh_name, kind, quant=False):
+    """[(label, JAX flat specs, port flat specs)] of one case (with
+    ``quant``, of the arch's ``quant_weights`` config)."""
     jmesh, pmesh = meshes(mesh_name)
     jc, pc = JAX_REGISTRY[arch], REGISTRY[arch]
+    if quant:
+        jc = dataclasses.replace(jc, quant_weights=True)
+        pc = dataclasses.replace(pc, quant_weights=True)
     jd, pd = JS.make_dist(jmesh), S.make_dist(pmesh)
     if kind == "param":
         return [("param", jax_flat(JS.param_pspecs(jc, jd)),
@@ -92,9 +99,23 @@ def trees(arch, mesh_name, kind):
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("arch", sorted(REGISTRY))
 def test_spec_trees_match_jax(arch, mesh_name, kind):
+    _check_trees(arch, mesh_name, kind, quant=False)
+
+
+@pytest.mark.parametrize("kind", ("param", "zero", "adafactor"))
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_spec_trees_match_jax_w4(arch, mesh_name, kind):
+    """The parameter and optimizer-state trees of the ``w4`` variant
+    (``quant_weights``): each packed ``#q`` and ``#s`` leaf laid out as
+    the reference lays it."""
+    _check_trees(arch, mesh_name, kind, quant=True)
+
+
+def _check_trees(arch, mesh_name, kind, quant):
     try:
         trees_jax_ok = True
-        cases = trees(arch, mesh_name, kind)
+        cases = trees(arch, mesh_name, kind, quant)
     except DuplicateSpecError:
         trees_jax_ok = False
     if not trees_jax_ok:
@@ -102,7 +123,7 @@ def test_spec_trees_match_jax(arch, mesh_name, kind):
         # beside an expert stack's `expert_ff` on `data`) and its
         # NamedSharding refuses the spec: the port's refuses it too
         with pytest.raises(ValueError, match="more than one dim"):
-            port_only(arch, mesh_name, kind)
+            port_only(arch, mesh_name, kind, quant)
         return
     assert cases
     for label, want, got in cases:
@@ -111,9 +132,11 @@ def test_spec_trees_match_jax(arch, mesh_name, kind):
         assert not bad, (label, bad[:5], len(bad))
 
 
-def port_only(arch, mesh_name, kind):
+def port_only(arch, mesh_name, kind, quant=False):
     _, pmesh = meshes(mesh_name)
     pc, pd = REGISTRY[arch], S.make_dist(meshes(mesh_name)[1])
+    if quant:
+        pc = dataclasses.replace(pc, quant_weights=True)
     fn = {"param": S.param_pspecs, "zero": S.zero_pspecs,
           "adafactor": lambda c, d: S.adafactor_pspecs(c, d, Adafactor())}
     return fn[kind](pc, pd)
@@ -149,7 +172,20 @@ def test_optimizer_structs_match_jax(arch, kind):
     """``opt_struct`` / ``adafactor_struct``: the same paths, shapes and
     dtypes as the JAX package's (the state the ZeRO and Adafactor specs
     lay out)."""
-    jc, pc = JAX_REGISTRY[arch], REGISTRY[arch]
+    _check_structs(JAX_REGISTRY[arch], REGISTRY[arch], kind)
+
+
+@pytest.mark.parametrize("kind", ("adamw", "adafactor"))
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_optimizer_structs_match_jax_w4(arch, kind):
+    """The same over the ``w4`` variant's tree (f32 moments of the uint8
+    ``#q`` leaves, as the reference's)."""
+    _check_structs(
+        dataclasses.replace(JAX_REGISTRY[arch], quant_weights=True),
+        dataclasses.replace(REGISTRY[arch], quant_weights=True), kind)
+
+
+def _check_structs(jc, pc, kind):
     if kind == "adamw":
         want, got = JS.opt_struct(jc), S.opt_struct(pc)
     else:
