@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only train    # kernel checks, then run (y)
     python3 chip_smoke.py --only shard    # kernel checks, then run (z)
     python3 chip_smoke.py --only tooling  # kernel checks, then runs (aa)-(ac)
+    python3 chip_smoke.py --only examples # kernel checks, then run (ad)
 
 Phases, each synchronized before the next; any failure exits non-zero
 before the result line:
@@ -283,7 +284,25 @@ before the result line:
    cold by ``naive_disk_to_host``, ``blockwise_disk_to_host`` and
    ``pipelined_disk_to_device`` (GB/s each), ``host_to_device``, then
    ``sweep_block_size`` over 1-64 MB;
-20. print the ``kernels`` JSON line, the card, then the result line.
+20. (ad) the port's examples (``--only examples`` runs the kernel checks
+   and this): ``examples/quickstart_torch.py``,
+   ``serve_offload_torch.py`` and ``train_100m_torch.py`` through their
+   ``main`` in this process on the card, each one's result on its own
+   line and its launches asserted (quickstart: exact ``int4_matmul``,
+   ``flash_attention`` and ``decode_attention`` from its plan; serve:
+   10 of 10 requests, exact launches of its resident plan; train:
+   ``EXAMPLE_TRAIN_STEPS`` steps, no launch, a falling loss); quickstart's
+   and serve's engines against ``use_kernels(False)`` on their weights
+   (``whole_path_check``, ``resident_whole_path``: prefill hidden states
+   within 1e-4 x max, the first decode step's within 1e-4 (f32 caches)
+   or 2e-2 (bf16) x max, first tokens equal); then an
+   ``OffloadedServingEngine`` built through the legacy keywords against
+   ``create_engine(EngineSpec(...))``: equal plan JSON, equal tokens,
+   and its whole path against ``use_kernels(False)``
+   (``serving_whole_path``); the examples' and this engine's kernel
+   shapes (dh 16 at GQA group 2, INT4 K 64-1024) are rows of
+   ``check_flash``, ``check_decode`` and ``check_int4``;
+21. print the ``kernels`` JSON line, the card, then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -444,6 +463,14 @@ DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"),
                 ("mamba2-1.3b", "long_500k"), ("whisper-base", "decode_32k"))
 DRYRUN_EXPECT = {("whisper-base", "w4"): "error"}   # KeyError 'cwq'
 LINK_KEY_BYTES = 1 << 30
+# run (ad): the train example's steps in the phase (its default of 300
+# took 42.6 s on the card, 112 ms a step: cut to hold the 1200 s limit;
+# PERF.md §4) and the legacy-keyword engine's keywords
+# (tests/test_spec.py's), with the new tokens of each of its requests
+EXAMPLE_TRAIN_STEPS = 100
+LEGACY_KW = dict(b_max=2, max_len=64, placement="host", quant="int4",
+                 depth=2)
+LEGACY_NEW = 8
 BF16_PEAK = 989e12       # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 # calls a timed row averages for the microsecond kernels (decode, int4 at
 # M <= 16) and their plain and library versions: each traced call costs
@@ -571,7 +598,8 @@ def check_int4(torch, rng, dev):
     M = 4, the experts also at their capacities M = 1 and 5); at
     mamba2's SSM projections (runs u: N 4096, 256 and 64, at M = 4 and
     the 400-token prefill) and jamba's (run v: M = 4, and ``w_down``'s
-    K = 24576 at M = 1, 10, 18 and 114)."""
+    K = 24576 at M = 1, 10, 18 and 114); checked (untimed) at run (ad)'s
+    examples' and legacy engine's projections."""
     from repro_torch.kernels import cost
     from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
@@ -614,6 +642,15 @@ def check_int4(torch, rng, dev):
     cases += [(4, K, N, 128, f"jamba M=4 {K}x{N}") for K, N in JAMBA_PROJ]
     cases += [(M, 24576, 8192, 128, f"jamba w_down M={M} 24576x8192")
               for M in JAMBA_DOWN_M]
+    # run (ad): quickstart's projections (d 256, 8/4 heads of dh 16,
+    # d_ff 1024) at decode (M 2) and its prefill (2 x 32), and the
+    # legacy-keyword engine's (d 64, 4/2 heads, d_ff 128; K 64 at group
+    # 64) at one slot's prefills of 12 and 21 and at decode (M 2, and 1)
+    cases += [(M, K, N, 128, None) for M in (2, 64)
+              for K, N in ((256, 64), (256, 128), (256, 256), (256, 1024),
+                           (128, 256), (1024, 256))]
+    cases += [(M, K, N, K, None) for M in (1, 2, 12, 21)
+              for K, N in ((64, 32), (64, 64), (64, 128), (128, 64))]
     cases += [(17, 2048, 64, 128, None), (16, 8192, 128, 128, None),
               (3, 24576, 256, 128, None), (33, 24576, 64, 128, None)]
     cases += [(1, 2048, 2048, 128, None), (3, 384, 256, 32, None),
@@ -663,8 +700,8 @@ def check_flash(torch, rng, dev):
     1024 over 1500 and 1016 rows, and 114 rows without one), each beside
     SDPA with the same mask, at jamba's (run v: group 8, dh 128) and at
     whisper's (run w: group 1, dh 64; the encoder and the cross
-    attention's prefill at ``causal=False``).
-    The bound counts three TF32 products per
+    attention's prefill at ``causal=False``); checked (untimed) at run
+    (ad)'s prefills (dh 16, group 2).  The bound counts three TF32 products per
     multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
     mask attends, ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
@@ -724,7 +761,17 @@ def check_flash(torch, rng, dev):
               "whisper cross prefill sq=48 sk=1500"),
              (1, 48, 48, 8, 8, 64, True, 0, 0, "whisper decoder sq=48"),
              (2, 37, 1500, 8, 8, 64, False, 0, 0, None),
-             (1, 5, 24, 8, 8, 64, False, 0, 0, None)]
+             (1, 5, 24, 8, 8, 64, False, 0, 0, None),
+             # run (ad): quickstart's prefill (2 x 32, 8/4 heads of dh
+             # 16), the serve example's one-slot prefills (8-20 rows) and
+             # the legacy-keyword engine's (4/2 heads, 12 and 21 rows)
+             (2, 32, 32, 8, 4, 16, True, 0, 0, None),
+             (1, 8, 8, 8, 4, 16, True, 0, 0, None),
+             (1, 12, 12, 8, 4, 16, True, 0, 0, None),
+             (1, 16, 16, 8, 4, 16, True, 0, 0, None),
+             (1, 20, 20, 8, 4, 16, True, 0, 0, None),
+             (1, 12, 12, 4, 2, 16, True, 0, 0, None),
+             (1, 21, 21, 4, 2, 16, True, 0, 0, None)]
     rows = []
     for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -790,7 +837,8 @@ def check_decode(torch, rng, dev):
     slab (head_dim 256), jamba's attention layer (group 8, dh 128, run
     v), whisper's cross attention over its 1500 encoder rows and its
     448-row self-attention slab (group 1, run w) and Gemma 3's rolling
-    buffers (``check_rolling_decode``) beside SDPA."""
+    buffers (``check_rolling_decode``) beside SDPA; checked (untimed) at
+    run (ad)'s decode steps (dh 16, group 2)."""
     from repro_torch.core.kvstore import KV_LEN_BUCKET
     from repro_torch.kernels import cost
     from repro_torch.kernels.decode_attention import decode_attention, plain
@@ -842,7 +890,20 @@ def check_decode(torch, rng, dev):
              (B, WHISPER_MAX_LEN, 8, 8, 64, [19, 23, 31, 39],
               torch.bfloat16, "whisper self S=448"),
              (B, WHISPER_MAX_LEN, 8, 8, 64, [447, 0, 200, 31],
-              torch.bfloat16, None)]
+              torch.bfloat16, None),
+             # run (ad): quickstart's decode (b 2, 8/4 heads of dh 16, f32
+             # caches over 64 rows, an int pos of 32-46), the serve
+             # example's (b 4 over the resident 128-row bf16 slab, ragged,
+             # idle slots at 0) and the legacy-keyword engine's (b 2, 4/2
+             # heads, 32 rows), each also in the other cache type
+             (2, 64, 8, 4, 16, [46, 46], torch.float32, None),
+             (2, 64, 8, 4, 16, [32, 32], torch.float32, None),
+             (2, 64, 8, 4, 16, [46, 33], torch.bfloat16, None),
+             (4, 128, 8, 4, 16, [0, 11, 13, 28], torch.bfloat16, None),
+             (4, 128, 8, 4, 16, [18, 10, 12, 27], torch.bfloat16, None),
+             (4, 128, 8, 4, 16, [127, 0, 64, 19], torch.float32, None),
+             (2, 32, 4, 2, 16, [18, 27], torch.bfloat16, None),
+             (2, 32, 4, 2, 16, [31, 12], torch.float32, None)]
     rows = []
     for b, S_, h, hkv, dh, pos, cdt, timed in cases:
         mk = lambda *s: torch.tensor(rng.standard_normal(s),
@@ -1355,7 +1416,7 @@ def whole_path_check(torch, ops, lm, prompt, toks_b):
         tp, _ = lm.generate(prompt, 2)
         hp = list(seen)
         seen.clear()
-        toks_plain, _ = lm.generate(prompt, GEN)
+        toks_plain, _ = lm.generate(prompt, toks_b.shape[1])
     finally:
         ops.use_kernels(True)
         lm.finalize = orig
@@ -2894,6 +2955,8 @@ def serve_mla(torch, ops, np, plan):
         "bytes": {k: pk[k]["bytes"] for k in pk},
         "compute_busy": eng.trace.busy_fraction("compute"),
         **memory_report(plan, eng, r),
+        "memory_parts": memory_parts(np, plan, eng,
+                                     r["device_max_allocated_gb"]),
         "launches": r["counts"]}
     log(json.dumps({"mla_serving": summary}))
     return summary, r, eng
@@ -3000,7 +3063,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("kernels", "plan", "moe",
                                        "families", "mla", "ssm",
                                        "frontends", "train", "shard",
-                                       "tooling"),
+                                       "tooling", "examples"),
                     default=None,
                     help="stop after the kernel checks (kernels), or run "
                          "them and runs (g)-(y) only (plan), or (o) and "
@@ -3008,7 +3071,7 @@ def main(argv=None) -> int:
                          "(t) only (mla), or (u) and (v) only (ssm), or "
                          "(w) and (x) only (frontends), or (y) only "
                          "(train), or (z) only (shard), or (aa)-(ac) "
-                         "only (tooling)")
+                         "only (tooling), or (ad) only (examples)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; "
@@ -3126,6 +3189,10 @@ def main(argv=None) -> int:
     if args.only == "tooling":
         run_tooling(torch, ops, np, card, counts, summaries, stamp)
         return finish(torch, card, checks, counts, t_start, phase_s)
+    if args.only == "examples":
+        run_examples(torch, ops, np, card, counts, summaries)
+        stamp("ad")
+        return finish(torch, card, checks, counts, t_start, phase_s)
     if args.only != "plan":
         run_tinyllama(torch, ops, np, rng, counts, summaries, reqs, release,
                       traces, stamp)
@@ -3205,6 +3272,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_tooling(torch, ops, np, card, counts, summaries, stamp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_examples(torch, ops, np, card, counts, summaries)
+    stamp("ad")
     return finish(torch, card, checks, counts, t_start, phase_s)
 
 
@@ -5042,6 +5113,162 @@ def run_tooling(torch, ops, np, card, counts, summaries, stamp):
     stamp("ab")
     summaries["ac"] = run_link_probe(np)
     stamp("ac")
+
+
+# ---------------------------------------------------------------------------
+# run (ad): the port's examples on the card
+# ---------------------------------------------------------------------------
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not yet run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(torch, ops, name: str, argv):
+    """One example's ``main(argv)`` on the card, its launch counts zeroed
+    before and read after; returns (its result, the counts, seconds)."""
+    main = load_example(name).main
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES), time.perf_counter() - t0
+
+
+def run_examples(torch, ops, np, card, counts, summaries):
+    """Run (ad): the three examples in this process, then one engine
+    built through the legacy keywords against the spec path."""
+    import shutil
+    import tempfile
+    import warnings
+    t_phase = time.perf_counter()
+    zero = {k: 0 for k in ops.LAUNCHES}
+    # quickstart: 2 prompts of 32, 16 tokens: 1 prefill and 15 decode
+    # passes through every layer's 4 + 3 packed projections
+    out, c, sec = run_example(torch, ops, "quickstart_torch", [])
+    n, gen = out["num_layers"], out["tokens"].shape[1]
+    toks = out["tokens"]
+    if toks.shape != (2, 16) or not ((toks >= 0) & (toks < 2048)).all():
+        raise RuntimeError(f"run ad: quickstart tokens {toks.shape}")
+    if (out["placement"], out["plan"].quant, out["depth"]) != (
+            "device", "int4", 8):
+        raise RuntimeError(f"run ad: quickstart plan {out['plan'].summary()}")
+    check_launches("ad_quickstart", c, {
+        **zero, "int4_matmul": 7 * n * gen, "flash_attention": n,
+        "decode_attention": n * (gen - 1)}, exact=True)
+    counts["ad_quickstart"] = c
+    # the whole path at the example's shapes (dh 16, GQA group 2, K 128-
+    # 1024) against use_kernels(False) on its engine and weights
+    whole = whole_path_check(torch, ops, out["lm"], out["prompt"], toks)
+    if not whole["prefill_tokens_equal"]:
+        raise RuntimeError(f"run ad: quickstart first tokens differ: {whole}")
+    summaries["ad_quickstart"] = {
+        "s": sec, "plan": out["plan"].summary(),
+        "tokens0": toks[0].tolist(), "launches": c, "whole_path": whole,
+        **{k: out[k] for k in ("placement", "reason", "pipeline", "depth",
+                               "use_int4_kernel", "throughput_tok_s",
+                               "ttft_s", "compute_busy", "device_peak_gb")}}
+    log(json.dumps({"example": "quickstart_torch",
+                    **summaries["ad_quickstart"]}))
+    # serve_offload: 10 ragged requests on the resident plan
+    out, c, sec = run_example(torch, ops, "serve_offload_torch", [])
+    st, n = out["stats"], out["num_layers"]
+    if out["completed"] != 10 or out["host_kv_bytes"] <= 0:
+        raise RuntimeError(f"run ad: serve_offload completed "
+                           f"{out['completed']}/10, host KV bytes "
+                           f"{out['host_kv_bytes']}")
+    check_launches("ad_serve", c, {
+        **zero, "flash_attention": n * st["prefills"],
+        "decode_attention": n * st["decode_steps"]}, exact=True)
+    counts["ad_serve"] = c
+    whole = resident_whole_path(torch, ops, out["eng"], out["reqs"],
+                                "ad_serve")
+    out["eng"].shutdown()
+    summaries["ad_serve"] = {
+        "s": sec, "plan": out["plan"].summary(), "launches": c,
+        "whole_path": whole,
+        **{k: out[k] for k in ("completed", "stats", "tokens_out", "tok_s",
+                               "ttft_p50_s", "ttft_p95_s",
+                               "host_kv_bytes")}}
+    log(json.dumps({"example": "serve_offload_torch",
+                    **summaries["ad_serve"]}))
+    # train_100m: lm-100m from seed 0 into a fresh checkpoint directory
+    ckpt = tempfile.mkdtemp(prefix="train100m_torch_")
+    try:
+        out, c, sec = run_example(
+            torch, ops, "train_100m_torch",
+            ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = out["losses"]
+    if (out["final_step"] != EXAMPLE_TRAIN_STEPS
+            or len(losses) != EXAMPLE_TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise RuntimeError(f"run ad: train_100m step {out['final_step']}, "
+                           f"losses {losses[:2]} .. {losses[-2:]}")
+    check_launches("ad_train", c, zero, exact=True)
+    counts["ad_train"] = c
+    summaries["ad_train"] = {
+        "s": sec, "steps": out["final_step"], "params": out["params"],
+        "loss_first": losses[0], "loss_mid": losses[len(losses) // 2],
+        "loss_last": losses[-1], "tok_s": out["tok_s"],
+        "timing": out["timing"], "launches": c}
+    log(json.dumps({"example": "train_100m_torch", **summaries["ad_train"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the legacy keywords against the spec path: plan JSON and tokens
+    from repro_torch.configs import get_config, scaled_down
+    from repro_torch.serving import spec as S
+    from repro_torch.serving.offload_engine import OffloadedServingEngine
+    cfg = scaled_down(get_config("tinyllama-1.1b"))
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, (12 + 9 * i,)).astype(np.int32),
+             LEGACY_NEW) for i in range(2)]
+    t0 = time.perf_counter()
+    S.reset_deprecation_warnings()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        leg = OffloadedServingEngine(cfg, **LEGACY_KW)
+    ref = S.create_engine(S.EngineSpec(arch=cfg.name, cfg=cfg, offload=True,
+                                       fused_int4=True, **LEGACY_KW))
+    if not any(issubclass(w.category, DeprecationWarning) for w in caught):
+        raise RuntimeError("run ad: the legacy keywords did not warn")
+    if (leg.plan.to_json() != ref.plan.to_json() or leg.plan != ref.plan
+            or leg.dev.type != "cuda"):
+        raise RuntimeError(f"run ad: legacy plan {leg.plan.summary()} != "
+                           f"{ref.plan.summary()}")
+    r_leg = serve_once(torch, ops, leg, reqs, 0)
+    r_ref = serve_once(torch, ops, ref, reqs, 0)
+    whole = serving_whole_path(torch, ops, leg, reqs, "ad_legacy")
+    leg.shutdown()
+    ref.shutdown()
+    if r_leg["outs"] != r_ref["outs"] or sorted(r_leg["outs"]) != [0, 1] \
+            or any(len(o) != LEGACY_NEW for o in r_leg["outs"].values()):
+        raise RuntimeError(f"run ad: legacy tokens {r_leg['outs']} != "
+                           f"{r_ref['outs']}")
+    st, n = r_leg["stats"], cfg.num_layers
+    check_launches("ad_legacy", r_leg["counts"], {
+        **zero, "flash_attention": n * st["prefills"],
+        "decode_attention": n * st["decode_steps"],
+        "int4_matmul": 7 * n * (st["prefills"] + st["decode_steps"])},
+        exact=True)
+    counts["ad_legacy"] = r_leg["counts"]
+    summaries["ad_legacy"] = {
+        "s": time.perf_counter() - t0, "plan": leg.plan.summary(),
+        "tokens_equal": True, "requests": len(reqs), **st,
+        "launches": r_leg["counts"], "whole_path": whole}
+    log(json.dumps({"example": "legacy_kwargs", **summaries["ad_legacy"]}))
+    summaries["ad"] = {"s": time.perf_counter() - t_phase, "card": card,
+                       **{k: summaries[f"ad_{k}"]["s"] for k in (
+                           "quickstart", "serve", "train", "legacy")}}
+    log(json.dumps({"examples_phase": summaries["ad"]}))
 
 
 def finish(torch, card, checks, counts, t_start, phase_s) -> int:

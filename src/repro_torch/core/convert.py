@@ -40,10 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MOE, ModelConfig
-from repro_torch.core.transfer import int4_group
+from repro_torch.core.transfer import int4_roundtrip
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import keeps_dtype
-from repro_torch.quant.int4 import dequantize_int4, quantize_int4
 
 
 def _check_keys(units, keys):
@@ -167,22 +166,6 @@ def from_reference_resident(params, eng=None, *, mesh=None, specs=None):
             old.copy_(torch.from_numpy(arr).to(old.dtype))
 
 
-def _int4_roundtrip(arr):
-    """One tensor through the INT4 codec the offloaded engines stream
-    (``transfer.int4_group``); ineligible tensors come back unchanged.
-    A numpy array comes back as one; a tensor as a tensor on its device
-    (the codec is bit-identical on the card and the CPU)."""
-    g = int4_group(arr)
-    if g is None:
-        return arr
-    if isinstance(arr, torch.Tensor):
-        packed, scale = quantize_int4(arr.to(torch.float32), g)
-        return dequantize_int4(packed, scale, torch.float32, g)
-    packed, scale = quantize_int4(torch.from_numpy(
-        np.asarray(arr, np.float32)), g)
-    return dequantize_int4(packed, scale, torch.float32, g).numpy()
-
-
 def quant_roundtrip_params(cfg: ModelConfig, params):
     """INT4 quantize->dequantize exactly the leaves the offloaded serving
     engine streams as INT4 — each layer's 2-D projections and each
@@ -204,10 +187,10 @@ def quant_roundtrip_params(cfg: ModelConfig, params):
                 flat = arr.reshape((-1,) + tuple(arr.shape[len(lead):]))
                 stack = (torch.stack if isinstance(arr, torch.Tensor)
                          else np.stack)
-                out[name] = stack([_int4_roundtrip(a) for a in flat]
+                out[name] = stack([int4_roundtrip(a) for a in flat]
                                   ).reshape(arr.shape)
             else:
-                out[name] = _int4_roundtrip(arr)
+                out[name] = int4_roundtrip(arr)
         return out
 
     return {

@@ -84,7 +84,18 @@ from repro_torch.models.layers import _mm as _proj
 from repro_torch.models.moe import router_topk
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.quant.int4 import quantize_int4
-from repro_torch.serving.spec import ResolvedPlan, draft_policy_for
+from repro_torch.serving.spec import (EngineSpec, ResolvedPlan,
+                                      draft_policy_for,
+                                      warn_deprecated_once)
+
+# the pre-spec constructor's defaults: the deprecation shim overlays the
+# given keywords on these, so a legacy call resolves to the plan the JAX
+# package's shim resolves (depth defaulted to 1 here, not auto)
+_LEGACY_DEFAULTS = dict(
+    batch=4, max_len=256, placement="host", cache_on="host",
+    pipeline="performance", quant=None, kv_mode=None, fused_int4=True,
+    disk_root="/tmp/pipo_disk", block_bytes=None, n_io_threads=3,
+    cold_reads=False, seed=0, depth=1)
 
 # ---------------------------------------------------------------------------
 # Per-unit compute
@@ -197,10 +208,32 @@ class PipelinedLM(PhasedKVExtents):
     (``core.convert.lm_weights``) to load instead of drawing them from
     ``plan.seed``."""
 
-    def __init__(self, plan: ResolvedPlan, device="cuda", weights=None):
-        if not isinstance(plan, ResolvedPlan):
-            raise TypeError(f"PipelinedLM takes a ResolvedPlan, got "
-                            f"{type(plan).__name__}")
+    def __init__(self, plan: "ResolvedPlan | ModelConfig", device="cuda",
+                 weights=None, **legacy_kwargs):
+        """Canonical construction takes a ``ResolvedPlan``
+        (``serving.spec.build_lm(plan)``; its ``b_max`` is the batch).
+        A ``ModelConfig`` plus the pre-spec keywords still works through
+        a deprecation shim: the keywords become an ``EngineSpec``, which
+        is resolved, so both paths act on the same plan."""
+        if isinstance(plan, ModelConfig):
+            warn_deprecated_once(
+                "PipelinedLM.legacy_kwargs",
+                "PipelinedLM(cfg, **kwargs) is deprecated; build an "
+                "EngineSpec and pass its resolved plan "
+                "(serving.spec.build_lm) instead")
+            unknown = set(legacy_kwargs) - set(_LEGACY_DEFAULTS)
+            if unknown:
+                raise TypeError(f"unknown kwargs {sorted(unknown)}")
+            kw = {**_LEGACY_DEFAULTS, **legacy_kwargs}
+            kw["b_max"] = kw.pop("batch")
+            plan = EngineSpec(arch=plan.name, cfg=plan, offload=True,
+                              **kw).resolve()
+        elif not isinstance(plan, ResolvedPlan):
+            raise TypeError(f"PipelinedLM takes a ResolvedPlan or a "
+                            f"ModelConfig, got {type(plan).__name__}")
+        elif legacy_kwargs:
+            raise TypeError("plan construction takes no kwargs; set the "
+                            "fields on the EngineSpec instead")
         cfg = plan.model_config()
         self.dev = resolve_device(device)
         self.plan = plan

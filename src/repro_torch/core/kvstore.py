@@ -244,6 +244,9 @@ class TieredKVStore:
     def leaf_meta(self, j: int) -> Dict[str, _LeafMeta]:
         return self._meta[j]
 
+    def has_kv(self, j: int) -> bool:
+        return bool(self.kinds[j])
+
     def _arrays(self, j: int, name: str):
         leaf = self._units[j][name]
         if isinstance(leaf, _QuantLeaf):

@@ -45,11 +45,18 @@ class Store:
             self._peak = max(self._peak, self._bytes)
 
     @property
+    def bytes_used(self) -> int:
+        return self._bytes
+
+    @property
     def peak_bytes(self) -> int:
         return self._peak
 
     def keys(self):
         return list(self._items)
+
+    def __contains__(self, key):
+        return key in self._items
 
     def delete(self, key: str):
         item = self._items.pop(key, None)

@@ -127,6 +127,23 @@ def quantize_unit(tensors: Dict[str, object], device="cpu"
     return out
 
 
+def int4_roundtrip(arr):
+    """One tensor through the INT4 codec the offloaded engines stream
+    (``int4_group``): the resident INT4 reference whose tokens the INT4
+    offloaded engines must match.  Ineligible tensors come back
+    unchanged.  A numpy array comes back as one; a tensor as a tensor on
+    its device (the codec is bit-identical on the card and the CPU)."""
+    g = int4_group(arr)
+    if g is None:
+        return arr
+    if isinstance(arr, torch.Tensor):
+        packed, scale = quantize_int4(arr.to(torch.float32), g)
+        return dequantize_int4(packed, scale, torch.float32, g)
+    packed, scale = quantize_int4(torch.from_numpy(
+        np.asarray(arr, np.float32)), g)
+    return dequantize_int4(packed, scale, torch.float32, g).numpy()
+
+
 # ---------------------------------------------------------------------------
 # Transfers
 # ---------------------------------------------------------------------------
@@ -201,6 +218,11 @@ class TieredWeightStore:
     def sim_bw(self) -> Optional[float]:
         return self.link.bw
 
+    def sim_floor(self, nbytes: int, t0: float):
+        """Sleep out the remainder of ``nbytes / sim_bw`` seconds since
+        ``t0`` (the shared ``SimLink``)."""
+        self.link.floor(nbytes, t0)
+
     def fetch(self, key: str) -> torch.Tensor:
         """Placement tier -> the unit's merged buffer on the device: one
         copy, on the calling thread's current stream (a transfer
@@ -219,7 +241,7 @@ class TieredWeightStore:
                 self.disk, key, block_bytes=self.block_bytes,
                 n_threads=self.n_io_threads)
             buf = torch.from_numpy(host_buf.view(np.uint8).reshape(-1)).to(dev)
-        self.link.floor(self.manifests[key].total_bytes, t0)
+        self.sim_floor(self.manifests[key].total_bytes, t0)
         return buf
 
     def split(self, key: str, buf: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -615,6 +615,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
 # ---------------------------------------------------------------------------
 # Online-softmax partials (m, l, o): m = running max of scores, l = sum
 # exp(score - m), o = sum exp(..) * v (o unnormalized).

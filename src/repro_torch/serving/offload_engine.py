@@ -95,14 +95,25 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.serving.base import Request, SlotEngineBase
-from repro_torch.serving.spec import (AdaptiveDepth, Pressure, ResolvedPlan,
-                                      StaticDepth, UnsupportedModelError,
+from repro_torch.serving.spec import (AdaptiveDepth, EngineSpec, Pressure,
+                                      ResolvedPlan, StaticDepth,
+                                      UnsupportedModelError,
                                       draft_policy_for, offload_capability,
                                       preload_policy_for, quant_policy_for,
                                       sched_policy_for,
-                                      spec_decode_capability)
+                                      spec_decode_capability,
+                                      warn_deprecated_once)
 
 __all__ = ["Request", "OffloadedServingEngine"]
+
+# the pre-spec constructor's defaults: the deprecation shim overlays the
+# given keywords on these, so a legacy call resolves to the plan the JAX
+# package's shim resolves (kv_mode None = auto -> fp32)
+_LEGACY_DEFAULTS = dict(
+    b_max=4, max_len=256, seed=0, placement="host", pipeline="performance",
+    quant=None, kv_mode=None, fused_int4=True, warm=None, depth=None,
+    disk_root="", block_bytes=None, n_io_threads=3,
+    cold_reads=False, sim_bw=None, spill_cap=32)
 
 
 @dataclass
@@ -169,7 +180,7 @@ class _StagedKVStore:
     _UNIT_METHODS = ("load", "load_nbytes", "slab_nbytes", "save_nbytes",
                      "prefill_save_nbytes", "dequant_nbytes",
                      "save_prefill", "save_prefill_batch", "save_decode",
-                     "leaf_meta")
+                     "has_kv", "leaf_meta")
 
     def __init__(self, stores, bounds):
         self.stores = list(stores)
@@ -274,11 +285,32 @@ class OffloadedServingEngine(SlotEngineBase):
     on the caller's thread; weight/KV transfers run on the internal
     transfer pool."""
 
-    def __init__(self, plan: ResolvedPlan, device="cuda",
-                 draws: "DrawCache | None" = None):
-        if not isinstance(plan, ResolvedPlan):
-            raise TypeError(f"OffloadedServingEngine takes a ResolvedPlan, "
-                            f"got {type(plan).__name__}")
+    def __init__(self, plan: "ResolvedPlan | ModelConfig", device="cuda",
+                 draws: "DrawCache | None" = None, **legacy_kwargs):
+        """Canonical construction takes a ``ResolvedPlan``
+        (``EngineSpec.resolve()``; usually through
+        ``serving.spec.create_engine``).  A ``ModelConfig`` plus the
+        pre-spec keywords still works through a deprecation shim: the
+        keywords become an ``EngineSpec``, which is resolved, so both
+        paths act on the same plan."""
+        if isinstance(plan, ModelConfig):
+            warn_deprecated_once(
+                "OffloadedServingEngine.legacy_kwargs",
+                "OffloadedServingEngine(cfg, **kwargs) is deprecated; "
+                "build an EngineSpec and pass its resolved plan "
+                "(serving.spec.create_engine) instead")
+            unknown = set(legacy_kwargs) - set(_LEGACY_DEFAULTS)
+            if unknown:
+                raise TypeError(f"unknown kwargs {sorted(unknown)}")
+            plan = EngineSpec(arch=plan.name, cfg=plan, offload=True,
+                              **{**_LEGACY_DEFAULTS, **legacy_kwargs}
+                              ).resolve()
+        elif not isinstance(plan, ResolvedPlan):
+            raise TypeError(f"OffloadedServingEngine takes a ResolvedPlan "
+                            f"or a ModelConfig, got {type(plan).__name__}")
+        elif legacy_kwargs:
+            raise TypeError("plan construction takes no kwargs; set the "
+                            "fields on the EngineSpec instead")
         cfg = plan.model_config()
         cap = offload_capability(cfg)
         if cap is not None or plan.engine != "offloaded":

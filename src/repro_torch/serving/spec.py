@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -37,12 +38,48 @@ from repro_torch.core.memory_model import host_pinned_bytes, live_depth
 from repro_torch.core.offload import MemoryBudget
 from repro_torch.core.pipeline import PIPELINE_MODES
 
+__all__ = [
+    "EngineSpec", "ResolvedPlan", "StagePlan", "SpecError",
+    "UnsupportedModelError",
+    "create_engine", "build_lm", "offload_capability",
+    "spec_decode_capability", "chunked_prefill_capability",
+    "PreloadPolicy", "StaticDepth", "AdaptiveDepth", "Pressure",
+    "QuantPolicy", "WeightsInt4", "quant_policy_for",
+    "DraftPolicy", "draft_policy_for",
+    "SchedPolicy", "OnlineSLO", "OfflineThroughput", "sched_policy_for",
+    "warn_deprecated_once", "reset_deprecation_warnings",
+    "CLI_FLAGS", "FlagSpec", "NO_FLAG_FIELDS", "WORKLOAD_FLAGS",
+    "add_spec_args", "spec_from_args",
+]
+
 QUANT_MODES = (None, "int4")
 KV_MODES = (None, "fp32", "int4")       # None = auto (resolves to fp32)
 DEPTH_POLICIES = ("static", "adaptive")
 PLACEMENTS = ("auto", "device", "host", "disk")
 SCHED_MODES = (None, "online", "offline", "monolithic")
 STAGE_AXES = (None, "layer")            # None = auto (resolves to "layer")
+
+
+# ---------------------------------------------------------------------------
+# deprecation plumbing: the engines' legacy-keyword shims warn once per
+# construction site per process, not per call
+# ---------------------------------------------------------------------------
+
+_WARNED_DEPRECATIONS: set = set()
+
+
+def warn_deprecated_once(key: str, message: str, stacklevel: int = 3):
+    """Emit ``DeprecationWarning`` for ``key`` at most once per process.
+    Tests that assert the warning fires call
+    ``reset_deprecation_warnings()`` first."""
+    if key in _WARNED_DEPRECATIONS:
+        return
+    _WARNED_DEPRECATIONS.add(key)
+    warnings.warn(message, DeprecationWarning, stacklevel=stacklevel)
+
+
+def reset_deprecation_warnings():
+    _WARNED_DEPRECATIONS.clear()
 
 
 class SpecError(ValueError):

@@ -279,17 +279,40 @@ def test_kernel_rejects_cpu_mix(dev):
 def test_compute_task_ends_when_the_card_finishes(dev):
     """A compute task's trace interval ends at the event recorded behind
     its work, not when its launches returned; a KV save carrying that
-    event as ``after`` copies the finished tensor."""
+    event as ``after`` copies the finished tensor.
+
+    The card's sleep is sized from a first launch of the same work on
+    this host (20 times its launch time, and at least 50 ms), so it
+    outlasts the launch on a slow host too.  The interval is then held
+    against the card's own finish: an event recorded behind the work,
+    read on the pool's clock (its anchor event and host time)."""
+    import time
+
     from repro_torch.core.pipeline import ThreadPool
     from repro_torch.core.tasks import Task, TaskType
     pool = ThreadPool(1, device=dev)
     buf = torch.zeros(1 << 20, device=dev)
+    done = torch.cuda.Event(enable_timing=True)
 
-    def work():
-        torch.cuda._sleep(100_000_000)        # well over 10 ms on an H100
+    def work(cycles):
+        torch.cuda._sleep(cycles)
         buf.fill_(3.0)
+        done.record()
 
-    ct = pool.run_on_main(Task(TaskType.COMPUTE, "c[0,0]", work))
+    # calibrate: the launch's host time and the sleep's card time
+    cycles = 10_000_000
+    begin = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    begin.record()
+    t0 = time.perf_counter()
+    work(cycles)
+    launch_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    s_per_cycle = begin.elapsed_time(done) / 1e3 / cycles
+    cycles = int(max(0.05, 20 * launch_s) / s_per_cycle)
+
+    ct = pool.run_on_main(Task(TaskType.COMPUTE, "c[0,0]",
+                               lambda: work(cycles)))
     launched = ct.t_end - ct.t_start
     save = Task(TaskType.KV_SAVE, "sv[0,0]", lambda: buf.to("cpu"))
     save.after = ct.after
@@ -297,7 +320,9 @@ def test_compute_task_ends_when_the_card_finishes(dev):
     assert bool((save.wait() == 3.0).all())
     pool.shutdown()
     (ev,) = [e for e in pool.trace.events() if e.kind == "compute"]
-    assert ev.t_end - ev.t_start >= 0.01 > launched
+    anchor, t_ref = pool._ref             # the trace's times are from t0
+    finished = t_ref + anchor.elapsed_time(done) / 1e3 - pool.trace.t0
+    assert ev.t_end - ev.t_start >= finished - ev.t_start > launched
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port stands alone: in a fresh interpreter where ``jax`` cannot be
 imported (``sys.modules["jax"] = None``), every module of
-``repro_torch`` — ``models/moe.py`` among them — and ``chip_smoke.py``
-import, and none of them loads a ``jax*`` module or anything of the JAX
-package (``repro``, ``repro.*``).  One subprocess imports them all and
+``repro_torch`` — ``models/moe.py`` among them —, ``chip_smoke.py`` and
+the port's examples (``examples/*_torch.py``) import, and none of them
+loads a ``jax*`` module or anything of the JAX package (``repro``,
+``repro.*``).  One subprocess imports them all and
 reports, per module, its error and the modules of either kind it
 brought in."""
 import json
@@ -23,14 +24,15 @@ import importlib, importlib.util, json, sys
 sys.modules["jax"] = None
 sys.path.insert(0, sys.argv[1])
 names = json.loads(sys.argv[2])
+files = json.loads(sys.argv[3])
 banned = lambda m: (m == "jax" or m.startswith(("jax.", "jaxlib"))
                     or m == "repro" or m.startswith("repro."))
 out = {}
 for name in names:
     before = set(sys.modules)
     try:
-        if name == "chip_smoke":
-            spec = importlib.util.spec_from_file_location(name, sys.argv[3])
+        if name in files:
+            spec = importlib.util.spec_from_file_location(name, files[name])
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         else:
             importlib.import_module(name)
@@ -44,11 +46,17 @@ print(json.dumps(out))
 """
 
 
+# modules loaded from their files: the script and the examples
+FILES = {"chip_smoke": str(ROOT / "chip_smoke.py"),
+         **{f"examples.{p.stem}": str(p)
+            for p in sorted((ROOT / "examples").glob("*_torch.py"))}}
+
+
 def _modules():
     names = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages([str(SRC / "repro_torch")],
                                               prefix="repro_torch.")]
-    return sorted(names) + ["chip_smoke"]
+    return sorted(names) + list(FILES)
 
 
 MODULES = _modules()
@@ -58,7 +66,7 @@ MODULES = _modules()
 def probe():
     r = subprocess.run(
         [sys.executable, "-c", _PROBE, str(SRC), json.dumps(MODULES),
-         str(ROOT / "chip_smoke.py")],
+         json.dumps(FILES)],
         capture_output=True, text=True, timeout=300, cwd=str(ROOT))
     assert r.returncode == 0, r.stderr[-4000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -74,6 +82,9 @@ def test_every_module_is_probed():
                  "models.common", "tree"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) > 50
+    for name in ("quickstart_torch", "serve_offload_torch",
+                 "train_100m_torch"):
+        assert f"examples.{name}" in MODULES
 
 
 @pytest.mark.parametrize("name", MODULES)
