@@ -22,7 +22,9 @@ before the result line:
    (one process per source, all started together);
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes (batch generation and serving: ragged positions,
-   bf16 caches, one slot's prefill) and at edge shapes; time kernel,
+   bf16 caches, one slot's prefill) and at edge shapes, and each bf16
+   instance (bf16 inputs read and the output written in-kernel) at run
+   (aa)'s and the families' shapes, timed warm and cold; time kernel,
    plain version and one library call computing the same function
    (device time per call from a torch.profiler trace) and compute the
    roofline bound; the speculative runs' own shapes among them
@@ -128,10 +130,12 @@ before the result line:
    tokens, exact launch counts.  Phase 3 also holds and times
    ``int4_matmul`` at Mixtral's expert shapes (M 2, 19, 36 and 512);
 13. the other families, each built only through the plan entry point at
-   full width and depth from seed 0: (q) ``create_engine(EngineSpec(
-   arch="gemma3-4b", quant="int4", kv_mode="int4",
-   max_len=2048).resolve())`` (Gemma3-4B: 28 sliding-window layers of
-   1024 and 6 global, head_dim 256; offloaded, host, depth 1) serves
+   full width from seed 0, cut in depth (``GEMMA3_PERIODS``,
+   ``QWEN3_LAYERS``): (q) ``create_engine(EngineSpec(
+   arch="gemma3-4b", cfg=<16 of its 34 layers>, quant="int4",
+   kv_mode="int4", max_len=2048).resolve())`` (Gemma3-4B: 13
+   sliding-window layers of 1024 and 3 global, head_dim 256; offloaded,
+   host, depth 1) serves
    prompts of 1500, 1016, 300 and 114 tokens, 16 new each (the window
    binds in the first prefill, the second wraps its rolling buffer in
    decode): exact launches (the local layers' decode over their rolling
@@ -174,7 +178,8 @@ before the result line:
    expert shapes, and times the plain MLA decode step beside SDPA;
 15. the SSM: (u) ``create_engine(EngineSpec(arch="mamba2-1.3b",
    quant="int4", max_len=512, offload=True).resolve())`` (mamba2-1.3b
-   at full width and depth, 48 layers; the default budget's plan without
+   at full width, 24 of its 48 layers; the default budget's
+   plan without
    ``offload`` is resident, its provenance printed; offloaded, host,
    depth 8, ``fused_int4``) serves prompts of 400, 114, 93 and 58
    tokens, 16 new each, then again with a slot preempted (the same
@@ -273,9 +278,12 @@ before the result line:
    count of one decode step on meta tensors (``roofline.analyze_step``:
    its bound on the H100's data-sheet rates, temp bytes, the INT4
    kernel's share of the bytes) beside its profiled device ms and the
-   peak memory, and one bf16 decode step through the ops' cast path
-   against ``use_kernels(False)`` (head inputs within 2e-2 x max, tokens
-   equal, exact launches) with the casts' device time from its profile;
+   peak memory; then the kernels' bf16 instances on the same entry
+   points (the ops cast nothing): one bf16 decode step, a
+   bf16 prefill and 4 decode steps, and one step over the caches packed
+   as INT4 KV rows, each against ``use_kernels(False)`` (head inputs
+   within 2e-2 x max, tokens equal, exact launches of the bf16
+   instances) with no ``aten::to`` made by the ops in its profile;
    (ab) the dry run's three modes
    (``launch.dryrun``): ``--serving --arch tinyllama-1.1b --scaled`` on
    the card, ``--replay`` of a golden trace and one production-mesh cell
@@ -381,6 +389,11 @@ QWEN3_PROJ = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 # prefill; the second wraps its buffer in decode), new tokens each
 FAMILY_PROMPTS, FAMILY_NEW, FAMILY_MAX_LEN = (1500, 1016, 300, 114), 16, 2048
 GEMMA3_WINDOW = 1024
+# depth cuts, to hold the 1200 s limit with the bf16 checks
+# (PERF.md §4): (q) and (s) Gemma3-4B at 2 periods plus its 4-layer
+# remainder, 16 of 34 layers (13 sliding-window, 3 global); (r) Qwen3-8B
+# at 12 of 36 layers; (u) mamba2-1.3b at 24 of 48
+GEMMA3_PERIODS, QWEN3_LAYERS, MAMBA2_LAYERS = 2, 12, 24
 # the rolling buffers' positions in the phase-3 check: (q)'s requests a
 # few steps into decode, the first past the window, the second at its end
 ROLL_POS = [1499, 1023, 299, 113]
@@ -400,7 +413,7 @@ DEEPSEEK_EXPERT_M = (1, 5)
 # decode step timed in phase 3 (run t's b_max and max_len): 128 heads
 # over the latent (kv_lora 512, rope 64; nope 128, v 128)
 MLA_SQ, MLA_B, MLA_S = 114, 4, 256
-# run (u): mamba2-1.3b at full width and depth, INT4: 4 prompts
+# run (u): mamba2-1.3b at full width (24 of 48 layers), INT4: 4 prompts
 # (default_rng(0)) on 4 slots, SSM_NEW new tokens each; the 400-token
 # prompt takes chunk 200 (two chunks: the inter-chunk recurrence runs),
 # the others one chunk each; SSM_PRIME, a prime above the chunk of 256,
@@ -456,6 +469,7 @@ SHARD_SCALE = dict(d_model=64, num_heads=4, num_kv_heads=4, vocab_size=256)
 # run (aa): tinyllama-1.1b with resident INT4 tables, b W4_B x W4_PROMPT
 # tokens into a W4_CACHE-row cache, then W4_STEPS decode steps
 W4_B, W4_PROMPT, W4_CACHE, W4_STEPS = 4, 128, 256, 16
+W4_BF16_STEPS = 4        # (aa)'s bf16 prefill arms: decode steps after it
 # run (ab): one production-mesh cell per mixer family all_cells runs,
 # base and w4, and the status each must have; (ac): the disk tier's key
 DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"),
@@ -511,22 +525,26 @@ def call_ms(torch, fn, iters: int) -> float:
 # machines give a CUPTI trace with none in it, from the first trace of
 # the process on), device times fall back to CUDA events on the stream;
 # ``TIMER`` says which stands behind the printed numbers
-TIMER = {"device": "cupti", "empty_traces": 0}
+TIMER = {"device": "cupti", "empty_traces": 0, "short_events": 0,
+         "median_timed": 0}
 
 
-def device_events(torch, fn, attempts: int = 3):
+def device_events(torch, fn, attempts: int = 3, names: bool = False):
     """(start, end) in µs of every kernel and copy ``fn()`` ran on the
-    card, from a ``torch.profiler`` (CUPTI) trace.  A trace that comes
-    back empty is taken again, up to ``attempts`` times (once, after a
-    call that got none); then it returns ``[]``, and ``TIMER`` records
-    that the callers time with CUDA events instead."""
+    card, from a ``torch.profiler`` (CUPTI) trace (with ``names``, (start,
+    end, name)).  A trace that comes back empty is taken again, up to
+    ``attempts`` times (once, after a call that got none); then it
+    returns ``[]``, and ``TIMER`` records that the callers time with CUDA
+    events instead."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts if TIMER["device"] == "cupti" else 1):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+        dev = [(e.time_range.start, e.time_range.end)
+               + ((e.name,) if names else ())
+               for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if dev:
             TIMER["device"] = "cupti"
@@ -543,13 +561,33 @@ def device_events(torch, fn, attempts: int = 3):
 def device_ms(torch, fn, iters: int) -> float:
     """Mean device time per call of ``fn``: the durations of every kernel
     and copy it ran on the card over ``iters`` calls, summed and divided
-    by ``iters`` (``call_ms`` where the trace holds none)."""
+    by ``iters`` (``call_ms`` where the trace holds none).  A trace can
+    miss a few of a long run's events (one held 210 of 220 casts'
+    launches), and the sum then reads low: where a kernel or copy (by
+    name) has fewer events than its calls a call (its events over
+    ``iters``, rounded, at least 1) times ``iters``, the time is instead
+    each name's median duration times its calls a call, summed.
+    ``TIMER["short_events"]`` adds up the events missed and
+    ``TIMER["median_timed"]`` the times taken so."""
     fn()
     torch.cuda.synchronize()
-    dev = device_events(torch, lambda: [fn() for _ in range(iters)])
+    dev = device_events(torch, lambda: [fn() for _ in range(iters)],
+                        names=True)
     if not dev:
         return call_ms(torch, fn, iters)
-    return sum(e - s for s, e in dev) / iters / 1e3
+    by_name = {}
+    for s_, e, name in dev:
+        by_name.setdefault(name, []).append(e - s_)
+    short, median = 0, 0.0
+    for d in by_name.values():
+        k = max(1, round(len(d) / iters))
+        short += max(0, k * iters - len(d))
+        median += statistics.median(d) * k
+    if not short:
+        return sum(e - s_ for s_, e, _ in dev) / iters / 1e3
+    TIMER["short_events"] += short
+    TIMER["median_timed"] += 1
+    return median / 1e3
 
 
 def busy_share(ivals) -> dict:
@@ -572,11 +610,14 @@ def busy_share(ivals) -> dict:
 
 
 def timings(torch, kernel, plain, library, iters: int) -> dict:
+    short, median = TIMER["short_events"], TIMER["median_timed"]
     out = {"ms": device_ms(torch, kernel, iters),
            "plain_ms": device_ms(torch, plain, iters),
            "library_ms": device_ms(torch, library, iters),
            "call_ms": call_ms(torch, kernel, iters)}
-    return {**out, "device_timer": TIMER["device"]}
+    return {**out, "device_timer": TIMER["device"],
+            "trace_events_short": TIMER["short_events"] - short,
+            "median_timed": TIMER["median_timed"] - median}
 
 
 # ---------------------------------------------------------------------------
@@ -789,20 +830,13 @@ def check_flash(torch, rng, dev):
                    max_abs_err=err, deterministic=same,
                    ok=err <= ATTN_ATOL and same, main=timed)
         if timed:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            # SDPA's is_causal aligns the top left; a chunk's rows sit at
-            # q_offset, and a window cuts below the diagonal, so those
-            # take the mask
-            qp = q_offset + torch.arange(sq, device=dev)[:, None]
-            kp = torch.arange(sk, device=dev)[None, :]
-            mask = (kp <= qp) & ((qp - kp < window) if window else True)
-            sdpa = (dict(attn_mask=mask) if q_offset or window else
-                    dict(is_causal=causal))
+            (qt, kt, vt, mask), sdpa = _sdpa_args(torch, q, k, v, causal,
+                                                  window, q_offset)
             row.update(timings(
                 torch, lambda: flash_attention(q, k, v, **kw),
                 lambda: plain(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, enable_gqa=True, **sdpa), 20))
+                    qt, kt, vt, attn_mask=mask, **sdpa), 20))
             work = (b, sq, sk, h, hkv, dh, causal, window, q_offset)
             c = cost.flash_attention(*work)
             row["bound_ms"], row["bound_by"], row["bound_rate"] = \
@@ -812,19 +846,29 @@ def check_flash(torch, rng, dev):
     return rows
 
 
-def _sdpa_decode(torch, q, kc, vc, pos_t, fresh=None):
+def _sdpa_decode(torch, q, kc, vc, pos_t):
     """One ``scaled_dot_product_attention`` call computing the decode
-    step: q (b, h, dh), caches (b, S, hkv, dh) f32, row r attending
+    step: q (b, h, dh), caches (b, S, hkv, dh), row r attending
     positions <= pos[r] (the library yardstick; the port never calls
     it)."""
-    import torch.nn.functional as F
+    args = _sdpa_decode_args(torch, q, kc, vc, pos_t)
+    return lambda: _sdpa_decode_call(*args)
+
+
+def _sdpa_decode_args(torch, q, kc, vc, pos_t):
+    """``scaled_dot_product_attention``'s inputs for a decode step: q (b,
+    h, 1, dh), caches (b, hkv, S, dh), row r attending positions <=
+    pos[r]."""
     S = kc.shape[1]
-    qt = q[:, :, None]
-    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     mask = (torch.arange(S, device=q.device)[None, :]
             <= pos_t[:, None].long())[:, None, None]
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  enable_gqa=True)
+    return (q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), mask)
+
+
+def _sdpa_decode_call(a, b, c, m):
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(a, b, c, attn_mask=m,
+                                          enable_gqa=True)
 
 
 def check_decode(torch, rng, dev):
@@ -1093,6 +1137,336 @@ def check_decode_int4(torch, rng, dev):
             hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
             c = cost.decode_attention_int4(b, h, hkv, dh, hist, g,
                                            bool(fresh))
+            row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes,
+                                                             c.flops)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the bf16 instances: each against its plain version, warm and cold
+# ---------------------------------------------------------------------------
+
+L2_BYTES = 50 * 2**20    # the H100's L2: a cold row rotates past twice it
+BF16_OUT_RTOL = 2.0**-8  # one bf16 rounding of an output (8 significant bits)
+
+
+def cold_sets(torch, args):
+    """Copies of ``args`` (tensors cloned), enough that one pass over them
+    reads more than twice the L2."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = max(2, 2 * L2_BYTES // max(1, nbytes) + 1)
+    assert n * nbytes > 2 * L2_BYTES, (n, nbytes)
+    return [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in args) for _ in range(n)]
+
+
+def cold_ms(torch, fn, args) -> float:
+    """Mean device time of ``fn(*args)`` with its inputs cold in the L2:
+    each call reads a copy no call since that copy's last one read."""
+    sets = cold_sets(torch, args)
+    turn = iter(range(1 << 30))
+    return device_ms(torch, lambda: fn(*sets[next(turn) % len(sets)]),
+                     len(sets))
+
+
+def bf16_timings(torch, kernel, k_args, plain, library, l_args,
+                 iters: int) -> dict:
+    """``timings`` (warm: the same inputs call after call), then the
+    kernel's and the library call's times with cold inputs."""
+    row = timings(torch, lambda: kernel(*k_args), lambda: plain(*k_args),
+                  lambda: library(*l_args), iters)
+    short, median = TIMER["short_events"], TIMER["median_timed"]
+    row["cold_ms"] = cold_ms(torch, kernel, k_args)
+    row["library_cold_ms"] = cold_ms(torch, library, l_args)
+    row["cold_trace_events_short"] = TIMER["short_events"] - short
+    row["cold_median_timed"] = TIMER["median_timed"] - median
+    return row
+
+
+def check_int4_bf16(torch, rng, dev):
+    """``int4_matmul``'s bf16 instance (bf16 x read and the bf16 output
+    written in-kernel): bit-equal to the cast recipe it replaces (x
+    widened, the f32 instance, the output cast back), two calls equal,
+    and against the plain version (x widened, an f32 output) within one
+    bf16 rounding of the output plus the f32 tolerance (rtol 2^-8 + 1e-5,
+    atol 1e-5 x max); timed warm and cold beside ``torch.matmul`` at
+    bf16 over the dequantized weight: decode M = 4 (the kernels line's
+    head: 2048x2048) and the 8B's decode projections (the GEMV), M = 512
+    (run (aa)'s bf16 prefill) and the 8B's M = 128 (the tensor-core
+    path, one TF32 term); checked untimed at the other shapes of (aa) and
+    at the path switch."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import dequantize_int4, quantize_int4
+    l8 = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+    cases = [(4, 2048, 2048, 128, True)]
+    cases += [(4, K, N, 128, f"bf16 llama3.1-8b M=4 {K}x{N}") for K, N in l8]
+    cases += [(512, 2048, 5632, 128, "bf16 M=512 2048x5632"),
+              (128, 4096, 14336, 128, "bf16 llama3.1-8b M=128 4096x14336")]
+    cases += [(M, K, N, 128, None) for M in (4, 512)
+              for K, N in ((2048, 256), (5632, 2048))]
+    cases += [(512, 2048, 2048, 128, None), (16, 5632, 2048, 128, None),
+              (17, 2048, 5632, 128, None), (20, 2048, 2048, 128, None),
+              (1, 2048, 2048, 128, None), (3, 96, 10, 32, None),
+              (512, 384, 200, 32, None)]
+    rows = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    for M, K, N, G, main in cases:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.05
+        packed, scale = quantize_int4(w, G)
+        out = int4_matmul(x, packed, scale, group=G)
+        recipe = int4_matmul(x.float(), packed, scale,
+                             group=G).to(torch.bfloat16)
+        ref = plain(x, packed, scale, G)
+        again = int4_matmul(x, packed, scale, group=G)
+        torch.cuda.synchronize()
+        d = (out.float() - ref).abs()
+        tol = (BF16_OUT_RTOL + INT4_RTOL) * ref.abs() \
+            + INT4_RTOL * ref.abs().max()
+        same = bool(torch.equal(out, again))
+        recipe_equal = bool(torch.equal(out, recipe))
+        row = dict(shape=f"M={M} K={K} N={N} G={G} x=bf16",
+                   max_abs_err=d.max().item(),
+                   err_over_max=d.max().item() / ref.abs().max().item(),
+                   deterministic=same, bit_equal_to_cast_recipe=recipe_equal,
+                   ok=bool((d <= tol).all()) and same and recipe_equal,
+                   main=main)
+        if main:
+            wd = dequantize_int4(packed, scale, torch.bfloat16, G)
+            row.update(bf16_timings(
+                torch, lambda a, p, s_: int4_matmul(a, p, s_, group=G),
+                (x, packed, scale), lambda a, p, s_: plain(a, p, s_, G),
+                torch.matmul, (x, wd), TIMING_ITERS if M <= 16 else 10))
+            row["bound_ms"], row["bound_by"], row["bound_rate"] = \
+                cost.int4_matmul_bound(M, K, N, G, 2)
+        rows.append(row)
+    return rows
+
+
+def _sdpa_args(torch, q, k, v, causal, window, q_offset):
+    """(args, kwargs) of one ``scaled_dot_product_attention`` computing
+    the same attention (SDPA's ``is_causal`` aligns the top left; a
+    chunk's rows sit at q_offset and a window cuts below the diagonal, so
+    those take a mask)."""
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if q_offset or window:
+        qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        mask = (kp <= qp) & ((qp - kp < window) if window else True)
+        return (qt, kt, vt, mask), dict(enable_gqa=True)
+    return (qt, kt, vt, None), dict(is_causal=causal, enable_gqa=True)
+
+
+def check_flash_bf16(torch, rng, dev):
+    """``flash_attention``'s bf16 instance (both products on bf16
+    ``mma.sync``, the unnormalised P rounded to bf16 as the TPU kernel
+    does): within 2e-2 x max of its plain version at bf16 (which
+    normalises P before rounding it, as the reference's jnp oracle), two
+    calls equal, and its distance from the f32 instance on the widened
+    inputs printed; timed warm and cold beside SDPA at bf16 with the same
+    mask: b 4, sq 128, 32/4 heads of 64 (run (aa)'s bf16 prefill; the
+    kernels line's head), Gemma 3's dh 256 with its 1024 window over 1500
+    rows, whisper's encoder (``causal=False``, group 1, 1500 rows) and a
+    prefill chunk at ``q_offset`` 64 (dh 128, group 4); checked untimed at
+    the other main-path shapes (dh 16 to 256, the cross attention, jamba's
+    group 8, windows with offsets).  The bound counts one bf16 product
+    per multiply-add at 989 TFLOP/s over the pairs the mask attends."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    # (b, sq, sk, h, hkv, dh, causal, window, q_offset, timed as)
+    cases = [(B, PROMPT, PROMPT, 32, 4, 64, True, 0, 0, True),
+             (1, 1500, 1500, 8, 4, 256, True, GEMMA3_WINDOW, 0,
+              "bf16 gemma3-4b sq=1500 window=1024"),
+             (1, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, False, 0, 0,
+              "bf16 whisper encoder sq=sk=1500"),
+             (1, 32, 96, 32, 8, 128, True, 0, 64,
+              "bf16 llama3.1-8b chunk sq=32 q_offset=64"),
+             (1, 141, 141, 32, 4, 64, True, 0, 0, None),
+             (1, 114, 114, 8, 4, 256, True, 0, 0, None),
+             (2, 33, 33, 16, 4, 256, True, GEMMA3_WINDOW, 0, None),
+             (1, 48, WHISPER_FRAMES, 8, 8, 64, False, 0, 0, None),
+             (1, 114, 114, 64, 8, 128, True, 0, 0, None),
+             (1, 18, 114, 32, 8, 128, True, 0, 96, None),
+             (2, 45, 65, 8, 2, 32, True, 13, 20, None),
+             (1, 114, 114, 128, 128, 192, True, 0, 0, None),
+             (2, 32, 32, 8, 4, 16, True, 0, 0, None),
+             (1, 5, 24, 8, 8, 64, False, 0, 0, None)]
+    rows = []
+    for b, sq, sk, h, hkv, dh, causal, window, q_offset, timed in cases:
+        mk = lambda *s: torch.tensor(rng.standard_normal(s),
+                                     dtype=torch.float32,
+                                     device=dev).to(torch.bfloat16)
+        q, k, v = mk(b, sq, h, dh), mk(b, sk, hkv, dh), mk(b, sk, hkv, dh)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out = flash_attention(q, k, v, **kw)
+        ref = plain(q, k, v, **kw).float()
+        again = flash_attention(q, k, v, **kw)
+        wide = flash_attention(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
+        row = dict(shape=f"b={b} sq={sq} sk={sk} h={h} hkv={hkv} dh={dh} "
+                   f"causal={causal} window={window} q_offset={q_offset} "
+                   f"bf16", max_abs_err=err,
+                   err_over_max=err / ref.abs().max().item(),
+                   err_vs_f32_instance=(out.float() - wide).abs().max().item(),
+                   deterministic=same,
+                   ok=err <= BF16_ATOL * ref.abs().max().item() and same,
+                   main=timed)
+        if timed:
+            s_args, s_kw = _sdpa_args(torch, q, k, v, causal, window, q_offset)
+            row.update(bf16_timings(
+                torch, lambda a, b_, c: flash_attention(a, b_, c, **kw),
+                (q, k, v), lambda a, b_, c: plain(a, b_, c, **kw),
+                lambda a, b_, c, m: F.scaled_dot_product_attention(
+                    a, b_, c, attn_mask=m, **s_kw), s_args, 20))
+            work = (b, sq, sk, h, hkv, dh, causal, window, q_offset)
+            row["bound_ms"], row["bound_by"], row["bound_rate"] = \
+                cost.flash_attention_bound(*work, itemsize=2)
+        rows.append(row)
+    return rows
+
+
+def check_decode_bf16(torch, rng, dev):
+    """``decode_attention``'s bf16-q instance (q read and the output
+    written in bf16 by the kernel; the arithmetic stays f32): bit-equal
+    to the cast recipe it replaces (q widened, the f32-q instance, the
+    output cast back), two calls equal, within 2e-2 x max of the plain
+    version at bf16; timed warm and cold beside SDPA at bf16: run (aa)'s
+    bf16 steps (b 4 over the 256-row slab, 32/4 heads of 64) as the
+    kernels line's head, the serving shape (S 160, ragged), Gemma
+    3's global slab (dh 256) and whisper's cross attention over 1500
+    rows; checked untimed over f32 caches and at dh 16 and 128."""
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.decode_attention import decode_attention, plain
+    S = -(-(max(SERVE_POS) + 1) // 32) * 32
+    bf, f32 = torch.bfloat16, torch.float32
+    aa_pos = [W4_PROMPT + W4_BF16_STEPS] * W4_B
+    # (b, S, h, hkv, dh, pos, cache dtype, timed as)
+    cases = [(W4_B, W4_CACHE, 32, 4, 64, aa_pos, bf, True),
+             (B, S, 32, 4, 64, SERVE_POS, bf, "bf16 q serving S=160"),
+             (B, 1536, 8, 4, 256, [1515, 1031, 315, 129], bf,
+              "bf16 q gemma3-4b global"),
+             (B, WHISPER_FRAMES, 8, 8, 64, [WHISPER_FRAMES - 1] * B, bf,
+              "bf16 q whisper cross S=1500"),
+             (B, S, 32, 4, 64, SERVE_POS, f32, None),
+             (B, S, 32, 8, 128, SERVE_POS, bf, None),
+             (3, 77, 8, 2, 32, [76, 0, 40], bf, None),
+             (2, 64, 8, 4, 16, [46, 33], bf, None),
+             (B, MAX_LEN, 32, 8, 64, [118, 97, 85, 62], f32, None)]
+    rows = []
+    for b, S_, h, hkv, dh, pos, cdt, timed in cases:
+        mk = lambda *s: torch.tensor(rng.standard_normal(s),
+                                     dtype=torch.float32, device=dev)
+        q = mk(b, h, dh).to(bf)
+        kc, vc = mk(b, S_, hkv, dh).to(cdt), mk(b, S_, hkv, dh).to(cdt)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        out = decode_attention(q, kc, vc, pos_t)
+        recipe = decode_attention(q.float(), kc, vc, pos_t).to(bf)
+        ref = plain(q, kc, vc, pos_t).float()
+        same = bool(torch.equal(out, decode_attention(q, kc, vc, pos_t)))
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        recipe_equal = bool(torch.equal(out, recipe))
+        row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} pos={pos} "
+                   f"q=bfloat16 cache={str(cdt)[6:]}", max_abs_err=err,
+                   err_over_max=err / ref.abs().max().item(),
+                   deterministic=same, bit_equal_to_cast_recipe=recipe_equal,
+                   ok=(err <= BF16_ATOL * ref.abs().max().item() and same
+                       and recipe_equal), main=timed)
+        if timed:
+            row.update(bf16_timings(
+                torch, decode_attention, (q, kc, vc, pos_t), plain,
+                _sdpa_decode_call,
+                _sdpa_decode_args(torch, q, kc.to(bf), vc.to(bf), pos_t),
+                TIMING_ITERS))
+            c = cost.decode_attention(b, h, hkv, dh, sum(p + 1 for p in pos),
+                                      kc.element_size(), 2)
+            row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes,
+                                                             c.flops)
+        rows.append(row)
+    return rows
+
+
+def check_decode_int4_bf16(torch, rng, dev):
+    """``decode_attention_int4``'s bf16-q instance (the repaired fault:
+    its kernel arm refused a bf16 q): bit-equal to the cast recipe (q and
+    the fresh rows widened, the f32 instance, the output cast back), two
+    calls equal, within 2e-2 x max of the plain version at bf16; timed
+    warm and cold beside SDPA at bf16 over the dequantized rows with the
+    fresh row written: run (aa)'s bf16 step over packed rows (b 4, S 256,
+    dh 64, bf16 fresh rows; the kernels line's head), the serving shape
+    and Gemma 3's global layers (F 1024, dh 256, S 2048); checked untimed
+    without a fresh row, with f32 fresh rows and over f32 rows."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4, plain)
+    bf, f32 = torch.bfloat16, torch.float32
+    S = -(-(max(SERVE_POS) + 1) // 32) * 32
+    aa_pos = [W4_PROMPT + W4_BF16_STEPS] * W4_B
+    # (b, S, h, hkv, dh, pos, fresh rows' dtype or None, cache, timed as)
+    cases = [(W4_B, W4_CACHE, 32, 4, 64, aa_pos, bf, bf, True),
+             (B, S, 32, 4, 64, SERVE_POS, bf, bf, "bf16 q serving S=160"),
+             (B, 2048, 8, 4, 256, [1515, 1031, 315, 129], bf, bf,
+              "bf16 q gemma3-4b S=2048"),
+             (B, S, 32, 4, 64, SERVE_POS, None, bf, None),
+             (B, S, 32, 4, 64, SERVE_POS, f32, f32, None),
+             (B, S, 32, 4, 64, [0, 0, 5, 1], None, f32, None),
+             (3, 77, 6, 3, 16, [76, 0, 40], bf, bf, None),
+             (B, S, 32, 8, 128, SERVE_POS, bf, bf, None)]
+    rows = []
+    for b, S_, h, hkv, dh, pos, fresh, cdt, timed in cases:
+        F_, mk = hkv * dh, (lambda *s: torch.tensor(
+            rng.standard_normal(s), dtype=torch.float32, device=dev))
+        g = kv_group(F_)
+        q = mk(b, h, dh).to(bf)
+        kq, ks = quantize_kv_rows(mk(b, S_, F_), g)
+        vq, vs = quantize_kv_rows(mk(b, S_, F_), g)
+        kn, vn = ((mk(b, hkv, dh).to(fresh), mk(b, hkv, dh).to(fresh))
+                  if fresh else (None, None))
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
+        out = decode_attention_int4(q, kq, ks, vq, vs, pos_t, **kw)
+        wkw = dict(kw, k_new=None if kn is None else kn.float(),
+                   v_new=None if vn is None else vn.float())
+        recipe = decode_attention_int4(q.float(), kq, ks, vq, vs, pos_t,
+                                       **wkw).to(bf)
+        ref = plain(q, kq, ks, vq, vs, pos_t, **kw).float()
+        same = bool(torch.equal(out, decode_attention_int4(
+            q, kq, ks, vq, vs, pos_t, **kw)))
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        recipe_equal = bool(torch.equal(out, recipe))
+        row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} g={g} "
+                   f"pos={pos} q=bfloat16 fresh="
+                   f"{str(fresh)[6:] if fresh else None} "
+                   f"cache={str(cdt)[6:]}", max_abs_err=err,
+                   err_over_max=err / ref.abs().max().item(),
+                   deterministic=same, bit_equal_to_cast_recipe=recipe_equal,
+                   ok=(err <= BF16_ATOL * ref.abs().max().item() and same
+                       and recipe_equal), main=timed)
+        if timed:
+            kd, vd = (PackedRows(p_, s_, g, bf, (hkv, dh)).dequantize()
+                      for p_, s_ in ((kq, ks), (vq, vs)))
+            if fresh:                    # the yardstick attends the same rows
+                rr = torch.arange(b, device=dev)
+                kd[rr, pos_t.long()] = kn.to(bf)
+                vd[rr, pos_t.long()] = vn.to(bf)
+            row.update(bf16_timings(
+                torch, lambda *a: decode_attention_int4(*a, **kw),
+                (q, kq, ks, vq, vs, pos_t),
+                lambda *a: plain(*a, **kw), _sdpa_decode_call,
+                _sdpa_decode_args(torch, q, kd, vd, pos_t), TIMING_ITERS))
+            hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
+            c = cost.decode_attention_int4(b, h, hkv, dh, hist, g,
+                                           bool(fresh), 2, 2)
             row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes,
                                                              c.flops)
         rows.append(row)
@@ -2079,10 +2453,33 @@ def run_resident(torch, ops, reqs):
                                      / b.abs().max()).item()
     whole["tolerance_rel"] = {"prefill": HIDDEN_RTOL,
                               "decode": BF16_HIDDEN_RTOL}
+    # the use_kernels(False) arm over all of (i)'s requests on the same
+    # engine and weights: each request's first token equal, the equal
+    # tokens counted; no launch in it; then the ops' own casts in a
+    # profiled short serve (4 prefills, 1 decode step): none
+    ops.use_kernels(False)
+    try:
+        rpl = serve_once(torch, ops, eng, reqs, 700)
+    finally:
+        ops.use_kernels(True)
+    op_ = rpl["outs"]
+    whole["plain_arm"] = {
+        "launches": sum(rpl["counts"].values()),
+        "first_tokens_equal": all(outs[i][0] == op_[i][0] for i in outs),
+        "tokens_compared": sum(len(outs[i]) for i in outs),
+        "tokens_equal": sum(x == y for i in outs
+                            for x, y in zip(outs[i], op_[i]))}
+    prof = op_casts(torch, ops, lambda: serve_once(torch, ops, eng, short,
+                                                   800))
+    whole["op_casts"], whole["profiled_serve_device_ms"] = \
+        prof["casts"], prof["device_ms"]
     log(json.dumps({"resident_whole_path": whole}))
     if whole["prefill_rel_err"] > HIDDEN_RTOL \
-            or whole["decode_rel_err"] > BF16_HIDDEN_RTOL:
-        raise RuntimeError(f"run i: hidden states differ: {whole}")
+            or whole["decode_rel_err"] > BF16_HIDDEN_RTOL \
+            or whole["plain_arm"]["launches"] \
+            or not whole["plain_arm"]["first_tokens_equal"] \
+            or whole["op_casts"]:
+        raise RuntimeError(f"run i: kernels differ from plain: {whole}")
 
     # the offloaded engine on the same weights (same seed), same requests
     oplan = EngineSpec(arch="tinyllama-1.1b", offload=True).resolve()
@@ -3138,6 +3535,15 @@ def main(argv=None) -> int:
                                 dev)
     checks["decode_attention"] += verify
     checks["decode_attention_int4"] += verify_int4
+    # the bf16 instances
+    checks["int4_matmul_bf16"] = timed("check int4_matmul bf16",
+                                       check_int4_bf16, torch, rng, dev)
+    checks["flash_attention_bf16"] = timed("check flash bf16",
+                                           check_flash_bf16, torch, rng, dev)
+    checks["decode_attention_bf16"] = timed("check decode bf16",
+                                            check_decode_bf16, torch, rng, dev)
+    checks["decode_attention_int4_bf16"] = timed(
+        "check decode int4 bf16", check_decode_int4_bf16, torch, rng, dev)
     torch.cuda.synchronize()
     failed = []
     for name, rows in checks.items():
@@ -3283,6 +3689,22 @@ def main(argv=None) -> int:
 # runs (q)-(s): Gemma 3 (sliding window, head_dim 256) and Qwen3 (qk_norm)
 # ---------------------------------------------------------------------------
 
+def depth_cut(arch: str, **layers):
+    """``arch``'s registry config at full width with its depth cut."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **layers)
+
+
+def gemma3_cut():
+    """Gemma3-4B cut to ``GEMMA3_PERIODS`` periods of its pattern (5
+    sliding-window layers and a global one) and its 4-layer remainder."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-4b")
+    return depth_cut("gemma3-4b", num_periods=GEMMA3_PERIODS,
+                     num_layers=GEMMA3_PERIODS * len(cfg.pattern)
+                     + len(cfg.remainder))
+
+
 def family_requests(np, vocab: int):
     """Runs (q) and (s): prompts of ``FAMILY_PROMPTS`` random tokens
     (``default_rng(0)``), ``FAMILY_NEW`` new tokens each."""
@@ -3322,10 +3744,11 @@ def kv_step_bytes(eng, summary) -> dict:
 
 
 def run_gemma3_offloaded(torch, ops, np):
-    """Run (q): Gemma3-4B (34 layers, 28 sliding-window layers of 1024
-    and 6 global, head_dim 256, tied 262144-row table), INT4 weights and
-    KV, through ``EngineSpec.resolve`` and ``create_engine`` on the
-    default budget; (q)'s four requests (prompts 1500, 1016, 300, 114:
+    """Run (q): Gemma3-4B cut to ``gemma3_cut`` (16 of its 34 layers: 13
+    sliding-window layers of 1024 and 3 global, head_dim 256, tied
+    262144-row table), INT4 weights and KV, through
+    ``EngineSpec.resolve`` and ``create_engine`` on the default budget;
+    (q)'s four requests (prompts 1500, 1016, 300, 114:
     the window binds in the first prefill, the second wraps its buffer
     in decode), exact launches (the local layers' decode over their
     rolling buffers through ``decode_attention``, the global layers'
@@ -3334,8 +3757,8 @@ def run_gemma3_offloaded(torch, ops, np):
     step, then kernels against ``use_kernels(False)`` (prefill 1e-4,
     decode 2e-2 x max).  Returns its counts and summary."""
     from repro_torch.serving.spec import EngineSpec
-    plan = EngineSpec(arch="gemma3-4b", quant="int4", kv_mode="int4",
-                      max_len=FAMILY_MAX_LEN).resolve()
+    plan = EngineSpec(arch="gemma3-4b", cfg=gemma3_cut(), quant="int4",
+                      kv_mode="int4", max_len=FAMILY_MAX_LEN).resolve()
     cfg = plan.model_config()
     log(f"(q) plan: {plan.summary()}")
     log(f"(q) engine: {plan.provenance['engine']}; depth: "
@@ -3361,17 +3784,20 @@ def run_gemma3_offloaded(torch, ops, np):
 
 
 def run_qwen3_offloaded(torch, ops, np):
-    """Run (r): Qwen3-8B (36 layers, ``qk_norm``), INT4 weights, through
-    ``EngineSpec.resolve`` and ``create_engine`` on the default budget
-    (offloaded, host, depth 8, bf16 caches); (g)'s requests, exact
-    launches, kernels against ``use_kernels(False)``; then on the same
-    engine an oracle proposer from (r)'s own streams, ``SPEC_K`` a step:
-    tokens equal to (r)'s (the verify pass runs ``qk_norm`` on the
-    card), full acceptance, exact launches, and the verify step against
-    ``use_kernels(False)`` (2e-2 x max over bf16 caches); the peak
-    beside the budget.  Returns its counts and summary."""
+    """Run (r): Qwen3-8B (``QWEN3_LAYERS`` of its 36 layers,
+    ``qk_norm``), INT4 weights, through ``EngineSpec.resolve`` and
+    ``create_engine`` on the default budget (offloaded, host, depth 8,
+    bf16 caches); (g)'s requests, exact launches, kernels against
+    ``use_kernels(False)``; then on the same engine an oracle proposer
+    from (r)'s own streams, ``SPEC_K`` a step: tokens equal to (r)'s
+    (the verify pass runs ``qk_norm`` on the card), full acceptance,
+    exact launches, and the verify step against ``use_kernels(False)``
+    (2e-2 x max over bf16 caches); the peak beside the budget.  Returns
+    its counts and summary."""
     from repro_torch.serving.spec import EngineSpec
-    plan = EngineSpec(arch="qwen3-8b", quant="int4").resolve()
+    plan = EngineSpec(arch="qwen3-8b", cfg=depth_cut(
+        "qwen3-8b", num_layers=QWEN3_LAYERS, num_periods=QWEN3_LAYERS),
+        quant="int4").resolve()
     cfg = plan.model_config()
     log(f"(r) plan: {plan.summary()}; depth: {plan.provenance['depth']}")
     if plan.engine != "offloaded" or not cfg.qk_norm:
@@ -3439,7 +3865,8 @@ def run_gemma3_resident(torch, ops, np):
     from repro_torch.core.offload import MemoryBudget
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.spec import EngineSpec, create_engine
-    plan = EngineSpec(arch="gemma3-4b", max_len=FAMILY_MAX_LEN).resolve(
+    plan = EngineSpec(arch="gemma3-4b", cfg=gemma3_cut(),
+                      max_len=FAMILY_MAX_LEN).resolve(
         MemoryBudget(device=40 * 2**30, host=64 * 2**30))
     log(f"(s) plan: {plan.summary()}; engine: {plan.provenance['engine']}")
     torch.cuda.synchronize()
@@ -3472,7 +3899,7 @@ def run_gemma3_resident(torch, ops, np):
                "step_ms_p90": steps_ms[int(0.9 * (len(steps_ms) - 1))],
                "device_max_allocated_gb": r["device_max_allocated_gb"],
                "launches": r["counts"]}
-    oplan = EngineSpec(arch="gemma3-4b", quant="int4",
+    oplan = EngineSpec(arch="gemma3-4b", cfg=gemma3_cut(), quant="int4",
                        max_len=FAMILY_MAX_LEN).resolve()
     oeng = create_engine(oplan)
     ro = serve_once(torch, ops, oeng, reqs, 0)
@@ -3493,6 +3920,16 @@ def run_gemma3_resident(torch, ops, np):
             "offloaded": ro["outs"][i][k],
             "resident_logit_margin": logit_margin(torch, eng, prefix)}
     summary["vs_offloaded"] = agree
+    # its first request against use_kernels(False) on the same engine and
+    # weights (the prefill of 1500 rows through the window and the first
+    # decode step), then the ops' own casts in a profiled short serve
+    summary["whole_path"] = resident_whole_path(torch, ops, eng, reqs[:1],
+                                                "s")
+    prof = op_casts(torch, ops, lambda: serve_once(
+        torch, ops, eng, [(reqs[0][0], 2)], 900))
+    summary["op_casts"] = prof["casts"]
+    if prof["casts"]:
+        raise RuntimeError(f"run s: the ops cast {prof['casts']} times")
     log(json.dumps({"gemma3_resident": summary}))
     eng.shutdown()
     return r["counts"], summary
@@ -3730,8 +4167,9 @@ def ssm_decode_step_check(torch, ops, eng):
 
 
 def run_mamba2(torch, ops, np):
-    """Run (u): mamba2-1.3b at full width and depth (48 SSM layers, d
-    2048, 64 heads of 64, d_state 128, vocab 50280, tied), INT4, through
+    """Run (u): mamba2-1.3b at full width (``MAMBA2_LAYERS`` of its 48
+    SSM layers, d 2048, 64 heads of 64, d_state 128, vocab 50280, tied),
+    INT4, through
     ``EngineSpec.resolve`` and ``create_engine``: the default budget
     resolves it resident (provenance printed); ``offload=True`` on the
     same seed gives the offloaded engine (host, depth 8, ``fused_int4``:
@@ -3757,7 +4195,9 @@ def run_mamba2(torch, ops, np):
     from repro_torch.models.layers import _pick_chunk
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.spec import EngineSpec, create_engine
-    spec = dict(arch="mamba2-1.3b", quant="int4", max_len=SSM_MAX_LEN)
+    spec = dict(arch="mamba2-1.3b", quant="int4", max_len=SSM_MAX_LEN,
+                cfg=depth_cut("mamba2-1.3b", num_layers=MAMBA2_LAYERS,
+                              num_periods=MAMBA2_LAYERS))
     rplan = EngineSpec(**spec).resolve()
     log(f"(u) default plan: {rplan.summary()}")
     log(f"(u) provenance: {json.dumps(rplan.provenance)}")
@@ -4804,10 +5244,10 @@ def run_shard(torch, ops, np, card, init=None, profile=False):
 # runs (aa)-(ac): the tooling slice
 # ---------------------------------------------------------------------------
 
-def w4_serve(torch, model, params, toks, caches_out=None):
+def w4_serve(torch, model, params, toks, caches_out=None, steps=W4_STEPS):
     """Prefill ``toks`` (b, W4_PROMPT) into a W4_CACHE-row cache, then
-    W4_STEPS greedy decode steps, through ``launch.steps``; (tokens (b,
-    1 + W4_STEPS), the prefill's head input)."""
+    ``steps`` greedy decode steps, through ``launch.steps``; (tokens (b,
+    1 + steps), the head inputs: the prefill's, then each step's)."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import layers as L
     rec, restore = head_inputs(L)
@@ -4816,7 +5256,7 @@ def w4_serve(torch, model, params, toks, caches_out=None):
                                                          {"tokens": toks})
         out = [tok]
         step = make_decode_step(model)
-        for k in range(W4_STEPS):
+        for k in range(steps):
             tok, caches = step(params, {"token": out[-1][:, None],
                                         "pos": W4_PROMPT + k}, caches)
             out.append(tok)
@@ -4825,7 +5265,7 @@ def w4_serve(torch, model, params, toks, caches_out=None):
         restore()
     if caches_out is not None:
         caches_out.append(caches)
-    return torch.stack(out, 1), rec[0]
+    return torch.stack(out, 1), rec
 
 
 def run_w4(torch, ops, np, card):
@@ -4840,17 +5280,20 @@ def run_w4(torch, ops, np, card):
     skipped in both packages: ROADMAP Queue 3 item 24), ``flash_attention``
     a layer at the prefill, ``decode_attention`` a layer a step.  Then
     the roofline counter's count of one decode step on meta tensors
-    beside its profiled device ms and the peak memory, and one bf16
-    decode step through the ops' cast path against ``use_kernels(False)``
-    (head inputs within 2e-2 x max, tokens equal, exact launches), with
-    the casts' device time read from that step's profile.
+    beside its profiled device ms and the peak memory.  Then the bf16
+    instances at full width: one bf16 decode step, a bf16 prefill
+    and ``W4_BF16_STEPS`` decode steps, and one step over the caches
+    packed as INT4 KV rows (``pack_kv``), each against
+    ``use_kernels(False)`` (head inputs within 2e-2 x max, tokens equal,
+    exact launches of each bf16 instance), with its profile's device ms
+    and the ``aten::to`` calls the ops made (none).
     Returns (launch counts, summary)."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model
     from repro_torch.roofline import HW, analyze_step, roofline_report
-    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
     cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
                               quant_weights=True)
     model = build_model(cfg)
@@ -4873,7 +5316,7 @@ def run_w4(torch, ops, np, card):
     t0 = time.perf_counter()
     caches = []
     with torch.no_grad():
-        out, head = w4_serve(torch, model, params, toks, caches)
+        out, (head, *_) = w4_serve(torch, model, params, toks, caches)
     serve_s = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -4886,14 +5329,15 @@ def run_w4(torch, ops, np, card):
     ops.use_kernels(False)
     try:
         with torch.no_grad():
-            plain_out, plain_head = w4_serve(torch, model, params, toks)
+            plain_out, (plain_head, *_) = w4_serve(torch, model, params,
+                                                   toks)
     finally:
         ops.use_kernels(True)
-    rel = ((head - plain_head).abs().max()
-           / plain_head.abs().max()).item()
+    rel_f32 = ((head - plain_head).abs().max()
+               / plain_head.abs().max()).item()
     same = bool(torch.equal(out, plain_out))
-    if rel > HIDDEN_RTOL or not same:
-        raise RuntimeError(f"(aa): prefill hidden states {rel:.3e} x max "
+    if rel_f32 > HIDDEN_RTOL or not same:
+        raise RuntimeError(f"(aa): prefill hidden states {rel_f32:.3e} x max "
                            f"(tol {HIDDEN_RTOL}), tokens equal {same}")
     # one more decode step: the counter on meta tensors, the card's
     # profile
@@ -4915,8 +5359,9 @@ def run_w4(torch, ops, np, card):
                  "bytes"] / acc["hbm_bytes"],
              "kernels_counted": {k: v["count"]
                                  for k, v in acc["kernels"].items()}}
-    # one bf16 decode step through the ops' cast path (the packed tables
-    # keep their uint8 and f32)
+    # one bf16 decode step (the packed tables keep their uint8 and f32):
+    # the ops hand bf16 straight to the kernels' bf16 instances (the
+    # ops' former cast path took 220 casts, 0.399 ms of 2.622 on the H100)
     def bf16(tree, name=None):
         if isinstance(tree, dict):
             return {k: bf16(v, k) for k, v in tree.items()}
@@ -4925,6 +5370,7 @@ def run_w4(torch, ops, np, card):
         return tree if T.keeps_dtype(name) else tree.to(torch.bfloat16)
     params_bf = bf16(params)
     caches_bf = tree_map(lambda t: t.to(torch.bfloat16), caches[0])
+    n, proj = cfg.num_layers, len(ran) * cfg.num_layers
     bf_arm = {}
     for on in (True, False):    # the same step (it rewrites row ``pos``)
         rec, restore = head_inputs(L)
@@ -4939,9 +5385,9 @@ def run_w4(torch, ops, np, card):
             restore()
         bf_arm[on] = (tok_bf, rec[0], dict(ops.LAUNCHES))
     bf_launches = bf_arm[True][2]
-    bf_expect = {"int4_matmul": len(ran) * cfg.num_layers,
-                 "flash_attention": 0, "decode_attention": cfg.num_layers,
-                 "decode_attention_int4": 0}
+    bf_expect = {"int4_matmul": proj, "int4_matmul_bf16": proj,
+                 "flash_attention": 0, "decode_attention": n,
+                 "decode_attention_bf16": n, "decode_attention_int4": 0}
     check_launches("aa bf16", bf_launches, bf_expect, exact=True)
     bf_rel = ((bf_arm[True][1] - bf_arm[False][1]).abs().max()
               / bf_arm[False][1].abs().max()).item()
@@ -4950,39 +5396,152 @@ def run_w4(torch, ops, np, card):
         raise RuntimeError(f"(aa) bf16 step: head inputs {bf_rel:.3e} x "
                            f"max (tol {BF16_HIDDEN_RTOL}), tokens equal "
                            f"{bf_same}")
-    # the casts' device time from the step's own profile: the ``aten::to``
-    # calls the ops make themselves (two for each packed projection, q's
-    # and the output's for each decode attention), told apart by labels
-    # on the ops and on the kernel wrappers they call
-    with labelled(torch, [(L, "int4_matmul_op"),
-                          (ops, "decode_attention_op")], "kernel op"), \
-            labelled(torch, [(ops, "int4_matmul"),
-                             (ops, "decode_attention")], "kernel wrapper"):
-        prof_bf = profiled(torch, lambda: step(params_bf, batch, caches_bf),
-                           casts_of=("kernel op", "kernel wrapper"))
-    casts_expect = 2 * (len(ran) + 1) * cfg.num_layers
-    if prof_bf["timer"] == "cupti" and not prof_bf["casts"]:
-        raise RuntimeError(f"(aa) bf16 step: no cast found in its profile, "
-                           f"{casts_expect} expected")
-    del params_bf, caches_bf, caches
+    # the step's own profile: device ms, and the ``aten::to`` calls the
+    # ops make themselves (told apart by labels on the ops and on the
+    # kernel wrappers they call): none since the bf16 instances
+    prof_bf = op_casts(torch, ops, lambda: step(params_bf, batch,
+                                                caches_bf))
+    # the bf16 instances on the prefill and over packed INT4 KV rows:
+    # ``make_prefill_step`` at bf16 (flash and int4_matmul's tensor-core
+    # path) and W4_BF16_STEPS decode steps, then one step over the
+    # kernel arm's caches packed as the KV store's rows (PackedRows: the
+    # layer's decode goes through decode_attention_int4 with bf16 q and
+    # fresh rows), each against use_kernels(False)
+    pf_arm = {}
+    for on in (True, False):
+        ops.use_kernels(on)
+        ops.reset_launches()
+        cs = []
+        try:
+            with torch.no_grad():
+                t16, h16 = w4_serve(torch, model, params_bf, toks, cs,
+                                    steps=W4_BF16_STEPS)
+        finally:
+            ops.use_kernels(True)
+        pf_arm[on] = (t16, h16, dict(ops.LAUNCHES), cs[0])
+    pf_expect = {"flash_attention": n, "flash_attention_bf16": n,
+                 "decode_attention": n * W4_BF16_STEPS,
+                 "decode_attention_bf16": n * W4_BF16_STEPS,
+                 "int4_matmul": proj * (1 + W4_BF16_STEPS),
+                 "int4_matmul_bf16": proj * (1 + W4_BF16_STEPS),
+                 "decode_attention_int4": 0}
+    check_launches("aa bf16 prefill", pf_arm[True][2], pf_expect, exact=True)
+    if any(pf_arm[False][2].values()):
+        raise RuntimeError(f"(aa) bf16 prefill: the plain arm launched "
+                           f"{pf_arm[False][2]}")
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    pf_rel = [rel(a, b) for a, b in zip(pf_arm[True][1][:2],
+                                        pf_arm[False][1][:2])]
+    pf_first = bool(torch.equal(pf_arm[True][0][:, 0], pf_arm[False][0][:, 0]))
+    pf_tokens = int((pf_arm[True][0] == pf_arm[False][0]).sum())
+    if max(pf_rel) > BF16_HIDDEN_RTOL or not pf_first:
+        raise RuntimeError(f"(aa) bf16 prefill: head inputs {pf_rel} x max "
+                           f"(prefill, first step; tol {BF16_HIDDEN_RTOL}), "
+                           f"first tokens equal {pf_first}")
+    prof_pf = op_casts(torch, ops, lambda: make_prefill_step(
+        model, W4_CACHE)(params_bf, {"tokens": toks}))
+    packed_caches = pack_kv(torch, pf_arm[True][3])
+    batch16 = {"token": pf_arm[True][0][:, -1:].contiguous(),
+               "pos": W4_PROMPT + W4_BF16_STEPS}
+    pk_arm = {}
+    for on in (True, False):
+        rec, restore = head_inputs(L)
+        ops.use_kernels(on)
+        ops.reset_launches()
+        try:
+            with torch.no_grad():
+                tok_pk, _ = step(params_bf, batch16, packed_caches)
+            torch.cuda.synchronize()
+        finally:
+            ops.use_kernels(True)
+            restore()
+        pk_arm[on] = (tok_pk, rec[0], dict(ops.LAUNCHES))
+    pk_expect = {"decode_attention_int4": n, "decode_attention_int4_bf16": n,
+                 "int4_matmul": proj, "int4_matmul_bf16": proj,
+                 "decode_attention": 0, "flash_attention": 0}
+    check_launches("aa bf16 packed", pk_arm[True][2], pk_expect, exact=True)
+    pk_rel = rel(pk_arm[True][1], pk_arm[False][1])
+    pk_same = bool(torch.equal(pk_arm[True][0], pk_arm[False][0]))
+    if pk_rel > BF16_HIDDEN_RTOL or not pk_same:
+        raise RuntimeError(f"(aa) bf16 step over packed rows: head inputs "
+                           f"{pk_rel:.3e} x max (tol {BF16_HIDDEN_RTOL}), "
+                           f"tokens equal {pk_same}")
+    prof_pk = op_casts(torch, ops, lambda: step(params_bf, batch16,
+                                                packed_caches))
+    casts = {"step": prof_bf["casts"], "prefill": prof_pf["casts"],
+             "packed_step": prof_pk["casts"]}
+    if any(casts.values()):
+        raise RuntimeError(f"(aa) bf16: the ops cast ({casts}); the bf16 "
+                           f"instances take bf16 as it is")
+    bf16_counts = {k: bf_arm[True][2][k] + pf_arm[True][2][k]
+                   + pk_arm[True][2][k] for k in ops.LAUNCHES}
+    del params_bf, caches_bf, caches, packed_caches, pf_arm
     summary = {"card": card, "build_s": build_s, "serve_s": serve_s,
                "launches": counts, "expect": expect,
-               "prefill_hidden_rel": rel, "tokens_equal": same,
+               "prefill_hidden_rel": rel_f32, "tokens_equal": same,
                "peak_gib": peak / 2**30, "step_device_ms": prof["device_ms"],
                "step_busy_share": prof["device_busy_share"],
                "step_top_ms": prof["top_ms"][:4], "counted": count,
                "bf16_step_device_ms": prof_bf["device_ms"],
-               "bf16_step_casts": prof_bf["casts"],
-               "bf16_step_casts_expected": casts_expect,
-               "bf16_step_casts_timed": prof_bf["casts_timed"],
-               "bf16_step_casts_device_ms": prof_bf["casts_ms"],
+               "bf16_step_device_ms_former_cast_path": 2.622,
+               "bf16_step_op_casts": casts,
                "bf16_step_top_ms": prof_bf["top_ms"][:4],
                "bf16_head_rel_vs_plain": bf_rel,
                "bf16_tokens_equal": bf_same,
-               "bf16_launches": bf_launches}
+               "bf16_launches": bf_launches,
+               "bf16_prefill": {"head_rel_vs_plain": pf_rel,
+                                "first_tokens_equal": pf_first,
+                                "tokens_equal": pf_tokens,
+                                "tokens": W4_B * (1 + W4_BF16_STEPS),
+                                "prefill_device_ms": prof_pf["device_ms"],
+                                "top_ms": prof_pf["top_ms"][:4]},
+               "bf16_packed_step": {"head_rel_vs_plain": pk_rel,
+                                    "tokens_equal": pk_same,
+                                    "device_ms": prof_pk["device_ms"],
+                                    "top_ms": prof_pk["top_ms"][:4]},
+               "bf16_launches_total": bf16_counts}
     log(json.dumps({"w4_run_aa": summary}))
+    log(f"(aa) bf16 decode step, {card}: {prof_bf['device_ms']:.3f} ms of "
+        f"device time (through the ops' former cast path: 2.622 ms, of it "
+        f"0.399 ms in 220 casts), {casts['step']} op-made casts; bf16 "
+        f"prefill head inputs within {max(pf_rel):.3e} x max, "
+        f"{pf_tokens} of {W4_B * (1 + W4_BF16_STEPS)} "
+        f"tokens equal; packed-row step {pk_rel:.3e} x max")
     del params
     return counts, summary
+
+
+def op_casts(torch, ops, fn) -> dict:
+    """``profiled(fn)`` with the kernel ops and their wrappers labelled,
+    so that ``casts`` counts the ``aten::to`` calls the ops make
+    themselves (none since the bf16 instances)."""
+    from repro_torch.models import layers as L
+    with labelled(torch, [(L, "int4_matmul_op"), (L, "flash_attention_op"),
+                          (ops, "flash_attention_op"),
+                          (ops, "decode_attention_op"),
+                          (ops, "decode_attention_int4_op")], "kernel op"), \
+            labelled(torch, [(ops, "int4_matmul"), (ops, "flash_attention"),
+                             (ops, "decode_attention"),
+                             (ops, "decode_attention_int4")],
+                     "kernel wrapper"):
+        return profiled(torch, fn, casts_of=("kernel op", "kernel wrapper"))
+
+
+def pack_kv(torch, caches):
+    """A resident cache tree with every attention layer's K and V slabs
+    ((periods, b, S, hkv, dh)) packed as the KV store's rows: a list over
+    the periods of ``PackedRows`` at the slab's dtype, which the decode
+    step attends through ``decode_attention_int4``."""
+    from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
+
+    def pack(c):
+        P, b, S, hkv, dh = c.shape
+        g = kv_group(hkv * dh)
+        return [PackedRows(*quantize_kv_rows(c[p].reshape(b, S, hkv * dh), g),
+                           g, c.dtype, (hkv, dh)) for p in range(P)]
+    return {"pat": tuple({k: pack(t) if k in ("k", "v") else t
+                          for k, t in d.items()} for d in caches["pat"]),
+            "rem": caches["rem"]}
 
 
 def run_dryrun_modes(torch):
@@ -5104,6 +5663,9 @@ def run_link_probe(np):
 def run_tooling(torch, ops, np, card, counts, summaries, stamp):
     """Runs (aa)-(ac), each its own phase."""
     counts["aa"], summaries["aa"] = run_w4(torch, ops, np, card)
+    # the bf16 instances' home run: (aa)'s bf16 prefill, decode steps and
+    # packed-row step, kernel arms only
+    counts["aa_bf16"] = summaries["aa"]["bf16_launches_total"]
     gc.collect()
     torch.cuda.empty_cache()
     stamp("aa")
@@ -5275,14 +5837,21 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
     """14. The kernels line (each kernel's launches in the run its timed
     shape comes from, and per run), the card and the result line."""
     home = {"flash_attention": "b", "decode_attention": "b",
-            "int4_matmul": "b", "decode_attention_int4": "e"}
+            "int4_matmul": "b", "decode_attention_int4": "e",
+            # the bf16 instances' launches: run (aa)'s bf16 arms
+            "flash_attention_bf16": "aa_bf16",
+            "decode_attention_bf16": "aa_bf16",
+            "int4_matmul_bf16": "aa_bf16",
+            "decode_attention_int4_bf16": "aa_bf16"}
     kernels = []
     for name, rows in checks.items():
         m = next(r for r in rows if r["main"])
+        base = name.removesuffix("_bf16")
         entry = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name],
+            "instance": "bf16" if name != base else "f32",
+            "source": f"src/repro_torch/csrc/{base}.cu",
+            "replaces": REPLACES[base],
             "launches": counts[home[name]][name] if home[name] in counts
             else max(c[name] for c in counts.values()),
             "launches_run": home[name] if home[name] in counts else None,
@@ -5296,15 +5865,18 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
         if name == "flash_attention":
             entry["q_offset_launches_by_run"] = {
                 k: c["flash_attention_q_offset"] for k, c in counts.items()}
-        entry.update({k: m[k] for k in ("bound_rate", "bound_fp32_ms")
+        entry.update({k: m[k] for k in ("bound_rate", "bound_fp32_ms",
+                                        "cold_ms", "library_cold_ms",
+                                        "median_timed", "cold_median_timed")
                       if k in m})
         variants = [r for r in rows
                     if isinstance(r["main"], str) and r is not m]
         for v in variants:
             entry[v["main"]] = {k: v[k] for k in (
-                "shape", "ms", "plain_ms", "library_ms", "call_ms",
-                "bound_ms", "bound_by", "bound_rate", "bound_fp32_ms",
-                "max_abs_err") if k in v}
+                "shape", "ms", "cold_ms", "plain_ms", "library_ms",
+                "library_cold_ms", "call_ms", "bound_ms", "bound_by",
+                "bound_rate", "bound_fp32_ms", "max_abs_err", "median_timed",
+                "cold_median_timed") if k in v}
         kernels.append(entry)
     torch.cuda.synchronize()
     log(json.dumps({"wall_s": {"total": time.perf_counter() - t_start,

@@ -1,8 +1,8 @@
 // One-token GQA decode attention for Hopper (sm_90a).
 //
-//   q (b, h, dh) f32 (row stride q_rs); k/v caches (b, S, hkv, dh) f32 or
-//   bf16; pos (b,) int32, or null and every row at pos0
-//   out[r, head] = softmax_{t <= pos[r]}(q . k_t / sqrt(dh)) @ v_t   (f32)
+//   q (b, h, dh) f32 or bf16 (row stride q_rs); k/v caches (b, S, hkv, dh)
+//   f32 or bf16; pos (b,) int32, or null and every row at pos0
+//   out[r, head] = softmax_{t <= pos[r]}(q . k_t / sqrt(dh)) @ v_t   (q's type)
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention_kernel (body _kernel), which took a scalar pos, asserted
@@ -21,7 +21,9 @@
 // own is how a chunk is staged: every thread loads one 16-byte piece of a K
 // or V row (a float4 of f32, or 8 bf16 widened to f32 exactly as they
 // load) into the chunk's f32 tile; rows past pos[r] are never read.  All
-// arithmetic stays f32.
+// arithmetic stays f32.  A bf16 q is read and the bf16 output written by the
+// kernel itself (decode_attention_common.cuh), as the TPU kernel widens q in
+// its body and writes q.dtype: instances over (q, cache) in {f32, bf16}^2.
 #include <stdint.h>
 
 #include "decode_attention_common.cuh"
@@ -63,11 +65,11 @@ __device__ __forceinline__ void load_vec(float (&x)[8], const uint16_t* p, int v
 }
 
 // grid (hkv, b, C), cluster (1, 1, C)
-template <int HPW, int DPL, typename T>
+template <int HPW, int DPL, typename T, typename QT>
 __global__ void __launch_bounds__(da::THREADS)
-decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+decode_attention_kernel(const QT* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, const int* __restrict__ pos,
-                        float* __restrict__ out, int S, int h, int hkv, int dh, float scale,
+                        QT* __restrict__ out, int S, int h, int hkv, int dh, float scale,
                         int cpr, int vec, int q_rs, int pos0) {
   extern __shared__ __align__(16) float smem[];
   const int kh = blockIdx.x, bi = blockIdx.y;
@@ -97,8 +99,8 @@ decode_attention_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                         max(0, min(p + 1, S)), g, dh, scale, cpr, stage);
 }
 
-template <int DPL, typename T>
-cudaError_t launch(const float* q, const void* k, const void* v, const int* pos, float* out,
+template <int DPL, typename T, typename QT>
+cudaError_t launch(const QT* q, const void* k, const void* v, const int* pos, QT* out,
                    int b, int S, int h, int hkv, int dh, float scale, int n_ranks, int cpr,
                    int vec, int q_rs, int pos0, cudaStream_t s) {
   const int g = h / hkv;
@@ -107,24 +109,24 @@ cudaError_t launch(const float* q, const void* k, const void* v, const int* pos,
   const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
   const T* kc = static_cast<const T*>(k);
   const T* vc = static_cast<const T*>(v);
-#define DA_LAUNCH(H)                                                                   \
-  da::launch_cluster(decode_attention_kernel<H, DPL, T>, grid, smem, s, q, kc, vc, pos, out, \
-                     S, h, hkv, dh, scale, cpr, vec, q_rs, pos0)
+#define DA_LAUNCH(H)                                                                     \
+  da::launch_cluster(decode_attention_kernel<H, DPL, T, QT>, grid, smem, s, q, kc, vc, pos,  \
+                     out, S, h, hkv, dh, scale, cpr, vec, q_rs, pos0)
   return hpw <= 1 ? DA_LAUNCH(1) : hpw <= 2 ? DA_LAUNCH(2) : hpw <= 4 ? DA_LAUNCH(4)
                                                                       : DA_LAUNCH(8);
 #undef DA_LAUNCH
 }
 
-template <typename T>
-cudaError_t launch_dh(const float* q, const void* k, const void* v, const int* pos,
-                      float* out, int b, int S, int h, int hkv, int dh, float scale,
+template <typename T, typename QT>
+cudaError_t launch_dh(const QT* q, const void* k, const void* v, const int* pos,
+                      QT* out, int b, int S, int h, int hkv, int dh, float scale,
                       int n_ranks, int cpr, int vec, int q_rs, int pos0, cudaStream_t s) {
   if (dh > da::MAX_DH) return cudaErrorInvalidValue;
   return da::dpl_for(dh) == 4
-             ? launch<4, T>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
-                            q_rs, pos0, s)
-             : launch<8, T>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
-                            q_rs, pos0, s);
+             ? launch<4, T, QT>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                                q_rs, pos0, s)
+             : launch<8, T, QT>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
+                                q_rs, pos0, s);
 }
 
 }  // namespace
@@ -133,18 +135,20 @@ extern "C" {
 
 // n_ranks blocks per (row, kv head), each walking cpr chunks of 32
 // positions; vec = cache elements per load (f32: 4, 2, 1; bf16: 8, 4, 2,
-// 1); cache_bf16: 0 for f32 caches, 1 for bf16 caches (passed as raw 16
-// bits); dh at most 256.
-int decode_attention_launch(const float* q, const void* k, const void* v, const int* pos,
-                            float* out, int b, int S, int h, int hkv, int dh, int cache_bf16,
-                            float scale, int n_ranks, int cpr, int vec, int q_rs, int pos0,
-                            void* stream) {
+// 1); cache_bf16 / q_bf16: 0 for f32 caches / q and output, 1 for bf16
+// (passed as raw 16 bits); dh at most 256.
+int decode_attention_launch(const void* q, const void* k, const void* v, const int* pos,
+                            void* out, int b, int S, int h, int hkv, int dh, int cache_bf16,
+                            int q_bf16, float scale, int n_ranks, int cpr, int vec, int q_rs,
+                            int pos0, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cache_bf16)
-    return (int)launch_dh<uint16_t>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr,
-                                    vec, q_rs, pos0, st);
-  return (int)launch_dh<float>(q, k, v, pos, out, b, S, h, hkv, dh, scale, n_ranks, cpr, vec,
-                               q_rs, pos0, st);
+#define DA_DH(T, QT)                                                                        \
+  launch_dh<T, QT>(static_cast<const QT*>(q), k, v, pos, static_cast<QT*>(out), b, S, h, hkv, \
+                   dh, scale, n_ranks, cpr, vec, q_rs, pos0, st)
+  const cudaError_t e = cache_bf16 ? (q_bf16 ? DA_DH(uint16_t, uint16_t) : DA_DH(uint16_t, float))
+                                   : (q_bf16 ? DA_DH(float, uint16_t) : DA_DH(float, float));
+#undef DA_DH
+  return (int)e;
 }
 
 const char* kernel_error_string(int e) {

@@ -18,10 +18,19 @@
 // memory and are combined in rank order with models/common.py's
 // merge_partials / finalize_partials arithmetic, inside the same launch:
 // deterministic, no scratch in device memory, no second kernel.
+//
+// q and the output have one element type QT, a template parameter of the
+// block: f32, or bf16 (passed as raw 16 bits), which is widened exactly as
+// it loads and the output rounded to nearest even as it stores.  All
+// arithmetic stays f32, as in the TPU kernels, which widen q in-kernel
+// (src/repro/kernels/decode_attention.py:52 and :152), so a bf16 q gives
+// bit for bit what widening it, the f32 instance and a cast back give.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace da {
 
@@ -35,6 +44,15 @@ constexpr int MAX_DH = 256;              // 8 output features per lane
 // output features per lane for head_dim dh (the kernels' DPL): 4 or 8
 inline int dpl_for(int dh) { return dh <= 128 ? 4 : 8; }
 constexpr float NEG_INF = -1e30f;
+
+// q and output elements (QT): f32 as they are; bf16 widened on load and
+// rounded to nearest even on store
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) { return __uint_as_float((uint32_t)x << 16); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(uint16_t* p, float x) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -63,13 +81,14 @@ inline size_t smem_bytes(int g, int dh) {
          (2 * (size_t)g * dh + (size_t)CH * (dh + 1) + (size_t)CH * dh + 2 * (size_t)g);
 }
 
-// One block: q into shared memory, this rank's chunks of the n_total
-// positions (each staged by stage(sm, t0, nt), which writes K row t of the
-// chunk to sm.ks + t * (dh + 1) and V row t to sm.vs + t * dh for t < nt),
-// then the cluster's combine into ob (g x dh).  Warp w serves query heads
-// w, w + 4, ... (HPW of them); a lane owns features lane + 32 dd, dd < DPL.
-template <int HPW, int DPL, typename Stage>
-__device__ __forceinline__ void decode_block(float* smem, const float* qb, float* ob,
+// One block: q (widened to f32) into shared memory, this rank's chunks of
+// the n_total positions (each staged by stage(sm, t0, nt), which writes K
+// row t of the chunk to sm.ks + t * (dh + 1) and V row t to sm.vs + t * dh
+// for t < nt), then the cluster's combine into ob (g x dh, stored as QT).
+// Warp w serves query heads w, w + 4, ... (HPW of them); a lane owns
+// features lane + 32 dd, dd < DPL.
+template <int HPW, int DPL, typename QT, typename Stage>
+__device__ __forceinline__ void decode_block(float* smem, const QT* qb, QT* ob,
                                              int n_total, int g, int dh, float scale, int cpr,
                                              Stage&& stage) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -79,7 +98,7 @@ __device__ __forceinline__ void decode_block(float* smem, const float* qb, float
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Smem sm(smem, g, dh);
 
-  for (int i = tid; i < gd; i += THREADS) sm.qs[i] = qb[i];
+  for (int i = tid; i < gd; i += THREADS) sm.qs[i] = to_f32(qb[i]);
 
   float m_run[HPW], l_run[HPW], acc[HPW][DPL];
 #pragma unroll
@@ -164,7 +183,7 @@ __device__ __forceinline__ void decode_block(float* smem, const float* qb, float
       l += cluster.map_shared_rank(sm.pl, r)[gi] * cr;
       o += cluster.map_shared_rank(sm.po, r)[e] * cr;
     }
-    ob[e] = o / fmaxf(l, 1e-30f);
+    store(ob + e, o / fmaxf(l, 1e-30f));
   }
   cluster.sync();                        // no rank leaves while others read it
 }

@@ -1,13 +1,13 @@
 // One-token GQA decode attention over packed INT4 KV rows, for Hopper
 // (sm_90a).
 //
-//   q (b, h, dh) f32 (row stride q_rs); history K/V as the KV store's
+//   q (b, h, dh) f32 or bf16 (row stride q_rs); history K/V as the KV store's
 //     packed rows: packed (b, S, F/2) uint8, feature 2i in the low nibble of
 //     byte i, scales (b, S, F/group) f32, F = hkv * dh, value =
 //     (nibble - 8) * scale, group a power of two (gcd(F, 32))
 //   pos (b,) int32, or null and every row at pos0; optional fresh row
-//     k_new/v_new (b, hkv, dh) f32 (row stride kn_rs / vn_rs)
-//   out (b, h, dh) f32:
+//     k_new/v_new (b, hkv, dh) f32 or bf16 (row stride kn_rs / vn_rs)
+//   out (b, h, dh) in q's type:
 //     without a fresh row, row r attends packed positions t <= pos[r];
 //     with one, it attends packed positions t < pos[r] plus the fresh row
 //     (the decode step's own K/V at pos[r], never quantized before use).
@@ -33,7 +33,10 @@
 // (feature >> log2 group), so a group that spans two heads is read right.
 // Over the same chunk plan, this kernel without a fresh row at f32 computes
 // what decode_attention.cu computes over the dequantized cache, in the same
-// order.
+// order.  q and the output are f32 or bf16 (the template's QT: a bf16 q is
+// widened as it loads and the output rounded as it stores, all arithmetic
+// f32, as the TPU kernel widens q in its body and writes q.dtype); a bf16
+// fresh row is widened as it is staged.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -66,18 +69,18 @@ __device__ __forceinline__ void load_seg(uint32_t (&wd)[4], const uint8_t* p, in
 }
 
 // grid (hkv, b, C), cluster (1, 1, C)
-template <int HPW, int DPL>
+template <int HPW, int DPL, typename QT>
 __global__ void __launch_bounds__(da::THREADS)
-decode_attention_int4_kernel(const float* __restrict__ q,
+decode_attention_int4_kernel(const QT* __restrict__ q,
                              const uint8_t* __restrict__ kq,
                              const float* __restrict__ ksc,
                              const uint8_t* __restrict__ vq,
                              const float* __restrict__ vsc,
                              const int* __restrict__ pos,
-                             const float* __restrict__ k_new,
-                             const float* __restrict__ v_new,
-                             float* __restrict__ out, int S, int h, int hkv,
-                             int dh, int lg_group, int has_new, int bf16,
+                             const void* __restrict__ k_new,
+                             const void* __restrict__ v_new,
+                             QT* __restrict__ out, int S, int h, int hkv,
+                             int dh, int lg_group, int has_new, int new_bf16, int bf16,
                              float scale, int cpr, int seg, int q_rs,
                              int kn_rs, int vn_rs, int pos0) {
   extern __shared__ __align__(16) float smem[];
@@ -117,9 +120,13 @@ decode_attention_int4_kernel(const float* __restrict__ q,
           }
         }
       } else {                           // the fresh row
-        const float* src = (tensor == 0 ? k_new + (size_t)bi * kn_rs : v_new + (size_t)bi * vn_rs)
-                           + kh * dh + d0;
-        for (int j = 0; j < 2 * seg; ++j) dst[j] = bf16 ? round_bf16(src[j]) : src[j];
+        const size_t off = (size_t)bi * (tensor == 0 ? kn_rs : vn_rs) + kh * dh + d0;
+        const void* src = tensor == 0 ? k_new : v_new;
+        for (int j = 0; j < 2 * seg; ++j) {
+          const float v = new_bf16 ? da::to_f32(static_cast<const uint16_t*>(src)[off + j])
+                                   : static_cast<const float*>(src)[off + j];
+          dst[j] = bf16 ? round_bf16(v) : v;
+        }
       }
     }
   };
@@ -133,34 +140,38 @@ decode_attention_int4_kernel(const float* __restrict__ q,
 extern "C" {
 
 // n_ranks blocks per (row, kv head), each walking cpr chunks of 32
-// positions; seg = packed bytes per load (16, 8, 4, 2 or 1); dh at most
-// 256.
-int decode_attention_int4_launch(const float* q, const uint8_t* kq,
+// positions; seg = packed bytes per load (16, 8, 4, 2 or 1); q_bf16 /
+// new_bf16: 0 for f32 q and output / fresh rows, 1 for bf16 (passed as raw
+// 16 bits); dh at most 256.
+int decode_attention_int4_launch(const void* q, const uint8_t* kq,
                                  const float* ks, const uint8_t* vq,
                                  const float* vs, const int* pos,
-                                 const float* k_new, const float* v_new,
-                                 float* out, int b, int S, int h, int hkv,
-                                 int dh, int lg_group, int has_new, int bf16,
-                                 float scale, int n_ranks, int cpr, int seg,
-                                 int q_rs, int kn_rs, int vn_rs, int pos0,
-                                 void* stream) {
+                                 const void* k_new, const void* v_new,
+                                 void* out, int b, int S, int h, int hkv,
+                                 int dh, int lg_group, int has_new, int q_bf16,
+                                 int new_bf16, int bf16, float scale, int n_ranks,
+                                 int cpr, int seg, int q_rs, int kn_rs, int vn_rs,
+                                 int pos0, void* stream) {
   const int g = h / hkv;
   const dim3 grid(hkv, b, n_ranks);
   const size_t smem = da::smem_bytes(g, dh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hpw = (g + da::NWARPS - 1) / da::NWARPS;
   if (dh > da::MAX_DH) return (int)cudaErrorInvalidValue;
-#define DA4_LAUNCH(H, D)                                                                      \
-  da::launch_cluster(decode_attention_int4_kernel<H, D>, grid, smem, s, q, kq, ks, vq, vs, pos, \
-                     k_new, v_new, out, S, h, hkv, dh, lg_group, has_new, bf16, scale, cpr,     \
-                     seg, q_rs, kn_rs, vn_rs, pos0)
+#define DA4_LAUNCH(H, D, QT)                                                                   \
+  da::launch_cluster(decode_attention_int4_kernel<H, D, QT>, grid, smem, s,                    \
+                     static_cast<const QT*>(q), kq, ks, vq, vs, pos, k_new, v_new,             \
+                     static_cast<QT*>(out), S, h, hkv, dh, lg_group, has_new, new_bf16, bf16,  \
+                     scale, cpr, seg, q_rs, kn_rs, vn_rs, pos0)
+#define DA4_HPW(D, QT)                                                                         \
+  (hpw <= 1 ? DA4_LAUNCH(1, D, QT) : hpw <= 2 ? DA4_LAUNCH(2, D, QT)                           \
+   : hpw <= 4 ? DA4_LAUNCH(4, D, QT) : DA4_LAUNCH(8, D, QT))
   cudaError_t e;
   if (da::dpl_for(dh) == 4)
-    e = hpw <= 1 ? DA4_LAUNCH(1, 4) : hpw <= 2 ? DA4_LAUNCH(2, 4)
-        : hpw <= 4 ? DA4_LAUNCH(4, 4) : DA4_LAUNCH(8, 4);
+    e = q_bf16 ? DA4_HPW(4, uint16_t) : DA4_HPW(4, float);
   else
-    e = hpw <= 1 ? DA4_LAUNCH(1, 8) : hpw <= 2 ? DA4_LAUNCH(2, 8)
-        : hpw <= 4 ? DA4_LAUNCH(4, 8) : DA4_LAUNCH(8, 8);
+    e = q_bf16 ? DA4_HPW(8, uint16_t) : DA4_HPW(8, float);
+#undef DA4_HPW
 #undef DA4_LAUNCH
   return (int)e;
 }

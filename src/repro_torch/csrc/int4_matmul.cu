@@ -1,6 +1,7 @@
 // Fused INT4-dequant matmul for Hopper (sm_90a).
 //
-//   out (M, N) f32 = x (M, K) f32 @ W,  W[k, n] = (nibble(k, n) - 8) * scale[k / G, n]
+//   out (M, N) = x (M, K) @ W,  W[k, n] = (nibble(k, n) - 8) * scale[k / G, n]
+//   x and out f32, or both bf16 (the bf16 instance; accumulation f32)
 //
 // packed (K, N/2) uint8 holds column pairs: column 2j in the low nibble of
 // byte j, column 2j+1 in the high nibble (the JAX package's quant/int4.py
@@ -53,9 +54,22 @@
 // ptxas (-Xptxas -v, sm_90a): registers, shared memory and spills are
 // printed by chip_smoke.py from the build log and recorded in PERF.md.
 //
+// bf16 x (the TPU kernel takes "x (M, K) bf16/f32", widens it in its body
+// and writes out_dtype): both paths are templates on x's element type XT,
+// and the bf16 instance reads x as raw 16 bits and writes the output in
+// bf16, rounded to nearest even.  Decode copies the raw bf16 slice into
+// shared memory (half the bytes) and widens each x as it is used.  Prefill
+// widens each tile as it converts it into the operand slab: a bf16 value
+// has 8 significant bits, so it is exact in TF32 (x_hi = x, x_lo = 0), and
+// the x_lo product, which would add zeros, is not issued: one TF32 term,
+// half the f32 instance's tensor-core work.  Every product and sum is the
+// f32 instance's on the widened x, so the bf16 instance gives what
+// widening x, the f32 instance and a cast back give.
+//
 // Requires K % G == 0 and an even N; decode a power-of-two G, prefill
 // G % 8 == 0.  Tails in M, N and K are masked.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,6 +80,15 @@ namespace {
 // ---- shared helpers -----------------------------------------------------------
 __device__ __forceinline__ float nib_f(uint32_t v) {   // v in [0, 15] -> v - 8
   return __uint_as_float(0x4B000000u | v) - 8388616.0f;
+}
+
+// x and output elements (XT): f32 as they are; bf16 (raw 16 bits) widened
+// on load, rounded to nearest even on store
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) { return __uint_as_float((uint32_t)x << 16); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(uint16_t* p, float x) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -108,10 +131,11 @@ constexpr int GV_C = 2 * GV_LB;     // columns per thread
 // GV_THREADS / 2^lg_tpr rows are summed in parallel.  flags: bit 0 = packed rows
 // in 16-byte (2^lg_tpr >= 2) or 8-byte chunks, else byte loads; bit 1 = x
 // in 16-byte chunks; bit 2 = scales in 16-byte chunks.  Shared memory:
-// gv_smem().
+// gv_smem() (x's slice as XT, in a region sized for f32).
+template <typename XT>
 __global__ void __launch_bounds__(GV_THREADS)
-int4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                 const float* __restrict__ scale, float* __restrict__ out,
+int4_gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ scale, XT* __restrict__ out,
                  int M, int K, int N, int lg_group, int lg_tpr, int gps, int flags) {
   extern __shared__ __align__(16) uint8_t gsm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -133,23 +157,24 @@ int4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed
   const int per_rank = (GV_MT * cols + splits - 1) / splits;
 
   uint8_t* ws = gsm;                                          // [nkp][cb]
-  float* xs = reinterpret_cast<float*>(ws + (size_t)nkp * cb); // [GV_MT][nkp]
-  float* ss = xs + (size_t)GV_MT * nkp;                       // [gps][cols]
+  XT* xs = reinterpret_cast<XT*>(ws + (size_t)nkp * cb);     // [GV_MT][nkp]
+  float* ss = reinterpret_cast<float*>(ws + (size_t)nkp * cb) + (size_t)GV_MT * nkp;  // [gps][cols]
   float* wred = ss + (size_t)gps * cols;                      // [GV_WARPS][GV_MT][cols]
   float* inbox = wred + (size_t)GV_WARPS * GV_MT * cols;      // [splits][per_rank]
 
   // 1. the slice into shared memory, every copy in flight at once
   if (flags & 2) {
-    const int c4 = nk >> 2;
+    constexpr int EPC = 16 / sizeof(XT);        // x elements per 16-byte copy
+    const int c4 = nk / EPC;
     for (int i = tid; i < GV_MT * c4; i += GV_THREADS) {
-      const int m = i / c4, c = (i - m * c4) << 2;
+      const int m = i / c4, c = (i - m * c4) * EPC;
       const bool ok = m0 + m < M;
       cp_async<16>(xs + m * nkp + c, ok ? x + (size_t)(m0 + m) * K + k_begin + c : x, ok ? 16 : 0);
     }
   } else {
     for (int i = tid; i < GV_MT * nk; i += GV_THREADS) {
       const int m = i / nk, c = i - m * nk;
-      xs[m * nkp + c] = m0 + m < M ? __ldg(x + (size_t)(m0 + m) * K + k_begin + c) : 0.f;
+      xs[m * nkp + c] = m0 + m < M ? __ldg(x + (size_t)(m0 + m) * K + k_begin + c) : (XT)0;
     }
   }
   if (flags & 4) {
@@ -213,7 +238,8 @@ int4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed
         }
       }
       const uint2 wv = *reinterpret_cast<const uint2*>(ws + r * cb + tc * GV_LB);
-      const float x0 = xs[r], x1 = xs[nkp + r], x2 = xs[2 * nkp + r], x3 = xs[3 * nkp + r];
+      const float x0 = to_f32(xs[r]), x1 = to_f32(xs[nkp + r]), x2 = to_f32(xs[2 * nkp + r]),
+                  x3 = to_f32(xs[3 * nkp + r]);
 #pragma unroll
       for (int j = 0; j < GV_C; ++j) {
         const uint32_t word = j < 8 ? wv.x : wv.y;
@@ -263,7 +289,7 @@ int4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed
     if (m0 + m >= M || n >= N) continue;
     float s = 0.f;
     for (int p = 0; p < splits; ++p) s += inbox[p * per_rank + el];
-    out[(size_t)(m0 + m) * N + n] = s;
+    store(out + (size_t)(m0 + m) * N + n, s);
   }
 }
 
@@ -276,7 +302,10 @@ size_t gv_smem(int group, int lg_tpr, int gps) {
 constexpr int WG_M = 64, WG_N = 128, WG_K = 32;
 constexpr int WG_THREADS = 128;                 // one warpgroup
 constexpr int WG_RAW = 4;                       // raw tiles in flight (cp.async ring)
-constexpr int WG_XLD = WG_K + 4;                // floats per raw x row
+// elements per raw x row: f32 rows padded by 4 floats, bf16 rows by 8
+// halves (16-byte aligned rows either way)
+template <typename XT>
+constexpr int wg_xld() { return WG_K + 16 / (int)sizeof(XT); }
 constexpr int WG_CA = WG_M * 8;                 // floats of one A slab (64 rows x 8 k)
 constexpr int WG_CB = WG_N * 8;                 // floats of one B slab (128 rows x 8 k)
 constexpr int RED_LD = WG_N + 4;
@@ -293,12 +322,22 @@ __device__ __forceinline__ uint64_t wg_desc(const float* p) {
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
 }
 
+// the x_lo slabs, tf32(x - tf32(x)): an f32 x's only (a bf16 x is exact
+// in TF32, so its instance keeps no slab for them)
+template <typename XT>
+struct WgLo {
+  float alo[2][WG_K / 8][WG_CA];
+};
+template <>
+struct WgLo<uint16_t> {};
+
+template <typename XT>
 struct WgSmem {
-  float x[WG_RAW][WG_M][WG_XLD];                // raw x tiles (cp.async ring)
+  XT x[WG_RAW][WG_M][wg_xld<XT>()];             // raw x tiles (cp.async ring)
   uint8_t p[WG_RAW][WG_K][WG_N / 2];            // raw packed tiles
   float ahi[2][WG_K / 8][WG_CA];                // tf32(x), two tiles in flight
-  float alo[2][WG_K / 8][WG_CA];                // tf32(x - tf32(x))
-  float b[2][WG_K / 8][WG_CB];                  // q, exact
+  WgLo<XT> lo;                                  // tf32(x - tf32(x))
+  alignas(16) float b[2][WG_K / 8][WG_CB];      // q, exact
 };
 
 __device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
@@ -318,14 +357,16 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
       : "memory");
 }
 
-__device__ __forceinline__ void wg_load(WgSmem& sm, int st, const float* x, const uint8_t* packed,
+template <typename XT>
+__device__ __forceinline__ void wg_load(WgSmem<XT>& sm, int st, const XT* x, const uint8_t* packed,
                                         int M, int K, int N2, int m0, int n0, int k0,
                                         int k_end, int bvec) {
+  constexpr int EPC = 16 / sizeof(XT);          // x elements per 16-byte copy
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
+  for (int i = 0; i < (WG_M * WG_K / EPC) / WG_THREADS; ++i) {
     const int c = tid + i * WG_THREADS;
-    const int r = c / (WG_K / 4), kc = (c % (WG_K / 4)) * 4;
+    const int r = c / (WG_K / EPC), kc = (c % (WG_K / EPC)) * EPC;
     const bool ok = m0 + r < M && k0 + kc < k_end;
     cp_async<16>(&sm.x[st][r][kc], ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok ? 16 : 0);
   }
@@ -347,12 +388,14 @@ __device__ __forceinline__ void wg_load(WgSmem& sm, int st, const float* x, cons
 
 // grid (ceil(N / 128), ceil(M / 64), splits), cluster (1, 1, splits); one
 // warpgroup per 64 x 128 output tile.  bvec: 16-byte packed tile copies.
+template <typename XT>
 __global__ void __launch_bounds__(WG_THREADS)
-int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-               const float* __restrict__ scale, float* __restrict__ out,
+int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
+               const float* __restrict__ scale, XT* __restrict__ out,
                int M, int K, int N, int group, int gps, int bvec) {
+  constexpr bool F32 = sizeof(XT) == 4;         // else bf16: exact in TF32, no x_lo
   extern __shared__ __align__(128) uint8_t wsm[];
-  WgSmem& sm = *reinterpret_cast<WgSmem*>(wsm);
+  WgSmem<XT>& sm = *reinterpret_cast<WgSmem<XT>*>(wsm);
   const int N2 = N / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -389,21 +432,29 @@ int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     __syncthreads();
     // convert: x -> (tf32 hi, tf32 lo), packed -> q, into the operand slabs
+    // (a bf16 x widens exactly into hi alone)
 #pragma unroll
     for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
       const int c = tid + i * WG_THREADS;
       const int r = c % WG_M, kq = (c / WG_M) * 4;   // 8 lanes: 8 rows of a core
-      const float4 v = *reinterpret_cast<const float4*>(&sm.x[rs][r][kq]);
-      const float vs[4] = {v.x, v.y, v.z, v.w};
-      float hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        hi[e] = __uint_as_float(to_tf32(vs[e]));
-        lo[e] = __uint_as_float(to_tf32(vs[e] - hi[e]));
-      }
       const int o = wg_off(r, kq & 7);
-      *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<float4*>(&sm.alo[st][kq >> 3][o]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      if constexpr (F32) {
+        const float4 v = *reinterpret_cast<const float4*>(&sm.x[rs][r][kq]);
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+        float hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hi[e] = __uint_as_float(to_tf32(vs[e]));
+          lo[e] = __uint_as_float(to_tf32(vs[e] - hi[e]));
+        }
+        *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<float4*>(&sm.lo.alo[st][kq >> 3][o]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(&sm.x[rs][r][kq]);
+        *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) =
+            make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xFFFF0000u),
+                        __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xFFFF0000u));
+      }
     }
 #pragma unroll
     for (int i = 0; i < (WG_K / 4) * (WG_N / 2) / WG_THREADS; ++i) {
@@ -438,8 +489,12 @@ int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
               sc[2 * j + e] = n < N ? __ldg(scale + (size_t)g * N + n) : 0.f;
             }
         }
-        wgmma_tf32(accg, wg_desc(sm.alo[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
-        wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), 1);
+        if constexpr (F32) {
+          wgmma_tf32(accg, wg_desc(sm.lo.alo[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
+          wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), 1);
+        } else {
+          wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
+        }
         kg += 8;
         if (kg == group) {                           // the group ends: fold it
           asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -468,10 +523,15 @@ int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
         const int n = n0 + 8 * j + 2 * tq;
         if (m >= M) continue;
         if (n + 1 < N) {
-          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
-              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          if constexpr (F32) {
+            *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
         } else if (n < N) {
-          out[(size_t)m * N + n] = acc[4 * j + 2 * h];
+          store(out + (size_t)m * N + n, acc[4 * j + 2 * h]);
         }
       }
     return;
@@ -479,8 +539,8 @@ int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 
   // split K: the cluster's slices, summed in rank order
   cg::cluster_group cluster = cg::this_cluster();
-  float* red = &sm.x[0][0][0];                    // WG_M x RED_LD floats
-  static_assert(sizeof(WgSmem) >= sizeof(float) * WG_M * RED_LD, "red fits");
+  float* red = reinterpret_cast<float*>(wsm);     // WG_M x RED_LD floats
+  static_assert(sizeof(WgSmem<XT>) >= sizeof(float) * WG_M * RED_LD, "red fits");
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -503,7 +563,7 @@ int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
 #pragma unroll
     for (int p = 0; p < 8; ++p)
       if (p < splits) s += v[p];
-    out[(size_t)m * N + n] = s;
+    store(out + (size_t)m * N + n, s);
   }
   cluster.sync();
 }
@@ -526,17 +586,11 @@ cudaError_t launch_cluster(Kern kernel, dim3 grid, dim3 block, dim3 cluster,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Decode (M <= 16, a power-of-two group): lg_tpr, splits and gps from
-// decode_plan; flags bits 0-2 as int4_gemv_kernel's.  Prefill: splits and
-// gps from prefill_plan; flags bit 3 = 16-byte packed tile copies.
-int int4_matmul_launch(const float* x, const uint8_t* packed, const float* scale,
-                       float* out, int M, int K, int N, int group, int lg_tpr,
-                       int splits, int gps, int flags, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// one instance's launch (its own record of the shared memory it allowed)
+template <typename XT>
+cudaError_t launch_xt(const XT* x, const uint8_t* packed, const float* scale, XT* out, int M,
+                      int K, int N, int group, int lg_tpr, int splits, int gps, int flags,
+                      cudaStream_t s) {
   cudaError_t e;
   if (M <= 16) {                                // group is a power of two
     int lg_group = 0;
@@ -545,29 +599,50 @@ int int4_matmul_launch(const float* x, const uint8_t* packed, const float* scale
     const size_t smem = gv_smem(group, lg_tpr, gps);
     static size_t smem_set = 48 * 1024;
     if (smem > smem_set) {
-      e = cudaFuncSetAttribute(int4_gemv_kernel,
+      e = cudaFuncSetAttribute(int4_gemv_kernel<XT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
+      if (e != cudaSuccess) return e;
       smem_set = smem;
     }
     dim3 grid((N + cols - 1) / cols, splits, (M + GV_MT - 1) / GV_MT);
-    e = launch_cluster(int4_gemv_kernel, grid, dim3(GV_THREADS), dim3(1, splits, 1),
+    e = launch_cluster(int4_gemv_kernel<XT>, grid, dim3(GV_THREADS), dim3(1, splits, 1),
                        smem, s, x, packed, scale, out, M, K, N, lg_group, lg_tpr,
                        gps, flags & 7);
   } else {
     static bool smem_set = false;
     if (!smem_set) {
-      e = cudaFuncSetAttribute(int4_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(WgSmem));
-      if (e != cudaSuccess) return (int)e;
+      e = cudaFuncSetAttribute(int4_tc_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(WgSmem<XT>));
+      if (e != cudaSuccess) return e;
       smem_set = true;
     }
     dim3 grid((N + WG_N - 1) / WG_N, (M + WG_M - 1) / WG_M, splits);
-    e = launch_cluster(int4_tc_kernel, grid, dim3(WG_THREADS), dim3(1, 1, splits),
-                       sizeof(WgSmem), s, x, packed, scale, out, M, K, N, group, gps, (flags >> 3) & 1);
+    e = launch_cluster(int4_tc_kernel<XT>, grid, dim3(WG_THREADS), dim3(1, 1, splits),
+                       sizeof(WgSmem<XT>), s, x, packed, scale, out, M, K, N, group, gps,
+                       (flags >> 3) & 1);
   }
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode (M <= 16, a power-of-two group): lg_tpr, splits and gps from
+// decode_plan; flags bits 0-2 as int4_gemv_kernel's.  Prefill: splits and
+// gps from prefill_plan; flags bit 3 = 16-byte packed tile copies.  x_bf16:
+// 0 for f32 x and output, 1 for bf16 (passed as raw 16 bits).
+int int4_matmul_launch(const void* x, const uint8_t* packed, const float* scale, void* out,
+                       int M, int K, int N, int group, int lg_tpr, int splits, int gps,
+                       int flags, int x_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return (int)launch_xt(static_cast<const uint16_t*>(x), packed, scale,
+                          static_cast<uint16_t*>(out), M, K, N, group, lg_tpr, splits, gps,
+                          flags, s);
+  return (int)launch_xt(static_cast<const float*>(x), packed, scale, static_cast<float*>(out),
+                        M, K, N, group, lg_tpr, splits, gps, flags, s);
 }
 
 const char* kernel_error_string(int e) {

@@ -12,8 +12,10 @@ for them.
 Every launcher returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but ``cudaSuccess``.  ``LAUNCHES`` counts
 the kernel launches of each wrapper (the wrappers add one where they
-launch, nowhere else); ``flash_attention_q_offset`` counts the subset of
-``flash_attention``'s launches with ``q_offset > 0`` (prefill chunks).
+launch, nowhere else, through ``count``); ``flash_attention_q_offset``
+counts the subset of ``flash_attention``'s launches with ``q_offset > 0``
+(prefill chunks), and ``<name>_bf16`` the subset of each kernel's launches
+that ran its bf16 instance (bf16 q or x).
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 Q_OFFSET = "flash_attention_q_offset"
-LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, Q_OFFSET)}
+BF16 = {name: f"{name}_bf16" for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*SOURCES, Q_OFFSET,
+                                                  *BF16.values())}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
@@ -47,6 +51,13 @@ _LOCK = threading.Lock()
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count(name: str, bf16: bool):
+    """One launch of kernel ``name``; ``bf16``: of its bf16 instance."""
+    LAUNCHES[name] += 1
+    if bf16:
+        LAUNCHES[BF16[name]] += 1
 
 
 def build_dir() -> Path:

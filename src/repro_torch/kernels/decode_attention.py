@@ -5,8 +5,11 @@ Replaces the TPU kernel
 the hand-written CUDA kernel ``csrc/decode_attention.cu`` (see its header
 for what bounds it and how the design answers).  It takes a ``(b,)``
 ``pos`` where the TPU kernel took a scalar, so continuous batching can
-reuse it, and f32 or bf16 caches (the serving engine's cache dtype; the
-arithmetic stays f32).  An int ``pos`` goes to the kernel as an argument
+reuse it, f32 or bf16 caches (the serving engine's cache dtype) and an
+f32 or bf16 ``q``, which the kernel widens as it loads and whose dtype
+it writes the output in, as the TPU kernel does; the arithmetic stays
+f32, so a bf16 ``q`` gives what widening it, the f32 instance and a cast
+back give, bit for bit.  An int ``pos`` goes to the kernel as an argument
 and ``q`` may have any batch stride, so a call launches nothing but the
 kernel.  A CPU tensor runs the plain version ``decode_attention_ref``; a
 CUDA tensor launches the kernel or raises; a meta tensor gets an empty
@@ -30,8 +33,9 @@ NAME = "decode_attention"
 CHUNK = 32                       # positions per chunk (the kernels' CH)
 MAX_CLUSTER = 8                  # blocks per (row, kv head)
 MAX_DH = 256                     # 8 output features per lane (the kernels')
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
          + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+DTYPES = (torch.float32, torch.bfloat16)   # q's and the caches' instances
 
 plain = decode_attention_ref
 
@@ -92,9 +96,9 @@ def _vec(dh: int, esize: int, *ptrs: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos) -> torch.Tensor:
-    """q (b, h, dh) f32 (any batch stride); caches (b, S, hkv, dh) f32 or
-    bf16; ``pos`` an int or a (b,) int tensor -> (b, h, dh) f32.  Row r
-    attends positions ``<= pos[r]``."""
+    """q (b, h, dh) f32 or bf16 (any batch stride); caches (b, S, hkv,
+    dh) f32 or bf16; ``pos`` an int or a (b,) int tensor -> (b, h, dh) in
+    q's dtype.  Row r attends positions ``<= pos[r]``."""
     b, h, dh = q.shape
     _, S, hkv, _ = k_cache.shape
     if h % hkv or k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
@@ -115,26 +119,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device != k_cache.device:
         raise ValueError(f"{NAME}: tensors on {q.device} and "
                          f"{k_cache.device}")
-    if q.dtype != torch.float32 or k_cache.dtype != v_cache.dtype \
-            or k_cache.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("decode_attention: needs f32 q and f32 or bf16 "
-                         "caches of one dtype")
+    if q.dtype not in DTYPES or k_cache.dtype != v_cache.dtype \
+            or k_cache.dtype not in DTYPES:
+        raise ValueError(f"decode_attention: needs an f32 or bf16 q and f32 "
+                         f"or bf16 caches of one dtype, got {q.dtype}, "
+                         f"{k_cache.dtype}, {v_cache.dtype}")
     if q.device.type == "meta":
         cost.report(NAME, cost.decode_attention(
-            b, h, hkv, dh, live, k_cache.element_size()),
+            b, h, hkv, dh, live, k_cache.element_size(), q.element_size()),
             (tuple(q.shape), tuple(k_cache.shape)))
-        return torch.empty((b, h, dh), dtype=torch.float32, device="meta")
+        return torch.empty((b, h, dh), dtype=q.dtype, device="meta")
     q_rs = row_stride(q, NAME + ": q")
     ranks, cpr = chunk_plan(S)
-    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
     fn = _build.launcher(NAME, "decode_attention_launch", _ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              None if pos_t is None else pos_t.data_ptr(), out.data_ptr(),
              b, S, h, hkv, dh, int(k_cache.dtype == torch.bfloat16),
-             1.0 / math.sqrt(dh), ranks, cpr,
+             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), ranks, cpr,
              _vec(dh, k_cache.element_size(), k_cache.data_ptr(),
                   v_cache.data_ptr()),
              q_rs, pos0, _build.stream_ptr(q.device))
     _build.check(NAME, err)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME, q.dtype == torch.bfloat16)
     return out

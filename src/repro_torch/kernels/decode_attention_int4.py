@@ -9,7 +9,10 @@ takes a ``(b,)`` ``pos``, and optionally the decode step's own K/V row,
 which it attends unquantized at ``pos[r]`` after the packed rows
 ``< pos[r]`` (what both engines compute).  With ``cache_dtype``
 bf16 every value is rounded to bf16 before use (the serving cache's
-compute dtype).  A CPU tensor runs the plain version
+compute dtype).  ``q`` is f32 or bf16: the kernel widens a bf16 ``q``
+as it loads and writes the output in ``q``'s dtype, as the TPU kernel
+does, and widens bf16 fresh rows as it stages them; the arithmetic
+stays f32.  A CPU tensor runs the plain version
 ``decode_attention_int4_ref``; a CUDA tensor launches the kernel or
 raises; a meta tensor gets an empty output and reports the kernel's
 operations and bytes (``kernels.cost``).  Its sequence split
@@ -30,8 +33,9 @@ from repro_torch.kernels.decode_attention import (MAX_DH, chunk_plan,
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
-_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float]
          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+DTYPES = (torch.float32, torch.bfloat16)   # q's and the fresh rows'
 
 plain = decode_attention_int4_ref
 
@@ -49,10 +53,11 @@ def _seg(dh: int, F2: int, *ptrs: int) -> int:
 def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
                           hkv: int, group: int, k_new=None, v_new=None,
                           cache_dtype=torch.float32) -> torch.Tensor:
-    """q (b, h, dh) f32; packed K/V (b, S, hkv*dh//2) uint8 with scales
-    (b, S, hkv*dh//group) f32; ``pos`` an int or (b,) int tensor;
-    optional fresh rows (b, hkv, dh) -> (b, h, dh) f32 (module
-    docstring).  q and the fresh rows may have any batch stride."""
+    """q (b, h, dh) f32 or bf16; packed K/V (b, S, hkv*dh//2) uint8
+    with scales (b, S, hkv*dh//group) f32; ``pos`` an int or (b,) int
+    tensor; optional fresh rows (b, hkv, dh) f32 or bf16 -> (b, h, dh)
+    in q's dtype (module docstring).  q and the fresh rows may have any
+    batch stride."""
     b, h, dh = q.shape
     _, S, F2 = k_packed.shape
     F = hkv * dh
@@ -83,9 +88,6 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
     if q.device.type == "meta":
         hist = live_rows(pos, b, S, has_new)
     pos_t, pos0 = pos_args(pos, b, q.device)
-    if has_new:
-        k_new, v_new = (t if t.dtype == torch.float32 else t.float()
-                        for t in (k_new, v_new))
     if q.device.type != "meta":
         _build.require_cuda(NAME, k_packed, k_scale, v_packed, v_scale,
                             *(() if pos_t is None else (pos_t,)))
@@ -93,22 +95,30 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         if t.device != k_packed.device:
             raise ValueError(f"{NAME}: tensors on {t.device} and "
                              f"{k_packed.device}")
-    if (q.dtype, k_packed.dtype, v_packed.dtype, k_scale.dtype,
-            v_scale.dtype) != (torch.float32, torch.uint8, torch.uint8,
-                               torch.float32, torch.float32):
-        raise ValueError("decode_attention_int4: needs f32 q, uint8 packed "
-                         "rows and f32 scales")
+    if (q.dtype not in DTYPES
+            or (has_new and (k_new.dtype not in DTYPES
+                             or v_new.dtype != k_new.dtype))
+            or (k_packed.dtype, v_packed.dtype, k_scale.dtype,
+                v_scale.dtype) != (torch.uint8, torch.uint8, torch.float32,
+                                   torch.float32)):
+        raise ValueError(
+            f"decode_attention_int4: needs an f32 or bf16 q, uint8 packed "
+            f"rows, f32 scales and f32 or bf16 fresh rows of one dtype, got "
+            f"q {q.dtype}, packed {k_packed.dtype} {v_packed.dtype}, scales "
+            f"{k_scale.dtype} {v_scale.dtype}, fresh rows "
+            f"{None if k_new is None else (k_new.dtype, v_new.dtype)}")
     if q.device.type == "meta":
         cost.report(NAME, cost.decode_attention_int4(
-            b, h, hkv, dh, hist, group, has_new),
+            b, h, hkv, dh, hist, group, has_new, q.element_size(),
+            k_new.element_size() if has_new else 4),
             (tuple(q.shape), tuple(k_packed.shape)))
-        return torch.empty((b, h, dh), dtype=torch.float32, device="meta")
+        return torch.empty((b, h, dh), dtype=q.dtype, device="meta")
     q_rs = row_stride(q, NAME + ": q")
     kn_rs, vn_rs = ((row_stride(k_new, NAME + ": k_new"),
                      row_stride(v_new, NAME + ": v_new"))
                     if has_new else (0, 0))
     ranks, cpr = chunk_plan(S, has_new)
-    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
     fn = _build.launcher(NAME, "decode_attention_int4_launch", _ARGS)
     err = fn(q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(),
              v_packed.data_ptr(), v_scale.data_ptr(),
@@ -116,10 +126,12 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
              k_new.data_ptr() if has_new else None,
              v_new.data_ptr() if has_new else None, out.data_ptr(),
              b, S, h, hkv, dh, group.bit_length() - 1, int(has_new),
+             int(q.dtype == torch.bfloat16),
+             int(has_new and k_new.dtype == torch.bfloat16),
              int(cache_dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
              ranks, cpr, _seg(dh, F2, k_packed.data_ptr(),
                               v_packed.data_ptr()),
              q_rs, kn_rs, vn_rs, pos0, _build.stream_ptr(q.device))
     _build.check(NAME, err)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME, q.dtype == torch.bfloat16)
     return out

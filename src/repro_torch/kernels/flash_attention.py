@@ -4,7 +4,12 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
 flash_attention`` with the hand-written CUDA kernel
 ``csrc/flash_attention.cu`` (see its header for what bounds it and how
 the design answers).  Arbitrary ``sq``/``sk``; rows with nothing to
-attend output 0.  A CPU tensor runs the plain version
+attend output 0.  q, k and v are all f32 or all bf16, and the output
+has their dtype.  The bf16 instance computes what the TPU kernel
+computes at bf16: both products on bf16 tensor cores with f32
+accumulation, the unnormalised P rounded to bf16 before P.V; it takes a
+head_dim that is a multiple of 16 (the f32 instance a multiple of 4),
+up to ``MAX_DH``.  A CPU tensor runs the plain version
 ``flash_attention_ref``; a CUDA tensor launches the kernel or raises;
 a meta tensor gets an empty output and reports the kernel's operations
 and bytes (``kernels.cost``).
@@ -23,7 +28,8 @@ NAME = "flash_attention"
 ROWS = 16                        # query rows per warp (the kernel's ROWS)
 MAX_DH = 256                     # the widest head the kernel takes (Gemma 3)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+DH_STEP = {torch.float32: 4, torch.bfloat16: 16}   # head_dim step by dtype
 
 plain = flash_attention_ref
 
@@ -53,17 +59,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return plain(q, k, v, causal=causal, window=window,
                      q_offset=q_offset)
-    if dh > MAX_DH or dh % 4:
-        raise ValueError(f"flash_attention: needs head_dim <= {MAX_DH} and "
-                         f"a multiple of 4, got {dh}")
+    step = DH_STEP.get(q.dtype)
+    if step is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: needs q, k, v all f32 or all "
+                         f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if dh > MAX_DH or dh % step:
+        raise ValueError(f"flash_attention: the {str(q.dtype)[6:]} kernel "
+                         f"needs a head_dim <= {MAX_DH} and a multiple of "
+                         f"{step}, got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
     if q.device.type != "meta":
         _build.require_cuda(NAME, q, k, v)
-    if {q.dtype, k.dtype, v.dtype} != {torch.float32}:
-        raise ValueError("flash_attention: needs f32 q, k, v")
     if q.device.type == "meta":
         cost.report(NAME, cost.flash_attention(
-            b, sq, sk, h, hkv, dh, causal, window, q_offset),
-            (tuple(q.shape), tuple(k.shape)))
+            b, sq, sk, h, hkv, dh, causal, window, q_offset,
+            q.element_size()), (tuple(q.shape), tuple(k.shape)))
         return torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: needs 16-byte aligned q, k, v")
@@ -72,9 +82,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _build.launcher(NAME, "flash_attention_launch", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, sq, sk, h, hkv, dh, int(causal), int(window), int(q_offset),
-             1.0 / math.sqrt(dh), warps, _build.stream_ptr(q.device))
+             1.0 / math.sqrt(dh), warps, int(q.dtype == torch.bfloat16),
+             _build.stream_ptr(q.device))
     _build.check(NAME, err)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME, q.dtype == torch.bfloat16)
     if q_offset > 0:
         _build.LAUNCHES[_build.Q_OFFSET] += 1
     return out

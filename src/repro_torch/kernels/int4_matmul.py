@@ -2,8 +2,13 @@
 
 Replaces the TPU kernel ``src/repro/kernels/int4_matmul.py:int4_matmul``
 with the hand-written CUDA kernel ``csrc/int4_matmul.cu`` (see its header
-for what bounds it and how the design answers).  A CPU tensor runs the
-plain version ``int4_matmul_ref``; a CUDA tensor launches the kernel or
+for what bounds it and how the design answers).  ``x`` is f32 or bf16,
+and the output has x's dtype, as the TPU kernel takes "x (M, K)
+bf16/f32" and writes ``out_dtype``: the bf16 instance reads bf16 x and
+writes bf16 itself, with the f32 instance's arithmetic on the widened x
+(exact), so it gives what widening x, the f32 instance and a cast back
+give.  A CPU tensor runs the plain version ``int4_matmul_ref`` (its f32
+output cast to x's dtype); a CUDA tensor launches the kernel or
 raises; a meta tensor (the roofline counter's trace) gets an empty
 output and reports the kernel's operations and bytes (``kernels.cost``).
 """
@@ -23,7 +28,8 @@ _GV_MT, _GV_LB = 4, 8            # small M: x rows per block, bytes per lane
 _GV_WARPS = 8                    # small M: warps per block
 _TB_M, _TB_N = 64, 128           # prefill: output tile
 SMEM_MAX = 232448                # shared memory a block may use (H100)
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+DTYPES = (torch.float32, torch.bfloat16)   # x's instances
 
 plain = int4_matmul_ref
 
@@ -84,9 +90,10 @@ def prefill_plan(M: int, K: int, N: int, group: int, n_sms: int):
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 *, group: int = 128) -> torch.Tensor:
-    """x (M, K) f32 @ W -> (M, N) f32 with W = dequant(packed (K, N//2)
-    uint8, scale (K//group, N) f32).  Any M; K % group == 0, and on the
-    card a power-of-two group when M <= SMALL_M, group % 8 == 0 above."""
+    """x (M, K) f32 or bf16 @ W -> (M, N) in x's dtype with W =
+    dequant(packed (K, N//2) uint8, scale (K//group, N) f32).  Any M;
+    K % group == 0, and on the card a power-of-two group when M <=
+    SMALL_M, group % 8 == 0 above."""
     M, K = x.shape
     Kp, N2 = packed.shape
     N = 2 * N2
@@ -95,17 +102,20 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(packed.shape)}, scale {tuple(scale.shape)}"
                          f", group {group}")
     if x.device.type == "cpu":
-        return plain(x, packed, scale, group)
+        return plain(x, packed, scale, group).to(x.dtype)
     if x.device.type != "meta":
         _build.require_cuda(NAME, x, packed, scale)
-    if (x.dtype, packed.dtype, scale.dtype) != (torch.float32, torch.uint8,
-                                                torch.float32):
-        raise ValueError("int4_matmul: needs f32 x, uint8 packed, f32 scale")
+    if (x.dtype not in DTYPES
+            or (packed.dtype, scale.dtype) != (torch.uint8, torch.float32)):
+        raise ValueError(f"int4_matmul: needs f32 or bf16 x, uint8 packed, "
+                         f"f32 scale, got {x.dtype}, {packed.dtype}, "
+                         f"{scale.dtype}")
     if x.device.type == "meta":
-        cost.report(NAME, cost.int4_matmul(M, K, N, group),
+        cost.report(NAME, cost.int4_matmul(M, K, N, group, x.element_size()),
                     (tuple(x.shape), tuple(packed.shape)))
-        return torch.empty((M, N), dtype=torch.float32, device="meta")
+        return torch.empty((M, N), dtype=x.dtype, device="meta")
     n_sms = _build.num_sms(x.device.index)
+    epc = 16 // x.element_size()       # x elements per 16-byte copy
     xa = x.data_ptr() % 16 == 0
     if M <= SMALL_M:
         if group & (group - 1):
@@ -114,7 +124,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         lg, splits, gps = decode_plan(M, K, N, group, n_sms)
         chunk = 16 if lg else 8
         flags = (int(N2 % chunk == 0 and packed.data_ptr() % chunk == 0)
-                 | 2 * int(K % 4 == 0 and group % 4 == 0 and xa)
+                 | 2 * int(K % epc == 0 and group % epc == 0 and xa)
                  | 4 * int(N % 4 == 0 and scale.data_ptr() % 16 == 0))
     else:
         if group % 8:
@@ -125,11 +135,12 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         lg = 0
         splits, gps = prefill_plan(M, K, N, group, n_sms)
         flags = 8 * int(N2 % 16 == 0 and packed.data_ptr() % 16 == 0)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.launcher(NAME, "int4_matmul_launch", _ARGS)
     err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
              out.data_ptr(), M, K, N, group, lg, splits, gps, flags,
-             _build.stream_ptr(x.device))
+             int(bf16), _build.stream_ptr(x.device))
     _build.check(NAME, err)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME, bf16)
     return out

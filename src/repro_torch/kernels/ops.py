@@ -14,15 +14,18 @@ return a result autograd cannot see through; it neither detaches the
 input nor switches to its plain version.  Serving never needs gradients
 and is unaffected.
 
-``int4_matmul_op`` takes a bf16 ``x`` as well: the kernel is f32, so the
-op widens ``x`` with one explicit cast and casts the output back (two
-real launches, which the roofline counter and the card's timings see);
-its output has ``x``'s dtype on either arm, as the reference's ``x @
-dequant(W)`` has.  ``flash_attention_op`` and ``decode_attention_op``
-do the same for bf16 q, k and v (the caches of ``decode_attention`` may
-stay bf16), which a bf16 model's steps reach.
-On meta tensors each wrapper prices its kernel (``kernels.cost``) and
-returns an empty output of the kernel's shape and dtype.
+Every op takes bf16 inputs as they are, as the TPU kernels do: a bf16
+``x``, q (and k, v) or q over any cache goes straight to the kernel
+wrapper, which launches the kernel's bf16 instance on the card and runs
+the plain version at the input dtype on the CPU (so there the kernel
+arm equals ``use_kernels(False)`` bit for bit).  No op widens an input
+or casts an output itself, a shape the bf16 instance cannot take raises,
+and no failed build or launch gives way to a plain version.  The output
+has the input's dtype on either arm (``x``'s for ``int4_matmul_op``, as
+the reference's ``x @ dequant(W)``; q's for the attentions).
+On meta tensors each wrapper prices its kernel (``kernels.cost``, at
+its operands' sizes) and returns an empty output of the kernel's shape
+and dtype.
 """
 from __future__ import annotations
 
@@ -71,10 +74,7 @@ def int4_matmul_op(x, packed, scale, *, group: int = 128):
     _no_grad("int4_matmul", x, packed, scale)
     if not _STATE["enabled"]:
         return R.int4_matmul_ref(x, packed, scale, group).to(x.dtype)
-    if x.dtype == torch.float32:
-        return int4_matmul(x, packed, scale, group=group)
-    return int4_matmul(x.to(torch.float32), packed, scale,
-                       group=group).to(x.dtype)
+    return int4_matmul(x, packed, scale, group=group)
 
 
 def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -82,21 +82,15 @@ def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
     if not _STATE["enabled"]:
         return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
-    if q.dtype == torch.float32:
-        return flash_attention(q, k, v, **kw)
-    f32 = torch.float32
-    return flash_attention(q.to(f32), k.to(f32), v.to(f32), **kw).to(q.dtype)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 def decode_attention_op(q, k_cache, v_cache, pos):
     _no_grad("decode_attention", q, k_cache, v_cache)
     if not _STATE["enabled"]:
         return R.decode_attention_ref(q, k_cache, v_cache, pos)
-    if q.dtype == torch.float32:
-        return decode_attention(q, k_cache, v_cache, pos)
-    return decode_attention(q.to(torch.float32), k_cache, v_cache,
-                            pos).to(q.dtype)
+    return decode_attention(q, k_cache, v_cache, pos)
 
 
 def decode_attention_int4_op(q, k_packed, k_scale, v_packed, v_scale, pos, *,

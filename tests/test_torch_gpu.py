@@ -1198,9 +1198,29 @@ def test_train_checkpoint_on_card_restores_bit_equal(dev, tmp_path):
         assert torch.equal(a, b)
 
 
+def _aten_ops(fn):
+    """(fn's result, the names of the aten ops it dispatched)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Rec(TorchDispatchMode):
+        names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Rec() as rec:
+        out = fn()
+    return out, rec.names
+
+
+CASTS = {"to", "_to_copy", "copy_"}
+
+
 def test_int4_matmul_op_bf16_cast_path(dev):
-    """A bf16 ``x``: the op widens it to f32, launches the f32 kernel
-    once and casts the output back (the op's cast path), within the
+    """A bf16 ``x``: the op no longer casts (the cast path is gone); it
+    launches the kernel's bf16 instance once, dispatches no cast, and
+    writes a bf16 output equal to widening x, the f32 instance and a cast
+    back (the same products on the exactly widened x), within the
     kernel's tolerance of the plain version at the widened input."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import int4_matmul_ref
@@ -1209,45 +1229,51 @@ def test_int4_matmul_op_bf16_cast_path(dev):
     x = _t(rng, dev, 4, 2048).to(torch.bfloat16)
     packed, scale = quantize_int4(_t(rng, dev, 2048, 512, scale=0.05))
     ops.reset_launches()
-    got = ops.int4_matmul_op(x, packed, scale, group=128)
+    got, names = _aten_ops(lambda: ops.int4_matmul_op(x, packed, scale,
+                                                      group=128))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["int4_matmul"] == 1
+    assert ops.LAUNCHES["int4_matmul"] == ops.LAUNCHES["int4_matmul_bf16"] == 1
+    assert not CASTS & set(names), names
     ref = int4_matmul_ref(x.float(), packed, scale, 128)
     assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ops.int4_matmul_op(x.float(), packed, scale,
+                                               group=128).to(torch.bfloat16))
     assert (got.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
 
 
 @pytest.mark.parametrize("op", ["flash", "decode"])
 def test_attention_ops_bf16_cast_path(dev, op):
     """bf16 q, k and v (``flash_attention_op``) or bf16 q over bf16
-    caches (``decode_attention_op``): one f32 kernel launch between the
-    casts, within 1e-2 of the plain version at the widened inputs cast
-    to bf16 (the kernel's 2e-5 and one bf16 rounding) and within 2e-2 of
-    the plain arm (``use_kernels(False)``) on the bf16 inputs."""
+    caches (``decode_attention_op``): the cast path is gone; one launch of
+    the bf16 instance, no cast dispatched, within 2e-2 of the plain arm
+    (``use_kernels(False)``) on the bf16 inputs.  Decode equals the old
+    recipe (widen q, the f32 instance, cast back) bit for bit; flash
+    rounds P to bf16 as the TPU kernel does, within 2e-2 of it."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import (decode_attention_ref,
-                                         flash_attention_ref)
     rng = np.random.default_rng(6)
     bf = lambda *s: _t(rng, dev, *s).to(torch.bfloat16)
     if op == "flash":
         q, k, v = bf(4, 128, 32, 64), bf(4, 128, 4, 64), bf(4, 128, 4, 64)
         run = lambda: ops.flash_attention_op(q, k, v, causal=True)
-        want = flash_attention_ref(q.float(), k.float(), v.float(),
-                                   causal=True).to(torch.bfloat16)
+        recipe = ops.flash_attention_op(q.float(), k.float(), v.float(),
+                                        causal=True).to(torch.bfloat16)
         name = "flash_attention"
     else:
         q, k, v = bf(4, 32, 64), bf(4, 256, 4, 64), bf(4, 256, 4, 64)
-        pos = torch.tensor([143, 0, 77, 255], device=dev)
+        pos = torch.tensor([143, 0, 77, 255], dtype=torch.int32, device=dev)
         run = lambda: ops.decode_attention_op(q, k, v, pos)
-        want = decode_attention_ref(q.float(), k, v,
-                                    pos).to(torch.bfloat16)
+        recipe = ops.decode_attention_op(q.float(), k, v,
+                                         pos).to(torch.bfloat16)
         name = "decode_attention"
     ops.reset_launches()
-    got = run()
+    got, names = _aten_ops(run)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES[name] == 1 and got.dtype == torch.bfloat16
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=1e-2)
+    assert ops.LAUNCHES[name] == ops.LAUNCHES[name + "_bf16"] == 1
+    assert got.dtype == torch.bfloat16 and not CASTS & set(names), names
+    if op == "decode":
+        assert torch.equal(got, recipe)
+    torch.testing.assert_close(got.float(), recipe.float(), rtol=0,
+                               atol=2e-2)
     ops.use_kernels(False)
     try:
         plain = run()
@@ -1255,6 +1281,132 @@ def test_attention_ops_bf16_cast_path(dev, op):
         ops.use_kernels(True)
     torch.testing.assert_close(got.float(), plain.float(), rtol=0,
                                atol=2e-2)
+
+
+# the bf16 instances at the main paths' shapes: (M, K, N) on both int4
+# paths; flash at dh 64, 128 and 256 with a window, a q_offset and
+# causal=False; decode over both cache types; decode INT4 with and
+# without bf16 fresh rows
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 2048), (16, 5632, 256),
+                                   (4, 8192, 2048), (17, 2048, 5632),
+                                   (37, 2048, 256), (512, 5632, 2048),
+                                   (3, 96, 10)])
+def test_int4_matmul_bf16_instance(dev, M, K, N):
+    """bf16 x read and bf16 out written in-kernel: equal bit for bit to
+    widening x, the f32 instance and a cast back (the GEMV's products on
+    the widened x; the tensor-core path's one TF32 term, x_lo being
+    zero), and within 2e-2 x max of the plain version at bf16; two calls
+    equal."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(M + K + N)
+    G = 32 if K % 128 else 128
+    x = _t(rng, dev, M, K).to(torch.bfloat16)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), G)
+    out = int4_matmul(x, packed, scale, group=G)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, int4_matmul(x.float(), packed, scale,
+                                        group=G).to(torch.bfloat16))
+    assert torch.equal(out, int4_matmul(x, packed, scale, group=G))
+    ref = plain(x, packed, scale, G).to(torch.bfloat16).float()
+    assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset",
+                         [(4, 128, 128, 32, 4, 64, True, 0, 0),
+                          (1, 37, 37, 32, 8, 128, True, 0, 0),
+                          (1, 300, 300, 8, 4, 256, True, 128, 0),
+                          (1, 18, 114, 32, 8, 128, True, 0, 96),
+                          (1, 48, 300, 8, 8, 64, False, 0, 0),
+                          (2, 33, 33, 16, 4, 256, True, 0, 0),
+                          (1, 20, 20, 4, 2, 16, True, 0, 0),
+                          (2, 45, 65, 8, 2, 32, True, 13, 20)])
+def test_flash_attention_bf16_instance(dev, b, sq, sk, h, hkv, dh, causal,
+                                       window, q_offset):
+    """Both products on bf16 mma.sync, the unnormalised P rounded to bf16:
+    within 2e-2 x max of the plain version at bf16 (which normalises P
+    before rounding it) and of the f32 instance on the widened inputs;
+    two calls equal; one launch each, counted as the bf16 instance's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, plain
+    rng = np.random.default_rng(sq * sk + dh)
+    q, k, v = (_t(rng, dev, b, sq, h, dh).to(torch.bfloat16),
+               _t(rng, dev, b, sk, hkv, dh).to(torch.bfloat16),
+               _t(rng, dev, b, sk, hkv, dh).to(torch.bfloat16))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ops.reset_launches()
+    out = flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention_bf16"] == 1
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    for ref in (plain(q, k, v, **kw).float(),
+                flash_attention(q.float(), k.float(), v.float(), **kw)):
+        assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_flash_attention_bf16_refuses_odd_head_dim(dev):
+    """The bf16 instance takes a head_dim that is a multiple of 16: any
+    other raises, naming the shape (no quiet widening)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros(1, 8, 4, 40, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match=r"multiple of 16.*\(1, 8, 4, 40\)"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,h,hkv,dh,pos", [
+    (4, 160, 32, 4, 64, [159, 0, 77, 131]),
+    (4, 1536, 8, 4, 256, [1515, 1031, 315, 129]),
+    (4, 1500, 8, 8, 64, [1499] * 4), (3, 77, 8, 2, 32, [76, 0, 40])])
+def test_decode_attention_bf16_q(dev, cdt, b, S, h, hkv, dh, pos):
+    """bf16 q read and bf16 out written in-kernel: bit-equal to widening
+    q, the f32-q instance and a cast back (the TPU kernel's arithmetic,
+    all f32 after the load), also with q as a strided view."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    rng = np.random.default_rng(S + h + dh)
+    q = _t(rng, dev, b, h, dh).to(torch.bfloat16)
+    kc, vc = (_t(rng, dev, b, S, hkv, dh).to(cdt) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = decode_attention(q, kc, vc, p)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, decode_attention(q.float(), kc, vc,
+                                             p).to(torch.bfloat16))
+    qv = torch.zeros(b, h + 2, dh, dtype=torch.bfloat16, device=dev)[:, 1:h + 1]
+    qv.copy_(q)
+    assert torch.equal(out, decode_attention(qv, kc, vc, p))
+
+
+@pytest.mark.parametrize("fresh", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,S,h,hkv,dh,pos", [
+    (4, 160, 32, 4, 64, [159, 0, 77, 131]),
+    (4, 2048, 8, 4, 256, [1515, 1031, 315, 129]),
+    (3, 77, 6, 3, 16, [76, 0, 40])])
+def test_decode_attention_int4_bf16_q(dev, fresh, cdt, b, S, h, hkv, dh, pos):
+    """bf16 q (the repaired instance), with no fresh row or fresh rows of
+    either dtype: bit-equal to widening q (and the fresh rows), the f32
+    instance and a cast back."""
+    from repro_torch.core.kvstore import kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention_int4 import (
+        decode_attention_int4)
+    rng = np.random.default_rng(S + dh)
+    F = hkv * dh
+    g = kv_group(F)
+    q = _t(rng, dev, b, h, dh).to(torch.bfloat16)
+    kq, ks = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    vq, vs = quantize_kv_rows(_t(rng, dev, b, S, F), g)
+    kn = vn = None
+    if fresh is not None:
+        kn, vn = (_t(rng, dev, b, hkv, dh).to(fresh) for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(hkv=hkv, group=g, cache_dtype=cdt)
+    out = decode_attention_int4(q, kq, ks, vq, vs, p, k_new=kn, v_new=vn, **kw)
+    assert out.dtype == torch.bfloat16
+    wide = decode_attention_int4(
+        q.float(), kq, ks, vq, vs, p, **kw,
+        k_new=None if kn is None else kn.float(),
+        v_new=None if vn is None else vn.float()).to(torch.bfloat16)
+    assert torch.equal(out, wide)
 
 
 def test_pipelined_disk_to_device_to_card(dev, tmp_path):
