@@ -470,6 +470,10 @@ SHARD_SCALE = dict(d_model=64, num_heads=4, num_kv_heads=4, vocab_size=256)
 # tokens into a W4_CACHE-row cache, then W4_STEPS decode steps
 W4_B, W4_PROMPT, W4_CACHE, W4_STEPS = 4, 128, 256, 16
 W4_BF16_STEPS = 4        # (aa)'s bf16 prefill arms: decode steps after it
+# (aa)'s bf16 prefill before bf16 wgmma (an H100 80GB HBM3 at 700 W, the
+# TF32 path): device ms, the tensor-core int4_matmul's ms of it, printed
+# beside this run's
+AA_PREFILL_BEFORE = (4.834, 2.794)
 # run (ab): one production-mesh cell per mixer family all_cells runs,
 # base and w4, and the status each must have; (ac): the disk tier's key
 DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"),
@@ -731,6 +735,52 @@ def check_int4(torch, rng, dev):
     return rows
 
 
+def one_tile_plan(h: int, hkv: int):
+    """``flash_attention``'s earlier block layout, the one-tile layout:
+    the most of 4, 2, 1 heads that divides the group, one row tile of 16,
+    no key split."""
+    return next(w for w in (4, 2, 1) if (h // hkv) % w == 0), 1, 1
+
+
+def flash_under(torch, q, k, v, kw, plan):
+    """One launch of the flash kernel under ``plan`` = (wh, wr, splits),
+    through the kernel's C entry point (``_build.launcher``), counted
+    nowhere."""
+    from repro_torch.kernels.flash_attention import _launch
+    out = torch.empty_like(q)
+    _launch(q, k, v, out, kw["causal"], kw["window"], kw["q_offset"], plan)
+    return out
+
+
+def flash_plan_fields(torch, q, k, v, kw, out, timed):
+    """The plan ``flash_attention`` took for this row (heads x row tiles,
+    key splits, blocks), and the same inputs under the one-tile layout: bit-equal
+    where the plan has no key split (a row's arithmetic does not depend
+    on the block layout), else the largest difference; on a timed row,
+    also the one-tile layout's device ms."""
+    from repro_torch.kernels.flash_attention import flash_plan
+    b, sq, h, _ = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    wh, wr, splits, blocks = flash_plan(
+        b, sq, sk, h, hkv, kw["causal"], kw["window"], kw["q_offset"],
+        dh=q.shape[3], itemsize=q.element_size(),
+        n_sms=torch.cuda.get_device_properties(q.device).multi_processor_count)
+    old_plan = one_tile_plan(h, hkv)
+    old = flash_under(torch, q, k, v, kw, old_plan)
+    torch.cuda.synchronize()
+    row = {"plan": {"wh": wh, "wr": wr, "splits": splits, "blocks": blocks,
+                    "warps_per_block": wh * wr},
+           "one_tile_plan": {"wh": old_plan[0], "wr": 1, "splits": 1}}
+    if splits == 1:
+        row["bit_equal_to_one_tile_plan"] = bool(torch.equal(out, old))
+    else:
+        row["err_vs_one_tile_plan"] = (out.float() - old.float()).abs().max().item()
+    if timed:
+        row["one_tile_plan_ms"] = device_ms(
+            torch, lambda: flash_under(torch, q, k, v, kw, old_plan), 20)
+    return row
+
+
 def check_flash(torch, rng, dev):
     """``flash_attention`` against its plain version (atol 2e-5), two
     calls bit-equal; timed at the generation prefill shape (the kernels
@@ -742,9 +792,13 @@ def check_flash(torch, rng, dev):
     SDPA with the same mask, at jamba's (run v: group 8, dh 128) and at
     whisper's (run w: group 1, dh 64; the encoder and the cross
     attention's prefill at ``causal=False``); checked (untimed) at run
-    (ad)'s prefills (dh 16, group 2).  The bound counts three TF32 products per
-    multiply-add on the tensor cores (495 TFLOP/s) over the pairs the
-    mask attends, ``bound_fp32_ms`` the same work at fp32."""
+    (ad)'s prefills (dh 16, group 2); timed at a 32-row chunk over a
+    1468-token prefix (a key split across a cluster).  Every row also runs
+    under the earlier one-tile layout (``one_tile_plan``, through the
+    kernel's C entry point) and must be bit-equal to it where the plan
+    has no key split; timed rows time that layout too.  The bound counts three TF32
+    products per multiply-add on the tensor cores (495 TFLOP/s) over the
+    pairs the mask attends, ``bound_fp32_ms`` the same work at fp32."""
     import torch.nn.functional as F
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention, plain
@@ -801,6 +855,11 @@ def check_flash(torch, rng, dev):
              (1, 48, WHISPER_FRAMES, 8, 8, 64, False, 0, 0,
               "whisper cross prefill sq=48 sk=1500"),
              (1, 48, 48, 8, 8, 64, True, 0, 0, "whisper decoder sq=48"),
+             # a short prefill chunk over a long prefix (a key split)
+             (1, 32, 1500, 32, 8, 128, True, 0, 1468,
+              "llama3.1-8b chunk sq=32 q_offset=1468"),
+             (2, 40, 400, 4, 4, 64, True, 200, 360, None),
+             (1, 20, 600, 8, 4, 256, True, 0, 580, None),
              (2, 37, 1500, 8, 8, 64, False, 0, 0, None),
              (1, 5, 24, 8, 8, 64, False, 0, 0, None),
              # run (ad): quickstart's prefill (2 x 32, 8/4 heads of dh
@@ -827,8 +886,10 @@ def check_flash(torch, rng, dev):
         same = bool(torch.equal(out, again))
         row = dict(shape=f"b={b} sq={sq} sk={sk} h={h} hkv={hkv} dh={dh} "
                    f"causal={causal} window={window} q_offset={q_offset}",
-                   max_abs_err=err, deterministic=same,
-                   ok=err <= ATTN_ATOL and same, main=timed)
+                   max_abs_err=err, deterministic=same, main=timed,
+                   **flash_plan_fields(torch, q, k, v, kw, out, timed))
+        row["ok"] = (err <= ATTN_ATOL and same
+                     and row.get("bit_equal_to_one_tile_plan", True))
         if timed:
             (qt, kt, vt, mask), sdpa = _sdpa_args(torch, q, k, v, causal,
                                                   window, q_offset)
@@ -1151,6 +1212,15 @@ L2_BYTES = 50 * 2**20    # the H100's L2: a cold row rotates past twice it
 BF16_OUT_RTOL = 2.0**-8  # one bf16 rounding of an output (8 significant bits)
 
 
+def bf16_ulps(torch, a, b):
+    """Element-wise distance in bf16 ulps between two bf16 tensors (their
+    bit patterns as sign-magnitude integers)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
 def cold_sets(torch, args):
     """Copies of ``args`` (tensors cloned), enough that one pass over them
     reads more than twice the L2."""
@@ -1187,18 +1257,22 @@ def bf16_timings(torch, kernel, k_args, plain, library, l_args,
 
 def check_int4_bf16(torch, rng, dev):
     """``int4_matmul``'s bf16 instance (bf16 x read and the bf16 output
-    written in-kernel): bit-equal to the cast recipe it replaces (x
-    widened, the f32 instance, the output cast back), two calls equal,
-    and against the plain version (x widened, an f32 output) within one
-    bf16 rounding of the output plus the f32 tolerance (rtol 2^-8 + 1e-5,
-    atol 1e-5 x max); timed warm and cold beside ``torch.matmul`` at
-    bf16 over the dequantized weight: decode M = 4 (the kernels line's
-    head: 2048x2048) and the 8B's decode projections (the GEMV), M = 512
-    (run (aa)'s bf16 prefill) and the 8B's M = 128 (the tensor-core
-    path, one TF32 term); checked untimed at the other shapes of (aa) and
-    at the path switch."""
+    written in-kernel) against the cast recipe (x widened, the f32
+    instance, the output cast back): the GEMV (M <= 16) bit-equal to it,
+    the tensor-core path (bf16 wgmma on the exact nibbles: the products
+    exact, the f32 sums in another order inside a k16 step) within one
+    bf16 ulp of it on every element; two calls equal; and against the
+    plain version (x widened, an f32 output) within one bf16 rounding of
+    the output plus the f32 tolerance (rtol 2^-8 + 1e-5, atol 1e-5 x
+    max); timed warm and cold beside ``torch.matmul`` at bf16 over the
+    dequantized weight: decode M = 4 (the kernels line's head: 2048x2048)
+    and the 8B's decode projections (the GEMV), M = 512 (run (aa)'s bf16
+    prefill) and the 8B's M = 128 (the tensor-core path, two
+    warpgroups); checked untimed at the other shapes of (aa), at the path
+    switch and at the edges (one warpgroup, group 16 and 32, a ragged
+    N)."""
     from repro_torch.kernels import cost
-    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import dequantize_int4, quantize_int4
     l8 = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
     cases = [(4, 2048, 2048, 128, True)]
@@ -1210,7 +1284,8 @@ def check_int4_bf16(torch, rng, dev):
     cases += [(512, 2048, 2048, 128, None), (16, 5632, 2048, 128, None),
               (17, 2048, 5632, 128, None), (20, 2048, 2048, 128, None),
               (1, 2048, 2048, 128, None), (3, 96, 10, 32, None),
-              (512, 384, 200, 32, None)]
+              (512, 384, 200, 32, None), (64, 1024, 200, 32, None),
+              (65, 384, 256, 16, None), (128, 5632, 2048, 128, None)]
     rows = []
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(1 << 31)))
@@ -1228,13 +1303,20 @@ def check_int4_bf16(torch, rng, dev):
         tol = (BF16_OUT_RTOL + INT4_RTOL) * ref.abs() \
             + INT4_RTOL * ref.abs().max()
         same = bool(torch.equal(out, again))
-        recipe_equal = bool(torch.equal(out, recipe))
         row = dict(shape=f"M={M} K={K} N={N} G={G} x=bf16",
                    max_abs_err=d.max().item(),
                    err_over_max=d.max().item() / ref.abs().max().item(),
-                   deterministic=same, bit_equal_to_cast_recipe=recipe_equal,
-                   ok=bool((d <= tol).all()) and same and recipe_equal,
-                   main=main)
+                   deterministic=same, main=main)
+        if M <= SMALL_M:       # the GEMV: the f32 arithmetic on the widened x
+            recipe_ok = row["bit_equal_to_cast_recipe"] = bool(
+                torch.equal(out, recipe))
+        else:                  # bf16 wgmma: k16 steps, another order of sums
+            ulps = bf16_ulps(torch, out, recipe)
+            row["max_ulps_vs_cast_recipe"] = int(ulps.max().item())
+            row["share_off_cast_recipe"] = (ulps > 0).float().mean().item()
+            recipe_ok = row["within_one_ulp_of_cast_recipe"] = bool(
+                ulps.max().item() <= 1)
+        row["ok"] = bool((d <= tol).all()) and same and recipe_ok
         if main:
             wd = dequantize_int4(packed, scale, torch.bfloat16, G)
             row.update(bf16_timings(
@@ -1271,11 +1353,15 @@ def check_flash_bf16(torch, rng, dev):
     inputs printed; timed warm and cold beside SDPA at bf16 with the same
     mask: b 4, sq 128, 32/4 heads of 64 (run (aa)'s bf16 prefill; the
     kernels line's head), Gemma 3's dh 256 with its 1024 window over 1500
-    rows, whisper's encoder (``causal=False``, group 1, 1500 rows) and a
-    prefill chunk at ``q_offset`` 64 (dh 128, group 4); checked untimed at
-    the other main-path shapes (dh 16 to 256, the cross attention, jamba's
-    group 8, windows with offsets).  The bound counts one bf16 product
-    per multiply-add at 989 TFLOP/s over the pairs the mask attends."""
+    rows, whisper's encoder (``causal=False``, group 1, 1500 rows) and
+    cross prefill (48 rows over 1500: a key split), prefill chunks at
+    ``q_offset`` 64 and 1468 (dh 128, group 4; the second a key split) and
+    dh 192 at the MLA prefill's shape (its own instance); checked untimed
+    at the other main-path shapes (dh 16 to 256, jamba's group 8, windows
+    with offsets).  Every row also runs under the one-tile layout and
+    must be bit-equal to it where the plan has no key split.  The bound
+    counts one bf16 product per multiply-add at 989 TFLOP/s over the
+    pairs the mask attends."""
     import torch.nn.functional as F
     from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention, plain
@@ -1287,6 +1373,14 @@ def check_flash_bf16(torch, rng, dev):
               "bf16 whisper encoder sq=sk=1500"),
              (1, 32, 96, 32, 8, 128, True, 0, 64,
               "bf16 llama3.1-8b chunk sq=32 q_offset=64"),
+             (1, MLA_SQ, MLA_SQ, 128, 128, 192, True, 0, 0,
+              "bf16 dh=192 sq=114 h=128/128 (the MLA prefill's shape)"),
+             (1, 48, WHISPER_FRAMES, 8, 8, 64, False, 0, 0,
+              "bf16 whisper cross prefill sq=48 sk=1500"),
+             (1, 32, 1500, 32, 8, 128, True, 0, 1468,
+              "bf16 llama3.1-8b chunk sq=32 q_offset=1468"),
+             (2, 40, 400, 4, 4, 64, True, 200, 360, None),
+             (1, 20, 600, 8, 4, 256, True, 0, 580, None),
              (1, 141, 141, 32, 4, 64, True, 0, 0, None),
              (1, 114, 114, 8, 4, 256, True, 0, 0, None),
              (2, 33, 33, 16, 4, 256, True, GEMMA3_WINDOW, 0, None),
@@ -1294,7 +1388,6 @@ def check_flash_bf16(torch, rng, dev):
              (1, 114, 114, 64, 8, 128, True, 0, 0, None),
              (1, 18, 114, 32, 8, 128, True, 0, 96, None),
              (2, 45, 65, 8, 2, 32, True, 13, 20, None),
-             (1, 114, 114, 128, 128, 192, True, 0, 0, None),
              (2, 32, 32, 8, 4, 16, True, 0, 0, None),
              (1, 5, 24, 8, 8, 64, False, 0, 0, None)]
     rows = []
@@ -1316,9 +1409,10 @@ def check_flash_bf16(torch, rng, dev):
                    f"bf16", max_abs_err=err,
                    err_over_max=err / ref.abs().max().item(),
                    err_vs_f32_instance=(out.float() - wide).abs().max().item(),
-                   deterministic=same,
-                   ok=err <= BF16_ATOL * ref.abs().max().item() and same,
-                   main=timed)
+                   deterministic=same, main=timed,
+                   **flash_plan_fields(torch, q, k, v, kw, out, timed))
+        row["ok"] = (err <= BF16_ATOL * ref.abs().max().item() and same
+                     and row.get("bit_equal_to_one_tile_plan", True))
         if timed:
             s_args, s_kw = _sdpa_args(torch, q, k, v, causal, window, q_offset)
             row.update(bf16_timings(
@@ -1553,12 +1647,13 @@ def check_verify(torch, rng, dev):
 
 def check_mla_flash(torch, rng, dev):
     """``flash_attention`` as run (t)'s MLA prefill runs it: b 1, sq
-    ``MLA_SQ``, 128 heads each its own kv head (group 1: one warp a
-    block), head_dim dn + dr = 192 (the kernel's DH 256 instance), V
-    zero-padded from 128 to 192 (``models.attention.
+    ``MLA_SQ``, 128 heads each its own kv head (group 1: a block is one
+    head x 64 rows), head_dim dn + dr = 192 (the kernel's DH 192
+    instance), V zero-padded from 128 to 192 (``models.attention.
     mla_prefill_attention``), causal; against the plain version on the
-    same padded tensors (atol 2e-5), and at 37 rows; timed beside the
-    plain version and SDPA, which takes V at its own width of 128.
+    same padded tensors (atol 2e-5), bit-equal to the one-tile layout,
+    and at 37 rows; timed beside the one-tile layout, the plain version
+    and SDPA, which takes V at its own width of 128.
     The bound is the function's, not the padded call's: q and k read at
     dn + dr, V read and the output written at dv, and over the pairs the
     mask attends, QK^T at dn + dr plus PV at dv, as three TF32 terms."""
@@ -1580,10 +1675,14 @@ def check_mla_flash(torch, rng, dev):
         err = (out - ref).abs().max().item()
         same = bool(torch.equal(out, again))
         pad_zero = bool((out[..., dv:] == 0).all())
+        kw = dict(causal=True, window=0, q_offset=0)
         row = dict(shape=f"b=1 sq={sq} sk={sq} h={h} hkv={h} dh={dq} "
                    f"v={dv} padded causal", max_abs_err=err,
                    deterministic=same, padded_columns_zero=pad_zero,
-                   ok=err <= ATTN_ATOL and same and pad_zero, main=main)
+                   main=main, **flash_plan_fields(torch, q, k, vp, kw, out,
+                                                  main))
+        row["ok"] = (err <= ATTN_ATOL and same and pad_zero
+                     and row.get("bit_equal_to_one_tile_plan", True))
         if main:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             row.update(timings(
@@ -5440,6 +5539,9 @@ def run_w4(torch, ops, np, card):
                            f"first tokens equal {pf_first}")
     prof_pf = op_casts(torch, ops, lambda: make_prefill_step(
         model, W4_CACHE)(params_bf, {"tokens": toks}))
+    # the tensor-core int4_matmul's share of the prefill (its one kernel
+    # name, int4_tc_bf16_kernel<TM>, among the profile's top kernels)
+    pf_int4_ms = sum(ms for name, ms in prof_pf["top_ms"] if "int4" in name)
     packed_caches = pack_kv(torch, pf_arm[True][3])
     batch16 = {"token": pf_arm[True][0][:, -1:].contiguous(),
                "pos": W4_PROMPT + W4_BF16_STEPS}
@@ -5494,6 +5596,9 @@ def run_w4(torch, ops, np, card):
                                 "tokens_equal": pf_tokens,
                                 "tokens": W4_B * (1 + W4_BF16_STEPS),
                                 "prefill_device_ms": prof_pf["device_ms"],
+                                "prefill_device_ms_before": AA_PREFILL_BEFORE[0],
+                                "int4_matmul_ms": pf_int4_ms,
+                                "int4_matmul_ms_before": AA_PREFILL_BEFORE[1],
                                 "top_ms": prof_pf["top_ms"][:4]},
                "bf16_packed_step": {"head_rel_vs_plain": pk_rel,
                                     "tokens_equal": pk_same,
@@ -5506,7 +5611,10 @@ def run_w4(torch, ops, np, card):
         f"0.399 ms in 220 casts), {casts['step']} op-made casts; bf16 "
         f"prefill head inputs within {max(pf_rel):.3e} x max, "
         f"{pf_tokens} of {W4_B * (1 + W4_BF16_STEPS)} "
-        f"tokens equal; packed-row step {pk_rel:.3e} x max")
+        f"tokens equal; packed-row step {pk_rel:.3e} x max; the bf16 "
+        f"prefill {prof_pf['device_ms']:.3f} ms of device time, "
+        f"int4_matmul {pf_int4_ms:.3f} ms of it (on the TF32 path: "
+        f"{AA_PREFILL_BEFORE[0]} / {AA_PREFILL_BEFORE[1]} ms)")
     del params
     return counts, summary
 
@@ -5867,7 +5975,8 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
                 k: c["flash_attention_q_offset"] for k, c in counts.items()}
         entry.update({k: m[k] for k in ("bound_rate", "bound_fp32_ms",
                                         "cold_ms", "library_cold_ms",
-                                        "median_timed", "cold_median_timed")
+                                        "median_timed", "cold_median_timed",
+                                        "plan", "one_tile_plan_ms")
                       if k in m})
         variants = [r for r in rows
                     if isinstance(r["main"], str) and r is not m]
@@ -5876,7 +5985,8 @@ def finish(torch, card, checks, counts, t_start, phase_s) -> int:
                 "shape", "ms", "cold_ms", "plain_ms", "library_ms",
                 "library_cold_ms", "call_ms", "bound_ms", "bound_by",
                 "bound_rate", "bound_fp32_ms", "max_abs_err", "median_timed",
-                "cold_median_timed") if k in v}
+                "cold_median_timed", "plan", "one_tile_plan_ms",
+                "max_ulps_vs_cast_recipe") if k in v}
         kernels.append(entry)
     torch.cuda.synchronize()
     log(json.dumps({"wall_s": {"total": time.perf_counter() - t_start,

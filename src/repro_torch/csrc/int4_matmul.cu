@@ -28,7 +28,7 @@
 // multiply-adds (about 8 instructions for 4 multiply-adds per weight),
 // then to the copy round trip and the two reductions, not to the bytes.
 //
-// Prefill (M > 16, int4_tc_kernel): bound by operations, run on the tensor
+// Prefill at f32 x (M > 16, int4_tc_kernel): bound by operations, run on the tensor
 // cores (wgmma m64n128k8 TF32, f32 accumulation) at fp32 accuracy.  The
 // weights are exact small integers q in [-8, 7], exact in TF32, so the
 // scale factors out of each group's product:
@@ -55,23 +55,49 @@
 // printed by chip_smoke.py from the build log and recorded in PERF.md.
 //
 // bf16 x (the TPU kernel takes "x (M, K) bf16/f32", widens it in its body
-// and writes out_dtype): both paths are templates on x's element type XT,
-// and the bf16 instance reads x as raw 16 bits and writes the output in
-// bf16, rounded to nearest even.  Decode copies the raw bf16 slice into
-// shared memory (half the bytes) and widens each x as it is used.  Prefill
-// widens each tile as it converts it into the operand slab: a bf16 value
-// has 8 significant bits, so it is exact in TF32 (x_hi = x, x_lo = 0), and
-// the x_lo product, which would add zeros, is not issued: one TF32 term,
-// half the f32 instance's tensor-core work.  Every product and sum is the
-// f32 instance's on the widened x, so the bf16 instance gives what
-// widening x, the f32 instance and a cast back give.
+// and writes out_dtype): the bf16 instance reads x as raw 16 bits and
+// writes the output in bf16, rounded to nearest even.  Decode (a template
+// on x's element type XT) copies the raw bf16 slice into shared memory
+// (half the bytes) and widens each x as it is used: it gives what widening
+// x, the f32 instance and a cast back give.
+//
+// Prefill at bf16 x (M > 16, int4_tc_bf16_kernel): bf16 x and the nibbles
+// -8..7 are both exact in bf16, so the function runs at the bf16
+// tensor-core rate (the earlier design widened every x tile into a TF32
+// slab and multiplied at the TF32 rate, 12-14x from that bound).  The
+// products run on wgmma.m64nNk16.f32.bf16.bf16 with the roles swapped,
+// out^T = W^T x^T: the weights are the A operand, converted from the packed
+// bytes straight into registers, and x's rows are N (128, or 64 where M <=
+// 64).  Each of two warpgroups owns 64 of the block's 128 output columns; a
+// thread's two A rows stand for the two columns of one packed byte, so its
+// k16 fragment is 4 byte loads, one byte permute and two fma.bf16x2 (bf16
+// (0x4300 | v) is 128 + v, and fma(., 1, -136) is v - 8 exactly) - no
+// converted slab makes a round trip through shared memory.  x tiles (64 k,
+// one 128-byte row a row) arrive by TMA in the 128-byte swizzle, the wgmma's
+// K-major layout; packed tiles by TMA in the 64-byte swizzle, so a warp's
+// byte loads fall in distinct banks; a ring of 6 stages and one mbarrier a
+// stage, 4 tiles ahead, one barrier a tile (8 stages measured no faster).  Two A fragment buffers
+// alternate, so a tile converts while the last one's products run.  (On
+// the H100, tools/int4_phases.py and PERF.md: copies issued by threads
+// with cp.async took 40 % of the time, and a converted B slab's round trip
+// through shared memory held the products to under half their rate.)
+// Each group's products sum in an f32 group accumulator and fold into the
+// output with the group's scales, in group order, as the f32 instance's;
+// the K split (prefill_plan's partition of the groups) and its cluster sum
+// are the same.  The products are exact and the sums f32; only the order in
+// which the tensor core adds inside a k16 step differs from the k8 TF32
+// steps, so the output is within one bf16 ulp of widening x, the f32
+// instance and a cast back, not bit-equal by construction.  Requires G % 16
+// == 0.
 //
 // Requires K % G == 0 and an even N; decode a power-of-two G, prefill
 // G % 8 == 0.  Tails in M, N and K are masked.
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
@@ -302,10 +328,7 @@ size_t gv_smem(int group, int lg_tpr, int gps) {
 constexpr int WG_M = 64, WG_N = 128, WG_K = 32;
 constexpr int WG_THREADS = 128;                 // one warpgroup
 constexpr int WG_RAW = 4;                       // raw tiles in flight (cp.async ring)
-// elements per raw x row: f32 rows padded by 4 floats, bf16 rows by 8
-// halves (16-byte aligned rows either way)
-template <typename XT>
-constexpr int wg_xld() { return WG_K + 16 / (int)sizeof(XT); }
+constexpr int WG_XLD = WG_K + 4;                // raw x row: f32, padded by 4 floats
 constexpr int WG_CA = WG_M * 8;                 // floats of one A slab (64 rows x 8 k)
 constexpr int WG_CB = WG_N * 8;                 // floats of one B slab (128 rows x 8 k)
 constexpr int RED_LD = WG_N + 4;
@@ -317,26 +340,18 @@ __device__ __forceinline__ int wg_off(int row, int k) {
   return (row >> 3) * 64 + (k >> 2) * 32 + (row & 7) * 4 + (k & 3);
 }
 
-__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+// the no-swizzle descriptor: LBO 128 bytes (the next core matrix along K),
+// SBO 256 bytes (the next 8 rows along M or N)
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
   const uint64_t a = (uint64_t)__cvta_generic_to_shared(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
 }
 
-// the x_lo slabs, tf32(x - tf32(x)): an f32 x's only (a bf16 x is exact
-// in TF32, so its instance keeps no slab for them)
-template <typename XT>
-struct WgLo {
-  float alo[2][WG_K / 8][WG_CA];
-};
-template <>
-struct WgLo<uint16_t> {};
-
-template <typename XT>
 struct WgSmem {
-  XT x[WG_RAW][WG_M][wg_xld<XT>()];             // raw x tiles (cp.async ring)
+  float x[WG_RAW][WG_M][WG_XLD];                // raw x tiles (cp.async ring)
   uint8_t p[WG_RAW][WG_K][WG_N / 2];            // raw packed tiles
   float ahi[2][WG_K / 8][WG_CA];                // tf32(x), two tiles in flight
-  WgLo<XT> lo;                                  // tf32(x - tf32(x))
+  float alo[2][WG_K / 8][WG_CA];                // tf32(x - tf32(x))
   alignas(16) float b[2][WG_K / 8][WG_CB];      // q, exact
 };
 
@@ -357,16 +372,14 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t
       : "memory");
 }
 
-template <typename XT>
-__device__ __forceinline__ void wg_load(WgSmem<XT>& sm, int st, const XT* x, const uint8_t* packed,
+__device__ __forceinline__ void wg_load(WgSmem& sm, int st, const float* x, const uint8_t* packed,
                                         int M, int K, int N2, int m0, int n0, int k0,
                                         int k_end, int bvec) {
-  constexpr int EPC = 16 / sizeof(XT);          // x elements per 16-byte copy
   const int tid = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < (WG_M * WG_K / EPC) / WG_THREADS; ++i) {
+  for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
     const int c = tid + i * WG_THREADS;
-    const int r = c / (WG_K / EPC), kc = (c % (WG_K / EPC)) * EPC;
+    const int r = c / (WG_K / 4), kc = (c % (WG_K / 4)) * 4;
     const bool ok = m0 + r < M && k0 + kc < k_end;
     cp_async<16>(&sm.x[st][r][kc], ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok ? 16 : 0);
   }
@@ -386,16 +399,43 @@ __device__ __forceinline__ void wg_load(WgSmem<XT>& sm, int st, const XT* x, con
   }
 }
 
-// grid (ceil(N / 128), ceil(M / 64), splits), cluster (1, 1, splits); one
-// warpgroup per 64 x 128 output tile.  bvec: 16-byte packed tile copies.
+// split K, once every rank of the cluster wrote its slice of the (rows x
+// WG_N) output tile to red (RED_LD floats a row): the slices summed in rank
+// order from distributed shared memory, each rank writing its share
 template <typename XT>
+__device__ __forceinline__ void cluster_sum(float* red, XT* out, int M, int N, int m0, int n0,
+                                            int rows) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)gridDim.z;
+  const int rank = (int)cluster.block_rank();
+  for (int e = rank * (int)blockDim.x + (int)threadIdx.x; e < rows * WG_N;
+       e += splits * (int)blockDim.x) {
+    const int r = e / WG_N, c = e - r * WG_N;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    float v[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      v[p] = p < splits ? cluster.map_shared_rank(red, p)[r * RED_LD + c] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (p < splits) s += v[p];
+    store(out + (size_t)m * N + n, s);
+  }
+  cluster.sync();
+}
+
+// grid (ceil(N / 128), ceil(M / 64), splits), cluster (1, 1, splits); one
+// warpgroup per 64 x 128 output tile of f32 x.  bvec: 16-byte packed tile
+// copies.
 __global__ void __launch_bounds__(WG_THREADS)
-int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
-               const float* __restrict__ scale, XT* __restrict__ out,
+int4_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
+               const float* __restrict__ scale, float* __restrict__ out,
                int M, int K, int N, int group, int gps, int bvec) {
-  constexpr bool F32 = sizeof(XT) == 4;         // else bf16: exact in TF32, no x_lo
   extern __shared__ __align__(128) uint8_t wsm[];
-  WgSmem<XT>& sm = *reinterpret_cast<WgSmem<XT>*>(wsm);
+  WgSmem& sm = *reinterpret_cast<WgSmem*>(wsm);
   const int N2 = N / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -432,29 +472,21 @@ int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     __syncthreads();
     // convert: x -> (tf32 hi, tf32 lo), packed -> q, into the operand slabs
-    // (a bf16 x widens exactly into hi alone)
 #pragma unroll
     for (int i = 0; i < (WG_M * WG_K / 4) / WG_THREADS; ++i) {
       const int c = tid + i * WG_THREADS;
       const int r = c % WG_M, kq = (c / WG_M) * 4;   // 8 lanes: 8 rows of a core
       const int o = wg_off(r, kq & 7);
-      if constexpr (F32) {
-        const float4 v = *reinterpret_cast<const float4*>(&sm.x[rs][r][kq]);
-        const float vs[4] = {v.x, v.y, v.z, v.w};
-        float hi[4], lo[4];
+      const float4 v = *reinterpret_cast<const float4*>(&sm.x[rs][r][kq]);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      float hi[4], lo[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          hi[e] = __uint_as_float(to_tf32(vs[e]));
-          lo[e] = __uint_as_float(to_tf32(vs[e] - hi[e]));
-        }
-        *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<float4*>(&sm.lo.alo[st][kq >> 3][o]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
-      } else {
-        const uint2 v = *reinterpret_cast<const uint2*>(&sm.x[rs][r][kq]);
-        *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) =
-            make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xFFFF0000u),
-                        __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xFFFF0000u));
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = __uint_as_float(to_tf32(vs[e]));
+        lo[e] = __uint_as_float(to_tf32(vs[e] - hi[e]));
       }
+      *reinterpret_cast<float4*>(&sm.ahi[st][kq >> 3][o]) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<float4*>(&sm.alo[st][kq >> 3][o]) = make_float4(lo[0], lo[1], lo[2], lo[3]);
     }
 #pragma unroll
     for (int i = 0; i < (WG_K / 4) * (WG_N / 2) / WG_THREADS; ++i) {
@@ -489,12 +521,8 @@ int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
               sc[2 * j + e] = n < N ? __ldg(scale + (size_t)g * N + n) : 0.f;
             }
         }
-        if constexpr (F32) {
-          wgmma_tf32(accg, wg_desc(sm.lo.alo[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
-          wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), 1);
-        } else {
-          wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
-        }
+        wgmma_tf32(accg, wg_desc(sm.alo[st][kk]), wg_desc(sm.b[st][kk]), kg != 0);
+        wgmma_tf32(accg, wg_desc(sm.ahi[st][kk]), wg_desc(sm.b[st][kk]), 1);
         kg += 8;
         if (kg == group) {                           // the group ends: fold it
           asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -523,24 +551,17 @@ int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
         const int n = n0 + 8 * j + 2 * tq;
         if (m >= M) continue;
         if (n + 1 < N) {
-          if constexpr (F32) {
-            *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
-                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-          }
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         } else if (n < N) {
           store(out + (size_t)m * N + n, acc[4 * j + 2 * h]);
         }
       }
     return;
   }
-
-  // split K: the cluster's slices, summed in rank order
-  cg::cluster_group cluster = cg::this_cluster();
+  // split K: this slice into red, then the cluster's sum
   float* red = reinterpret_cast<float*>(wsm);     // WG_M x RED_LD floats
-  static_assert(sizeof(WgSmem<XT>) >= sizeof(float) * WG_M * RED_LD, "red fits");
+  static_assert(sizeof(WgSmem) >= sizeof(float) * WG_M * RED_LD, "red fits");
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -548,24 +569,270 @@ int4_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
     const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
     red[r * RED_LD + c] = acc[i];
   }
-  cluster.sync();
-  const int splits = (int)gridDim.z;
-  const int rank = (int)cluster.block_rank();
-  for (int e = rank * WG_THREADS + tid; e < WG_M * WG_N; e += splits * WG_THREADS) {
-    const int r = e / WG_N, c = e - r * WG_N;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v[8];
+  cluster_sum(red, out, M, N, m0, n0, WG_M);
+}
+
+// ---- prefill at bf16 x: wgmma bf16, the weights in registers ------------------
+constexpr int BT_K = 64;                        // k a tile: one 128-byte row of bf16 x
+constexpr int BT_THREADS = 256;                 // two warpgroups, 64 columns each
+constexpr int BT_STAGES = 6;                    // ring stages (tiles in flight: 4)
+
+// TM rows of x (64 or 128: the wgmma's N) land by TMA as 128-byte rows in
+// the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)), the wgmma
+// K-major B layout (8-row groups 1024 bytes apart); raw packed tiles land
+// by TMA as 64 k rows of 64 bytes in the 64-byte swizzle (16-byte chunk c
+// of row k at c ^ ((k / 2) % 4)), so that each thread's four byte loads of
+// a k16 step fall in distinct banks across its warp
+template <int TM>
+struct BtSmem {
+  uint16_t x[BT_STAGES][TM * BT_K];
+  uint8_t p[BT_STAGES][BT_K * WG_N / 2];
+  uint64_t full[BT_STAGES];                     // a stage's TMA bytes arrived
+};
+constexpr size_t BT_ALIGN = 1024;               // the 128-byte swizzle's atom
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the K-major 128-byte-swizzle descriptor: 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return ((uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// two k-adjacent packed bytes (lo in bits 0-7, hi in bits 16-23) -> their
+// low nibbles and their high nibbles as bf16 pairs (nibble - 8): bf16
+// (0x4300 | v) is 128 + v, and fma(., 1, -136) is v - 8 exactly
+__device__ __forceinline__ void q_pairs(uint32_t t, uint32_t& lo, uint32_t& hi) {
+  const __nv_bfloat162 one = __floats2bfloat162_rn(1.f, 1.f);
+  const __nv_bfloat162 off = __floats2bfloat162_rn(-136.f, -136.f);
+  uint32_t l = (t & 0x000F000Fu) | 0x43004300u, h = ((t >> 4) & 0x000F000Fu) | 0x43004300u;
+  __nv_bfloat162 lb = __hfma2(*reinterpret_cast<__nv_bfloat162*>(&l), one, off);
+  __nv_bfloat162 hb = __hfma2(*reinterpret_cast<__nv_bfloat162*>(&h), one, off);
+  lo = *reinterpret_cast<uint32_t*>(&lb);
+  hi = *reinterpret_cast<uint32_t*>(&hb);
+}
+
+// d (64 x TM f32) = A (64 x 16 bf16, registers) * B (16 x TM bf16, K-major
+// smem) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-    for (int p = 0; p < 8; ++p)
-      v[p] = p < splits ? cluster.map_shared_rank(red, p)[r * RED_LD + c] : 0.f;
-    float s = 0.f;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// what a block of the bf16 path knows of its slice and of this thread
+struct BtCtx {
+  int k_begin, k_end, n_tiles, group, N, n_even, jb, tq;
+  const float* scale;
+};
+
+// One k tile t of the bf16 path: wait until tile t - 2's products are done
+// (the last reads of qa and of tile t - 2's stage), refill that stage, wait
+// for tile t's bytes, convert this thread's A fragments of the tile's four
+// k16 steps into qa while tile t - 1's products run, then issue the tile's
+// products, folding each group that ends into acc with its scales.
+template <int TM, typename Load>
+__device__ __forceinline__ void bt_tile(BtSmem<TM>& sm, Load& load, const BtCtx& c, int t,
+                                        uint32_t (&qa)[BT_K / 16][4], float (&acc)[TM / 2],
+                                        float (&accg)[TM / 2], float (&sc)[2], int& kg, int& g) {
+  constexpr int R = TM / 2, AHEAD = BT_STAGES - 2;
+  const int st = t % BT_STAGES, k0 = c.k_begin + t * BT_K;
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  __syncthreads();
+  if (t + AHEAD < c.n_tiles) load(t + AHEAD);   // into tile t - 2's stage
+  mbar_wait(&sm.full[st], (t / BT_STAGES) & 1);   // tile t landed
+  // rows (columns n_even, n_even + 1) x k 2 tq, + 1, + 8, + 9 of each step
+  const uint8_t* pt = sm.p[st];
 #pragma unroll
-    for (int p = 0; p < 8; ++p)
-      if (p < splits) s += v[p];
-    store(out + (size_t)m * N + n, s);
+  for (int kk = 0; kk < BT_K / 16; ++kk) {
+    uint32_t b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 16 * kk + 2 * c.tq + (e & 1) + 8 * (e >> 1);
+      b[e] = pt[k * (WG_N / 2) + (c.jb ^ (((k >> 1) & 3) << 4))];
+    }
+    q_pairs(b[0] | (b[1] << 16), qa[kk][0], qa[kk][1]);
+    q_pairs(b[2] | (b[3] << 16), qa[kk][2], qa[kk][3]);
   }
-  cluster.sync();
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < BT_K / 16; ++kk) {
+    if (k0 + kk * 16 < c.k_end) {
+      if (kg == 0) {                                 // a group starts: its scales
+        sc[0] = c.n_even < c.N ? __ldg(c.scale + (size_t)g * c.N + c.n_even) : 0.f;
+        sc[1] = c.n_even + 1 < c.N ? __ldg(c.scale + (size_t)g * c.N + c.n_even + 1) : 0.f;
+      }
+      wgmma_rs(accg, qa[kk], sw128_desc(reinterpret_cast<const uint8_t*>(sm.x[st]) + kk * 32),
+               kg != 0);
+      kg += 16;
+      if (kg == c.group) {                           // the group ends: fold it
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(accg);
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i] = fmaf(sc[(i >> 1) & 1], accg[i], acc[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        kg = 0;
+        ++g;
+      }
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// out^T = W^T x^T: the weights are the wgmma's A operand, 64 output columns
+// n a warpgroup, in registers; x's rows are its N.  Warp w of warpgroup wg
+// holds A rows 16 w + gid and 16 w + gid + 8, which stand for the columns n
+// = 64 wg + 16 w + 2 gid and n + 1, the two nibbles of one packed byte, so
+// each thread converts the 8 values of its k16 fragment from 4 bytes.
+// grid (ceil(N / 128), ceil(M / TM), splits), cluster (1, 1, splits).  tmx:
+// x (M, K) bf16, box (64, TM), 128-byte swizzle; tmp: packed (K, N/2), box
+// (64, 64), 64-byte swizzle, when bvec (N/2 a multiple of 16); else every
+// thread copies its share of the packed bytes into the same layout.
+template <int TM>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+int4_tc_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmp,
+                    const uint8_t* __restrict__ packed, const float* __restrict__ scale,
+                    uint16_t* __restrict__ out, int M, int K, int N, int group, int gps,
+                    int bvec) {
+  constexpr int R = TM / 2;                     // accumulators a thread
+  constexpr int AHEAD = BT_STAGES - 2;          // tiles in flight
+  extern __shared__ __align__(16) uint8_t bsm_raw[];
+  uint8_t* bsm = bsm_raw + ((BT_ALIGN - (smem_u32(bsm_raw) & (BT_ALIGN - 1))) & (BT_ALIGN - 1));
+  BtSmem<TM>& sm = *reinterpret_cast<BtSmem<TM>*>(bsm);
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * WG_N;
+  const int n_groups = K / group;
+  const int g_begin = min(n_groups, (int)blockIdx.z * gps);
+  const int g_end = min(n_groups, g_begin + gps);
+  const int k_begin = g_begin * group, k_end = g_end * group;
+  const int n_tiles = (k_end - k_begin + BT_K - 1) / BT_K;
+  const int jb = 32 * wg + 8 * warp + gid;     // this thread's packed byte column
+  const int n_even = n0 + 2 * jb;               // its A rows' columns: n_even, + 1
+
+  if (tid == 0) {
+    for (int i = 0; i < BT_STAGES; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&sm.full[i])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // tile t into stage t % BT_STAGES: thread 0 asks TMA for x (and the
+  // packed bytes when bvec), the stage's barrier expecting their bytes
+  const int N2 = N / 2;
+  auto load = [&](int t) {
+    const int st = t % BT_STAGES, k0 = k_begin + t * BT_K;
+    if (tid == 0) {
+      // the stage's earlier byte reads (generic) before TMA's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                       smem_u32(&sm.full[st])),
+                   "r"(TM * BT_K * 2 + (bvec ? BT_K * WG_N / 2 : 0))
+                   : "memory");
+      tma_2d(sm.x[st], &tmx, k0, m0, &sm.full[st]);
+      if (bvec) tma_2d(sm.p[st], &tmp, n0 / 2, k0, &sm.full[st]);
+    }
+    if (!bvec) {
+      for (int u = tid; u < BT_K * (WG_N / 2); u += BT_THREADS) {
+        const int r = u / (WG_N / 2), c = u % (WG_N / 2);
+        const bool ok = k0 + r < k_end && n0 / 2 + c < N2;
+        sm.p[st][r * (WG_N / 2) + (c ^ (((r >> 1) & 3) << 4))] =
+            ok ? __ldg(packed + (size_t)(k0 + r) * N2 + n0 / 2 + c) : (uint8_t)0x88;
+      }
+    }
+  };
+
+  // accumulator element i: A row 16 warp + gid + 8 ((i >> 1) & 1), that is
+  // column n_even + ((i >> 1) & 1); x row 8 (i >> 2) + 2 tq + (i & 1)
+  float acc[R], accg[R], sc[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = accg[i] = 0.f;
+
+  for (int t = 0; t < AHEAD && t < n_tiles; ++t) load(t);
+  const BtCtx ctx = {k_begin, k_end, n_tiles, group, N, n_even, jb, tq, scale};
+  // two A fragment buffers, tiles alternating: a tile's conversion writes
+  // the one tile t - 2's products (done) read, while tile t - 1's run
+  uint32_t qa[BT_K / 16][4], qb[BT_K / 16][4];
+  int kg = 0, g = g_begin;
+  for (int t = 0; t < n_tiles; t += 2) {
+    bt_tile(sm, load, ctx, t, qa, acc, accg, sc, kg, g);
+    if (t + 1 < n_tiles) bt_tile(sm, load, ctx, t + 1, qb, acc, accg, sc, kg, g);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(accg);
+
+  if (gridDim.z == 1) {
+    if (n_even < N) {
+#pragma unroll
+      for (int i = 0; i < R; i += 4)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * (i >> 2) + 2 * tq + e;
+          if (m >= M) continue;
+          if (n_even + 1 < N) {
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n_even) =
+                __floats2bfloat162_rn(acc[i + e], acc[i + 2 + e]);
+          } else {
+            store(out + (size_t)m * N + n_even, acc[i + e]);
+          }
+        }
+    }
+    return;
+  }
+  // split K: this slice into red (x rows by output columns), then the
+  // cluster's sum
+  float* red = reinterpret_cast<float*>(bsm);   // TM x RED_LD floats
+  static_assert(sizeof(BtSmem<TM>) >= sizeof(float) * TM * RED_LD, "red fits");
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    red[(8 * (i >> 2) + 2 * tq + (i & 1)) * RED_LD + 2 * jb + ((i >> 1) & 1)] = acc[i];
+  cluster_sum(red, out, M, N, m0, n0, TM);
 }
 
 template <typename Kern, typename... Args>
@@ -584,6 +851,68 @@ cudaError_t launch_cluster(Kern kernel, dim3 grid, dim3 block, dim3 cluster,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// cuTensorMapEncodeTiled, looked up at run time with
+// cudaGetDriverEntryPoint (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D tensor map of rows x cols elements, rows `pitch` bytes apart
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                       uint64_t cols, uint64_t rows, uint64_t pitch, uint32_t box_cols,
+                       uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// the bf16 tensor-core path with TM rows a block (its own record of the
+// shared memory it allowed)
+template <int TM>
+cudaError_t launch_bf16(const uint16_t* x, const uint8_t* packed, const float* scale,
+                        uint16_t* out, int M, int K, int N, int group, int splits, int gps,
+                        int bvec, cudaStream_t s) {
+  const size_t smem = sizeof(BtSmem<TM>) + BT_ALIGN;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(int4_tc_bf16_kernel<TM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  CUtensorMap tmx, tmp;
+  memset(&tmp, 0, sizeof(tmp));
+  cudaError_t e = tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2,
+                             BT_K, TM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess && bvec)
+    e = tensor_map(&tmp, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, N / 2, K, N / 2, WG_N / 2, BT_K,
+                   CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + WG_N - 1) / WG_N, (M + TM - 1) / TM, splits);
+  return launch_cluster(int4_tc_bf16_kernel<TM>, grid, dim3(BT_THREADS), dim3(1, 1, splits),
+                        smem, s, tmx, tmp, packed, scale, out, M, K, N, group, gps, bvec);
 }
 
 // one instance's launch (its own record of the shared memory it allowed)
@@ -608,18 +937,24 @@ cudaError_t launch_xt(const XT* x, const uint8_t* packed, const float* scale, XT
     e = launch_cluster(int4_gemv_kernel<XT>, grid, dim3(GV_THREADS), dim3(1, splits, 1),
                        smem, s, x, packed, scale, out, M, K, N, lg_group, lg_tpr,
                        gps, flags & 7);
-  } else {
+  } else if constexpr (sizeof(XT) == 4) {
     static bool smem_set = false;
     if (!smem_set) {
-      e = cudaFuncSetAttribute(int4_tc_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)sizeof(WgSmem<XT>));
+      e = cudaFuncSetAttribute(int4_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(WgSmem));
       if (e != cudaSuccess) return e;
       smem_set = true;
     }
     dim3 grid((N + WG_N - 1) / WG_N, (M + WG_M - 1) / WG_M, splits);
-    e = launch_cluster(int4_tc_kernel<XT>, grid, dim3(WG_THREADS), dim3(1, 1, splits),
-                       sizeof(WgSmem<XT>), s, x, packed, scale, out, M, K, N, group, gps,
+    e = launch_cluster(int4_tc_kernel, grid, dim3(WG_THREADS), dim3(1, 1, splits),
+                       sizeof(WgSmem), s, x, packed, scale, out, M, K, N, group, gps,
                        (flags >> 3) & 1);
+  } else if (M <= WG_M) {                       // bf16 x: 64 rows a block
+    e = launch_bf16<WG_M>(x, packed, scale, out, M, K, N, group, splits, gps,
+                          (flags >> 3) & 1, s);
+  } else {                                      // 128 rows a block
+    e = launch_bf16<2 * WG_M>(x, packed, scale, out, M, K, N, group, splits, gps,
+                              (flags >> 3) & 1, s);
   }
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -631,12 +966,14 @@ extern "C" {
 
 // Decode (M <= 16, a power-of-two group): lg_tpr, splits and gps from
 // decode_plan; flags bits 0-2 as int4_gemv_kernel's.  Prefill: splits and
-// gps from prefill_plan; flags bit 3 = 16-byte packed tile copies.  x_bf16:
-// 0 for f32 x and output, 1 for bf16 (passed as raw 16 bits).
+// gps from prefill_plan (bf16 x: group % 16 == 0); flags bit 3 = 16-byte
+// packed tile copies.  x_bf16: 0 for f32 x and
+// output, 1 for bf16 (passed as raw 16 bits).
 int int4_matmul_launch(const void* x, const uint8_t* packed, const float* scale, void* out,
                        int M, int K, int N, int group, int lg_tpr, int splits, int gps,
                        int flags, int x_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && M > 16 && group % 16) return (int)cudaErrorInvalidValue;
   if (x_bf16)
     return (int)launch_xt(static_cast<const uint16_t*>(x), packed, scale,
                           static_cast<uint16_t*>(out), M, K, N, group, lg_tpr, splits, gps,

@@ -5,9 +5,11 @@ with the hand-written CUDA kernel ``csrc/int4_matmul.cu`` (see its header
 for what bounds it and how the design answers).  ``x`` is f32 or bf16,
 and the output has x's dtype, as the TPU kernel takes "x (M, K)
 bf16/f32" and writes ``out_dtype``: the bf16 instance reads bf16 x and
-writes bf16 itself, with the f32 instance's arithmetic on the widened x
-(exact), so it gives what widening x, the f32 instance and a cast back
-give.  A CPU tensor runs the plain version ``int4_matmul_ref`` (its f32
+writes bf16 itself.  Its GEMV (M <= ``SMALL_M``) runs the f32
+instance's arithmetic on the widened x, so it gives what widening x, the
+f32 instance and a cast back give, bit for bit; above, it runs bf16
+``wgmma`` on the exact bf16 nibbles (a group a multiple of 16), within
+one bf16 ulp of that recipe.  A CPU tensor runs the plain version ``int4_matmul_ref`` (its f32
 output cast to x's dtype); a CUDA tensor launches the kernel or
 raises; a meta tensor (the roofline counter's trace) gets an empty
 output and reports the kernel's operations and bytes (``kernels.cost``).
@@ -26,7 +28,7 @@ SMALL_M = 16                     # <= this: the split-K matrix-vector path
 MAX_CLUSTER = 8                  # blocks per cluster (the portable limit)
 _GV_MT, _GV_LB = 4, 8            # small M: x rows per block, bytes per lane
 _GV_WARPS = 8                    # small M: warps per block
-_TB_M, _TB_N = 64, 128           # prefill: output tile
+_TB_M, _TB_N = 64, 128           # prefill: output tile (f32 x)
 SMEM_MAX = 232448                # shared memory a block may use (H100)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 DTYPES = (torch.float32, torch.bfloat16)   # x's instances
@@ -78,7 +80,10 @@ def prefill_plan(M: int, K: int, N: int, group: int, n_sms: int):
     """(splits, gps) for the tensor-core path: 64 x 128 output tiles, K
     split in whole groups (a cluster of at most 8 blocks) until the grid
     holds about two blocks per SM (a block's shared memory lets two share
-    an SM, which hides the copies' latency)."""
+    an SM, which hides the copies' latency).  The bf16 path (tiles of 64
+    or 128 rows x 128) takes the same split, so its f32 sums follow the f32
+    instance's partition of K and differ from widening x, the f32
+    instance and a cast back only inside a k16 step."""
     n_groups = K // group
     tiles = -(-N // _TB_N) * -(-M // _TB_M)
     splits = 1
@@ -93,7 +98,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     """x (M, K) f32 or bf16 @ W -> (M, N) in x's dtype with W =
     dequant(packed (K, N//2) uint8, scale (K//group, N) f32).  Any M;
     K % group == 0, and on the card a power-of-two group when M <=
-    SMALL_M, group % 8 == 0 above."""
+    SMALL_M, group % 8 == 0 above (group % 16 == 0 for bf16 x)."""
     M, K = x.shape
     Kp, N2 = packed.shape
     N = 2 * N2
@@ -127,9 +132,11 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                  | 2 * int(K % epc == 0 and group % epc == 0 and xa)
                  | 4 * int(N % 4 == 0 and scale.data_ptr() % 16 == 0))
     else:
-        if group % 8:
-            raise ValueError(f"int4_matmul: the tensor-core path needs "
-                             f"group % 8 == 0, got {group}")
+        step = 16 if x.dtype == torch.bfloat16 else 8
+        if group % step:
+            raise ValueError(f"int4_matmul: the {str(x.dtype)[6:]} "
+                             f"tensor-core path needs group % {step} == 0, "
+                             f"got {group}")
         if not xa:
             x = x.clone()
         lg = 0

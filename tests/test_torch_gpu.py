@@ -1287,17 +1287,26 @@ def test_attention_ops_bf16_cast_path(dev, op):
 # paths; flash at dh 64, 128 and 256 with a window, a q_offset and
 # causal=False; decode over both cache types; decode INT4 with and
 # without bf16 fresh rows
+def _bf16_ulps(a, b):
+    """Element-wise distance in bf16 ulps (sign-magnitude bit patterns)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
 @pytest.mark.parametrize("M,K,N", [(4, 2048, 2048), (16, 5632, 256),
                                    (4, 8192, 2048), (17, 2048, 5632),
                                    (37, 2048, 256), (512, 5632, 2048),
                                    (3, 96, 10)])
 def test_int4_matmul_bf16_instance(dev, M, K, N):
-    """bf16 x read and bf16 out written in-kernel: equal bit for bit to
-    widening x, the f32 instance and a cast back (the GEMV's products on
-    the widened x; the tensor-core path's one TF32 term, x_lo being
-    zero), and within 2e-2 x max of the plain version at bf16; two calls
-    equal."""
-    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    """bf16 x read and bf16 out written in-kernel: the GEMV (M <= 16)
+    equal bit for bit to widening x, the f32 instance and a cast back
+    (its products on the widened x); the tensor-core path (bf16 wgmma,
+    products exact, sums f32 in another order) within one bf16 ulp of
+    that recipe on every element; within 2e-2 x max of the plain version
+    at bf16; two calls equal."""
+    from repro_torch.kernels.int4_matmul import SMALL_M, int4_matmul, plain
     from repro_torch.quant.int4 import quantize_int4
     rng = np.random.default_rng(M + K + N)
     G = 32 if K % 128 else 128
@@ -1305,11 +1314,120 @@ def test_int4_matmul_bf16_instance(dev, M, K, N):
     packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), G)
     out = int4_matmul(x, packed, scale, group=G)
     assert out.dtype == torch.bfloat16
-    assert torch.equal(out, int4_matmul(x.float(), packed, scale,
-                                        group=G).to(torch.bfloat16))
+    recipe = int4_matmul(x.float(), packed, scale, group=G).to(torch.bfloat16)
+    if M <= SMALL_M:
+        assert torch.equal(out, recipe)
+    else:
+        assert _bf16_ulps(out, recipe).max().item() <= 1
     assert torch.equal(out, int4_matmul(x, packed, scale, group=G))
     ref = plain(x, packed, scale, G).to(torch.bfloat16).float()
     assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+@pytest.mark.parametrize("M,K,N,G", [(512, 2048, 5632, 128),
+                                     (128, 4096, 14336, 128),
+                                     (20, 2048, 2048, 128),
+                                     (64, 1024, 200, 32),
+                                     (65, 384, 256, 16)])
+def test_int4_matmul_bf16_wgmma_rows(dev, M, K, N, G):
+    """The bf16 tensor-core path at (aa)'s prefill (M 512), the 8B's M
+    128, the verify pass's M 20 and edges (one and two warpgroups, a
+    ragged N, group 16 and 32): within one bf16 ulp of the cast recipe and
+    within the plain tolerance (rtol 2^-8 + 1e-5, atol 1e-5 x max of the
+    plain version's f32 output); a group that is not a multiple of 16
+    raises."""
+    from repro_torch.kernels.int4_matmul import int4_matmul, plain
+    from repro_torch.quant.int4 import quantize_int4
+    rng = np.random.default_rng(M * N + G)
+    x = _t(rng, dev, M, K).to(torch.bfloat16)
+    packed, scale = quantize_int4(_t(rng, dev, K, N, scale=0.05), G)
+    out = int4_matmul(x, packed, scale, group=G)
+    recipe = int4_matmul(x.float(), packed, scale, group=G).to(torch.bfloat16)
+    assert _bf16_ulps(out, recipe).max().item() <= 1
+    ref = plain(x, packed, scale, G)
+    d = (out.float() - ref).abs()
+    assert (d <= (2.0 ** -8 + 1e-5) * ref.abs()
+            + 1e-5 * ref.abs().max()).all()
+    packed8, scale8 = quantize_int4(_t(rng, dev, 64, 32), 8)
+    with pytest.raises(ValueError, match="group % 16"):
+        int4_matmul(_t(rng, dev, 32, 64).to(torch.bfloat16), packed8, scale8,
+                    group=8)
+
+
+# flash_attention's plan: (b, sq, sk, h, hkv, dh, causal, window,
+# q_offset) at group 1 (bidirectional, as whisper's encoder), group 2
+# (Gemma 3 with a window), dh 192 (the MLA prefill: 8 warps at f32),
+# group 4 and 8
+FLASH_PLAN_ROWS = [(2, 96, 96, 8, 8, 64, False, 0, 0),
+                   (1, 300, 300, 8, 4, 256, True, 128, 0),
+                   (1, 114, 114, 128, 128, 192, True, 0, 0),
+                   (1, 37, 37, 32, 8, 128, True, 0, 0),
+                   (2, 45, 45, 8, 2, 32, True, 13, 0),
+                   (3, 70, 70, 6, 6, 16, True, 0, 0),
+                   (2, 33, 33, 12, 2, 32, True, 0, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset",
+                         FLASH_PLAN_ROWS)
+def test_flash_plan_bit_equal_to_one_row_tile_plan(dev, dtype, b, sq, sk, h,
+                                                   hkv, dh, causal, window,
+                                                   q_offset):
+    """Without a key split a row's arithmetic does not depend on the block
+    layout: the plan's blocks (wh heads x wr row tiles, 4 or 8 warps) give the
+    same bits as the earlier layout (wh the most of 4, 2, 1 dividing the
+    group, one row tile, no split), launched through the kernel's C entry
+    point; within the plain tolerance (f32 2e-5, bf16 2e-2 x max)."""
+    from repro_torch.kernels.flash_attention import (_launch, flash_attention,
+                                                     flash_plan, plain)
+    rng = np.random.default_rng(sq + h + dh)
+    q, k, v = (_t(rng, dev, b, sq, h, dh).to(dtype),
+               _t(rng, dev, b, sk, hkv, dh).to(dtype),
+               _t(rng, dev, b, sk, hkv, dh).to(dtype))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    wh, wr, splits, _ = flash_plan(b, sq, sk, h, hkv, causal, window,
+                                   q_offset, dh=dh, itemsize=q.element_size())
+    assert wh * wr >= 4 and splits == 1
+    out = flash_attention(q, k, v, **kw)
+    old = torch.empty_like(q)
+    w = next(w for w in (4, 2, 1) if (h // hkv) % w == 0)
+    _launch(q, k, v, old, causal, window, q_offset, (w, 1, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(out, old)
+    ref = plain(q, k, v, **kw).float()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset,splits", [
+    (1, 48, 1500, 8, 8, 64, False, 0, 0, 8),
+    (1, 32, 1500, 32, 8, 128, True, 0, 1468, 8),
+    (2, 40, 400, 4, 4, 64, True, 200, 360, 2),
+    (1, 20, 600, 8, 4, 256, True, 0, 580, 4)])
+def test_flash_key_split_rows(dev, dtype, b, sq, sk, h, hkv, dh, causal,
+                              window, q_offset, splits):
+    """Where the plan splits the keys across a cluster (whisper's cross
+    prefill, a short chunk over a long prefix, a window, dh 256): within
+    the plain tolerance, equal over two calls (the ranks merge in rank
+    order), and one launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_plan, plain)
+    rng = np.random.default_rng(sk + q_offset)
+    q, k, v = (_t(rng, dev, b, sq, h, dh).to(dtype),
+               _t(rng, dev, b, sk, hkv, dh).to(dtype),
+               _t(rng, dev, b, sk, hkv, dh).to(dtype))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    assert flash_plan(b, sq, sk, h, hkv, causal, window, q_offset, dh=dh,
+                      itemsize=q.element_size())[2] == splits
+    ops.reset_launches()
+    out = flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    ref = plain(q, k, v, **kw).float()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2 * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset",

@@ -196,13 +196,19 @@ def test_flash_attention_ragged_shapes_match_oracle(sq, sk, q_offset, causal,
     np.testing.assert_allclose(out, ref, atol=2e-5)
 
 
-def _tc_flash(q, k, v, causal=True, window=0, q_offset=0, terms=3):
+def _tc_flash(q, k, v, causal=True, window=0, q_offset=0, terms=3,
+              wr=1, splits=1):
     """``csrc/flash_attention.cu``'s arithmetic in numpy: 16 query rows
     at a time, key tiles of 32 from the first the rows can attend to the
     last, each 8-deep step of Q.K and of P.V summed in f32 from TF32
     terms (lo*hi, hi*lo, hi*hi, small terms first; ``terms=1``: hi*hi
     alone), scores scaled by the f32 1/sqrt(dh) and masked by position,
-    the online softmax with its alpha rescale, out = o / max(l, 1e-30)."""
+    the online softmax with its alpha rescale, out = o / max(l, 1e-30).
+    With ``splits`` > 1 the rows' block (``wr`` row tiles) splits its
+    tiles into contiguous rank ranges; each rank walks its share of the
+    rows' tiles to (m, l, o), and the ranks merge in rank order: m the
+    largest, each rank's l and o scaled by exp(m_rank - m), summed, out =
+    o / max(l, 1e-30)."""
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -217,18 +223,20 @@ def _tc_flash(q, k, v, causal=True, window=0, q_offset=0, terms=3):
             return [(ah, bh)]
         return [(_tf32(a - ah), bh), (ah, _tf32(b_ - bh)), (ah, bh)]
 
-    out = np.zeros((b, h, sq, dh), np.float32)
-    for r0 in range(0, sq, 16):
+    def tiles(r0):
         nr = min(16, sq - r0)
-        qt = np.zeros((b, h, 16, dh), np.float32)
-        qt[:, :, :nr] = qh[:, :, r0:r0 + nr]
-        qp = (q_offset + r0 + np.arange(16))[:, None]
+        if nr <= 0:
+            return range(0)
         k_hi = min(sk - 1, q_offset + r0 + nr - 1) if causal else sk - 1
         k_lo = max(0, q_offset + r0 - window + 1) if window else 0
+        return range(k_lo // 32, k_hi // 32 + 1) if k_hi >= k_lo else range(0)
+
+    def walk(qt, qp, ts):
         m = np.full((b, h, 16), neg)
         l = np.zeros((b, h, 16), np.float32)
         o = np.zeros((b, h, 16, dh), np.float32)
-        for t0 in range(k_lo // 32 * 32, k_hi + 1, 32):
+        for t in ts:
+            t0 = 32 * t
             kt = np.zeros((b, h, 32, dh), np.float32)
             vt = np.zeros_like(kt)
             n = min(32, sk - t0)
@@ -255,6 +263,32 @@ def _tc_flash(q, k, v, causal=True, window=0, q_offset=0, terms=3):
                 for a, b_ in products(p[..., c0:c0 + 8], vt[..., c0:c0 + 8, :]):
                     o = o + a @ b_
             m = m_new
+        return m, l, o
+
+    out = np.zeros((b, h, sq, dh), np.float32)
+    for r0 in range(0, sq, 16):
+        nr = min(16, sq - r0)
+        qt = np.zeros((b, h, 16, dh), np.float32)
+        qt[:, :, :nr] = qh[:, :, r0:r0 + nr]
+        qp = (q_offset + r0 + np.arange(16))[:, None]
+        mine = tiles(r0)
+        rb0 = r0 // (16 * wr) * 16 * wr             # the block's row tiles
+        union = [t for r in range(rb0, rb0 + 16 * wr, 16) for t in tiles(r)]
+        lo, nb = (min(union), max(union) - min(union) + 1) if union else (0, 0)
+        parts = [walk(qt, qp, [t for t in mine
+                               if lo + nb * r // splits <= t
+                               < lo + nb * (r + 1) // splits])
+                 for r in range(splits)]
+        if splits == 1:
+            m, l, o = parts[0]
+        else:
+            mx = np.max([pm for pm, _, _ in parts], axis=0)
+            l = np.zeros_like(parts[0][1])
+            o = np.zeros_like(parts[0][2])
+            for pm, pl, po in parts:
+                a = np.where(pm > neg / 2, np.exp(pm - mx), np.float32(0))
+                l = l + a * pl
+                o = o + a[..., None] * po
         res = o / np.maximum(l, np.float32(1e-30))[..., None]
         out[:, :, r0:r0 + nr] = res[:, :, :nr]
     return out.transpose(0, 2, 1, 3)
@@ -309,36 +343,150 @@ def test_flash_tensor_core_split_at_generation_shape():
                            rtol=0)
 
 
-@pytest.mark.parametrize("b,sq,h,hkv,blocks", [(4, 128, 32, 4, 256),
-                                               (1, 37, 32, 4, 24),
-                                               (1, 141, 32, 4, 72),
-                                               (1, 34, 32, 4, 24),
-                                               (2, 45, 8, 2, 12),
-                                               (3, 7, 6, 6, 18),
-                                               (1, 300, 12, 4, 228),
-                                               (2, 33, 12, 2, 36)])
-def test_flash_plan_covers_every_row(b, sq, h, hkv, blocks):
-    """``flash_plan`` and the kernel's block -> (heads, 16 rows) map:
-    every query row of every head covered exactly once; warps the most
-    (at most 4) that divide the group; the block count at the main-path
-    shapes (generation prefill, serving prefill of one slot at sq 37 and
-    141) and odd ones."""
-    from repro_torch.kernels.flash_attention import ROWS, flash_plan
+# (b, sq, sk, h, hkv, dh, causal, window, q_offset, wr, splits): whisper's
+# cross prefill scaled down (32 rows over 320 keys, group 1, no causal
+# mask), a short chunk over a long prefix (causal at q_offset), the same
+# under a window, group 2 with two row tiles a block
+SPLIT_FLASH_CASES = [(1, 32, 320, 4, 4, 32, False, 0, 0, 4, 8),
+                     (1, 32, 320, 4, 2, 32, True, 0, 288, 2, 4),
+                     (2, 32, 320, 4, 4, 16, True, 100, 288, 4, 2),
+                     (1, 64, 320, 8, 4, 32, True, 0, 256, 2, 8)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,dh,causal,window,q_offset,wr,splits",
+                         SPLIT_FLASH_CASES)
+def test_flash_key_split_merge_holds_tolerance(b, sq, sk, h, hkv, dh, causal,
+                                               window, q_offset, wr, splits):
+    """The key split before any card: each rank of a cluster walks a
+    contiguous share of its block's key tiles with the kernel's three
+    TF32 terms, and the ranks' (m, l, O) merge in rank order; that holds
+    atol 2e-5 against the Pallas kernel (interpret mode) and agrees with
+    the unsplit arithmetic to a few f32 roundings."""
+    rng = np.random.default_rng(sk + q_offset + splits)
+    q, k, v = (_normal(rng, b, sq, h, dh), _normal(rng, b, sk, hkv, dh),
+               _normal(rng, b, sk, hkv, dh))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), block_q=16, block_k=32,
+                               interpret=True, **kw))
+    split = _tc_flash(q, k, v, wr=wr, splits=splits, **kw)
+    np.testing.assert_allclose(split, ref, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(split, _tc_flash(q, k, v, wr=wr, **kw),
+                               atol=2e-6, rtol=0)
+
+
+# (b, sq, sk, h, hkv, dh, itemsize, causal, window, q_offset, warps,
+# blocks, splits): the generation prefill (group 8), serving prefills of
+# one slot (sq 37, 141), odd shapes (groups 1, 3, 4, 6); whisper's encoder
+# (group 1, 1500 rows bidirectional: a split of 2 evens the SMs' loads)
+# and its cross prefill (48 rows over 1500 keys: a split of 8), Gemma 3's
+# window (group 2, dh 256: at f32 a split of 2, at bf16 8 warps), DeepSeek-
+# V3's MLA prefill (group 1, dh 192: 8 warps at f32, one block an SM), a
+# short chunk over a long prefix (split 8), the 8B's prefill chunks (no
+# split: 3-4 tiles), a window with an offset
+FLASH_PLAN_CASES = [(4, 128, 128, 32, 4, 64, 4, True, 0, 0, 4, 256, 1),
+                    (1, 37, 37, 32, 4, 64, 4, True, 0, 0, 4, 24, 1),
+                    (1, 141, 141, 32, 4, 64, 4, True, 0, 0, 4, 72, 1),
+                    (1, 34, 34, 32, 4, 64, 4, True, 0, 0, 4, 24, 1),
+                    (2, 45, 45, 8, 2, 64, 4, True, 0, 0, 4, 12, 1),
+                    (3, 7, 7, 6, 6, 64, 4, True, 0, 0, 4, 18, 1),
+                    (1, 300, 300, 12, 4, 64, 4, True, 0, 0, 4, 120, 2),
+                    (2, 33, 33, 12, 2, 64, 4, True, 0, 0, 4, 24, 1),
+                    (1, 1500, 1500, 8, 8, 64, 4, False, 0, 0, 4, 384, 2),
+                    (1, 48, 1500, 8, 8, 64, 4, False, 0, 0, 4, 64, 8),
+                    (1, 1500, 1500, 8, 4, 256, 4, True, 1024, 0, 4, 376, 2),
+                    (1, 1500, 1500, 8, 4, 256, 2, True, 1024, 0, 8, 96, 1),
+                    (1, 114, 114, 128, 128, 192, 4, True, 0, 0, 8, 128, 1),
+                    (1, 114, 114, 128, 128, 192, 2, True, 0, 0, 4, 256, 1),
+                    (1, 32, 1500, 32, 8, 128, 4, True, 0, 1468, 4, 128, 8),
+                    (1, 32, 96, 32, 8, 128, 4, True, 0, 64, 4, 16, 1),
+                    (1, 18, 114, 32, 8, 128, 4, True, 0, 96, 4, 16, 1),
+                    (2, 40, 400, 4, 4, 64, 4, True, 200, 360, 4, 16, 2)]
+
+
+def _flash_tiles(row0, sq, sk, causal, window, q_offset):
+    """The key tiles (of 32) 16 rows from ``row0`` attend, as a set."""
+    rows = np.arange(row0, min(row0 + 16, sq))
+    keys = set()
+    for r in rows:
+        qp = q_offset + r
+        hi = min(sk - 1, qp) if causal else sk - 1
+        lo = max(0, qp - window + 1) if window else 0
+        keys.update(range(lo, hi + 1))
+    return {j // 32 for j in keys}
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,hkv,dh,itemsize,causal,window,q_offset,warps,blocks,splits",
+    FLASH_PLAN_CASES)
+def test_flash_plan_covers_every_row(b, sq, sk, h, hkv, dh, itemsize, causal,
+                                     window, q_offset, warps, blocks, splits):
+    """``flash_plan`` and the kernel's block map (``csrc/flash_attention.cu``
+    block_span): every query row of every head covered exactly once; every
+    key tile a warp's rows attend walked by exactly one rank of its
+    cluster, the ranks' ranges contiguous; ``wh * wr >= 4`` warps a block
+    at every shape; the warps, block and split counts stated at the
+    main-path shapes (generation and serving prefills, whisper, Gemma 3,
+    MLA, prefill chunks) and odd ones; the block within the shared
+    memory."""
+    from repro_torch.kernels.flash_attention import (ROWS, SMEM_MAX,
+                                                     flash_plan, smem_bytes)
     g = h // hkv
-    w, n_blocks = flash_plan(b, sq, h, hkv)
-    assert w == max(d for d in (1, 2, 4) if g % d == 0)
-    assert n_blocks == blocks
-    n_qt, n_groups = -(-sq // ROWS), g // w
-    assert n_blocks == n_qt * n_groups * hkv * b
+    wh, wr, n_split, n_blocks = flash_plan(b, sq, sk, h, hkv, causal,
+                                           window, q_offset, dh=dh,
+                                           itemsize=itemsize)
+    assert wh * wr >= 4 and g % wh == 0
+    assert (wh * wr, n_blocks, n_split) == (warps, blocks, splits)
+    assert smem_bytes(dh, itemsize, wh * wr, n_split) <= SMEM_MAX
+    n_qt = -(-sq // ROWS)
+    n_rb, n_hg = -(-n_qt // wr), g // wh
+    assert n_blocks == b * hkv * n_hg * n_rb * n_split
     seen = np.zeros((b, sq, h), np.int64)
     for bi in range(b):
         for kh in range(hkv):
-            for x in range(n_qt * n_groups):       # the kernel's blockIdx.x
-                hg, qt = x % n_groups, n_qt - 1 - x // n_groups
-                for warp in range(w):
-                    head = kh * g + hg * w + warp
-                    seen[bi, qt * ROWS:min(sq, (qt + 1) * ROWS), head] += 1
+            for y in range(n_hg * n_rb):            # blockIdx.x / splits
+                hg, rb = y % n_hg, n_rb - 1 - y // n_hg
+                row_tiles = [(rb * wr + r) * ROWS for r in range(wr)]
+                union = set().union(*(_flash_tiles(r0, sq, sk, causal, window,
+                                                   q_offset)
+                                      for r0 in row_tiles))
+                lo, nb = (min(union), max(union) - min(union) + 1) \
+                    if union else (0, 0)
+                ranks = [set(range(lo + nb * r // n_split,
+                                   lo + nb * (r + 1) // n_split))
+                         for r in range(n_split)]
+                assert sum(len(t) for t in ranks) == nb
+                for warp in range(wh * wr):
+                    head = kh * g + hg * wh + warp % wh
+                    row0 = row_tiles[warp // wh]
+                    seen[bi, row0:min(sq, row0 + ROWS), head] += 1
+                    mine = _flash_tiles(row0, sq, sk, causal, window,
+                                        q_offset)
+                    for t in mine:
+                        assert sum(t in r for r in ranks) == 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cost_at_dh192_is_the_functions_work(dtype):
+    """On meta tensors at DeepSeek-V3's MLA prefill shape (128 heads of
+    group 1, head_dim dn + dr = 192, which has its own kernel instance)
+    the op reports the function's work at dh 192: 4 * h * 192 operations
+    per attended pair, q, k, v and the output once each at their own
+    size; nothing at a padded width."""
+    from repro_torch.kernels import cost
+    b, s, h, dh = 1, 114, 128, 192
+    q = torch.empty(b, s, h, dh, dtype=dtype, device="meta")
+    seen = []
+    with cost.listening(lambda name, c, shapes: seen.append((name, c))):
+        out = ops.flash_attention_op(q, q, q, causal=True)
+    assert out.shape == q.shape and out.device.type == "meta"
+    pairs = s * (s + 1) // 2
+    want = cost.Cost(4.0 * b * h * dh * pairs,
+                     float(q.element_size() * 4 * b * s * h * dh))
+    assert seen == [("flash_attention", want)]
+    assert want == cost.flash_attention(b, s, s, h, h, dh,
+                                        itemsize=q.element_size())
 
 
 @pytest.mark.parametrize("pos", [0, 63, 127])

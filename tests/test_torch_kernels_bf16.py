@@ -141,6 +141,64 @@ def test_int4_bf16_x_needs_one_tf32_term(K):
     _close(_round_bf16(one), ref)
 
 
+def _wgmma_int4(x, packed, scale, group):
+    """The bf16 tensor-core path's arithmetic (``csrc/int4_matmul.cu``
+    int4_tc_bf16_kernel) in numpy on bf16-valued x: the nibbles exact as
+    bf16 q - 8, each 16-deep step's products (exact in f32: 8 by 4
+    significant bits) summed in f32 into the group accumulator, the group
+    folded into the output as fma(scale, acc_g, acc), groups in order."""
+    q = unpack_int4(torch.from_numpy(np.array(packed))).numpy()
+    q = q.astype(np.float32)
+    scale = np.asarray(scale, np.float32)
+    acc = np.zeros((x.shape[0], q.shape[1]), np.float32)
+    for g0 in range(0, x.shape[1], group):
+        accg = np.zeros_like(acc)
+        for k in range(g0, g0 + group, 16):
+            accg = accg + x[:, k:k + 16] @ q[k:k + 16]
+        acc = (scale[g0 // group].astype(np.float64) * accg + acc
+               ).astype(np.float32)
+    return acc
+
+
+def _bf16_ulps(a, b):
+    """Element-wise distance in bf16 ulps between two bf16-valued f32
+    arrays (the bf16 bit patterns as sign-magnitude integers)."""
+    def key(v):
+        bits = (np.asarray(v, np.float32).view(np.uint32) >> 16).astype(
+            np.int64)
+        return np.where(bits & 0x8000, -(bits & 0x7FFF), bits)
+    return np.abs(key(a) - key(b))
+
+
+@pytest.mark.parametrize("K,group", [(2048, 128), (5632, 128), (1024, 32)])
+def test_int4_bf16_wgmma_arithmetic(K, group):
+    """The bf16 instance's tensor-core path before any card: bf16 x times
+    the exact bf16 nibbles in 16-deep steps with f32 sums and the group
+    fold holds the f32 INT4 tolerance (rtol 1e-5, atol 1e-5 * max)
+    against the Pallas kernel at bf16 x with an f32 output (interpret
+    mode) and 2e-2 x max at its bf16 output; rounded to bf16, it lies
+    within one bf16 ulp of the cast recipe it replaces (the TF32 path's
+    one term on the widened x in 8-deep steps, cast back) on every
+    element."""
+    rng = np.random.default_rng(K + group)
+    M, N = 64, 128
+    xt, xj = _bf(_normal(rng, M, K))
+    x = _f32(xt)
+    packed, scale = jax_quantize(jnp.asarray(_normal(rng, K, N, scale=0.05)),
+                                 group)
+    model = _wgmma_int4(x, packed, scale, group)
+    ref = np.asarray(jax_int4(xj, packed, scale, group=group, block_m=64,
+                              block_n=128, out_dtype=jnp.float32,
+                              interpret=True))
+    np.testing.assert_allclose(model, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    _close(_round_bf16(model),
+           jax_int4(xj, packed, scale, group=group, block_m=64, block_n=128,
+                    out_dtype=jnp.bfloat16, interpret=True))
+    recipe = _round_bf16(_tc_int4(x, packed, scale, group, terms=1))
+    assert _bf16_ulps(_round_bf16(model), recipe).max() <= 1
+
+
 # ---------------------------------------------------------------------------
 # flash_attention
 # ---------------------------------------------------------------------------
