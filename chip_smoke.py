@@ -29,7 +29,11 @@ before the result line:
    (device time per call from a torch.profiler trace) and compute the
    roofline bound; the speculative runs' own shapes among them
    (``int4_matmul`` at M = b x (k+1) = 20, the llama3.2-1b draft's
-   decode over its ``max_len`` slab and its one-slot prefills);
+   decode over its ``max_len`` slab and its one-slot prefills); the two
+   decode kernels also give each row bit for bit alone, in the batch and
+   over a longer slab, and ``decode_attention_int4`` without a fresh row
+   at f32 equals ``decode_attention`` over the dequantized cache bit for
+   bit;
 4. run tinyllama-1.1b at full width and depth through
    ``build_lm(plan).generate``: (a) fp32 weights, (b) int4 fused,
    (c) int4 fused sequential, (d) int4 fused with ``kv_mode="int4"`` —
@@ -333,7 +337,6 @@ SRC = ROOT / "src"
 
 ATTN_ATOL = 2e-5         # tests/test_kernels.py, fp32 attentions
 BF16_ATOL = 2e-2         # tests/test_kernels.py, bf16 attention
-INT4_KV_ATOL = 1e-6      # tests/test_kernels.py:101, int4 KV vs dequantized
 INT4_RTOL = 1e-5         # tests/test_kernels.py, fp32 int4 matmul
 HIDDEN_RTOL = 1e-4       # whole path: max|kernels - plain| / max|plain|
 BF16_HIDDEN_RTOL = 2e-2  # the same over bf16 caches: the plain version
@@ -932,10 +935,28 @@ def _sdpa_decode_call(a, b, c, m):
                                           enable_gqa=True)
 
 
+def row_independent(torch, out, call, per_row, slab_args, b: int) -> bool:
+    """The decode kernels' row contract on the card: each row's output
+    alone (a batch of one: ``call(*per_row(r))``) and the batch's over a
+    slab lengthened past every row's positions (``call(*slab_args)``,
+    rows of other values) ``torch.equal`` to the batch's ``out``."""
+    alone = all(torch.equal(out[r:r + 1], call(*per_row(r)))
+                for r in range(b))
+    return alone and torch.equal(out, call(*slab_args))
+
+
+def longer(torch, t, extra: int = 37):
+    """``t`` (b, S, ...) with ``extra`` more rows of other values along
+    S (its own rows reversed)."""
+    return torch.cat([t, t.flip(1)[:, :extra]], 1).contiguous()
+
+
 def check_decode(torch, rng, dev):
     """``decode_attention`` against its plain version (atol 2e-5 at f32,
-    2e-2 over bf16 caches), two calls bit-equal, and the same result for
-    an int ``pos`` and a strided ``q`` where the case has them; timed at
+    2e-2 over bf16 caches), two calls bit-equal, each row bit-equal alone,
+    in the batch and over a longer slab (``row_independent``), and the
+    same result for an int ``pos`` and a strided ``q`` where the case has
+    them; timed warm and cold (``cold_ms``) at
     the generation shape (f32), the serving shape (bf16, ragged pos) and
     the llama3.2-1b draft's proposal steps in run (m) (its bf16 caches
     over the whole ``max_len`` slab, dh 64, group 4), Gemma 3's global
@@ -1023,19 +1044,29 @@ def check_decode(torch, rng, dev):
             qv = mk(b, 1, h + 2, dh)[:, 0, 1:h + 1]
             qv.copy_(q)
             same &= torch.equal(out, decode_attention(qv, kc, vc, pos[0]))
+        rows_ok = row_independent(
+            torch, out, decode_attention,
+            lambda r: (q[r:r + 1], kc[r:r + 1], vc[r:r + 1],
+                       pos_t[r:r + 1]),
+            (q, longer(torch, kc), longer(torch, vc), pos_t), b)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = ATTN_ATOL if cdt == torch.float32 else BF16_ATOL
         row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} pos={pos} "
                    f"cache={str(cdt)[6:]}", max_abs_err=err, tol=tol,
-                   deterministic=bool(same), ok=err <= tol and bool(same),
-                   main=timed)
+                   deterministic=bool(same), row_independent=rows_ok,
+                   ok=err <= tol and bool(same) and rows_ok, main=timed)
         if timed:
             row.update(timings(
                 torch, lambda: decode_attention(q, kc, vc, pos_t),
                 lambda: plain(q, kc, vc, pos_t),
                 _sdpa_decode(torch, q, kc.float(), vc.float(), pos_t),
                 TIMING_ITERS))
+            row["cold_ms"] = cold_ms(torch, decode_attention,
+                                     (q, kc, vc, pos_t))
+            row["library_cold_ms"] = cold_ms(
+                torch, _sdpa_decode_call,
+                _sdpa_decode_args(torch, q, kc.float(), vc.float(), pos_t))
             c = cost.decode_attention(b, h, hkv, dh,
                                       sum(p + 1 for p in pos),
                                       kc.element_size())
@@ -1053,9 +1084,10 @@ def check_rolling_decode(torch, rng, dev):
     ``decode_attention`` at the positions clamped to W - 1 (what
     ``local_decode_attention`` launches), held against the reference's
     rolling-buffer attention over the unclamped slots (slot j attended
-    when ``pos - ((pos - j) mod W) >= 0``; atol 2e-2 over bf16), and
-    timed beside SDPA with that mask.  The bound reads the attended
-    slots once."""
+    when ``pos - ((pos - j) mod W) >= 0``; atol 2e-2 over bf16), each
+    row bit-equal alone and over a longer buffer, and timed warm and cold
+    beside SDPA with that mask.  The bound reads the attended slots
+    once."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ref import attn_partials
     from repro_torch.models.common import finalize_partials
@@ -1077,22 +1109,32 @@ def check_rolling_decode(torch, rng, dev):
     out = decode_attention(q, kc, vc, clamped)
     ref = plain()
     same = torch.equal(out, decode_attention(q, kc, vc, clamped))
+    rows_ok = row_independent(
+        torch, out, decode_attention,
+        lambda r: (q[r:r + 1], kc[r:r + 1], vc[r:r + 1], clamped[r:r + 1]),
+        (q, longer(torch, kc), longer(torch, vc), clamped), b)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     row = dict(shape=f"rolling b={b} W={W} h={h} hkv={hkv} dh={dh} "
                f"pos={ROLL_POS} clamped={clamped.tolist()} cache=bfloat16",
                max_abs_err=err, tol=BF16_ATOL, deterministic=bool(same),
-               ok=err <= BF16_ATOL and bool(same),
+               row_independent=rows_ok,
+               ok=err <= BF16_ATOL and bool(same) and rows_ok,
                main="gemma3-4b rolling W=1024")
     import torch.nn.functional as F
     qt, kt, vt = q[:, :, None], kc.float().transpose(1, 2), \
         vc.float().transpose(1, 2)
     mask = valid[:, None, None, :]
+
+    def sdpa(a, k_, v_, m_):
+        return F.scaled_dot_product_attention(a, k_, v_, attn_mask=m_,
+                                              enable_gqa=True)
+
     row.update(timings(
         torch, lambda: decode_attention(q, kc, vc, clamped), plain,
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               enable_gqa=True),
-        TIMING_ITERS))
+        lambda: sdpa(qt, kt, vt, mask), TIMING_ITERS))
+    row["cold_ms"] = cold_ms(torch, decode_attention, (q, kc, vc, clamped))
+    row["library_cold_ms"] = cold_ms(torch, sdpa, (qt, kt, vt, mask))
     from repro_torch.kernels import cost
     c = cost.decode_attention(b, h, hkv, dh, int(valid.sum()), 2)
     row["bound_ms"], row["bound_by"] = cost.bound_ms(c.nbytes, c.flops)
@@ -1101,11 +1143,14 @@ def check_rolling_decode(torch, rng, dev):
 
 def check_decode_int4(torch, rng, dev):
     """``decode_attention_int4`` against its plain version (atol 2e-5 at
-    f32, 2e-2 with bf16 rounding) and, without a fresh row at f32,
-    against ``decode_attention`` over the dequantized cache (atol 1e-6,
-    tests/test_kernels.py:101); timed at the serving and generation
-    shapes, llama3.2-1b's and Gemma 3's global layers (F = 1024 at head_dim
-    256, S = 2048)."""
+    f32, 2e-2 with bf16 rounding), two calls bit-equal, each row
+    bit-equal alone, in the batch and over a longer slab
+    (``row_independent``) and, without a fresh row at f32, bit-equal to
+    ``decode_attention`` over the dequantized cache (the two kernels run
+    one step over one plan; the error against it is recorded beside
+    tests/test_kernels.py:101's 1e-6); timed warm and cold at the serving
+    and generation shapes, llama3.2-1b's and Gemma 3's global layers (F =
+    1024 at head_dim 256, S = 2048)."""
     from repro_torch.core.kvstore import KV_LEN_BUCKET, PackedRows, kv_group
     from repro_torch.core.kvstore import quantize_kv_rows
     from repro_torch.kernels import cost
@@ -1131,8 +1176,8 @@ def check_decode_int4(torch, rng, dev):
               (3, 77, 6, 3, 16, [76, 0, 40], True, torch.bfloat16, None),
               (2, 64, 8, 4, 16, [63, 5], False, torch.float32, None),
               (2, 64, 8, 4, 16, [63, 5], True, torch.float32, None),
-              # the S split: chunks past pos[r], pos 0 on every row, pos
-              # inside the first chunk, S not a multiple of the chunk
+              # the row split: tiles past pos[r], pos 0 on every row, pos
+              # inside the first tile, S not a multiple of the tile
               (B, 256, 32, 4, 64, [3, 40, 0, 255], False, torch.float32,
                None),
               (B, 256, 32, 4, 64, [3, 40, 0, 255], True, torch.bfloat16,
@@ -1170,12 +1215,29 @@ def check_decode_int4(torch, rng, dev):
         kw = dict(hkv=hkv, group=g, k_new=kn, v_new=vn, cache_dtype=cdt)
         out = decode_attention_int4(q, kq, ks, vq, vs, pos_t, **kw)
         ref = plain(q, kq, ks, vq, vs, pos_t, **kw)
+        same = torch.equal(out, decode_attention_int4(q, kq, ks, vq, vs,
+                                                      pos_t, **kw))
+
+        def call(q_, kq_, ks_, vq_, vs_, p_, kn_, vn_):
+            return decode_attention_int4(q_, kq_, ks_, vq_, vs_, p_,
+                                         **dict(kw, k_new=kn_, v_new=vn_))
+
+        rows_ok = row_independent(
+            torch, out, call,
+            lambda r: (q[r:r + 1], kq[r:r + 1], ks[r:r + 1], vq[r:r + 1],
+                       vs[r:r + 1], pos_t[r:r + 1],
+                       *((kn[r:r + 1], vn[r:r + 1]) if fresh
+                         else (None, None))),
+            (q, *(longer(torch, t) for t in (kq, ks, vq, vs)), pos_t, kn,
+             vn), b)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = ATTN_ATOL if cdt == torch.float32 else BF16_ATOL
         row = dict(shape=f"b={b} S={S_} h={h} hkv={hkv} dh={dh} g={g} "
                    f"pos={pos} fresh={fresh} cache={str(cdt)[6:]}",
-                   max_abs_err=err, tol=tol, ok=err <= tol, main=timed)
+                   max_abs_err=err, tol=tol, deterministic=bool(same),
+                   row_independent=rows_ok,
+                   ok=err <= tol and bool(same) and rows_ok, main=timed)
         kd = PackedRows(kq, ks, g, torch.float32, (hkv, dh)).dequantize()
         vd = PackedRows(vq, vs, g, torch.float32, (hkv, dh)).dequantize()
         if not fresh and cdt == torch.float32:
@@ -1183,7 +1245,7 @@ def check_decode_int4(torch, rng, dev):
             torch.cuda.synchronize()
             row["err_vs_decode_attention"] = (out - twin).abs().max().item()
             row["bit_equal_to_decode_attention"] = bool(torch.equal(out, twin))
-            row["ok"] &= row["err_vs_decode_attention"] <= INT4_KV_ATOL
+            row["ok"] &= row["bit_equal_to_decode_attention"]
         if timed:
             if fresh:                    # the yardstick attends the same rows
                 kd, vd = kd.clone(), vd.clone()
@@ -1195,6 +1257,12 @@ def check_decode_int4(torch, rng, dev):
                                                      pos_t, **kw),
                 lambda: plain(q, kq, ks, vq, vs, pos_t, **kw),
                 _sdpa_decode(torch, q, kd, vd, pos_t), TIMING_ITERS))
+            row["cold_ms"] = cold_ms(
+                torch, lambda *a: decode_attention_int4(*a, **kw),
+                (q, kq, ks, vq, vs, pos_t))
+            row["library_cold_ms"] = cold_ms(
+                torch, _sdpa_decode_call,
+                _sdpa_decode_args(torch, q, kd, vd, pos_t))
             hist = sum(min(p + (0 if fresh else 1), S_) for p in pos)
             c = cost.decode_attention_int4(b, h, hkv, dh, hist, g,
                                            bool(fresh))

@@ -15,9 +15,12 @@ kernel.  A CPU tensor runs the plain version ``decode_attention_ref``; a
 CUDA tensor launches the kernel or raises; a meta tensor gets an empty
 output and reports the kernel's operations and bytes (``kernels.cost``).
 
-The sequence split (``chunk_plan``) and the host-side argument helpers
-are shared with ``decode_attention_int4``, whose kernel runs the same
-chunk step and combine (``csrc/decode_attention_common.cuh``).
+The split of a row over its cluster (``rank_runs``) and the host-side
+argument helpers are shared with ``decode_attention_int4``, whose kernel
+runs the same step (``csrc/decode_attention_common.cuh``): each row's
+live positions in tiles of ``TILE``, whole tiles a rank, the number of
+ranks a function of the row's live positions alone, so a row's output
+depends on nothing outside that row.
 """
 from __future__ import annotations
 
@@ -30,24 +33,41 @@ from repro_torch.kernels import _build, cost
 from repro_torch.kernels.ref import decode_attention_ref
 
 NAME = "decode_attention"
-CHUNK = 32                       # positions per chunk (the kernels' CH)
-MAX_CLUSTER = 8                  # blocks per (row, kv head)
+TILE = 32                        # positions per tile (the kernels' TILE)
+CLUSTER = 16                     # the plan's ranks per (row, kv head)
 MAX_DH = 256                     # 8 output features per lane (the kernels')
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-         + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+         + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)   # q's and the caches' instances
 
 plain = decode_attention_ref
 
 
-def chunk_plan(S: int, has_new: bool = False):
-    """(ranks, chunks per rank): the sequence's chunks of ``CHUNK``
-    positions (the cached rows, plus a fresh row) spread over a cluster
-    of at most ``MAX_CLUSTER`` blocks per (row, kv head), each rank a run
-    of consecutive chunks."""
-    n_chunks = max(1, -(-(S + int(has_new)) // CHUNK))
-    cpr = -(-n_chunks // MAX_CLUSTER)
-    return -(-n_chunks // cpr), cpr
+def rank_runs(n: int, cluster: int = CLUSTER):
+    """[(first, stop)] positions of each rank that reads any, in rank
+    order: a row's ``n`` live positions fall into ``ceil(n / TILE)``
+    tiles, ``min(cluster, tiles)`` ranks take a run of whole tiles each,
+    the first ``tiles % ranks`` of them one more (the kernels'
+    ``rank_run``).  A function of ``n`` alone: never of the batch, the
+    slab length or the other rows."""
+    tiles = -(-n // TILE)
+    used = min(cluster, tiles)
+    if used == 0:
+        return []
+    base, rem = divmod(tiles, used)
+    runs, t = [], 0
+    for c in range(used):
+        k = base + (c < rem)
+        runs.append((t * TILE, min((t + k) * TILE, n)))
+        t += k
+    return runs
+
+
+def row_len(pos: int, S: int, fresh: bool = False) -> int:
+    """A row's live positions as the kernels count them: ``pos + 1``
+    cached rows (at most ``S``), or with a fresh row the cached rows
+    ``< pos`` (at most ``S``) and the fresh one."""
+    return max(0, min(pos, S)) + 1 if fresh else max(0, min(pos + 1, S))
 
 
 def row_stride(t: torch.Tensor, name: str) -> int:
@@ -85,13 +105,12 @@ def live_rows(pos, b: int, S: int, fresh: bool = False) -> int:
     return int(torch.clamp(p + extra, max=S).sum())
 
 
-def _vec(dh: int, esize: int, *ptrs: int) -> int:
-    """Cache elements per load: the most in 16 bytes that divides a row
-    and keeps every base address aligned."""
-    n = 16 // esize
-    while n > 1 and (dh % n or any(p % (n * esize) for p in ptrs)):
-        n //= 2
-    return n
+def copy_bytes(*sizes: int) -> int:
+    """Bytes per ``cp.async`` copy: the most of 16, 8 and 4 that divides
+    every size and address given (a row's bytes, the row stride's, the
+    base pointers); 0 where none does."""
+    return next((n for n in (16, 8, 4) if all(x % n == 0 for x in sizes)),
+                0)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -107,9 +126,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)} {tuple(v_cache.shape)}")
     if q.device.type == "cpu":
         return plain(q, k_cache, v_cache, pos)
-    if h // hkv > 32 or dh > MAX_DH:
-        raise ValueError(f"decode_attention: needs h // hkv <= 32 and dh <= "
-                         f"{MAX_DH}, got {h // hkv}, {dh}")
+    if h // hkv > 32 or dh > MAX_DH or dh % 8:
+        raise ValueError(f"decode_attention: needs h // hkv <= 32 and dh a "
+                         f"multiple of 8 up to {MAX_DH}, got {h // hkv}, "
+                         f"{dh}")
     if q.device.type == "meta":
         live = live_rows(pos, b, S)
     pos_t, pos0 = pos_args(pos, b, q.device)
@@ -129,17 +149,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             b, h, hkv, dh, live, k_cache.element_size(), q.element_size()),
             (tuple(q.shape), tuple(k_cache.shape)))
         return torch.empty((b, h, dh), dtype=q.dtype, device="meta")
-    q_rs = row_stride(q, NAME + ": q")
-    ranks, cpr = chunk_plan(S)
     out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
+    _launch(q, k_cache, v_cache, pos_t, pos0, out)
+    _build.count(NAME, q.dtype == torch.bfloat16)
+    return out
+
+
+def _launch(q, k_cache, v_cache, pos_t, pos0: int, out,
+            cluster: int = CLUSTER):
+    """One launch of the kernel into ``out`` under a plan of ``cluster``
+    ranks a row; checked, not counted."""
+    b, h, dh = q.shape
+    _, S, hkv, _ = k_cache.shape
+    es = k_cache.element_size()
+    cpy = copy_bytes(dh * es, k_cache.data_ptr(), v_cache.data_ptr())
+    if not cpy:
+        raise ValueError(f"{NAME}: cache rows and base addresses must be "
+                         f"4-byte aligned, got dh {dh} at {es} bytes")
     fn = _build.launcher(NAME, "decode_attention_launch", _ARGS)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              None if pos_t is None else pos_t.data_ptr(), out.data_ptr(),
              b, S, h, hkv, dh, int(k_cache.dtype == torch.bfloat16),
-             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), ranks, cpr,
-             _vec(dh, k_cache.element_size(), k_cache.data_ptr(),
-                  v_cache.data_ptr()),
-             q_rs, pos0, _build.stream_ptr(q.device))
+             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(dh), cluster,
+             cpy, row_stride(q, NAME + ": q"), pos0,
+             _build.stream_ptr(q.device))
     _build.check(NAME, err)
-    _build.count(NAME, q.dtype == torch.bfloat16)
-    return out

@@ -15,9 +15,12 @@ does, and widens bf16 fresh rows as it stages them; the arithmetic
 stays f32.  A CPU tensor runs the plain version
 ``decode_attention_int4_ref``; a CUDA tensor launches the kernel or
 raises; a meta tensor gets an empty output and reports the kernel's
-operations and bytes (``kernels.cost``).  Its sequence split
-(``chunk_plan``) and chunk step are ``decode_attention``'s
-(``csrc/decode_attention_common.cuh``).
+operations and bytes (``kernels.cost``).  Its split of a row over the
+cluster (``rank_runs``, over the packed rows and the fresh row) and its
+step are ``decode_attention``'s (``csrc/decode_attention_common.cuh``),
+so without a fresh row at f32 it equals ``decode_attention`` over the
+dequantized cache bit for bit, and a row's output depends on nothing
+outside that row.
 """
 from __future__ import annotations
 
@@ -27,27 +30,17 @@ import math
 import torch
 
 from repro_torch.kernels import _build, cost
-from repro_torch.kernels.decode_attention import (MAX_DH, chunk_plan,
-                                                  live_rows, pos_args,
-                                                  row_stride)
+from repro_torch.kernels.decode_attention import (CLUSTER, MAX_DH,
+                                                  copy_bytes, live_rows,
+                                                  pos_args, row_stride)
 from repro_torch.kernels.ref import decode_attention_int4_ref
 
 NAME = "decode_attention_int4"
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float]
-         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 DTYPES = (torch.float32, torch.bfloat16)   # q's and the fresh rows'
 
 plain = decode_attention_int4_ref
-
-
-def _seg(dh: int, F2: int, *ptrs: int) -> int:
-    """Packed bytes per vector load: the widest that divides a head's
-    slice of a row, the row and every base address."""
-    for seg in (16, 8, 4, 2):
-        if (dh // 2) % seg == 0 and F2 % seg == 0 and all(
-                p % seg == 0 for p in ptrs):
-            return seg
-    return 1
 
 
 def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
@@ -80,10 +73,12 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
         return plain(q, k_packed, k_scale, v_packed, v_scale, pos, hkv=hkv,
                      group=group, k_new=k_new, v_new=v_new,
                      cache_dtype=cache_dtype)
-    if h // hkv > 32 or dh > MAX_DH or group & (group - 1):
+    if (h // hkv > 32 or dh > MAX_DH or dh % 8 or group & (group - 1)
+            or group < 8):
         raise ValueError(f"decode_attention_int4: needs h // hkv <= 32, dh "
-                         f"<= {MAX_DH} and a power-of-two group, got "
-                         f"{h // hkv}, {dh}, {group}")
+                         f"a multiple of 8 up to {MAX_DH} and a power-of-two "
+                         f"group of at least 8, got {h // hkv}, {dh}, "
+                         f"{group}")
     has_new = k_new is not None
     if q.device.type == "meta":
         hist = live_rows(pos, b, S, has_new)
@@ -113,12 +108,29 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
             k_new.element_size() if has_new else 4),
             (tuple(q.shape), tuple(k_packed.shape)))
         return torch.empty((b, h, dh), dtype=q.dtype, device="meta")
-    q_rs = row_stride(q, NAME + ": q")
+    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
+    _launch(q, k_packed, k_scale, v_packed, v_scale, pos_t, pos0, out,
+            hkv=hkv, group=group, k_new=k_new, v_new=v_new,
+            cache_dtype=cache_dtype)
+    _build.count(NAME, q.dtype == torch.bfloat16)
+    return out
+
+
+def _launch(q, k_packed, k_scale, v_packed, v_scale, pos_t, pos0: int, out,
+            *, hkv: int, group: int, k_new=None, v_new=None,
+            cache_dtype=torch.float32, cluster: int = CLUSTER):
+    """One launch of the kernel into ``out`` under a plan of ``cluster``
+    ranks a row; checked, not counted."""
+    b, h, dh = q.shape
+    _, S, F2 = k_packed.shape
+    has_new = k_new is not None
+    cpy = copy_bytes(dh // 2, F2, k_packed.data_ptr(), v_packed.data_ptr())
+    if not cpy:
+        raise ValueError(f"{NAME}: packed rows and base addresses must be "
+                         f"4-byte aligned, got dh {dh}, row {F2} bytes")
     kn_rs, vn_rs = ((row_stride(k_new, NAME + ": k_new"),
                      row_stride(v_new, NAME + ": v_new"))
                     if has_new else (0, 0))
-    ranks, cpr = chunk_plan(S, has_new)
-    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
     fn = _build.launcher(NAME, "decode_attention_int4_launch", _ARGS)
     err = fn(q.data_ptr(), k_packed.data_ptr(), k_scale.data_ptr(),
              v_packed.data_ptr(), v_scale.data_ptr(),
@@ -129,9 +141,6 @@ def decode_attention_int4(q, k_packed, k_scale, v_packed, v_scale, pos, *,
              int(q.dtype == torch.bfloat16),
              int(has_new and k_new.dtype == torch.bfloat16),
              int(cache_dtype == torch.bfloat16), 1.0 / math.sqrt(dh),
-             ranks, cpr, _seg(dh, F2, k_packed.data_ptr(),
-                              v_packed.data_ptr()),
-             q_rs, kn_rs, vn_rs, pos0, _build.stream_ptr(q.device))
+             cluster, cpy, row_stride(q, NAME + ": q"), kn_rs,
+             vn_rs, pos0, _build.stream_ptr(q.device))
     _build.check(NAME, err)
-    _build.count(NAME, q.dtype == torch.bfloat16)
-    return out

@@ -148,8 +148,8 @@ def test_decode_attention_int4_kernel(dev, b, S, h, hkv, dh, pos, fresh,
                                    (160, [159, 31, 32, 64])])
 @pytest.mark.parametrize("fresh", [False, True])
 def test_decode_attention_int4_chunks(dev, S, pos, fresh):
-    """The S split: chunks past pos[r] (early exit), pos = 0 on every
-    row, a pos inside the first chunk, S not a multiple of 32; q and the
+    """The row split: tiles past pos[r] never read, pos = 0 on every
+    row, a pos inside the first tile, S not a multiple of 32; q and the
     fresh rows as strided views.  Against the plain version (atol 2e-5)
     and, without a fresh row, decode_attention over the dequantized cache
     (atol 1e-6); an int pos equals the same pos as a tensor."""
@@ -214,8 +214,8 @@ def test_flash_attention_kernel_edges(dev, b, sq, sk, h, hkv, dh, causal,
 
 
 # (b, S, h, hkv, dh, pos): dh 16/32/64/128; g = 1, 4, 8; S not a multiple
-# of 32; pos 0 on every row; ranks with no chunk to read (a short row in a
-# long cache); one chunk per rank and several
+# of 32; pos 0 on every row; ranks with no tile to read (a short row in a
+# long cache); one tile per rank and several
 DECODE_EDGES = [(2, 45, 8, 8, 16, [44, 0]),
                 (3, 77, 16, 4, 32, [76, 0, 40]),
                 (4, 160, 32, 4, 64, [0, 0, 0, 0]),
@@ -248,7 +248,7 @@ def test_decode_attention_kernel_edges(dev, b, S, h, hkv, dh, pos, cdt):
                                    (1024, [1023, 700, 0, 64]),
                                    (33, [32, 0, 31, 1])])
 def test_decode_int4_bit_equal_to_decode_attention(dev, S, pos):
-    """The two decode kernels share one chunk plan, chunk step and
+    """The two decode kernels share one plan (``rank_runs``), step and
     combine: over packed rows without a fresh row at f32, the INT4 kernel
     equals ``decode_attention`` over the dequantized cache bit for bit."""
     from repro_torch.core.kvstore import PackedRows, kv_group, quantize_kv_rows
@@ -266,6 +266,101 @@ def test_decode_int4_bit_equal_to_decode_attention(dev, S, pos):
     assert torch.equal(decode_attention_int4(q, kq, ks, vq, vs, p, hkv=hkv,
                                              group=g),
                        decode_attention(q, kd, vd, p))
+
+
+# (b, S, h, hkv, dh, pos, cache dtype or "int4", fresh row): the main
+# rows' shapes (tinyllama, the 8B, Gemma 3's global slab, whisper's cross
+# rows) and the edges (dh 16 and 32, g 1 and 16, a row inside its first
+# tile, rows of 1 and 2 tiles beside one of many)
+ROW_CASES = [(4, 160, 32, 4, 64, [159, 0, 77, 131], torch.float32, False),
+             (4, 160, 32, 8, 128, [159, 0, 77, 131], torch.bfloat16, False),
+             (4, 1536, 8, 4, 256, [1515, 1031, 315, 129], torch.bfloat16,
+              False),
+             (4, 1500, 8, 8, 64, [1499, 40, 33, 1000], torch.bfloat16, False),
+             (3, 77, 16, 4, 32, [76, 0, 40], torch.float32, False),
+             (2, 45, 32, 2, 16, [44, 31], torch.bfloat16, False),
+             (4, 160, 32, 4, 64, [159, 0, 77, 131], "int4", True),
+             (4, 300, 8, 4, 256, [299, 3, 150, 64], "int4", False)]
+
+
+@pytest.mark.parametrize("b,S,h,hkv,dh,pos,cdt,fresh", ROW_CASES)
+def test_decode_rows_independent(dev, b, S, h, hkv, dh, pos, cdt, fresh):
+    """A row's output depends on nothing outside that row: bit-equal
+    alone (a batch of one), in the batch and over a slab 37 rows longer
+    (rows of other values past every position)."""
+    from repro_torch.core.kvstore import kv_group, quantize_kv_rows
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention_int4 import decode_attention_int4
+    rng = np.random.default_rng(S + dh)
+    q = _t(rng, dev, b, h, dh)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if cdt == "int4":
+        F = hkv * dh
+        g = kv_group(F)
+        kq, ks = quantize_kv_rows(_t(rng, dev, b, S + 37, F), g)
+        vq, vs = quantize_kv_rows(_t(rng, dev, b, S + 37, F), g)
+        kn, vn = ((_t(rng, dev, b, hkv, dh), _t(rng, dev, b, hkv, dh))
+                  if fresh else (None, None))
+
+        def call(sl, n):
+            return decode_attention_int4(
+                q[sl], *(t[sl, :n].contiguous() for t in (kq, ks, vq, vs)),
+                p[sl], hkv=hkv, group=g,
+                k_new=None if kn is None else kn[sl],
+                v_new=None if vn is None else vn[sl])
+    else:
+        kc, vc = (_t(rng, dev, b, S + 37, hkv, dh).to(cdt) for _ in range(2))
+
+        def call(sl, n):
+            return decode_attention(q[sl], kc[sl, :n].contiguous(),
+                                    vc[sl, :n].contiguous(), p[sl])
+    out = call(slice(None), S)
+    assert torch.equal(out, call(slice(None), S + 37))
+    for r in range(b):
+        assert torch.equal(out[r:r + 1], call(slice(r, r + 1), S))
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_decode_other_cluster_size(dev, int4):
+    """The other cluster size ``tools/decode_phases.py`` times (8 beside
+    the plan's 16) stays within atol 2e-5 of the plain version at f32,
+    as the plan's does; a call under the plan equals the wrapper's."""
+    from repro_torch.core.kvstore import kv_group, quantize_kv_rows
+    from repro_torch.kernels import decode_attention as D
+    from repro_torch.kernels import decode_attention_int4 as D4
+    rng = np.random.default_rng(5)
+    b, S, h, hkv, dh = 4, 1500, 8, 4, 256
+    q = _t(rng, dev, b, h, dh)
+    p = torch.tensor([1499, 700, 0, 300], dtype=torch.int32, device=dev)
+    if int4:
+        g = kv_group(hkv * dh)
+        kq, ks = quantize_kv_rows(_t(rng, dev, b, S, hkv * dh), g)
+        vq, vs = quantize_kv_rows(_t(rng, dev, b, S, hkv * dh), g)
+        args = (q, kq, ks, vq, vs, p)
+        kw = dict(hkv=hkv, group=g)
+        ref = D4.plain(*args, **kw)
+
+        def run(cluster):
+            out = torch.empty_like(q)
+            D4._launch(*args, 0, out, **kw, cluster=cluster)
+            return out
+
+        wrapper = D4.decode_attention_int4(*args, **kw)
+    else:
+        kc, vc = _t(rng, dev, b, S, hkv, dh), _t(rng, dev, b, S, hkv, dh)
+        ref = D.plain(q, kc, vc, p)
+
+        def run(cluster):
+            out = torch.empty_like(q)
+            D._launch(q, kc, vc, p, 0, out, cluster)
+            return out
+
+        wrapper = D.decode_attention(q, kc, vc, p)
+    base = run(D.CLUSTER)
+    assert torch.equal(base, wrapper)
+    torch.testing.assert_close(base, ref, rtol=0, atol=2e-5)
+    other = 8 if D.CLUSTER == 16 else 16
+    torch.testing.assert_close(run(other), ref, rtol=0, atol=2e-5)
 
 
 def test_kernel_rejects_cpu_mix(dev):

@@ -28,7 +28,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention_int4 import decode_attention_int4  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.decode_attention import CHUNK, chunk_plan  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    CLUSTER, TILE, rank_runs, row_len)
 from repro_torch.kernels.int4_matmul import decode_plan, fill, int4_matmul  # noqa: E402
 from repro_torch.kernels.int4_matmul import MAX_CLUSTER, prefill_plan  # noqa: E402
 from repro_torch.quant.int4 import unpack_int4  # noqa: E402
@@ -675,55 +676,81 @@ def test_decode_int4_op_plain_path_and_shape_checks():
         decode_attention_int4(*args, hkv=2, group=g, k_new=q[:, :2])
 
 
+WARPS = 4                       # the kernels' warps a block
+TW = TILE // WARPS              # positions a warp takes of each tile
+
+
+def _empty(g, dh):
+    return torch.full((g,), -1e30), torch.zeros(g), torch.zeros(g, dh)
+
+
+def _merge(parts, g, dh):
+    """Partials (m, l, o) merged in order as merge_partials does: every
+    weight from the common max, the sums taken in the parts' order."""
+    mm = torch.full((g,), -1e30)
+    for m, _, _ in parts:
+        mm = torch.maximum(mm, m)
+    ll, oo = torch.zeros(g), torch.zeros(g, dh)
+    for m, l, o in parts:
+        c = torch.exp(m - mm)
+        ll = ll + l * c
+        oo = oo + o * c[:, None]
+    return mm, ll, oo
+
+
+def _rank_partial(qs, k, v, first, stop):
+    """One rank's partial over positions [first, stop) of a row (first a
+    multiple of TILE): in each tile, warp w takes positions TW w .. TW w
+    + TW - 1 and updates its own online softmax; the warps' partials
+    merge in warp order."""
+    g, dh = qs.shape
+    scale = torch.tensor(1.0 / np.sqrt(dh), dtype=torch.float32)
+    warps = []
+    for w in range(WARPS):
+        m, l, acc = _empty(g, dh)
+        for t0 in range(first, stop, TILE):
+            a, z = t0 + w * TW, min(t0 + (w + 1) * TW, stop)
+            if a >= z:
+                continue
+            sc = (qs @ k[a:z].T) * scale
+            m_new = torch.maximum(m, sc.amax(1))
+            alpha = torch.where(m > -5e29, torch.exp(m - m_new),
+                                torch.zeros(()))
+            pr = torch.exp(sc - m_new[:, None])
+            l = l * alpha + pr.sum(1)
+            acc = acc * alpha[:, None] + pr @ v[a:z]
+            m = m_new
+        warps.append((m, l, acc))
+    return _merge(warps, g, dh)
+
+
 def _chunked_decode(q, kc, vc, pos, k_new=None, v_new=None):
-    """The S split of ``csrc/decode_attention_common.cuh`` in torch (f32)
-    over caches (b, S, hkv, dh) of any float dtype (widened to f32): each
-    rank of ``chunk_plan`` walks its run of CHUNK-position chunks with an
-    online softmax (empty ranks keep m = -1e30, l = 0), then the partials
-    combine in rank order as merge_partials / finalize_partials do.  With
-    ``k_new``/``v_new`` (b, hkv, dh) a row attends positions < pos and the
-    fresh row after them (``decode_attention_int4``'s form)."""
+    """The step of ``csrc/decode_attention_common.cuh`` in torch (f32)
+    over caches (b, S, hkv, dh) of any float dtype (widened to f32): a
+    row's ``row_len`` live positions split by ``rank_runs`` into runs of
+    whole TILE-position tiles; each rank's warps over its tiles' positions
+    (``_rank_partial``); the ranks' partials combined in rank order
+    (``_merge``, then o / max(l, 1e-30)).  With ``k_new``/``v_new`` (b,
+    hkv, dh) a row attends positions < pos and the fresh row after them
+    (``decode_attention_int4``'s form)."""
     b, h, dh = q.shape
     S, hkv = kc.shape[1], kc.shape[2]
     g = h // hkv
     kd, vd = kc.float(), vc.float()
-    ranks, cpr = chunk_plan(S, k_new is not None)
+    fresh = k_new is not None
     out = torch.zeros(b, h, dh)
-    neg = torch.tensor(-1e30)
     for r in range(b):
-        p = int(pos[r])
-        n_hist = min(p, S) if k_new is not None else min(p + 1, S)
-        kr, vr = kd[r, :max(0, n_hist)], vd[r, :max(0, n_hist)]
-        if k_new is not None:
-            kr = torch.cat([kr, k_new[r][None]])
-            vr = torch.cat([vr, v_new[r][None]])
-        n_chunks = -(-kr.shape[0] // CHUNK)
+        n = row_len(int(pos[r]), S, fresh)
+        n_hist = n - 1 if fresh else n
+        kr, vr = kd[r, :n_hist], vd[r, :n_hist]
+        if fresh:
+            kr = torch.cat([kr, k_new[r][None].float()])
+            vr = torch.cat([vr, v_new[r][None].float()])
         for kh in range(hkv):
-            qs = q[r, kh * g:(kh + 1) * g]
-            parts = []
-            for rk in range(ranks):
-                m, l = torch.full((g,), -1e30), torch.zeros(g)
-                acc = torch.zeros(g, dh)
-                for c in range(rk * cpr, min(rk * cpr + cpr, n_chunks)):
-                    kt = kr[c * CHUNK:(c + 1) * CHUNK, kh]
-                    vt = vr[c * CHUNK:(c + 1) * CHUNK, kh]
-                    sc = (qs @ kt.T) / np.sqrt(dh)
-                    m_new = torch.maximum(m, sc.amax(1))
-                    alpha = torch.where(m > -5e29, torch.exp(m - m_new),
-                                        torch.zeros(()))
-                    pr = torch.exp(sc - m_new[:, None])
-                    l = l * alpha + pr.sum(1)
-                    acc = acc * alpha[:, None] + pr @ vt
-                    m = m_new
-                parts.append((m, l, acc))
-            mm = neg
-            for m, _, _ in parts:
-                mm = torch.maximum(mm, m)
-            ll, oo = torch.zeros(g), torch.zeros(g, dh)
-            for m, l, acc in parts:
-                cr = torch.exp(m - mm)
-                ll = ll + l * cr
-                oo = oo + acc * cr[:, None]
+            qs = q[r, kh * g:(kh + 1) * g].float()
+            parts = [_rank_partial(qs, kr[:, kh], vr[:, kh], a, z)
+                     for a, z in rank_runs(n)]
+            _, ll, oo = _merge(parts, g, dh)
             out[r, kh * g:(kh + 1) * g] = oo / torch.clamp_min(ll, 1e-30)[
                 :, None]
     return out
@@ -845,6 +872,88 @@ def test_chunked_decode_bf16_caches(S, pos, hkv, dh):
     torch.testing.assert_close(out, decode_attention(q, kc.float(),
                                                      vc.float(), p),
                                rtol=0, atol=2e-5)
+
+
+# (what, S, pos, fresh): the main path's decode rows (chip_smoke.py's
+# kernel checks): tinyllama's generation and serving steps (S 160), the
+# 8B's serving shape (dh 128), Gemma 3's global slab (S 1536; packed S
+# 2048 with the fresh row) and its rolling buffers (W 1024, pos clamped),
+# jamba's attention layer, whisper's cross rows (1500) and self slab
+# (448), and run (ad)'s dh 16 engines
+PLAN_ROWS = [("tinyllama generation", 160, [158] * 4, False),
+             ("tinyllama serving", 160, [159, 0, 77, 131], True),
+             ("llama3.1-8b serving", 160, [159, 0, 77, 131], False),
+             ("gemma3 global", 1536, [1515, 1031, 315, 129], False),
+             ("gemma3 global packed", 2048, [1515, 1031, 315, 129], True),
+             ("gemma3 rolling", 1024, [1023, 1023, 299, 113], False),
+             ("jamba", 128, [116, 95, 83, 60], False),
+             ("whisper cross", 1500, [1499] * 4, False),
+             ("whisper self", 448, [19, 23, 31, 39], False),
+             ("ad quickstart dh 16", 64, [46, 33], False),
+             ("ad serve dh 16", 128, [0, 11, 13, 28], True)]
+
+
+@pytest.mark.parametrize("what,S,pos,fresh", PLAN_ROWS,
+                         ids=[r[0] for r in PLAN_ROWS])
+def test_rank_runs_cover_each_position_once(what, S, pos, fresh):
+    """Each row's runs cover its live positions exactly once, in rank
+    order, each a run of whole TILE-position tiles (the last one cut at
+    the row's end), on min(CLUSTER, tiles) ranks whose runs differ by at
+    most one tile."""
+    for p in pos:
+        n = row_len(p, S, fresh)
+        runs = rank_runs(n)
+        tiles = -(-n // TILE)
+        assert len(runs) == min(CLUSTER, tiles)
+        covered = [t for a, z in runs for t in range(a, z)]
+        assert covered == list(range(n))
+        assert all(a % TILE == 0 and (z % TILE == 0 or z == n)
+                   for a, z in runs)
+        sizes = [-(-(z - a) // TILE) for a, z in runs]
+        assert not sizes or max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 130, 160, 257, 1500, 1516,
+                               2048])
+def test_rank_count_depends_on_live_positions_alone(n):
+    """A row's runs are a function of its live positions alone: the same
+    for the row at pos n - 1 over any slab that holds it, with or
+    without a fresh row in place of its last cached row."""
+    runs = rank_runs(n)
+    for S in (n, n + 1, n + 37, 4096):
+        assert rank_runs(row_len(n - 1, S)) == runs
+        assert rank_runs(row_len(n - 1, S, fresh=True)) == runs
+    assert len(runs) == min(CLUSTER, -(-n // TILE))
+
+
+# (b, S, hkv, dh, pos, the row compared, fresh)
+ROW_CASES = [(4, 160, 4, 64, [159, 0, 77, 131], 2, False),
+             (4, 160, 4, 64, [159, 0, 77, 131], 0, True),
+             (3, 300, 2, 16, [299, 0, 150], 0, False),
+             (3, 300, 2, 16, [299, 0, 150], 2, True),
+             (2, 77, 3, 16, [40, 76], 1, False),
+             (4, 96, 1, 32, [95, 0, 64, 31], 3, True)]
+
+
+@pytest.mark.parametrize("b,S,hkv,dh,pos,r,fresh", ROW_CASES)
+def test_emulated_row_depends_on_its_row_alone(b, S, hkv, dh, pos, r, fresh):
+    """The emulated kernel's output of a row is bit-equal whether the
+    row runs alone, in a batch of other rows, or over a longer slab."""
+    rng = np.random.default_rng(S + r)
+    h = 2 * hkv
+    q = _t(_normal(rng, b, h, dh))
+    kc, vc = _t(_normal(rng, b, S, hkv, dh)), _t(_normal(rng, b, S, hkv, dh))
+    kn, vn = ((_t(_normal(rng, b, hkv, dh)), _t(_normal(rng, b, hkv, dh)))
+              if fresh else (None, None))
+    sl = slice(r, r + 1)
+    batch = _chunked_decode(q, kc, vc, pos, kn, vn)[sl]
+    alone = _chunked_decode(q[sl], kc[sl], vc[sl], pos[sl],
+                            *((kn[sl], vn[sl]) if fresh else ()))
+    pad = _t(_normal(rng, b, 45, hkv, dh))
+    longer = _chunked_decode(q, torch.cat([kc, pad], 1),
+                             torch.cat([vc, -pad], 1), pos, kn, vn)[sl]
+    assert torch.equal(batch, alone)
+    assert torch.equal(batch, longer)
 
 
 def test_decode_wrapper_host_arguments():
